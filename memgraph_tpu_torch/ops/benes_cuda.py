@@ -1,0 +1,279 @@
+"""Benes network application: hand-written CUDA kernels and their plain
+PyTorch versions.
+
+Port of memgraph_tpu/ops/benes_pallas.py.  A routed Benes network over
+N = 2^n slots is 2n-1 stages of masked exchanges x[i] <-> x[i ^ d] with
+d = N/2 ... 2, 1, 2 ... N/2.  Every stage with d < 2^K acts inside aligned
+2^K-element tiles, and those stages are contiguous in the middle of the
+schedule, so the network runs as three passes:
+
+  outer-down  stages d = 2^(n-1) .. 2^K   (benes_outer)
+  middle      all stages with d < 2^K     (benes_mid)
+  outer-up    stages d = 2^K .. 2^(n-1)   (benes_outer)
+
+Masks are per-element int32 bit-planes: bit b of word[plane, i] is stage
+(plane*31+b)'s swap decision for element i.  The middle stages fill as
+many planes as they need; the outer stages of both sides share one plane.
+
+K is the tile size of the middle pass: a tile lives in one block's shared
+memory on the card, so 2^K values must fit in it (K = 15 for f32, 16 for
+bf16: 128 KB either way).  The permutation does not depend on K.
+
+``benes_mid`` / ``benes_outer`` / ``benes_apply`` are the wrappers: a CUDA
+tensor goes to the kernels of ``csrc/benes.cu`` (and the kernel's
+``launches`` count goes up by one), a CPU tensor to the plain version, any
+other device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .benes import benes_stage_distances
+
+LANES = 128
+BITS_PER_PLANE = 31
+#: shared memory one block may use on an H100 (232,448 bytes)
+SMEM_BYTES = 227 * 1024
+#: middle-tile log2 size per routed dtype: 2^K values in 128 KB
+K_BY_DTYPE = {torch.float32: 15, torch.bfloat16: 16}
+_MAX_STAGES = 64            # StageList capacity in csrc/benes.cu
+
+
+@dataclass(frozen=True)
+class BenesSpec:
+    """Static routing metadata of one network.
+
+    mid_stages / outer_down / outer_up: tuples of (plane, bit, distance)
+    in application order. Dead (all-zero-mask) stages are omitted.
+    """
+    net_log2: int
+    K: int
+    mid_planes: int
+    mid_stages: tuple
+    outer_down: tuple
+    outer_up: tuple
+
+
+def _layout(N: int) -> tuple:
+    """The JAX package's layout of an N-slot vector: (N/128, 128), or
+    flat when N < 128."""
+    return (N // LANES, LANES) if N >= LANES else (N,)
+
+
+def build_masks(masks_packed: np.ndarray, net_log2: int, K: int):
+    """Reorganize bit-packed stage masks (n_stages, N/8 uint8, packbits
+    order) into per-element int32 bit-planes + static spec.
+
+    Returns (spec, mid_words, outer_words):
+      mid_words   (mid_planes, *layout) int32
+      outer_words layout-shaped int32, or None when the net fits one tile
+    """
+    N = 1 << net_log2
+    K = min(K, net_log2)
+    dists = benes_stage_distances(net_log2)
+    n_stages = len(dists)
+    assert masks_packed.shape[0] == n_stages
+    shape = _layout(N)
+
+    mid_stages, outer_down, outer_up = [], [], []
+    mid_pos = 0
+    n_mid_planes = max(1, -(-(2 * K - 1) // BITS_PER_PLANE))
+    mid_words = np.zeros((n_mid_planes,) + shape, dtype=np.int64)
+    outer_words = np.zeros(shape, dtype=np.int64)
+    outer_bit = 0
+    for s, d in enumerate(dists):
+        row = masks_packed[s]
+        if not row.any():
+            continue                   # dead stage: no swaps routed
+        bits = np.unpackbits(row)[:N].astype(np.int64).reshape(shape)
+        if d < (1 << K):
+            plane, bit = divmod(mid_pos, BITS_PER_PLANE)
+            mid_words[plane] |= bits << bit
+            mid_stages.append((plane, bit, d))
+            mid_pos += 1
+        else:
+            assert outer_bit < 31, "outer stages exceed one int32 plane"
+            outer_words |= bits << outer_bit
+            if s < n_stages // 2:
+                outer_down.append((0, outer_bit, d))
+            else:
+                outer_up.append((0, outer_bit, d))
+            outer_bit += 1
+    spec = BenesSpec(
+        net_log2=net_log2, K=K, mid_planes=n_mid_planes,
+        mid_stages=tuple(mid_stages), outer_down=tuple(outer_down),
+        outer_up=tuple(outer_up))
+    ow = outer_words.astype(np.int32) if net_log2 > K else None
+    return spec, mid_words.astype(np.int32), ow
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+def _apply_stages(x, planes, stages):
+    """x[i] <- bit ? x[i ^ d] : x[i] for each (plane, bit, d) in order;
+    planes: (P, N) int32."""
+    flat = x.reshape(-1)
+    N = flat.numel()
+    for plane, bit, d in stages:
+        m = ((planes[plane] >> bit) & 1).bool()
+        sw = flat.view(N // (2 * d), 2, d).flip(1).reshape(N)
+        flat = torch.where(m, sw, flat)
+    return flat.view(x.shape)
+
+
+def benes_mid_reference(x, mid_words, spec: BenesSpec):
+    return _apply_stages(x, mid_words.reshape(spec.mid_planes, -1),
+                         spec.mid_stages)
+
+
+def benes_outer_reference(x, outer_words, stages):
+    return _apply_stages(x, outer_words.reshape(1, -1), stages)
+
+
+def benes_apply_reference(x, mid_words, outer_words, spec: BenesSpec):
+    """The whole network in plain PyTorch."""
+    if spec.outer_down:
+        x = benes_outer_reference(x, outer_words, spec.outer_down)
+    if spec.mid_stages:
+        x = benes_mid_reference(x, mid_words, spec)
+    if spec.outer_up:
+        x = benes_outer_reference(x, outer_words, spec.outer_up)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _lib():
+    from ._build import load_kernels
+    lib = load_kernels()["benes"]
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.benes_mid.restype = i32
+    lib.benes_mid.argtypes = [vp, vp, vp, i64, i64, i32, i32, ip, i32, vp]
+    lib.benes_outer.restype = i32
+    lib.benes_outer.argtypes = [vp, vp, vp, i64, i32, i32, ip, i32, vp]
+    lib.benes_error_string.restype = ctypes.c_char_p
+    lib.benes_error_string.argtypes = [i32]
+    return lib
+
+
+@functools.cache
+def _codes(stages: tuple):
+    """Stage list as the kernel's ints: plane << 16 | bit << 8 | log2(d)."""
+    if len(stages) > _MAX_STAGES:
+        raise ValueError(f"{len(stages)} stages > {_MAX_STAGES}")
+    arr = (ctypes.c_int * max(1, len(stages)))(
+        *[(p << 16) | (b << 8) | (d.bit_length() - 1) for p, b, d in stages])
+    return arr, len(stages)
+
+
+def _check(x, words, spec: BenesSpec, n_planes: int):
+    N = 1 << spec.net_log2
+    if x.dtype not in K_BY_DTYPE:
+        raise TypeError(f"Benes kernels move float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if x.numel() != N or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous tensor of {N} values")
+    if (words.device != x.device or words.dtype != torch.int32
+            or words.numel() != n_planes * N or not words.is_contiguous()):
+        raise ValueError("mask words must be contiguous int32 "
+                         f"({n_planes} x {N}) on {x.device}")
+    if (1 << spec.K) * x.element_size() > SMEM_BYTES:
+        raise ValueError(f"a 2^{spec.K} tile of {x.dtype} does not fit in "
+                         "one block's shared memory")
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        msg = _lib().benes_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _target(x, out):
+    if x.device.type == "cpu":
+        return None
+    if x.device.type != "cuda":
+        raise ValueError(f"Benes kernels run on cuda or cpu, not {x.device}")
+    return torch.empty_like(x) if out is None else out
+
+
+def benes_mid(x, mid_words, spec: BenesSpec, out=None):
+    """All middle stages.  CUDA: one launch of ``benes_mid``; writes into
+    ``out`` (may be ``x`` itself) or a new tensor.  CPU: plain version."""
+    y = _target(x, out)
+    if y is None:
+        res = benes_mid_reference(x, mid_words, spec)
+        return res if out is None else out.copy_(res)
+    _check(x, mid_words, spec, spec.mid_planes)
+    codes, n = _codes(spec.mid_stages)
+    N = 1 << spec.net_log2
+    rc = _lib().benes_mid(
+        x.data_ptr(), y.data_ptr(), mid_words.data_ptr(), N, N, spec.K,
+        x.element_size(), codes, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "benes_mid")
+    benes_mid.launches += 1
+    return y
+
+
+benes_mid.launches = 0
+
+
+def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
+    """One side's outer stages.  CUDA: one launch of ``benes_outer``;
+    writes into ``out`` (may be ``x``) or a new tensor.  CPU: plain
+    version."""
+    y = _target(x, out)
+    if y is None:
+        res = benes_outer_reference(x, outer_words, stages)
+        return res if out is None else out.copy_(res)
+    _check(x, outer_words, spec, 1)
+    codes, n = _codes(stages)
+    rc = _lib().benes_outer(
+        x.data_ptr(), y.data_ptr(), outer_words.data_ptr(),
+        1 << spec.net_log2, spec.K, x.element_size(), codes, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "benes_outer")
+    benes_outer.launches += 1
+    return y
+
+
+benes_outer.launches = 0
+
+
+def reset_launch_counts():
+    benes_mid.launches = 0
+    benes_outer.launches = 0
+
+
+def launches_per_apply(spec: BenesSpec) -> dict:
+    """Kernel launches one ``benes_apply`` of this network makes."""
+    return {"benes_mid": int(bool(spec.mid_stages)),
+            "benes_outer": int(bool(spec.outer_down))
+            + int(bool(spec.outer_up))}
+
+
+def benes_apply(x2, mid_words, outer_words, spec: BenesSpec):
+    """Apply the network to x2 (the (N/128, 128) layout, or flat when
+    N < 128; f32 or bf16).  Returns a new tensor, or x2 itself when every
+    stage is dead."""
+    y = x2
+    if spec.outer_down:
+        y = benes_outer(y, outer_words, spec.outer_down, spec)
+    if spec.mid_stages:
+        y = benes_mid(y, mid_words, spec, out=None if y is x2 else y)
+    if spec.outer_up:
+        y = benes_outer(y, outer_words, spec.outer_up, spec,
+                        out=None if y is x2 else y)
+    return y

@@ -1,0 +1,523 @@
+"""Gather-free sparse matvec (PageRank core) from matmuls and Benes routing.
+
+Port of memgraph_tpu/ops/spmv_mxu.py.  ``acc[dst] += rank[src] *
+mult(edge)`` is computed with no data-dependent addressing on the device:
+
+  1. EXPAND   — one-hot matmul multicast: per supergroup of 128 rank rows,
+                T = OH(src_row) @ rank_planes places rank[src] in every
+                edge slot (slot lane == src & 127); multiply by the
+                per-slot `mult` (weight / out-weight-sum, 0 on padding).
+  2. PERMUTE  — a Benes network moves every edge slot from its
+                gather-layout position to its scatter-layout position
+                (ops/benes_cuda.py: hand-written CUDA kernels on the card).
+  3. REDUCE + EXTRACT — scatter layout keeps each destination's edges
+                contiguous within its lane (lane == dst & 127, runs
+                aligned per dst-row); a full-run one-hot matmul per chunk
+                sums every run:
+                per_chunk[c,k,l] = sum_i OH(run slot)[c,i,k] * x[c,i,l],
+                then a small window one-hot sums chunks into aligned
+                windows.
+  4. RELABEL  — a second (node-sized) Benes converts the accumulator from
+                the in-degree-sorted labeling (which keeps scatter padding
+                small under skew) to the out-degree-sorted labeling (which
+                keeps gather padding small), ready for the next EXPAND.
+
+All routing, masks and layouts are computed on the host (numpy, the same
+code as the JAX package, so both packages build identical plans) and
+placed on the device once, in ``make_semiring_kernel``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import zipfile
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .benes import route_packed
+from .benes_cuda import K_BY_DTYPE, benes_apply, build_masks
+from .semiring import pagerank_update
+
+LANES = 128
+SG_ROWS = 128          # rank rows per supergroup (=> 16384 nodes)
+R_C = 256              # scatter rows per extract chunk
+K_C = 256              # dst-rows per aligned output window
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass
+class MXUPlan:
+    n_nodes: int
+    # --- gather (out-degree labeling) ---
+    G: int                     # supergroups
+    R_G: int                   # gather rows per supergroup (padded uniform)
+    rowid: np.ndarray          # (G, R_G) int16: src row within supergroup
+    mult: np.ndarray           # (G, R_G, LANES) f32: w/wsum, 0 = pad slot
+    out_relabel: np.ndarray    # (n_nodes,) original -> out-label id
+    valid_out: np.ndarray      # (G*SG_ROWS*LANES,) f32 1.0 for real nodes
+    dangling_out: np.ndarray   # same shape: 1.0 where out-wsum == 0
+    # --- big Benes ---
+    net_log2: int
+    masks_packed: np.ndarray   # (stages, N/8) uint8
+    # --- scatter/extract (in-degree labeling) ---
+    C: int                     # extract chunks (total rows = C * R_C)
+    run_k: np.ndarray          # (C, R_C) int16: window slot of the row's
+    #                            dst block (dr % K_C), -1 on padding rows
+    win_oh: np.ndarray         # (C, W) f32 one-hot chunk->window
+    W: int
+    in_relabel: np.ndarray     # (n_nodes,) original -> in-label id
+    # --- node relabel Benes (in-label acc -> out-label acc) ---
+    node_net_log2: int
+    node_masks_packed: np.ndarray
+    # per-node out-weight sums (ORIGINAL ids) — the delta-refresh path
+    # rescales stale w/wsum multipliers with these (see DeltaPlan)
+    wsum: np.ndarray = None
+
+
+def _relabel_by(key: np.ndarray, stripe_groups: int = 0) -> np.ndarray:
+    """relabel[node] = position when sorted by key desc (stable).
+
+    With stripe_groups=G, rows of 128 consecutive sorted nodes (degree-
+    homogeneous, so each row's max ~ its mean) are dealt round-robin
+    across the G supergroups: row j lands at supergroup j%G, slot j//G.
+    This balances per-supergroup row totals so the uniform R_G padding of
+    the batched expand einsum stays ~1x instead of concentrating all the
+    tall rows in supergroup 0."""
+    order = np.argsort(-key, kind="stable")
+    n = len(key)
+    pos = np.arange(n)
+    if stripe_groups:
+        j, lane = pos >> 7, pos & 127
+        r2 = (j % stripe_groups) * SG_ROWS + j // stripe_groups
+        pos = r2 * LANES + lane
+    relab = np.empty(n, dtype=np.int64)
+    relab[order] = pos
+    return relab
+
+
+def _gather_layout(src, w, relab_out, inv_wsum, G, force_R_G=None):
+    """Gather-side layout for an edge subset under a FIXED out labeling.
+
+    Returns (R_G, rowid, mult, gp_by_edge): rows per supergroup, the
+    src-row id of every gather row, the per-slot multiplier (w/wsum,
+    0 on padding), and each edge's flat gather position (edge order).
+
+    force_R_G: use this (>= required) row count so plans for different
+    edge shards stack into uniform arrays.
+    """
+    E = len(src)
+    node_flat = G * SG_ROWS * LANES
+    u = relab_out[src]
+    srow, slane = u >> 7, u & 127
+    # per-edge count per labeled node (LOCAL to this subset)
+    deg_l = np.bincount(u, minlength=node_flat)
+    # rows per src-row block = max subset-degree among its 128 nodes
+    H_out = deg_l.reshape(-1, LANES).max(axis=1)              # per src-row
+    rows_per_sg = H_out.reshape(G, SG_ROWS).sum(axis=1)
+    R_G = max(1, int(rows_per_sg.max()))
+    if force_R_G is not None:
+        if force_R_G < R_G:
+            raise ValueError(f"force_R_G={force_R_G} < required {R_G}")
+        R_G = force_R_G
+    # base row (within supergroup) of each src-row block
+    base_in_sg = np.zeros(G * SG_ROWS, dtype=np.int64)
+    for g in range(G):
+        base_in_sg[g * SG_ROWS:(g + 1) * SG_ROWS] = \
+            np.cumsum(H_out[g * SG_ROWS:(g + 1) * SG_ROWS]) \
+            - H_out[g * SG_ROWS:(g + 1) * SG_ROWS]
+    # per-edge sequence within its (node) bucket, in (src) sorted order
+    order_g = np.argsort(u, kind="stable")
+    seq = np.arange(E) - np.concatenate(([0], np.cumsum(
+        deg_l)))[u[order_g]]
+    sg = srow[order_g] >> 7
+    grow = base_in_sg[srow[order_g]] + seq                    # row in sg
+    gather_pos = ((sg * R_G + grow) * LANES + slane[order_g])
+
+    rowid = np.zeros((G, R_G), dtype=np.int16)
+    for g in range(G):
+        rs = H_out[g * SG_ROWS:(g + 1) * SG_ROWS]
+        rowid[g, :rs.sum()] = np.repeat(np.arange(SG_ROWS, dtype=np.int16),
+                                        rs)
+    mult = np.zeros((G, R_G, LANES), dtype=np.float32)
+    mult_flat = mult.reshape(-1)
+    mult_flat[gather_pos] = (w * inv_wsum[src])[order_g]
+    gp_by_edge = np.empty(E, dtype=np.int64)
+    gp_by_edge[order_g] = gather_pos
+    return R_G, rowid, mult, gp_by_edge
+
+
+def _scatter_layout(dst, relab_in, n_drows_p):
+    """Scatter/extract layout for an edge subset under a FIXED in
+    labeling. n_drows_p: dst-row count padded to whole K_C windows.
+
+    Returns (C, run_k, win_oh, sp_by_edge, R_total).
+    """
+    E = len(dst)
+    W = n_drows_p // K_C
+    v = relab_in[dst]
+    drow, dlane = v >> 7, v & 127
+    cnt = np.bincount(v, minlength=n_drows_p * LANES)
+    H_in = np.maximum(cnt.reshape(-1, LANES).max(axis=1), 1)[:n_drows_p]
+
+    # chunked row allocation: the full-run one-hot extract sums EVERY row
+    # of a dst block, so every row of a block must live in chunks claimed
+    # by the block's window — pad to a chunk boundary whenever a block
+    # would otherwise share a chunk with a different window.
+    base2 = np.zeros(n_drows_p, dtype=np.int64)
+    chunk_win: dict = {}
+    rows_acc = 0
+    for dr in range(n_drows_p):
+        wdw = dr // K_C
+        c = rows_acc // R_C
+        if chunk_win.get(c, wdw) != wdw:
+            rows_acc = _ceil_to(rows_acc, R_C)
+        base2[dr] = rows_acc
+        end = rows_acc + int(H_in[dr])
+        for cc in range(rows_acc // R_C, (end - 1) // R_C + 1):
+            chunk_win[cc] = wdw
+        rows_acc = end
+    R_total = _ceil_to(rows_acc, R_C)
+    C = R_total // R_C
+
+    win_of_chunk = np.zeros(C, dtype=np.int64)
+    for c in range(C):
+        win_of_chunk[c] = chunk_win.get(
+            c, win_of_chunk[c - 1] if c else 0)
+    win_oh = np.zeros((C, W), dtype=np.float32)
+    win_oh[np.arange(C), win_of_chunk] = 1.0
+
+    # run_k[c, i] = window slot (dr % K_C) of the block owning row
+    # c*R_C + i, or -1 for padding rows. Distinct blocks sharing a chunk
+    # share its window, so slots cannot collide.
+    block_of_row = np.full(R_total, -1, dtype=np.int64)
+    for dr in range(n_drows_p):
+        block_of_row[base2[dr]:base2[dr] + H_in[dr]] = dr
+    run_k = np.full(R_total, -1, dtype=np.int16)
+    owned = block_of_row >= 0
+    run_k[owned] = (block_of_row[owned] % K_C).astype(np.int16)
+    run_k = run_k.reshape(C, R_C)
+
+    # per-edge scatter position
+    order_s = np.argsort(v, kind="stable")
+    seq2 = np.arange(E) - np.concatenate(([0], np.cumsum(
+        cnt)))[v[order_s]]
+    scatter_pos = ((base2[drow[order_s]] + seq2) * LANES + dlane[order_s])
+    sp_by_edge = np.empty(E, dtype=np.int64)
+    sp_by_edge[order_s] = scatter_pos
+    return C, run_k, win_oh, sp_by_edge, R_total
+
+
+def _edge_perm_masks(gp_by_edge, sp_by_edge, net_log2):
+    """Route the big Benes: scatter position <- gather position for every
+    edge, identity-completed on free slots (all of which carry zeros)."""
+    N_net = 1 << net_log2
+    perm = np.full(N_net, -1, dtype=np.int64)
+    perm[sp_by_edge] = gp_by_edge
+    free_out = np.flatnonzero(perm < 0)
+    used_in = np.zeros(N_net, dtype=bool)
+    used_in[gp_by_edge] = True
+    perm[free_out] = np.flatnonzero(~used_in)
+    return route_packed(perm)
+
+
+def _node_relabel_masks(relab_out, relab_in, node_flat, n_drows_p):
+    """Route the node Benes: in-label dense acc -> out labeling."""
+    acc_flat_len = n_drows_p * LANES
+    node_net_log2 = int(np.ceil(np.log2(max(node_flat, acc_flat_len, 2))))
+    N_nn = 1 << node_net_log2
+    nperm = np.full(N_nn, -1, dtype=np.int64)
+    nperm[relab_out] = relab_in                # out position <- in position
+    free_out = np.flatnonzero(nperm < 0)
+    used_in = np.zeros(N_nn, dtype=bool)
+    used_in[relab_in] = True
+    nperm[free_out] = np.flatnonzero(~used_in)
+    return node_net_log2, route_packed(nperm)
+
+
+def _global_labelings(src, dst, w, n_nodes):
+    """Degree stats + out/in relabelings shared by all shards."""
+    out_deg = np.bincount(src, minlength=n_nodes)
+    in_deg = np.bincount(dst, minlength=n_nodes)
+    wsum = np.bincount(src, weights=w, minlength=n_nodes)
+    n_rows = _ceil_to(n_nodes, LANES) // LANES
+    G = _ceil_to(n_rows, SG_ROWS) // SG_ROWS
+    relab_out = _relabel_by(out_deg, stripe_groups=G)
+    relab_in = _relabel_by(in_deg)
+    inv_wsum = np.where(wsum > 0, 1.0 / np.maximum(wsum, 1e-300), 0.0)
+    node_flat = G * SG_ROWS * LANES
+    valid_out = np.zeros(node_flat, dtype=np.float32)
+    valid_out[relab_out] = 1.0
+    dangling_out = np.zeros(node_flat, dtype=np.float32)
+    dangling_out[relab_out[wsum <= 0]] = 1.0
+    n_drows = _ceil_to(n_nodes, LANES) // LANES
+    n_drows_p = _ceil_to(n_drows, K_C)                        # whole windows
+    return (G, relab_out, relab_in, inv_wsum, valid_out, dangling_out,
+            n_drows_p, wsum)
+
+
+def build_plan(src: np.ndarray, dst: np.ndarray,
+               weights: Optional[np.ndarray], n_nodes: int,
+               normalize: bool = True) -> MXUPlan:
+    """Precompute layouts + routing for the MXU semiring-SpMV kernel.
+
+    normalize=True bakes w / out-weight-sum multipliers (the column-
+    stochastic matrix PageRank iterates); normalize=False bakes plain w
+    (the raw A^T other plus-times algorithms — katz — iterate)."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    E = len(src)
+    w = (np.ones(E, dtype=np.float64) if weights is None
+         else np.asarray(weights, dtype=np.float64))
+
+    (G, relab_out, relab_in, inv_wsum, valid_out, dangling_out,
+     n_drows_p, wsum) = _global_labelings(src, dst, w, n_nodes)
+    if not normalize:
+        inv_wsum = np.ones_like(inv_wsum)
+
+    R_G, rowid, mult, gp_by_edge = _gather_layout(
+        src, w, relab_out, inv_wsum, G)
+    C, run_k, win_oh, sp_by_edge, R_total = _scatter_layout(
+        dst, relab_in, n_drows_p)
+
+    net = max(G * R_G * LANES, R_total * LANES, 2)
+    net_log2 = int(np.ceil(np.log2(net)))
+    masks_packed = _edge_perm_masks(gp_by_edge, sp_by_edge, net_log2)
+
+    node_flat = G * SG_ROWS * LANES
+    node_net_log2, node_masks_packed = _node_relabel_masks(
+        relab_out, relab_in, node_flat, n_drows_p)
+
+    return MXUPlan(
+        n_nodes=n_nodes, G=G, R_G=R_G, rowid=rowid, mult=mult,
+        out_relabel=relab_out, valid_out=valid_out,
+        dangling_out=dangling_out,
+        net_log2=net_log2, masks_packed=masks_packed,
+        C=C, run_k=run_k, win_oh=win_oh, W=n_drows_p // K_C,
+        in_relabel=relab_in,
+        node_net_log2=node_net_log2, node_masks_packed=node_masks_packed,
+        wsum=wsum)
+
+
+
+# ---------------------------------------------------------------------------
+# device kernel
+# ---------------------------------------------------------------------------
+
+def plan_from_arrays(fields: dict) -> MXUPlan:
+    """The port's MXUPlan from the field dict of an MXUPlan with the same
+    fields (numpy arrays and ints — e.g. ``dataclasses.asdict`` of the JAX
+    package's plan), so one routed plan can feed both packages."""
+    kw = {}
+    for f in dataclasses.fields(MXUPlan):
+        v = fields.get(f.name)
+        if isinstance(v, (int, np.integer)):
+            v = int(v)
+        elif v is not None:
+            v = np.asarray(v)
+        kw[f.name] = v
+    return MXUPlan(**kw)
+
+
+def _exact_f32_matmuls():
+    """Full-f32 products: the one-hot matmuls carry rank values, which
+    TF32's 10-bit mantissa would round."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def pagerank_mxu_epilogue(rank, acc, env, P):
+    """The fused PageRank update + convergence partial, applied to the
+    matvec's out-labeled accumulator (shared formula:
+    semiring.pagerank_update)."""
+    dm = torch.sum(rank * env["dangling"])
+    new_rank = pagerank_update(acc, dm, env["valid"], env["n_f"],
+                               P["damping"])
+    err = torch.sum(torch.abs(new_rank - rank))
+    return new_rank, err
+
+
+def _flat_layout(N: int):
+    return (N // LANES, LANES) if N >= LANES else (N,)
+
+
+def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
+                         x0_default: str = "uniform", device=None):
+    """Returns fn(x0_flat, params, max_iter, tol) -> (x_flat, err, iters);
+    state vectors are flat in OUT labeling, length G*SG_ROWS*LANES.  The
+    matvec (expand -> Benes route -> one-hot reduce/extract -> node
+    relabel) is fixed ⊕ = sum machinery, while the fused
+    ``epilogue(x, acc, env, params) -> (new_x, err)`` supplies the
+    algorithm (env carries valid / dangling / n_f; params is a dict of
+    scalars, placed as f32 tensors).  ⊗ is baked into the plan's
+    multipliers (build_plan(normalize=...)).
+
+    route_dtype: dtype of the per-edge contributions through the big Benes
+    (the dominant memory traffic).  torch.bfloat16 halves it; sums still
+    accumulate in f32.  torch.float32 is the exact path.
+
+    x0_default: the on-device start when x0 is None — "uniform"
+    (valid/n, pagerank) or "zeros" (katz).
+
+    The loop keeps the JAX package's rule: err starts at +inf and the
+    body runs while (err > tol) & (it < max_iterations); err is read on
+    the host once per iteration.
+    """
+    dev = resolve_device(device)
+    _exact_f32_matmuls()
+    t0 = time.perf_counter()
+    G, R_G, C, W = plan.G, plan.R_G, plan.C, plan.W
+    N_net = 1 << plan.net_log2
+    N_nn = 1 << plan.node_net_log2
+    node_flat = G * SG_ROWS * LANES
+    n_f = float(plan.n_nodes)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def put_route(masks_packed, net_log2, dtype):
+        spec, mid, out = build_masks(masks_packed, net_log2,
+                                     K_BY_DTYPE[dtype])
+        return put(mid), None if out is None else put(out), spec
+
+    big = put_route(plan.masks_packed, plan.net_log2, route_dtype)
+    node = put_route(plan.node_masks_packed, plan.node_net_log2,
+                     torch.float32)
+    rowid = put(plan.rowid.astype(np.int64))
+    run_k = put(plan.run_k.astype(np.int64))
+    iota_sg = torch.arange(SG_ROWS, device=dev)
+    iota_kc = torch.arange(K_C, device=dev)
+    oh = (rowid[:, :, None] == iota_sg).to(torch.float32)    # (G, R_G, 128)
+    # (C, K_C, R_C): the extract's one-hot, transposed for bmm; f32, so a
+    # bf16 route is upcast (exactly) and summed in f32
+    ohe_t = ((run_k[:, :, None] == iota_kc) & (run_k[:, :, None] >= 0)
+             ).to(torch.float32).transpose(1, 2).contiguous()
+    del rowid, run_k
+    mult = put(plan.mult.astype(np.float32))
+    win_oh_t = put(plan.win_oh.astype(np.float32).T)          # (W, C)
+    env = {"valid": put(plan.valid_out.astype(np.float32)),
+           "dangling": put(plan.dangling_out.astype(np.float32)),
+           "n_f": n_f}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    placement_s = time.perf_counter() - t0
+
+    def matvec(rank_flat):
+        """⊕ = sum matvec in OUT labeling; ⊗ is baked into mult."""
+        rank_planes = rank_flat.view(G, SG_ROWS, LANES)
+        T = torch.bmm(oh, rank_planes)                      # grw,gwl->grl
+        contrib = (T * mult).to(route_dtype).reshape(-1)
+        x2 = torch.zeros(N_net, dtype=route_dtype, device=dev)
+        x2[:contrib.numel()] = contrib
+        x2 = benes_apply(x2.view(_flat_layout(N_net)), *big)
+        xc = x2.reshape(-1)[:C * R_C * LANES].view(C, R_C, LANES)
+        per_chunk = torch.bmm(ohe_t, xc.to(torch.float32))  # cik,cil->ckl
+        accw = win_oh_t @ per_chunk.view(C, K_C * LANES)    # cw,ckl->wkl
+        xa = torch.zeros(N_nn, dtype=torch.float32, device=dev)
+        xa[:accw.numel()] = accw.reshape(-1)
+        xa = benes_apply(xa.view(_flat_layout(N_nn)), *node)
+        return xa.reshape(-1)[:node_flat]
+
+    def run(x0, params, max_iterations, tol):
+        """x0 = None starts from the on-device default state (uniform
+        distribution or zeros)."""
+        if x0 is None:
+            x = (torch.zeros_like(env["valid"]) if x0_default == "zeros"
+                 else env["valid"] * torch.tensor(1.0 / n_f,
+                                                  dtype=torch.float32,
+                                                  device=dev))
+        else:
+            x = torch.as_tensor(x0, dtype=torch.float32).to(dev)
+        P = {k: torch.tensor(float(v), dtype=torch.float32, device=dev)
+             for k, v in params.items()}
+        tol = float(np.float32(tol))
+        err, it = float("inf"), 0
+        while err > tol and it < max_iterations:
+            acc = matvec(x)
+            x, err_t = epilogue(x, acc, env, P)
+            err = float(err_t)
+            it += 1
+        return x, err, it
+
+    run.placement_s = placement_s
+    run.routes = {"edge": big, "node": node}
+    run.device = dev
+    return run
+
+
+def make_pagerank_kernel(plan: MXUPlan, route_dtype=torch.float32,
+                         device=None):
+    """The semiring kernel with the fused PageRank epilogue.  Returns
+    fn(rank0_flat, damping, max_iter, tol) -> (rank_flat, err, iters)."""
+    run = make_semiring_kernel(plan, epilogue=pagerank_mxu_epilogue,
+                               route_dtype=route_dtype,
+                               x0_default="uniform", device=device)
+
+    def run_pr(rank0, damping, max_iterations, tol):
+        return run(rank0, {"damping": damping}, max_iterations, tol)
+
+    run_pr.placement_s = run.placement_s
+    run_pr.routes = run.routes
+    run_pr.device = run.device
+    return run_pr
+
+
+def pagerank_mxu(src, dst, weights, n_nodes, damping=0.85,
+                 max_iterations=100, tol=1e-6, plan: MXUPlan = None,
+                 device=None):
+    """End-to-end: build plan (or reuse), run kernel, return ranks in
+    ORIGINAL node ids (a tensor on the device) plus (err, iters)."""
+    if plan is None:
+        plan = build_plan(src, dst, weights, n_nodes)
+    run = make_pagerank_kernel(plan, device=device)
+    rank, err, iters = run(None, damping, max_iterations, tol)
+    relabel = torch.from_numpy(plan.out_relabel).to(run.device)
+    return rank[relabel], err, iters
+
+
+# ---------------------------------------------------------------------------
+# plan persistence (routing a 10M-edge graph costs ~30s host-side)
+# ---------------------------------------------------------------------------
+
+_PLAN_VERSION = 4
+
+
+def save_plan(plan: MXUPlan, path: str) -> None:
+    np.savez_compressed(
+        path, version=_PLAN_VERSION, n_nodes=plan.n_nodes, G=plan.G,
+        R_G=plan.R_G, rowid=plan.rowid, mult=plan.mult,
+        out_relabel=plan.out_relabel, valid_out=plan.valid_out,
+        dangling_out=plan.dangling_out, net_log2=plan.net_log2,
+        masks_packed=plan.masks_packed, C=plan.C, run_k=plan.run_k,
+        win_oh=plan.win_oh, W=plan.W, in_relabel=plan.in_relabel,
+        node_net_log2=plan.node_net_log2,
+        node_masks_packed=plan.node_masks_packed,
+        wsum=plan.wsum if plan.wsum is not None else np.zeros(0))
+
+
+def load_plan(path: str) -> Optional[MXUPlan]:
+    """The saved plan, or None when the file is missing, damaged or of
+    another version (the caller then rebuilds)."""
+    try:
+        z = np.load(path)
+        if int(z["version"]) != _PLAN_VERSION:
+            return None
+        return MXUPlan(
+            n_nodes=int(z["n_nodes"]), G=int(z["G"]), R_G=int(z["R_G"]),
+            rowid=z["rowid"], mult=z["mult"], out_relabel=z["out_relabel"],
+            valid_out=z["valid_out"], dangling_out=z["dangling_out"],
+            net_log2=int(z["net_log2"]), masks_packed=z["masks_packed"],
+            C=int(z["C"]), run_k=z["run_k"],
+            win_oh=z["win_oh"], W=int(z["W"]), in_relabel=z["in_relabel"],
+            node_net_log2=int(z["node_net_log2"]),
+            node_masks_packed=z["node_masks_packed"],
+            wsum=z["wsum"] if z["wsum"].size else None)
+    except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+        return None
