@@ -13,7 +13,22 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    24 slots (log2), in f32 and bf16, plus the identity permutation (every
    stage dead).  Bit-exact; the launch counters must move.  At n = 20 and
    24: kernel, plain-version, bound and gather (``x[perm]``) times.
-3. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
+3. Microbenchmark kernels (``memgraph_tpu_torch/benchmarks/micro*.py``,
+   ``ops/csrc/micro.cu``): the three entry points run at the JAX module's
+   sizes with the launch counters reset just before and read just after
+   (each counter must move by what its entry point's timing implies).
+   Then each of the ten kernels is held against its plain version on the
+   card (bit-exact, or within its stated tolerance), transpose_loop and
+   sandwich also on random values at an odd iteration count, and timed:
+   warm device time (``ms``: launches queued behind a device spin, so the
+   Python wrapper's cost hides), cold (a 128 MB scratch write between
+   launches, where the inputs fit in the 50 MB L2), back to back from
+   Python (``host_ms``), plain, one PyTorch call (or the loop of calls a
+   looping kernel stands for), the bound, and for kernels that loop on
+   chip the on-chip bound (shared-memory bytes over 128 B/clock/SM on the
+   SMs the shape occupies, at ``clocks.max.sm``).  One ``micro`` line per
+   kernel and size.
+4. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
    and 10,000,000 edges from seed 7 (``dst = rand**2 * n``), ``from_coo``
    -> ``to_device("cuda")`` -> ``ops.pagerank.pagerank`` with 50
    iterations at damping 0.85 and tol 0, in f32 and in bf16 (one MXU
@@ -22,7 +37,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    against a float64 scipy power iteration; bf16 against f32 inside
    ``PRECISION_BOUNDS["bf16"]``.  Each kernel is then held against its
    plain version on the main path's own networks and timed there.
-4. A JSON line of kernels ({"kernels": [...]}), the card's name and power
+5. A JSON line of kernels ({"kernels": [...]}), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels) or host wall time around work that
@@ -70,6 +85,15 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def sm_clock_hz() -> float:
+    """The SM clock ceiling ``nvidia-smi`` reports (clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -254,6 +278,336 @@ def phase_benes():
     print("benes identity exact, no launches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the microbenchmark kernels
+# ---------------------------------------------------------------------------
+
+L2_BYTES = 50 * 2**20                 # H100 L2
+SMEM_BYTES_PER_CLOCK = 128            # shared memory per SM per clock
+FP32_FLOP_PER_CLOCK = 256             # 128 FMA lanes per SM per clock
+MICRO_REPLACES = {
+    "col_gather": "benchmarks/pallas_micro.py:46",
+    "lane_gather": "benchmarks/pallas_micro.py:78",
+    "stream": "benchmarks/pallas_micro.py:111",
+    "gather_loop": "benchmarks/pallas_micro.py:138",
+    "dynslice_gather": "benchmarks/pallas_micro2.py:83",
+    "onehot_scatter": "benchmarks/pallas_micro2.py:149",
+    "lane_gather_loop": "benchmarks/pallas_micro3.py:49",
+    "transpose_loop": "benchmarks/pallas_micro3.py:84",
+    "sandwich": "benchmarks/pallas_micro3.py:124",
+    "big_matmul": "benchmarks/pallas_micro3.py:156",
+}
+
+
+# ~10 ms of device spin at 1.98 GHz: the host queues the timed launches
+# meanwhile, so a small kernel's time is not its Python wrapper's
+QUEUE_AHEAD_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of fn over reps launches queued behind a spin
+    of the device (``torch.cuda._sleep``), after a warm-up: device time
+    wherever the host queues all reps within the spin."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean CUDA-event time of fn with the L2 flushed before each launch
+    (a 128 MB scratch write, outside the event pair), each launch queued
+    behind a short device spin as in ``device_ms``."""
+    import torch
+    scratch = torch.empty(32 * 2**20, device="cuda")
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        scratch.fill_(1.0)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES // 20)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def expected_micro_launches() -> dict:
+    """Launches one run of each entry point makes at its default sizes:
+    each bench times n calls after one warm-up call."""
+    from memgraph_tpu_torch.benchmarks import micro, micro2, micro3
+    n1, n2, n3 = (micro.TIMED_CALLS + 1, micro2.TIMED_CALLS + 1,
+                  micro3.TIMED_CALLS + 1)
+    return {"col_gather": 5 * n1, "lane_gather": 3 * n1, "stream": 2 * n1,
+            "gather_loop": micro.LOOP_TIMED_CALLS + 1,
+            "dynslice_gather": n2, "onehot_scatter": n2,
+            "lane_gather_loop": n3, "transpose_loop": n3, "sandwich": n3,
+            "big_matmul": n3}
+
+
+def _library_loops():
+    """One PyTorch call per iteration (or the few a step needs), looped as
+    the kernel loops: the yardsticks of the looping kernels."""
+    import torch
+
+    def gather_loop(tab, idx, iters):
+        for _ in range(iters):
+            tab = torch.gather(tab, 0, idx)
+        return tab
+
+    def lane_gather_loop(x, idx, iters):
+        for _ in range(iters):
+            x = torch.gather(x, 1, idx).add_(1.0)
+        return x
+
+    def tiles(a):
+        return a.view(-1, 128, 128)
+
+    def transpose_loop(x, iters):
+        bufs = (torch.empty_like(x), torch.empty_like(x))
+        for it in range(iters):
+            torch.add(tiles(x).transpose(1, 2), 1.0, out=tiles(bufs[it % 2]))
+            x = bufs[it % 2]
+        return x
+
+    def sandwich(x, s1, s2, s3, iters):
+        for _ in range(iters):
+            a = torch.gather(x, 1, s1)
+            a = tiles(a).transpose(1, 2).reshape(x.shape)
+            a = torch.gather(a, 1, s2)
+            a = tiles(a).transpose(1, 2).reshape(x.shape)
+            x = torch.gather(a, 1, s3)
+        return x
+
+    def big_matmul(a, b, iters):
+        acc = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
+        for _ in range(iters):
+            acc.addmm_(a, b)
+        return acc
+
+    return (gather_loop, lane_gather_loop, transpose_loop, sandwich,
+            big_matmul)
+
+
+def micro_cases(sm_hz: float, n_sms: int):
+    """One case per kernel and size, built as it is used (the largest
+    inputs are 256 MB)."""
+    from functools import partial
+
+    import torch
+    from memgraph_tpu_torch.benchmarks import micro as M1
+    from memgraph_tpu_torch.benchmarks import micro2 as M2
+    from memgraph_tpu_torch.benchmarks import micro3 as M3
+    lib_gl, lib_lgl, lib_tl, lib_sw, lib_mm = _library_loops()
+
+    def put(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    def onchip(n_bytes, sms):
+        sms = min(sms, n_sms)
+        return {"onchip_bound_ms": n_bytes / (SMEM_BYTES_PER_CLOCK * sms
+                                              * sm_hz) * 1e3,
+                "onchip_by": f"{n_bytes} B of shared memory or shuffle "
+                             f"traffic at {SMEM_BYTES_PER_CLOCK} B/clock on "
+                             f"{sms} SMs at {sm_hz / 1e6:.0f} MHz"}
+
+    def case(name, size, kern, plain, library, library_call, n_bytes,
+             n_ops, rtol=0.0, timed=True, **extra):
+        return dict(name=name, size=size, kern=kern, plain=plain,
+                    library=library, library_call=library_call,
+                    n_bytes=n_bytes, n_ops=n_ops, rtol=rtol, timed=timed,
+                    extra=extra)
+
+    for R in (8, 64, 512, 2048, 8192):
+        tab, idx = put(*M1.gather_inputs(R, R))
+        yield case("col_gather", f"R={R}", partial(M1.col_gather, tab, idx),
+                   partial(M1.col_gather_reference, tab, idx),
+                   partial(torch.gather, tab, 0, idx.long()),
+                   "torch.gather(tab, 0, idx)", 12 * R * 128, 0)
+    for R in (8, 512, 8192):
+        tab, idx = put(*M1.gather_inputs(R, 128))
+        yield case("lane_gather", f"R={R}",
+                   partial(M1.lane_gather, tab, idx),
+                   partial(M1.lane_gather_reference, tab, idx),
+                   partial(torch.gather, tab, 1, idx.long()),
+                   "torch.gather(tab, 1, idx)", 12 * R * 128, 0)
+    for MB in (64, 256):
+        R = MB * 2**20 // 512
+        gen = torch.Generator(device="cuda").manual_seed(MB)
+        x = torch.randn((R, 128), device="cuda", generator=gen)
+        one, two = (torch.full((1,), v, device="cuda") for v in (1.0, 2.0))
+        yield case("stream", f"{MB} MB", partial(M1.stream, x),
+                   partial(M1.stream_reference, x),
+                   partial(torch.addcmul, one, x, two),
+                   "torch.addcmul(one, x, two)", 8 * R * 128, 2 * R * 128)
+        del x
+    R, it = 8192, 50
+    tab, idx = put(*M1.gather_inputs(R, R))
+    yield case("gather_loop", f"R={R} x{it}",
+               partial(M1.gather_loop, tab, idx, it),
+               partial(M1.gather_loop_reference, tab, idx, it),
+               partial(lib_gl, tab, idx.long(), it),
+               f"loop of {it} x torch.gather(acc, 0, idx)", 12 * R * 128, 0,
+               **onchip(8 * R * 128 * it, 128))
+
+    grp, row3, rank = put(*M2.dynslice_inputs())
+    R = row3.shape[0]
+    full = (8 * grp.long().repeat_interleave(8, 0) + row3.long())
+    yield case("dynslice_gather", f"E={R * 128}",
+               partial(M2.dynslice_gather, grp, row3, rank),
+               partial(M2.dynslice_gather_reference, grp, row3, rank),
+               partial(torch.gather, rank, 0, full),
+               "torch.gather(rank, 0, full_idx)",
+               4 * (R // 8) + 8 * R * 128 + rank.numel() * 4, 0)
+    del grp, row3, rank, full
+    dblk, lanes, vals = put(*M2.onehot_inputs())
+    bins = (dblk.long().repeat_interleave(8, 0) * 128 + lanes.long()).view(-1)
+
+    def index_add():
+        acc = torch.zeros((M2.RANK_R, 128), device="cuda")
+        return acc.view(-1).index_add_(0, bins, vals.view(-1))
+
+    yield case("onehot_scatter", f"E={R * 128}",
+               partial(M2.onehot_scatter, dblk, lanes, vals),
+               partial(M2.onehot_scatter_reference, dblk, lanes, vals),
+               index_add, "torch.zeros + acc.view(-1).index_add_(0, bins, "
+               "vals.view(-1))",
+               4 * (R // 8) + 8 * R * 128 + M2.RANK_R * 128 * 4, R * 128,
+               rtol=M2.ONEHOT_RTOL)
+    del dblk, lanes, vals, bins
+
+    R, it = 4096, 500
+    x, idx = put(*M3.lane_loop_inputs(R))
+    yield case("lane_gather_loop", f"R={R} x{it}",
+               partial(M3.lane_gather_loop, x, idx, it),
+               partial(M3.lane_gather_loop_reference, x, idx, it),
+               partial(lib_lgl, x, idx.long(), it),
+               f"loop of {it} x torch.gather(acc, 1, idx).add_(1)",
+               12 * R * 128, it * R * 128,
+               **onchip(8 * R * 128 * it, -(-R // 8)))
+    R = 8192
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for label, x, it, timed in (
+            ("ones", torch.ones((R, 128), device="cuda"), 500, True),
+            ("random x", torch.randn((R, 128), device="cuda",
+                                     generator=gen), 501, False)):
+        yield case("transpose_loop", f"R={R} x{it} {label}",
+                   partial(M3.transpose_loop, x, it),
+                   partial(M3.transpose_loop_reference, x, it),
+                   partial(lib_tl, x, it),
+                   f"loop of {it} x torch.add(tiles(acc).transpose(1, 2), "
+                   "1, out=...)", 8 * R * 128, it * R * 128, timed=timed,
+                   **onchip(8 * R * 128 * it, R // 128))
+    R = 4096
+    x, s1, s2, s3 = put(*M3.lane_loop_inputs(R, 3))
+    longs = [s.long() for s in (s1, s2, s3)]
+    for it, timed in ((200, True), (201, False)):
+        yield case("sandwich", f"R={R} x{it}",
+                   partial(M3.sandwich, x, s1, s2, s3, it),
+                   partial(M3.sandwich_reference, x, s1, s2, s3, it),
+                   partial(lib_sw, x, *longs, it),
+                   f"loop of {it} x (3 torch.gather + 2 tile transposes)",
+                   20 * R * 128, 0, timed=timed,
+                   **onchip((5 * 8 + 3) * R * 128 * it, R // 128))
+    a, b = put(*M3.matmul_inputs())
+    (M, K), N, it = a.shape, b.shape[1], 500
+    flops = 2 * M * N * K * it
+    sms = min(n_sms, (M // 32) * (N // 32))
+    yield case("big_matmul", f"{M}x{K}x{N} x{it}",
+               partial(M3.big_matmul, a, b, it),
+               partial(M3.big_matmul_reference, a, b, it),
+               partial(lib_mm, a, b, it), f"loop of {it} x acc.addmm_(a, b)",
+               4 * (M * K + K * N + M * N), flops + M * N * it,
+               rtol=M3.MATMUL_RTOL,
+               onchip_bound_ms=flops / (FP32_FLOP_PER_CLOCK * sms * sm_hz)
+               * 1e3,
+               onchip_by=f"f32 FMA pipes ({FP32_FLOP_PER_CLOCK} flop/clock) "
+                         f"on {sms} SMs at {sm_hz / 1e6:.0f} MHz")
+
+
+def phase_micro(sm_hz: float):
+    """The three microbenchmark entry points, then each kernel against its
+    plain version, timed."""
+    import torch
+    from memgraph_tpu_torch.benchmarks import micro, micro2, micro3
+    from memgraph_tpu_torch.benchmarks._common import compare
+    mods = (micro, micro2, micro3)
+    t0 = time.perf_counter()
+    # the entry points: counts set to 0 just before, read just after
+    for mod in mods:
+        mod.reset_launch_counts()
+    results = [r for mod in mods for r in mod.main(["--device", "cuda"])]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for mod in mods
+                for fn in mod.KERNELS}
+    expected = expected_micro_launches()
+    check(launches == expected,
+          f"micro launch counts {launches} != expected {expected}")
+    bad = [r["bench"] for r in results if not r["ok"]]
+    check(not bad, f"micro entry points disagree with plain versions: {bad}")
+    entry_s = time.perf_counter() - t0
+
+    lines = {}
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in micro_cases(sm_hz, n_sms):
+        got, want = c["kern"](), c["plain"]()
+        torch.cuda.synchronize()
+        ok, err = compare(got, want, c["rtol"])
+        check(ok, f"{c['name']} {c['size']} disagrees with its plain "
+                  f"version (max abs err {err}, rtol {c['rtol']})")
+        del got, want
+        line = {"kernel": c["name"], "size": c["size"], "max_abs_err": err,
+                "rtol": c["rtol"], "exact": c["rtol"] == 0.0}
+        if c["timed"]:
+            loops = "onchip_bound_ms" in c["extra"]
+            reps = 5 if loops else 20
+            b, by = bound_ms(c["n_bytes"], c["n_ops"])
+            line.update(
+                ms=device_ms(c["kern"], reps),
+                cold_ms=(cuda_ms_cold(c["kern"], reps)
+                         if c["n_bytes"] < L2_BYTES else None),
+                host_ms=cuda_ms(c["kern"], reps),
+                plain_ms=device_ms(c["plain"], 3),
+                library_ms=device_ms(c["library"], 3 if loops else reps),
+                library_call=c["library_call"], bound_ms=b, bound_by=by,
+                **c["extra"])
+        lines.setdefault(c["name"], []).append(line)
+        print("micro", json.dumps(line), flush=True)
+    print(f"micro_phase entry_points_s {entry_s:.3f} total_s "
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    return launches, lines
+
+
+def micro_kernel_entries(launches: dict, lines: dict) -> list:
+    """The micro kernels' entries of the {"kernels": [...]} line: numbers
+    at the largest size the entry point runs, every size under shapes."""
+    out = []
+    for name, replaces in MICRO_REPLACES.items():
+        timed = [ln for ln in lines[name] if "ms" in ln]
+        main = timed[-1]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "memgraph_tpu_torch/ops/csrc/micro.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(ln["max_abs_err"] for ln in lines[name]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at": main["size"],
+            "shapes": lines[name]})
+    return out
+
+
 def phase_main_path():
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
@@ -371,6 +725,7 @@ def main():
     print(f"build_s {time.perf_counter() - t0:.3f}", flush=True)
 
     phase_benes()
+    micro_launches, micro_lines = phase_micro(sm_clock_hz())
     launches, shapes = phase_main_path()
 
     replaces = {"benes_mid": "memgraph_tpu/ops/benes_pallas.py:225",
@@ -389,6 +744,7 @@ def main():
             "library_ms": main["library_ms"],
             "at": "edge net, f32",
             "shapes": {k: s[name] for k, s in shapes.items() if name in s}})
+    kernels += micro_kernel_entries(micro_launches, micro_lines)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
