@@ -11,8 +11,13 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
 2. Benes kernels against their plain PyTorch versions on the card:
    random permutations routed by the port's router at n = 7, 12, 16, 20,
    24 slots (log2), in f32 and bf16, plus the identity permutation (every
-   stage dead).  Bit-exact; the launch counters must move.  At n = 20 and
-   24: kernel, plain-version, bound and gather (``x[perm]``) times.
+   stage dead).  Each network's middle stages are composed on the card
+   (``compose_mid``: one ``benes_mid`` launch) into the index that
+   ``benes_mid_gather`` applies; the index must equal the CPU
+   composition, and the kernels' ``benes_apply`` the stage-by-stage plain
+   network.  Bit-exact; the launch counters must move.  At n = 20 and 24:
+   each kernel against its plain version, and kernel, plain-version, bound
+   and gather (``x[perm]``) times.
 3. Microbenchmark kernels (``memgraph_tpu_torch/benchmarks/micro*.py``,
    ``ops/csrc/micro.cu``): the three entry points run at the JAX module's
    sizes with the launch counters reset just before and read just after
@@ -36,12 +41,15 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    after, and must equal what the plan's networks imply.  f32 ranks
    against a float64 scipy power iteration; bf16 against f32 inside
    ``PRECISION_BOUNDS["bf16"]``.  Each kernel is then held against its
-   plain version on the main path's own networks and timed there.
+   plain version on the main path's own networks and timed there (the
+   stage kernel ``benes_mid`` fed the same masks that were composed).
 5. A JSON line of kernels ({"kernels": [...]}), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-Times are CUDA-event times (kernels) or host wall time around work that
-ends in ``torch.cuda.synchronize()`` (PageRank runs).  ``bound_ms`` is the
+Times are CUDA-event times (kernels: launches queued behind a device
+spin, ``device_ms``, so a short kernel's time is not its Python
+wrapper's) or host wall time around work that ends in
+``torch.cuda.synchronize()`` (PageRank runs).  ``bound_ms`` is the
 larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s (H100 SXM
 data-sheet peaks), counting each input read once and each output written
 once.
@@ -170,6 +178,21 @@ def place(masks_packed, n, dtype):
             None if out is None else torch.from_numpy(out).cuda(), spec)
 
 
+def composed(mid_words, spec):
+    """compose_mid on the card (the stage kernel, once), held against the
+    CPU composition (the plain ``_apply_stages``)."""
+    import torch
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    before = BC.benes_mid.launches
+    mid_idx = BC.compose_mid(mid_words, spec)
+    want = BC.compose_mid(mid_words.cpu(), spec)
+    check(torch.equal(mid_idx.cpu(), want)
+          and BC.benes_mid.launches - before == int(bool(spec.mid_stages)),
+          f"compose_mid on the card != CPU composition at "
+          f"n={spec.net_log2} K={spec.K}")
+    return mid_idx
+
+
 def random_values(N, dtype, seed):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -177,19 +200,26 @@ def random_values(N, dtype, seed):
     return x.view(-1, 128) if N >= 128 else x
 
 
-def measure_kernels(x, route, reps: int) -> dict:
+def measure_kernels(x, mid_words, route, reps: int) -> dict:
     """Each kernel of one network against its plain version on x: exact
-    check, then kernel / plain / bound / gather times per launch."""
+    check, then kernel / plain / bound / gather times per launch.  route:
+    (mid_idx, outer words, spec); mid_words: the masks mid_idx was
+    composed from, which feed the stage kernel benes_mid."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    mid, out, spec = route
+    mid_idx, out, spec = route
     N, e = x.numel(), x.element_size()
     iota = torch.arange(N, device="cuda", dtype=torch.int64)
     res = {}
-    cases = [("benes_mid", lambda v: BC.benes_mid(v, mid, spec),
-              lambda v: BC.benes_mid_reference(v, mid, spec),
+    live = bool(spec.mid_stages)
+    cases = [("benes_mid_gather",
+              lambda v: BC.benes_mid_gather(v, mid_idx, spec),
+              lambda v: BC.benes_mid_gather_reference(v, mid_idx, spec),
+              2 * N * e + 2 * N, N, live),
+             ("benes_mid", lambda v: BC.benes_mid(v, mid_words, spec),
+              lambda v: BC.benes_mid_reference(v, mid_words, spec),
               2 * N * e + spec.mid_planes * N * 4,
-              len(spec.mid_stages) * N, bool(spec.mid_stages))]
+              len(spec.mid_stages) * N, live)]
     if spec.outer_down:
         cases.append(("benes_outer",
                       lambda v: BC.benes_outer(v, out, spec.outer_down,
@@ -210,12 +240,20 @@ def measure_kernels(x, route, reps: int) -> dict:
         b, by = bound_ms(n_bytes, n_ops)
         res[name] = {
             "net_log2": spec.net_log2, "K": spec.K, "dtype": str(x.dtype),
-            "stages": n_ops // N, "max_abs_err": err,
-            "ms": cuda_ms(lambda: kern(x), reps),
-            "plain_ms": cuda_ms(lambda: plain(x), max(1, reps // 4)),
-            "bound_ms": b, "bound_by": by,
-            "library_ms": cuda_ms(lambda: flat[perm], reps)}
+            "ops_per_slot": n_ops // N, "max_abs_err": err,
+            "ms": device_ms(lambda: kern(x), reps),
+            "host_ms": cuda_ms(lambda: kern(x), reps),
+            "plain_ms": device_ms(lambda: plain(x), max(1, reps // 4)),
+            "bound_ms": b, "bound_by": by, "n_bytes": n_bytes,
+            "library_ms": device_ms(lambda: flat[perm], reps)}
     return res
+
+
+def counts() -> dict:
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    return {"benes_mid": BC.benes_mid.launches,
+            "benes_mid_gather": BC.benes_mid_gather.launches,
+            "benes_outer": BC.benes_outer.launches}
 
 
 def phase_benes():
@@ -230,37 +268,35 @@ def phase_benes():
         route_s = time.perf_counter() - t0
         for dtype in (torch.float32, torch.bfloat16):
             mid, out, spec = place(packed, n, dtype)
+            mid_idx = composed(mid, spec)
             x = random_values(N, dtype, seed=n)
-            before = (BC.benes_mid.launches, BC.benes_outer.launches)
-            got = BC.benes_apply(x, mid, out, spec)
+            before = counts()
+            got = BC.benes_apply(x, mid_idx, out, spec)
             want = BC.benes_apply_reference(x, mid, out, spec)
             torch.cuda.synchronize()
-            moved = (BC.benes_mid.launches - before[0],
-                     BC.benes_outer.launches - before[1])
+            moved = {k: v - before[k] for k, v in counts().items()}
             per = BC.launches_per_apply(spec)
             check(same_bits(got, want),
                   f"benes_apply != plain at n={n} {dtype}")
-            check(moved == (per["benes_mid"], per["benes_outer"])
-                  and moved[0] == 1,
+            check(moved == dict(per, benes_mid=0)
+                  and moved["benes_mid_gather"] == 1,
                   f"launch counters moved {moved} at n={n} {dtype}")
             line = {"n": n, "dtype": str(dtype), "K": spec.K,
-                    "route_s": route_s, "exact": True,
-                    "launches": {"benes_mid": moved[0],
-                                 "benes_outer": moved[1]}}
+                    "route_s": route_s, "exact": True, "launches": moved}
             if n in TIMED_SIZES:
-                apply_bytes = (2 * N * x.element_size()
-                               + spec.mid_planes * N * 4
+                apply_bytes = (2 * N * x.element_size() + 2 * N
                                + (N * 4 if out is not None else 0))
-                line["apply_ms"] = cuda_ms(
-                    lambda: BC.benes_apply(x, mid, out, spec), 20)
-                line["apply_plain_ms"] = cuda_ms(
+                line["apply_ms"] = device_ms(
+                    lambda: BC.benes_apply(x, mid_idx, out, spec), 20)
+                line["apply_plain_ms"] = device_ms(
                     lambda: BC.benes_apply_reference(x, mid, out, spec), 3)
                 line["apply_bound_ms"] = apply_bytes / PEAK_BYTES_PER_S * 1e3
                 perm = BC.benes_apply_reference(
                     torch.arange(N, device="cuda"), mid, out, spec)
                 flat = x.view(-1)
-                line["apply_library_ms"] = cuda_ms(lambda: flat[perm], 20)
-                line["kernels"] = measure_kernels(x, (mid, out, spec), 20)
+                line["apply_library_ms"] = device_ms(lambda: flat[perm], 20)
+                line["kernels"] = measure_kernels(x, mid,
+                                                  (mid_idx, out, spec), 20)
             print("benes", json.dumps(line), flush=True)
     # identity: every stage dead, nothing launched, x comes back as is
     n = 16
@@ -270,10 +306,10 @@ def phase_benes():
         check(not (spec.mid_stages or spec.outer_down or spec.outer_up),
               "identity permutation left live stages")
         x = random_values(1 << n, dtype, seed=1)
-        before = (BC.benes_mid.launches, BC.benes_outer.launches)
-        got = BC.benes_apply(x, mid, out, spec)
-        check(same_bits(got, x)
-              and before == (BC.benes_mid.launches, BC.benes_outer.launches),
+        before = counts()
+        mid_idx = composed(mid, spec)
+        got = BC.benes_apply(x, mid_idx, out, spec)
+        check(same_bits(got, x) and before == counts(),
               f"identity route changed x or launched at {dtype}")
     print("benes identity exact, no launches", flush=True)
 
@@ -638,15 +674,16 @@ def phase_main_path():
     r16, it16, cold16 = drive("bf16")
     _, it32w, warm32 = drive("f32")
     _, it16w, warm16 = drive("bf16")
-    launches = {"benes_mid": BC.benes_mid.launches,
-                "benes_outer": BC.benes_outer.launches}
+    launches = counts()
 
     state = graph._mxu_state
     plan = state["plan"]
     runs = {p: run for (_, p), run in state["runs"].items()}
-    expected = {"benes_mid": 0, "benes_outer": 0}
+    expected = {"benes_mid": 0, "benes_mid_gather": 0, "benes_outer": 0}
     for run in runs.values():
         for route in run.routes.values():
+            # placement (in the cold run): compose_mid, one stage launch
+            expected["benes_mid"] += int(bool(route[2].mid_stages))
             for k, v in BC.launches_per_apply(route[2]).items():
                 expected[k] += 2 * ITERATIONS * v   # cold + warm run
     check(it32 == it16 == it32w == it16w == ITERATIONS,
@@ -697,12 +734,20 @@ def phase_main_path():
     # each kernel on the main path's own networks, against its plain
     # version (these launches are not the main path's)
     shapes = {}
-    for label, route in (("edge_f32", runs["f32"].routes["edge"]),
-                         ("edge_bf16", runs["bf16"].routes["edge"]),
-                         ("node_f32", runs["f32"].routes["node"])):
+    for label, route, packed in (
+            ("edge_f32", runs["f32"].routes["edge"], plan.masks_packed),
+            ("edge_bf16", runs["bf16"].routes["edge"], plan.masks_packed),
+            ("node_f32", runs["f32"].routes["node"],
+             plan.node_masks_packed)):
         dtype = torch.bfloat16 if label == "edge_bf16" else torch.float32
-        x = random_values(1 << route[2].net_log2, dtype, seed=3)
-        shapes[label] = measure_kernels(x, route, 20)
+        spec = route[2]
+        # the masks the placement composed (it kept only mid_idx)
+        mid, _, spec2 = place(packed, spec.net_log2, dtype)
+        check(spec2 == spec and torch.equal(route[0], composed(mid, spec)),
+              f"placed index of the {label} net != its masks' composition")
+        x = random_values(1 << spec.net_log2, dtype, seed=3)
+        shapes[label] = measure_kernels(x, mid, route, 20)
+        del mid
         print("main_path_kernels", label, json.dumps(shapes[label]),
               flush=True)
     return launches, shapes
@@ -728,15 +773,21 @@ def main():
     micro_launches, micro_lines = phase_micro(sm_clock_hz())
     launches, shapes = phase_main_path()
 
-    replaces = {"benes_mid": "memgraph_tpu/ops/benes_pallas.py:225",
+    replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
+                "benes_mid": "memgraph_tpu/ops/benes_pallas.py:225",
                 "benes_outer": "memgraph_tpu/ops/benes_pallas.py:208"}
+    roles = {"benes_mid_gather": "middle pass, twice per iteration",
+             "benes_mid": "placement: composes the middle stages into "
+                          "mid_idx, once per network and placement",
+             "benes_outer": "outer passes, four times per iteration"}
     kernels = []
-    for name in ("benes_mid", "benes_outer"):
+    for name in ("benes_mid_gather", "benes_mid", "benes_outer"):
         main = shapes["edge_f32"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "memgraph_tpu_torch/ops/csrc/benes.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "role": roles[name],
+            "launches": launches[name],
             "max_abs_err": max(s[name]["max_abs_err"]
                                for s in shapes.values() if name in s),
             "ms": main["ms"], "plain_ms": main["plain_ms"],

@@ -8,8 +8,14 @@ d = N/2 ... 2, 1, 2 ... N/2.  Every stage with d < 2^K acts inside aligned
 schedule, so the network runs as three passes:
 
   outer-down  stages d = 2^(n-1) .. 2^K   (benes_outer)
-  middle      all stages with d < 2^K     (benes_mid)
+  middle      all stages with d < 2^K     (benes_mid_gather)
   outer-up    stages d = 2^K .. 2^(n-1)   (benes_outer)
+
+For a given plan the middle pass is one fixed permutation inside each
+aligned 2^K tile.  ``compose_mid`` composes its stages once per plan (on
+the card with the stage kernel ``benes_mid``) into ``mid_idx``: for every
+slot, the tile-local position it takes its value from.  ``benes_apply``
+then runs the middle pass as one gather in shared memory.
 
 Masks are per-element int32 bit-planes: bit b of word[plane, i] is stage
 (plane*31+b)'s swap decision for element i.  The middle stages fill as
@@ -19,10 +25,10 @@ K is the tile size of the middle pass: a tile lives in one block's shared
 memory on the card, so 2^K values must fit in it (K = 15 for f32, 16 for
 bf16: 128 KB either way).  The permutation does not depend on K.
 
-``benes_mid`` / ``benes_outer`` / ``benes_apply`` are the wrappers: a CUDA
-tensor goes to the kernels of ``csrc/benes.cu`` (and the kernel's
-``launches`` count goes up by one), a CPU tensor to the plain version, any
-other device raises.
+``benes_mid`` / ``benes_mid_gather`` / ``benes_outer`` / ``benes_apply`` are
+the wrappers: a CUDA tensor goes to the kernels of ``csrc/benes.cu`` (and
+the kernel's ``launches`` count goes up by one), a CPU tensor to the plain
+version, any other device raises.
 """
 
 from __future__ import annotations
@@ -134,12 +140,21 @@ def benes_mid_reference(x, mid_words, spec: BenesSpec):
                          spec.mid_stages)
 
 
+def benes_mid_gather_reference(x, mid_idx, spec: BenesSpec):
+    """x[tile + mid_idx[i]] for every slot i.  mid_idx is int16 storage of
+    unsigned 16-bit positions (up to 65535 at K = 16): read unsigned."""
+    T = 1 << spec.K
+    src = mid_idx.reshape(-1, T).to(torch.int64) & 0xFFFF
+    return x.reshape(-1, T).gather(1, src).view(x.shape)
+
+
 def benes_outer_reference(x, outer_words, stages):
     return _apply_stages(x, outer_words.reshape(1, -1), stages)
 
 
 def benes_apply_reference(x, mid_words, outer_words, spec: BenesSpec):
-    """The whole network in plain PyTorch."""
+    """The whole network in plain PyTorch, stage by stage (from the mask
+    words: ``benes_apply``'s oracle covers the composition too)."""
     if spec.outer_down:
         x = benes_outer_reference(x, outer_words, spec.outer_down)
     if spec.mid_stages:
@@ -161,6 +176,8 @@ def _lib():
     ip = ctypes.POINTER(ctypes.c_int)
     lib.benes_mid.restype = i32
     lib.benes_mid.argtypes = [vp, vp, vp, i64, i64, i32, i32, ip, i32, vp]
+    lib.benes_mid_gather.restype = i32
+    lib.benes_mid_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.benes_outer.restype = i32
     lib.benes_outer.argtypes = [vp, vp, vp, i64, i32, i32, ip, i32, vp]
     lib.benes_error_string.restype = ctypes.c_char_p
@@ -178,16 +195,16 @@ def _codes(stages: tuple):
     return arr, len(stages)
 
 
-def _check(x, words, spec: BenesSpec, n_planes: int):
+def _check(x, words, spec: BenesSpec, n_planes: int, dtype=torch.int32):
     N = 1 << spec.net_log2
     if x.dtype not in K_BY_DTYPE:
         raise TypeError(f"Benes kernels move float32 or bfloat16, "
                         f"not {x.dtype}")
     if x.numel() != N or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous tensor of {N} values")
-    if (words.device != x.device or words.dtype != torch.int32
+    if (words.device != x.device or words.dtype != dtype
             or words.numel() != n_planes * N or not words.is_contiguous()):
-        raise ValueError("mask words must be contiguous int32 "
+        raise ValueError(f"mask words or index must be contiguous {dtype} "
                          f"({n_planes} x {N}) on {x.device}")
     if (1 << spec.K) * x.element_size() > SMEM_BYTES:
         raise ValueError(f"a 2^{spec.K} tile of {x.dtype} does not fit in "
@@ -198,6 +215,10 @@ def _raise_on(rc: int, name: str):
     if rc != 0:
         msg = _lib().benes_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _target(x, out):
@@ -220,14 +241,61 @@ def benes_mid(x, mid_words, spec: BenesSpec, out=None):
     N = 1 << spec.net_log2
     rc = _lib().benes_mid(
         x.data_ptr(), y.data_ptr(), mid_words.data_ptr(), N, N, spec.K,
-        x.element_size(), codes, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.element_size(), codes, n, _stream(x))
     _raise_on(rc, "benes_mid")
     benes_mid.launches += 1
     return y
 
 
 benes_mid.launches = 0
+
+
+def benes_mid_gather(x, mid_idx, spec: BenesSpec, out=None):
+    """The middle pass as a gather by the placed index (``compose_mid``).
+    CUDA: one launch of ``benes_mid_gather``; writes into ``out`` (may be
+    ``x`` itself) or a new tensor.  CPU: plain version."""
+    y = _target(x, out)
+    if y is None:
+        res = benes_mid_gather_reference(x, mid_idx, spec)
+        return res if out is None else out.copy_(res)
+    _check(x, mid_idx, spec, 1, dtype=torch.int16)
+    if y.numel() != x.numel() or y.dtype != x.dtype or not y.is_contiguous():
+        raise ValueError("out must be a contiguous tensor like x")
+    if spec.K >= 3 and any(t.data_ptr() % 16 for t in (x, y, mid_idx)):
+        raise ValueError("benes_mid_gather moves 16-byte vectors: x, out "
+                         "and mid_idx must be 16-byte aligned")
+    rc = _lib().benes_mid_gather(
+        x.data_ptr(), y.data_ptr(), mid_idx.data_ptr(), 1 << spec.net_log2,
+        spec.K, x.element_size(), _stream(x))
+    _raise_on(rc, "benes_mid_gather")
+    benes_mid_gather.launches += 1
+    return y
+
+
+benes_mid_gather.launches = 0
+
+
+def compose_mid(mid_words, spec: BenesSpec):
+    """The middle stages composed into one tile-local index, once per plan:
+    an (N,) int16 tensor on mid_words' device whose slot i holds the
+    position inside i's 2^K tile that slot i takes its value from (stored
+    as int16, read as unsigned 16 bits: K <= 16).
+
+    The stages are applied to an iota of tile-local positions, moved as
+    raw 16-bit words (a 2^16 tile of 32-bit words would not fit in one
+    block's shared memory): on the card by the stage kernel ``benes_mid``
+    (one launch), on the CPU by the plain ``_apply_stages``.  A network
+    with no live middle stage launches nothing and gets the iota."""
+    N, T = 1 << spec.net_log2, 1 << spec.K
+    tile = torch.from_numpy(np.arange(T, dtype=np.uint16).view(np.int16))
+    iota = tile.to(mid_words.device).repeat(N // T)
+    if not spec.mid_stages:
+        return iota
+    if mid_words.device.type == "cpu":
+        return _apply_stages(iota, mid_words.reshape(spec.mid_planes, -1),
+                             spec.mid_stages)
+    return benes_mid(iota.view(torch.bfloat16), mid_words,
+                     spec).view(torch.int16)
 
 
 def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
@@ -242,8 +310,7 @@ def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
     codes, n = _codes(stages)
     rc = _lib().benes_outer(
         x.data_ptr(), y.data_ptr(), outer_words.data_ptr(),
-        1 << spec.net_log2, spec.K, x.element_size(), codes, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        1 << spec.net_log2, spec.K, x.element_size(), codes, n, _stream(x))
     _raise_on(rc, "benes_outer")
     benes_outer.launches += 1
     return y
@@ -254,25 +321,29 @@ benes_outer.launches = 0
 
 def reset_launch_counts():
     benes_mid.launches = 0
+    benes_mid_gather.launches = 0
     benes_outer.launches = 0
 
 
 def launches_per_apply(spec: BenesSpec) -> dict:
-    """Kernel launches one ``benes_apply`` of this network makes."""
-    return {"benes_mid": int(bool(spec.mid_stages)),
+    """Kernel launches one ``benes_apply`` of this network makes (its
+    ``compose_mid`` at placement adds one ``benes_mid`` when the network
+    has a live middle stage)."""
+    return {"benes_mid_gather": int(bool(spec.mid_stages)),
             "benes_outer": int(bool(spec.outer_down))
             + int(bool(spec.outer_up))}
 
 
-def benes_apply(x2, mid_words, outer_words, spec: BenesSpec):
+def benes_apply(x2, mid_idx, outer_words, spec: BenesSpec):
     """Apply the network to x2 (the (N/128, 128) layout, or flat when
-    N < 128; f32 or bf16).  Returns a new tensor, or x2 itself when every
-    stage is dead."""
+    N < 128; f32 or bf16); mid_idx from ``compose_mid``.  Returns a new
+    tensor, or x2 itself when every stage is dead."""
     y = x2
     if spec.outer_down:
         y = benes_outer(y, outer_words, spec.outer_down, spec)
     if spec.mid_stages:
-        y = benes_mid(y, mid_words, spec, out=None if y is x2 else y)
+        y = benes_mid_gather(y, mid_idx, spec,
+                             out=None if y is x2 else y)
     if spec.outer_up:
         y = benes_outer(y, outer_words, spec.outer_up, spec,
                         out=None if y is x2 else y)

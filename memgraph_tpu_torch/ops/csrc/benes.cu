@@ -2,11 +2,26 @@
 // ctypes (memgraph_tpu_torch/ops/benes_cuda.py binds and checks them).
 //
 // Replaces the two Pallas TPU kernels of memgraph_tpu/ops/benes_pallas.py:
-//   benes_mid   <- _mid_kernel   (benes_pallas.py:138, launched at :225)
-//   benes_outer <- _outer_kernel (benes_pallas.py:155, launched at :208)
+//   benes_mid_gather <- _mid_kernel   (benes_pallas.py:138, launched at :225)
+//   benes_outer      <- _outer_kernel (benes_pallas.py:155, launched at :208)
+// benes_mid, the middle stages as masked exchanges (the TPU kernel's own
+// form), runs once per plan: it composes the stages into the index that
+// benes_mid_gather then applies every iteration.
 //
-// What both compute: for every live stage (plane, bit, d) in order, each
-// position i does  x[i] <- ((word[i] >> bit) & 1) ? x[i ^ d] : x[i].
+// benes_mid_gather: the middle stages all act inside aligned 2^K tiles,
+// so for a given plan the pass is one fixed permutation inside each tile.
+// The TPU ran it as 2K-1 masked rolls because VMEM has no fast arbitrary
+// gather; Hopper's shared memory has one.  So a block loads its tile
+// (16-byte loads) and its 2-byte tile-local indices, waits at ONE barrier
+// and gathers: y[t·2^K + j] = x[t·2^K + idx[t·2^K + j]], the index read as
+// unsigned 16 bits (K <= 16; int16 storage holds positions up to 65535).
+// No stage loop, no per-stage barrier, no dependent mask load from L2.
+// It is bound by bytes: read x and write y (2·N·e) plus the index (2·N).
+// The indices are loaded before the barrier, so their latency overlaps
+// the tile's.
+//
+// benes_mid / benes_outer: for every live stage (plane, bit, d) in order,
+// each position i does  x[i] <- ((word[i] >> bit) & 1) ? x[i ^ d] : x[i].
 // The routed masks are symmetric (word bit of i == word bit of i ^ d), so
 // one thread owns each pair (j, j + d) with bit d of j clear, reads ONE
 // mask word and swaps the pair in shared memory: no second buffer, and
@@ -17,8 +32,9 @@
 // rows).  Values are moved as raw 16- or 32-bit words, so bf16 and f32
 // are exact by construction.
 //
-// What bounds them: memory traffic.  Per launch, with e bytes a value:
+// What bounds those two: memory traffic.  Per launch, with e bytes a value:
 //   benes_mid:   read x + write y (2·N·e) + read the mid planes (planes·N·4)
+//                (once per plan, on the iota of tile-local positions)
 //   benes_outer: read x + write y (2·N·e) + read the outer plane (N·4)
 // There is no arithmetic to speak of.  The design reads and writes every
 // value once per launch, holding a whole tile (or column chunk) in shared
@@ -75,6 +91,58 @@ __global__ void benes_mid_kernel(const E* x, E* y,
     __syncthreads();
   }
   for (int j = threadIdx.x; j < T; j += blockDim.x) y[base + j] = s[j];
+}
+
+// CPT: 8-slot chunks a thread (T / 8 / blockDim.x); its CPT index vectors
+// stay in registers from before the barrier to the gather.
+template <typename E, int CPT>
+__global__ void __launch_bounds__(1024)
+    benes_mid_gather_kernel(const E* x, E* y,
+                            const uint16_t* __restrict__ idx, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int T = 1 << K;
+  const long long base = static_cast<long long>(blockIdx.x) << K;
+  const uint4* iv = reinterpret_cast<const uint4*>(idx + base);
+  uint4 w[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    w[k] = __ldg(iv + threadIdx.x + k * blockDim.x);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + base);
+  uint4* sv = reinterpret_cast<uint4*>(smem_raw);
+  const int n_vec = (T * static_cast<int>(sizeof(E))) >> 4;
+#pragma unroll 8
+  for (int j = threadIdx.x; j < n_vec; j += blockDim.x) sv[j] = xv[j];
+  __syncthreads();
+  const E* s = reinterpret_cast<const E*>(smem_raw);
+  uint4* yv = reinterpret_cast<uint4*>(y + base);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    const uint32_t p[4] = {w[k].x, w[k].y, w[k].z, w[k].w};
+    uint32_t v[8];   // little-endian: slot 8c + 2i is p[i]'s low half
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = s[p[i] & 0xffffu];
+      v[2 * i + 1] = s[p[i] >> 16];
+    }
+    if constexpr (sizeof(E) == 4) {
+      yv[2 * c] = make_uint4(v[0], v[1], v[2], v[3]);
+      yv[2 * c + 1] = make_uint4(v[4], v[5], v[6], v[7]);
+    } else {
+      yv[c] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16,
+                         v[4] | v[5] << 16, v[6] | v[7] << 16);
+    }
+  }
+}
+
+// Tiles of 2 or 4 slots (nets of 2 or 4): a slot a thread, no vectors.
+template <typename E>
+__global__ void benes_mid_gather_small_kernel(const E* x, E* y,
+                                              const uint16_t* idx, int K) {
+  const long long base = static_cast<long long>(blockIdx.x) << K;
+  const E v = x[base + idx[base + threadIdx.x]];
+  __syncthreads();   // every read of the tile before any write (y may be x)
+  y[base + threadIdx.x] = v;
 }
 
 template <typename E>
@@ -151,6 +219,51 @@ cudaError_t launch_mid(const void* x, void* y, const void* words,
   return cudaGetLastError();
 }
 
+template <typename E, int CPT>
+cudaError_t launch_mid_gather_cpt(const E* x, E* y, const uint16_t* idx,
+                                  int K, unsigned blocks, int threads,
+                                  cudaStream_t stream) {
+  const size_t smem = sizeof(E) << K;
+  cudaError_t err = cudaFuncSetAttribute(
+      benes_mid_gather_kernel<E, CPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  benes_mid_gather_kernel<E, CPT><<<blocks, threads, smem, stream>>>(
+      x, y, idx, K);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_mid_gather(const void* x, void* y, const void* idx,
+                              long long n_elems, int K, cudaStream_t stream) {
+  const E* xe = static_cast<const E*>(x);
+  E* ye = static_cast<E*>(y);
+  const uint16_t* ie = static_cast<const uint16_t*>(idx);
+  const unsigned blocks = static_cast<unsigned>(n_elems >> K);
+  const int T = 1 << K;
+  if (T < 8) {
+    benes_mid_gather_small_kernel<E><<<blocks, T, 0, stream>>>(xe, ye, ie, K);
+    return cudaGetLastError();
+  }
+  const int chunks = T / 8;
+  const int threads = chunks < 1024 ? chunks : 1024;
+  switch (chunks / threads) {
+    case 1:
+      return launch_mid_gather_cpt<E, 1>(xe, ye, ie, K, blocks, threads,
+                                          stream);
+    case 2:
+      return launch_mid_gather_cpt<E, 2>(xe, ye, ie, K, blocks, threads,
+                                          stream);
+    case 4:
+      return launch_mid_gather_cpt<E, 4>(xe, ye, ie, K, blocks, threads,
+                                          stream);
+    case 8:
+      return launch_mid_gather_cpt<E, 8>(xe, ye, ie, K, blocks, threads,
+                                          stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename E>
 cudaError_t launch_outer(const void* x, void* y, const void* words,
                          long long n_elems, int K, const StageList& st,
@@ -197,6 +310,22 @@ int benes_mid(const void* x, void* y, const void* words,
     return launch_mid<uint32_t>(x, y, words, plane_stride, n_elems, K, st, s);
   if (elem_bytes == 2)
     return launch_mid<uint16_t>(x, y, words, plane_stride, n_elems, K, st, s);
+  return cudaErrorInvalidValue;
+}
+
+// The middle pass as a gather inside each 2^K tile (2 <= 2^K <= 65536):
+// y[i] = x[(i & ~(2^K - 1)) + idx[i]], idx: (n_elems,) unsigned 16-bit
+// tile-local positions.  x, y and idx 16-byte aligned; y may be x.
+// Returns the CUDA error of the launch.
+int benes_mid_gather(const void* x, void* y, const void* idx,
+                     long long n_elems, int K, int elem_bytes, void* stream) {
+  const int n = log2_exact(n_elems);
+  if (n < 1 || K < 1 || K > n || K > 16) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_bytes == 4)
+    return launch_mid_gather<uint32_t>(x, y, idx, n_elems, K, s);
+  if (elem_bytes == 2)
+    return launch_mid_gather<uint16_t>(x, y, idx, n_elems, K, s);
   return cudaErrorInvalidValue;
 }
 

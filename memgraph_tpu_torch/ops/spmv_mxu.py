@@ -9,7 +9,8 @@ mult(edge)`` is computed with no data-dependent addressing on the device:
                 per-slot `mult` (weight / out-weight-sum, 0 on padding).
   2. PERMUTE  — a Benes network moves every edge slot from its
                 gather-layout position to its scatter-layout position
-                (ops/benes_cuda.py: hand-written CUDA kernels on the card).
+                (ops/benes_cuda.py: hand-written CUDA kernels on the card;
+                the middle stages run as one placed tile-local gather).
   3. REDUCE + EXTRACT — scatter layout keeps each destination's edges
                 contiguous within its lane (lane == dst & 127, runs
                 aligned per dst-row); a full-run one-hot matmul per chunk
@@ -40,7 +41,7 @@ import torch
 
 from ..device import resolve_device
 from .benes import route_packed
-from .benes_cuda import K_BY_DTYPE, benes_apply, build_masks
+from .benes_cuda import K_BY_DTYPE, benes_apply, build_masks, compose_mid
 from .semiring import pagerank_update
 
 LANES = 128
@@ -383,9 +384,13 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def put_route(masks_packed, net_log2, dtype):
+        """(mid_idx, outer words, spec): the middle stages composed on the
+        device into one tile-local index; their mask planes (64 MB for
+        the f32 edge net) are not kept."""
         spec, mid, out = build_masks(masks_packed, net_log2,
                                      K_BY_DTYPE[dtype])
-        return put(mid), None if out is None else put(out), spec
+        return (compose_mid(put(mid), spec),
+                None if out is None else put(out), spec)
 
     big = put_route(plan.masks_packed, plan.net_log2, route_dtype)
     node = put_route(plan.node_masks_packed, plan.node_net_log2,

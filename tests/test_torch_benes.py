@@ -42,7 +42,7 @@ def _port_apply(x, packed, n, K, dtype):
     shape = (-1, 128) if x.size >= 128 else (-1,)
     got = BC.benes_apply(
         torch.from_numpy(x).to(_TDT[dtype]).reshape(shape),
-        torch.from_numpy(midw),
+        BC.compose_mid(torch.from_numpy(midw), spec),
         None if outw is None else torch.from_numpy(outw), spec)
     return got.to(torch.float32).numpy().reshape(-1), spec
 
@@ -130,13 +130,14 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     BC.reset_launch_counts()
     want = BC.benes_apply_reference(x, torch.from_numpy(mid),
                                     torch.from_numpy(out), spec)
-    got = BC.benes_apply(x, torch.from_numpy(mid), torch.from_numpy(out),
-                         spec)
+    mid_idx = BC.compose_mid(torch.from_numpy(mid), spec)
+    got = BC.benes_apply(x, mid_idx, torch.from_numpy(out), spec)
     assert torch.equal(got, want)
     # the plain version launches nothing
-    assert BC.benes_mid.launches == 0 and BC.benes_outer.launches == 0
+    assert (BC.benes_mid.launches, BC.benes_mid_gather.launches,
+            BC.benes_outer.launches) == (0, 0, 0)
     with pytest.raises(ValueError):
-        BC.benes_apply(x.to("meta"), torch.from_numpy(mid).to("meta"),
+        BC.benes_apply(x.to("meta"), mid_idx.to("meta"),
                        torch.from_numpy(out).to("meta"), spec)
 
 
