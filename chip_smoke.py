@@ -10,14 +10,17 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    the host Benes router (g++), timed.
 2. Benes kernels against their plain PyTorch versions on the card:
    random permutations routed by the port's router at n = 7, 12, 16, 20,
-   24 slots (log2), in f32 and bf16, plus the identity permutation (every
-   stage dead).  Each network's middle stages are composed on the card
-   (``compose_mid``: one ``benes_mid`` launch) into the index that
-   ``benes_mid_gather`` applies; the index must equal the CPU
-   composition, and the kernels' ``benes_apply`` the stage-by-stage plain
-   network.  Bit-exact; the launch counters must move.  At n = 20 and 24:
-   each kernel against its plain version, and kernel, plain-version, bound
-   and gather (``x[perm]``) times.
+   24 slots (log2), in f32 and bf16, plus two small-K networks (n = 20,
+   K = 8: 4096 rows; n = 16, K = 1: 2^15 rows) and the identity
+   permutation (every stage dead).  Each network is placed on the card:
+   its middle stages composed (``compose_mid``: one ``benes_mid`` launch)
+   into the index that ``benes_mid_gather`` applies, each outer side
+   (``compose_outer``: one ``benes_outer`` launch per live side) into the
+   row index that ``benes_outer_gather`` applies; both indices must equal
+   the CPU composition, and the kernels' ``benes_apply`` the
+   stage-by-stage plain network.  Bit-exact; the launch counters must
+   move.  At n = 20 and 24: each kernel against its plain version, and
+   kernel, plain-version, bound and gather (``x[perm]``) times.
 3. Microbenchmark kernels (``memgraph_tpu_torch/benchmarks/micro*.py``,
    ``ops/csrc/micro.cu``): the three entry points run at the JAX module's
    sizes with the launch counters reset just before and read just after
@@ -42,7 +45,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    against a float64 scipy power iteration; bf16 against f32 inside
    ``PRECISION_BOUNDS["bf16"]``.  Each kernel is then held against its
    plain version on the main path's own networks and timed there (the
-   stage kernel ``benes_mid`` fed the same masks that were composed).
+   stage kernels ``benes_mid`` and ``benes_outer``, which run only at
+   placement, fed the same masks that were composed).
 5. A JSON line of kernels ({"kernels": [...]}), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +80,9 @@ ITERATIONS = 50
 DAMPING = 0.85
 BENES_SIZES = (7, 12, 16, 20, 24)
 TIMED_SIZES = (20, 24)
+# networks of n slots (log2) placed at a small K besides their dtype's K:
+# many more rows (2^(n-K)) than the main path's for the outer gather
+SMALL_K = {16: 1, 20: 8}
 
 # f32 against float64 after 50 iterations: each rank is a sum of up to
 # ~thousands of f32 products per iteration, whose rounding (2^-24
@@ -170,10 +177,12 @@ def same_bits(a, b) -> bool:
     return torch.equal(bits(a), bits(b))
 
 
-def place(masks_packed, n, dtype):
+def place(masks_packed, n, dtype, K=None):
+    """(mid words, outer words, spec) on the card, at the dtype's K or K."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    spec, mid, out = BC.build_masks(masks_packed, n, BC.K_BY_DTYPE[dtype])
+    spec, mid, out = BC.build_masks(masks_packed, n,
+                                    K or BC.K_BY_DTYPE[dtype])
     return (torch.from_numpy(mid).cuda(),
             None if out is None else torch.from_numpy(out).cuda(), spec)
 
@@ -193,6 +202,24 @@ def composed(mid_words, spec):
     return mid_idx
 
 
+def composed_outer(outer_words, spec):
+    """compose_outer on the card (the stage kernel, once per live side),
+    held against the CPU composition; None where the net fits one tile."""
+    import torch
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    if outer_words is None:
+        return None
+    before = BC.benes_outer.launches
+    outer_idx = BC.compose_outer(outer_words, spec)
+    want = BC.compose_outer(outer_words.cpu(), spec)
+    check(torch.equal(outer_idx.cpu(), want)
+          and BC.benes_outer.launches - before
+          == BC.launches_per_placement(spec)["benes_outer"],
+          f"compose_outer on the card != CPU composition at "
+          f"n={spec.net_log2} K={spec.K}")
+    return outer_idx
+
+
 def random_values(N, dtype, seed):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -200,14 +227,16 @@ def random_values(N, dtype, seed):
     return x.view(-1, 128) if N >= 128 else x
 
 
-def measure_kernels(x, mid_words, route, reps: int) -> dict:
+def measure_kernels(x, masks, route, reps: int) -> dict:
     """Each kernel of one network against its plain version on x: exact
     check, then kernel / plain / bound / gather times per launch.  route:
-    (mid_idx, outer words, spec); mid_words: the masks mid_idx was
-    composed from, which feed the stage kernel benes_mid."""
+    (mid_idx, outer_idx, spec); masks: (mid words, outer words), the masks
+    the indices were composed from, which feed the stage kernels benes_mid
+    and benes_outer (placement)."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    mid_idx, out, spec = route
+    mid_idx, outer_idx, spec = route
+    mid_words, outer_words = masks
     N, e = x.numel(), x.element_size()
     iota = torch.arange(N, device="cuda", dtype=torch.int64)
     res = {}
@@ -221,12 +250,17 @@ def measure_kernels(x, mid_words, route, reps: int) -> dict:
               2 * N * e + spec.mid_planes * N * 4,
               len(spec.mid_stages) * N, live)]
     if spec.outer_down:
-        cases.append(("benes_outer",
-                      lambda v: BC.benes_outer(v, out, spec.outer_down,
-                                               spec),
-                      lambda v: BC.benes_outer_reference(
-                          v, out, spec.outer_down),
-                      2 * N * e + N * 4, len(spec.outer_down) * N, True))
+        down = outer_idx[0]
+        cases += [("benes_outer_gather",
+                   lambda v: BC.benes_outer_gather(v, down, spec),
+                   lambda v: BC.benes_outer_gather_reference(v, down, spec),
+                   2 * N * e + 2 * N, N, True),
+                  ("benes_outer",
+                   lambda v: BC.benes_outer(v, outer_words, spec.outer_down,
+                                            spec),
+                   lambda v: BC.benes_outer_reference(
+                       v, outer_words, spec.outer_down),
+                   2 * N * e + N * 4, len(spec.outer_down) * N, True)]
     for name, kern, plain, n_bytes, n_ops, live in cases:
         if not live:
             continue
@@ -253,51 +287,67 @@ def counts() -> dict:
     from memgraph_tpu_torch.ops import benes_cuda as BC
     return {"benes_mid": BC.benes_mid.launches,
             "benes_mid_gather": BC.benes_mid_gather.launches,
-            "benes_outer": BC.benes_outer.launches}
+            "benes_outer": BC.benes_outer.launches,
+            "benes_outer_gather": BC.benes_outer_gather.launches}
+
+
+def hold_network(packed, n, dtype, K=None, timed=False, route_s=0.0):
+    """Place one routed network on the card (both indices held against
+    the CPU composition), apply it with the kernels against the
+    stage-by-stage plain network, check the counters, optionally time."""
+    import torch
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    N = 1 << n
+    mid, out, spec = place(packed, n, dtype, K)
+    mid_idx = composed(mid, spec)
+    outer_idx = composed_outer(out, spec)
+    x = random_values(N, dtype, seed=n)
+    before = counts()
+    got = BC.benes_apply(x, mid_idx, outer_idx, spec)
+    want = BC.benes_apply_reference(x, mid, out, spec)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in counts().items()}
+    per = BC.launches_per_apply(spec)
+    check(same_bits(got, want),
+          f"benes_apply != plain at n={n} K={spec.K} {dtype}")
+    check(moved == dict(per, benes_mid=0, benes_outer=0)
+          and moved["benes_mid_gather"] == 1
+          and moved["benes_outer_gather"] == (2 if n > spec.K else 0),
+          f"launch counters moved {moved} at n={n} K={spec.K} {dtype}")
+    line = {"n": n, "dtype": str(dtype), "K": spec.K,
+            "route_s": route_s, "exact": True, "launches": moved}
+    if timed:
+        # values in and out, plus each pass's 2-byte index
+        apply_bytes = 2 * N * x.element_size() + 2 * N * sum(per.values())
+        line["apply_ms"] = device_ms(
+            lambda: BC.benes_apply(x, mid_idx, outer_idx, spec), 20)
+        line["apply_plain_ms"] = device_ms(
+            lambda: BC.benes_apply_reference(x, mid, out, spec), 3)
+        line["apply_bound_ms"] = apply_bytes / PEAK_BYTES_PER_S * 1e3
+        perm = BC.benes_apply_reference(
+            torch.arange(N, device="cuda"), mid, out, spec)
+        flat = x.view(-1)
+        line["apply_library_ms"] = device_ms(lambda: flat[perm], 20)
+        line["kernels"] = measure_kernels(x, (mid, out),
+                                          (mid_idx, outer_idx, spec), 20)
+    print("benes", json.dumps(line), flush=True)
 
 
 def phase_benes():
-    """Random and identity permutations through both kernels."""
+    """Random and identity permutations through the kernels."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     from memgraph_tpu_torch.ops.benes import route_packed
     for n in BENES_SIZES:
-        N = 1 << n
         t0 = time.perf_counter()
-        packed = route_packed(np.random.default_rng(100 + n).permutation(N))
+        packed = route_packed(np.random.default_rng(100 + n).permutation(
+            1 << n))
         route_s = time.perf_counter() - t0
         for dtype in (torch.float32, torch.bfloat16):
-            mid, out, spec = place(packed, n, dtype)
-            mid_idx = composed(mid, spec)
-            x = random_values(N, dtype, seed=n)
-            before = counts()
-            got = BC.benes_apply(x, mid_idx, out, spec)
-            want = BC.benes_apply_reference(x, mid, out, spec)
-            torch.cuda.synchronize()
-            moved = {k: v - before[k] for k, v in counts().items()}
-            per = BC.launches_per_apply(spec)
-            check(same_bits(got, want),
-                  f"benes_apply != plain at n={n} {dtype}")
-            check(moved == dict(per, benes_mid=0)
-                  and moved["benes_mid_gather"] == 1,
-                  f"launch counters moved {moved} at n={n} {dtype}")
-            line = {"n": n, "dtype": str(dtype), "K": spec.K,
-                    "route_s": route_s, "exact": True, "launches": moved}
-            if n in TIMED_SIZES:
-                apply_bytes = (2 * N * x.element_size() + 2 * N
-                               + (N * 4 if out is not None else 0))
-                line["apply_ms"] = device_ms(
-                    lambda: BC.benes_apply(x, mid_idx, out, spec), 20)
-                line["apply_plain_ms"] = device_ms(
-                    lambda: BC.benes_apply_reference(x, mid, out, spec), 3)
-                line["apply_bound_ms"] = apply_bytes / PEAK_BYTES_PER_S * 1e3
-                perm = BC.benes_apply_reference(
-                    torch.arange(N, device="cuda"), mid, out, spec)
-                flat = x.view(-1)
-                line["apply_library_ms"] = device_ms(lambda: flat[perm], 20)
-                line["kernels"] = measure_kernels(x, mid,
-                                                  (mid_idx, out, spec), 20)
-            print("benes", json.dumps(line), flush=True)
+            hold_network(packed, n, dtype, timed=n in TIMED_SIZES,
+                         route_s=route_s)
+            if n in SMALL_K:
+                hold_network(packed, n, dtype, K=SMALL_K[n])
     # identity: every stage dead, nothing launched, x comes back as is
     n = 16
     packed = route_packed(np.arange(1 << n))
@@ -308,7 +358,11 @@ def phase_benes():
         x = random_values(1 << n, dtype, seed=1)
         before = counts()
         mid_idx = composed(mid, spec)
-        got = BC.benes_apply(x, mid_idx, out, spec)
+        outer_idx = composed_outer(out, spec)
+        rows = torch.arange(1 << n, device="cuda") >> spec.K
+        check(outer_idx is None or bool((outer_idx == rows).all()),
+              f"identity route's outer index is not the iota at {dtype}")
+        got = BC.benes_apply(x, mid_idx, outer_idx, spec)
         check(same_bits(got, x) and before == counts(),
               f"identity route changed x or launched at {dtype}")
     print("benes identity exact, no launches", flush=True)
@@ -679,13 +733,24 @@ def phase_main_path():
     state = graph._mxu_state
     plan = state["plan"]
     runs = {p: run for (_, p), run in state["runs"].items()}
-    expected = {"benes_mid": 0, "benes_mid_gather": 0, "benes_outer": 0}
-    for run in runs.values():
+    expected = dict.fromkeys(launches, 0)
+    for p, run in runs.items():
+        per_iteration = dict.fromkeys(("benes_mid_gather",
+                                       "benes_outer_gather"), 0)
+        per_placement = dict.fromkeys(("benes_mid", "benes_outer"), 0)
         for route in run.routes.values():
-            # placement (in the cold run): compose_mid, one stage launch
-            expected["benes_mid"] += int(bool(route[2].mid_stages))
             for k, v in BC.launches_per_apply(route[2]).items():
-                expected[k] += 2 * ITERATIONS * v   # cold + warm run
+                per_iteration[k] += v
+            for k, v in BC.launches_per_placement(route[2]).items():
+                per_placement[k] += v
+        check(per_iteration == {"benes_mid_gather": 2,
+                                "benes_outer_gather": 4}
+              and per_placement == {"benes_mid": 2, "benes_outer": 4},
+              f"{p} plan launches {per_iteration} an iteration and "
+              f"{per_placement} a placement")
+        expected = {k: v + 2 * ITERATIONS * per_iteration.get(k, 0)
+                    + per_placement.get(k, 0)      # placed in the cold run
+                    for k, v in expected.items()}
     check(it32 == it16 == it32w == it16w == ITERATIONS,
           f"iterations {it32}/{it16}/{it32w}/{it16w} != {ITERATIONS}")
     check(launches == expected,
@@ -741,13 +806,15 @@ def phase_main_path():
              plan.node_masks_packed)):
         dtype = torch.bfloat16 if label == "edge_bf16" else torch.float32
         spec = route[2]
-        # the masks the placement composed (it kept only mid_idx)
-        mid, _, spec2 = place(packed, spec.net_log2, dtype)
-        check(spec2 == spec and torch.equal(route[0], composed(mid, spec)),
-              f"placed index of the {label} net != its masks' composition")
+        # the masks the placement composed (it kept only the indices)
+        mid, out, spec2 = place(packed, spec.net_log2, dtype)
+        check(spec2 == spec and torch.equal(route[0], composed(mid, spec))
+              and torch.equal(route[1], composed_outer(out, spec)),
+              f"placed indices of the {label} net != its masks' "
+              "composition")
         x = random_values(1 << spec.net_log2, dtype, seed=3)
-        shapes[label] = measure_kernels(x, mid, route, 20)
-        del mid
+        shapes[label] = measure_kernels(x, (mid, out), route, 20)
+        del mid, out
         print("main_path_kernels", label, json.dumps(shapes[label]),
               flush=True)
     return launches, shapes
@@ -775,13 +842,17 @@ def main():
 
     replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
                 "benes_mid": "memgraph_tpu/ops/benes_pallas.py:225",
+                "benes_outer_gather": "memgraph_tpu/ops/benes_pallas.py:208",
                 "benes_outer": "memgraph_tpu/ops/benes_pallas.py:208"}
     roles = {"benes_mid_gather": "middle pass, twice per iteration",
              "benes_mid": "placement: composes the middle stages into "
                           "mid_idx, once per network and placement",
-             "benes_outer": "outer passes, four times per iteration"}
+             "benes_outer_gather": "outer passes, four times per iteration",
+             "benes_outer": "placement: composes each outer side into "
+                            "outer_idx, twice per network and placement"}
     kernels = []
-    for name in ("benes_mid_gather", "benes_mid", "benes_outer"):
+    for name in ("benes_mid_gather", "benes_mid", "benes_outer_gather",
+                 "benes_outer"):
         main = shapes["edge_f32"][name]
         kernels.append({
             "name": name, "route": "cuda",

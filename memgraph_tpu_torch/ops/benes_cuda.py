@@ -7,15 +7,20 @@ d = N/2 ... 2, 1, 2 ... N/2.  Every stage with d < 2^K acts inside aligned
 2^K-element tiles, and those stages are contiguous in the middle of the
 schedule, so the network runs as three passes:
 
-  outer-down  stages d = 2^(n-1) .. 2^K   (benes_outer)
+  outer-down  stages d = 2^(n-1) .. 2^K   (benes_outer_gather)
   middle      all stages with d < 2^K     (benes_mid_gather)
-  outer-up    stages d = 2^K .. 2^(n-1)   (benes_outer)
+  outer-up    stages d = 2^K .. 2^(n-1)   (benes_outer_gather)
 
-For a given plan the middle pass is one fixed permutation inside each
-aligned 2^K tile.  ``compose_mid`` composes its stages once per plan (on
-the card with the stage kernel ``benes_mid``) into ``mid_idx``: for every
-slot, the tile-local position it takes its value from.  ``benes_apply``
-then runs the middle pass as one gather in shared memory.
+For a given plan each pass is one fixed permutation, so placement composes
+its stages once (on the card with the stage kernels ``benes_mid`` and
+``benes_outer``) and every iteration applies it as one gather in shared
+memory:
+
+  ``compose_mid``   -> ``mid_idx``: for every slot, the position inside
+                       its aligned 2^K tile it takes its value from;
+  ``compose_outer`` -> ``outer_idx`` (2, N): per side, the row of the
+                       (2^(n-K), 2^K) view it takes its value from (outer
+                       stages exchange rows within a column).
 
 Masks are per-element int32 bit-planes: bit b of word[plane, i] is stage
 (plane*31+b)'s swap decision for element i.  The middle stages fill as
@@ -25,10 +30,11 @@ K is the tile size of the middle pass: a tile lives in one block's shared
 memory on the card, so 2^K values must fit in it (K = 15 for f32, 16 for
 bf16: 128 KB either way).  The permutation does not depend on K.
 
-``benes_mid`` / ``benes_mid_gather`` / ``benes_outer`` / ``benes_apply`` are
-the wrappers: a CUDA tensor goes to the kernels of ``csrc/benes.cu`` (and
-the kernel's ``launches`` count goes up by one), a CPU tensor to the plain
-version, any other device raises.
+``benes_mid`` / ``benes_mid_gather`` / ``benes_outer`` /
+``benes_outer_gather`` / ``benes_apply`` are the wrappers: a CUDA tensor
+goes to the kernels of ``csrc/benes.cu`` (and the kernel's ``launches``
+count goes up by one), a CPU tensor to the plain version, any other device
+raises.
 """
 
 from __future__ import annotations
@@ -152,6 +158,14 @@ def benes_outer_reference(x, outer_words, stages):
     return _apply_stages(x, outer_words.reshape(1, -1), stages)
 
 
+def benes_outer_gather_reference(x, outer_idx, spec: BenesSpec):
+    """x[outer_idx[g, c], c] for every slot (g, c) of the (2^(n-K), 2^K)
+    view; outer_idx: one side's (N,) int16 row index (rows < 2^15)."""
+    M = 1 << spec.K
+    src = outer_idx.reshape(-1, M).to(torch.int64)
+    return x.reshape(-1, M).gather(0, src).view(x.shape)
+
+
 def benes_apply_reference(x, mid_words, outer_words, spec: BenesSpec):
     """The whole network in plain PyTorch, stage by stage (from the mask
     words: ``benes_apply``'s oracle covers the composition too)."""
@@ -180,6 +194,8 @@ def _lib():
     lib.benes_mid_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.benes_outer.restype = i32
     lib.benes_outer.argtypes = [vp, vp, vp, i64, i32, i32, ip, i32, vp]
+    lib.benes_outer_gather.restype = i32
+    lib.benes_outer_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.benes_error_string.restype = ctypes.c_char_p
     lib.benes_error_string.argtypes = [i32]
     return lib
@@ -301,7 +317,7 @@ def compose_mid(mid_words, spec: BenesSpec):
 def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
     """One side's outer stages.  CUDA: one launch of ``benes_outer``;
     writes into ``out`` (may be ``x``) or a new tensor.  CPU: plain
-    version."""
+    version.  Runs at placement only (``compose_outer``)."""
     y = _target(x, out)
     if y is None:
         res = benes_outer_reference(x, outer_words, stages)
@@ -319,32 +335,98 @@ def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
 benes_outer.launches = 0
 
 
+def benes_outer_gather(x, outer_idx, spec: BenesSpec, out=None):
+    """One side's outer pass as a gather by its placed row index (a row of
+    ``compose_outer``'s result).  CUDA: one launch of
+    ``benes_outer_gather``; writes into ``out`` (may be ``x`` itself) or a
+    new tensor.  CPU: plain version."""
+    y = _target(x, out)
+    if y is None:
+        res = benes_outer_gather_reference(x, outer_idx, spec)
+        return res if out is None else out.copy_(res)
+    _check(x, outer_idx, spec, 1, dtype=torch.int16)
+    if y.numel() != x.numel() or y.dtype != x.dtype or not y.is_contiguous():
+        raise ValueError("out must be a contiguous tensor like x")
+    # 16-byte copies wherever a row of the (2^(n-K), 2^K) view has 16 bytes
+    align = 16 if x.element_size() << spec.K >= 16 else 4
+    if any(t.data_ptr() % align for t in (x, y, outer_idx)):
+        raise ValueError(f"benes_outer_gather moves {align}-byte vectors: x, "
+                         f"out and outer_idx must be {align}-byte aligned")
+    rc = _lib().benes_outer_gather(
+        x.data_ptr(), y.data_ptr(), outer_idx.data_ptr(), 1 << spec.net_log2,
+        spec.K, x.element_size(), _stream(x))
+    _raise_on(rc, "benes_outer_gather")
+    benes_outer_gather.launches += 1
+    return y
+
+
+benes_outer_gather.launches = 0
+
+
+def compose_outer(outer_words, spec: BenesSpec):
+    """Each side's outer stages composed into one row index, once per
+    plan: a (2, N) int16 tensor on outer_words' device, row 0 the down
+    side and row 1 the up side, whose slot g·2^K + c holds the row that
+    slot (g, c) of the (2^(n-K), 2^K) view takes its value from in that
+    side's pass (the column is always c; rows < 2^15).
+
+    The stages are applied to an iota of rows (``i >> K``), moved as raw
+    16-bit words: on the card by the stage kernel ``benes_outer`` (one
+    launch per live side), on the CPU by the plain ``_apply_stages``.  A
+    side with no live stage launches nothing and gets the iota."""
+    N = 1 << spec.net_log2
+    dev = outer_words.device
+    rows = (torch.arange(N, dtype=torch.int32, device=dev)
+            >> spec.K).to(torch.int16)
+    idx = rows.repeat(2, 1)
+    for side, stages in enumerate((spec.outer_down, spec.outer_up)):
+        if not stages:
+            continue
+        if dev.type == "cpu":
+            idx[side] = _apply_stages(rows, outer_words.reshape(1, -1),
+                                      stages)
+        else:
+            benes_outer(rows.view(torch.bfloat16), outer_words, stages, spec,
+                        out=idx[side].view(torch.bfloat16))
+    return idx
+
+
 def reset_launch_counts():
     benes_mid.launches = 0
     benes_mid_gather.launches = 0
     benes_outer.launches = 0
+    benes_outer_gather.launches = 0
+
+
+def _outer_sides(spec: BenesSpec) -> int:
+    return int(bool(spec.outer_down)) + int(bool(spec.outer_up))
 
 
 def launches_per_apply(spec: BenesSpec) -> dict:
-    """Kernel launches one ``benes_apply`` of this network makes (its
-    ``compose_mid`` at placement adds one ``benes_mid`` when the network
-    has a live middle stage)."""
+    """Kernel launches one ``benes_apply`` of this network makes."""
     return {"benes_mid_gather": int(bool(spec.mid_stages)),
-            "benes_outer": int(bool(spec.outer_down))
-            + int(bool(spec.outer_up))}
+            "benes_outer_gather": _outer_sides(spec)}
 
 
-def benes_apply(x2, mid_idx, outer_words, spec: BenesSpec):
+def launches_per_placement(spec: BenesSpec) -> dict:
+    """Stage-kernel launches placing this network makes (``compose_mid``
+    and ``compose_outer``)."""
+    return {"benes_mid": int(bool(spec.mid_stages)),
+            "benes_outer": _outer_sides(spec)}
+
+
+def benes_apply(x2, mid_idx, outer_idx, spec: BenesSpec):
     """Apply the network to x2 (the (N/128, 128) layout, or flat when
-    N < 128; f32 or bf16); mid_idx from ``compose_mid``.  Returns a new
+    N < 128; f32 or bf16); mid_idx from ``compose_mid``, outer_idx from
+    ``compose_outer`` (None when the net fits one tile).  Returns a new
     tensor, or x2 itself when every stage is dead."""
     y = x2
     if spec.outer_down:
-        y = benes_outer(y, outer_words, spec.outer_down, spec)
+        y = benes_outer_gather(y, outer_idx[0], spec)
     if spec.mid_stages:
         y = benes_mid_gather(y, mid_idx, spec,
                              out=None if y is x2 else y)
     if spec.outer_up:
-        y = benes_outer(y, outer_words, spec.outer_up, spec,
-                        out=None if y is x2 else y)
+        y = benes_outer_gather(y, outer_idx[1], spec,
+                               out=None if y is x2 else y)
     return y

@@ -2,11 +2,12 @@
 // ctypes (memgraph_tpu_torch/ops/benes_cuda.py binds and checks them).
 //
 // Replaces the two Pallas TPU kernels of memgraph_tpu/ops/benes_pallas.py:
-//   benes_mid_gather <- _mid_kernel   (benes_pallas.py:138, launched at :225)
-//   benes_outer      <- _outer_kernel (benes_pallas.py:155, launched at :208)
-// benes_mid, the middle stages as masked exchanges (the TPU kernel's own
-// form), runs once per plan: it composes the stages into the index that
-// benes_mid_gather then applies every iteration.
+//   benes_mid_gather   <- _mid_kernel   (benes_pallas.py:138, launched at :225)
+//   benes_outer_gather <- _outer_kernel (benes_pallas.py:155, launched at :208)
+// The stage kernels benes_mid and benes_outer, the passes as masked
+// exchanges (the TPU kernels' own form), now run only at placement, once
+// per plan: they compose the stages into the indices that the two gathers
+// then apply every iteration.
 //
 // benes_mid_gather: the middle stages all act inside aligned 2^K tiles,
 // so for a given plan the pass is one fixed permutation inside each tile.
@@ -20,8 +21,29 @@
 // The indices are loaded before the barrier, so their latency overlaps
 // the tile's.
 //
-// benes_mid / benes_outer: for every live stage (plane, bit, d) in order,
-// each position i does  x[i] <- ((word[i] >> bit) & 1) ? x[i ^ d] : x[i].
+// benes_outer_gather: one side's outer stages (d >= 2^K) only exchange
+// rows g <-> g ^ (d >> K) of the (R = 2^(n-K), 2^K) view, each within its
+// column, so for a given plan the pass is, per column c, one fixed
+// permutation of the R rows: y[g, c] = x[idx[g, c], c], idx a row
+// (n-K <= 15: int16 storage, never negative).  The TPU ran the stages as
+// masked rolls along the row axis of a VMEM block, a mask word re-read at
+// every stage; Hopper's shared memory gathers at any row instead.  A block
+// owns CH consecutive columns across all R rows: it starts a cp.async of
+// 16 bytes for every 16 bytes of its R row segments (all in flight at
+// once, not staged through registers), loads the row indices of its
+// output words into registers meanwhile, waits, passes ONE barrier and
+// gathers.  A warp takes 32 consecutive 4-byte words of one output row
+// (f32: a column a lane; bf16: two columns a lane, their two indices read
+// as one 32-bit word), so its shared reads of s[src][c] fall in bank
+// c mod 32 whatever src is: no bank conflicts and no padding once a row
+// segment has 128 bytes.  CH is chosen per launch: 128-byte row segments,
+// at most 64 KB a block (three blocks share an SM) and, where the net is
+// large enough, at least two waves of blocks on 132 SMs.  It is bound by
+// bytes: read x and write y (2·N·e) plus the index (2·N).
+//
+// benes_mid / benes_outer (placement): for every live stage (plane, bit,
+// d) in order, each position i does
+// x[i] <- ((word[i] >> bit) & 1) ? x[i ^ d] : x[i].
 // The routed masks are symmetric (word bit of i == word bit of i ^ d), so
 // one thread owns each pair (j, j + d) with bit d of j clear, reads ONE
 // mask word and swaps the pair in shared memory: no second buffer, and
@@ -29,23 +51,15 @@
 // inside aligned 2^K-element tiles (benes_mid: one block per tile);
 // stages with d >= 2^K exchange rows g <-> g ^ (d >> K) of the
 // (2^(n-K), 2^K) view (benes_outer: a block owns CH columns across all
-// rows).  Values are moved as raw 16- or 32-bit words, so bf16 and f32
-// are exact by construction.
+// rows).  Placement runs them on an iota of tile-local positions (mid) or
+// of rows (outer), moved as raw 16-bit words.  Per launch they read x,
+// write y (2·N·e) and read the mask planes (planes·N·4); mask words are
+// re-read from L1/L2 at each stage.
 //
-// What bounds those two: memory traffic.  Per launch, with e bytes a value:
-//   benes_mid:   read x + write y (2·N·e) + read the mid planes (planes·N·4)
-//                (once per plan, on the iota of tile-local positions)
-//   benes_outer: read x + write y (2·N·e) + read the outer plane (N·4)
-// There is no arithmetic to speak of.  The design reads and writes every
-// value once per launch, holding a whole tile (or column chunk) in shared
-// memory through all of the launch's stages, so the 2K-1 middle stages
-// cost one round trip instead of 2K-1.  Mask words are re-read from
-// L1/L2 at each stage (the first read of a tile's words comes from
-// device memory); fewer mask bits, TMA and wider loads are later work.
-//
-// x and y may be the same buffer: each block reads its whole region into
-// shared memory before it writes any of it, and no two blocks share a
-// region.
+// Values are moved as raw 16- or 32-bit words, so bf16 and f32 are exact
+// by construction.  x and y may be the same buffer: each block reads its
+// whole region (tile or column chunk) into shared memory before it writes
+// any of it, and no two blocks share a region.
 
 #include <cuda_runtime.h>
 
@@ -188,6 +202,85 @@ __global__ void benes_outer_kernel(const E* x, E* y,
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// WPT: 4-byte output words a thread; their row indices stay in registers
+// from before the barrier to the gather.  The block's chunk: columns
+// [blockIdx.x·CH, +CH) of all 2^r_log rows, CH = 2^ch_log.
+template <typename E, int WPT>
+__global__ void __launch_bounds__(512)
+    benes_outer_gather_kernel(const E* x, E* y,
+                              const uint16_t* __restrict__ idx, int K,
+                              int r_log, int ch_log) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kColsPerWord = 4 / static_cast<int>(sizeof(E));
+  const int seg_log = ch_log + (sizeof(E) == 4 ? 2 : 1);   // row segment B
+  const int w_log = seg_log - 2;                           // its words
+  const long long c0 = static_cast<long long>(blockIdx.x) << ch_log;
+  // 1. the chunk into shared memory, s[g·CH + c]: 16-byte cp.async where
+  //    a row segment has 16 bytes, else 4-byte words
+  if (seg_log >= 4) {
+    const int v_log = seg_log - 4;
+    const int n_vec = 1 << (r_log + v_log);
+    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) {
+      const long long g = v >> v_log;
+      const int j = v & ((1 << v_log) - 1);
+      cp_async16(smem_raw + (static_cast<size_t>(v) << 4),
+                 reinterpret_cast<const unsigned char*>(x + (g << K) + c0) +
+                     (j << 4));
+    }
+  } else {
+    uint32_t* sw = reinterpret_cast<uint32_t*>(smem_raw);
+    const int n_w = 1 << (r_log + w_log);
+    for (int v = threadIdx.x; v < n_w; v += blockDim.x) {
+      const long long g = v >> w_log;
+      sw[v] = reinterpret_cast<const uint32_t*>(x + (g << K) + c0)
+          [v & ((1 << w_log) - 1)];
+    }
+  }
+  // 2. meanwhile, the row indices of this thread's output words
+  uint32_t p[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int w = threadIdx.x + k * blockDim.x;
+    const long long g = w >> w_log;
+    const uint16_t* ip =
+        idx + (g << K) + c0 + (w & ((1 << w_log) - 1)) * kColsPerWord;
+    if constexpr (kColsPerWord == 1)
+      p[k] = __ldg(ip);
+    else
+      p[k] = __ldg(reinterpret_cast<const unsigned int*>(ip));
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // 3. gather and store a 4-byte word a lane
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int w = threadIdx.x + k * blockDim.x;
+    const long long g = w >> w_log;
+    const int j = w & ((1 << w_log) - 1);
+    uint32_t v;
+    if constexpr (kColsPerWord == 1) {
+      v = reinterpret_cast<const uint32_t*>(smem_raw)[(p[k] << ch_log) + j];
+    } else {
+      const uint16_t* s = reinterpret_cast<const uint16_t*>(smem_raw);
+      v = static_cast<uint32_t>(s[((p[k] & 0xffffu) << ch_log) + 2 * j]) |
+          static_cast<uint32_t>(s[((p[k] >> 16) << ch_log) + 2 * j + 1])
+              << 16;
+    }
+    reinterpret_cast<uint32_t*>(y + (g << K) + c0)[j] = v;
+  }
+}
+
 int log2_exact(long long v) {
   int r = 0;
   while ((1LL << r) < v) ++r;
@@ -289,6 +382,72 @@ cudaError_t launch_outer(const void* x, void* y, const void* words,
   return cudaGetLastError();
 }
 
+// Two waves of blocks on an H100 SXM's 132 SMs.
+constexpr long long kMinBlocks = 264;
+
+template <typename E, int WPT>
+cudaError_t launch_outer_gather_wpt(const E* x, E* y, const uint16_t* idx,
+                                    int K, int r_log, int ch_log, int threads,
+                                    cudaStream_t stream) {
+  const size_t smem = sizeof(E) << (r_log + ch_log);
+  cudaError_t err = cudaFuncSetAttribute(
+      benes_outer_gather_kernel<E, WPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = 1u << (K - ch_log);
+  benes_outer_gather_kernel<E, WPT><<<blocks, threads, smem, stream>>>(
+      x, y, idx, K, r_log, ch_log);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_outer_gather(const void* x, void* y, const void* idx,
+                                long long n_elems, int K,
+                                cudaStream_t stream) {
+  const E* xe = static_cast<const E*>(x);
+  E* ye = static_cast<E*>(y);
+  const uint16_t* ie = static_cast<const uint16_t*>(idx);
+  const int r_log = log2_exact(n_elems) - K;
+  const int e_log = sizeof(E) == 4 ? 2 : 1;
+  // columns a block: 128-byte row segments (a warp's 32 words) ...
+  int ch_log = 7 - e_log < K ? 7 - e_log : K;
+  // ... cut to at most 64 KB a block (128 KB where one 4-byte word a row
+  // is that much already) ...
+  const int floor_log = 2 - e_log;
+  while (ch_log > floor_log && r_log + ch_log + e_log > 16) --ch_log;
+  // ... and widened while the block stays within 64 KB and the grid
+  // keeps two waves
+  while (ch_log < K && r_log + ch_log + 1 + e_log <= 16 &&
+         (1LL << (K - ch_log - 1)) >= kMinBlocks)
+    ++ch_log;
+  const int words = 1 << (r_log + ch_log + e_log - 2);
+  const int threads = words < 512 ? words : 512;
+  switch (words / threads) {
+    case 1:
+      return launch_outer_gather_wpt<E, 1>(xe, ye, ie, K, r_log, ch_log,
+                                            threads, stream);
+    case 2:
+      return launch_outer_gather_wpt<E, 2>(xe, ye, ie, K, r_log, ch_log,
+                                            threads, stream);
+    case 4:
+      return launch_outer_gather_wpt<E, 4>(xe, ye, ie, K, r_log, ch_log,
+                                            threads, stream);
+    case 8:
+      return launch_outer_gather_wpt<E, 8>(xe, ye, ie, K, r_log, ch_log,
+                                            threads, stream);
+    case 16:
+      return launch_outer_gather_wpt<E, 16>(xe, ye, ie, K, r_log, ch_log,
+                                             threads, stream);
+    case 32:
+      return launch_outer_gather_wpt<E, 32>(xe, ye, ie, K, r_log, ch_log,
+                                             threads, stream);
+    case 64:
+      return launch_outer_gather_wpt<E, 64>(xe, ye, ie, K, r_log, ch_log,
+                                             threads, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -331,7 +490,8 @@ int benes_mid_gather(const void* x, void* y, const void* idx,
 
 // The outer stages (d >= 2^K) of one side of the network, as exchanges
 // of rows g <-> g ^ (d >> K) on the (2^(n-K), 2^K) view; words: one
-// (n_elems,) int32 plane.  Returns the CUDA error of the launch.
+// (n_elems,) int32 plane.  Placement runs it on an iota of rows to compose
+// the side's row index.  Returns the CUDA error of the launch.
 int benes_outer(const void* x, void* y, const void* words,
                 long long n_elems, int K, int elem_bytes, const int* codes,
                 int n_codes, void* stream) {
@@ -345,6 +505,24 @@ int benes_outer(const void* x, void* y, const void* words,
     return launch_outer<uint32_t>(x, y, words, n_elems, K, st, s);
   if (elem_bytes == 2)
     return launch_outer<uint16_t>(x, y, words, n_elems, K, st, s);
+  return cudaErrorInvalidValue;
+}
+
+// One side's outer pass as a gather by a placed row index on the
+// (2^(n-K), 2^K) view of n_elems = 2^n values (1 <= n - K <= 15):
+// y[g·2^K + c] = x[idx[g·2^K + c]·2^K + c], idx: (n_elems,) 16-bit rows.
+// x, y and idx 16-byte aligned (4-byte where 2^K values are under 16
+// bytes); y may be x.  Returns the CUDA error of the launch.
+int benes_outer_gather(const void* x, void* y, const void* idx,
+                       long long n_elems, int K, int elem_bytes,
+                       void* stream) {
+  const int n = log2_exact(n_elems);
+  if (n < 2 || K < 1 || K >= n || n - K > 15) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_bytes == 4)
+    return launch_outer_gather<uint32_t>(x, y, idx, n_elems, K, s);
+  if (elem_bytes == 2)
+    return launch_outer_gather<uint16_t>(x, y, idx, n_elems, K, s);
   return cudaErrorInvalidValue;
 }
 

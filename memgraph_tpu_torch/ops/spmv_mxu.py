@@ -41,7 +41,8 @@ import torch
 
 from ..device import resolve_device
 from .benes import route_packed
-from .benes_cuda import K_BY_DTYPE, benes_apply, build_masks, compose_mid
+from .benes_cuda import (K_BY_DTYPE, benes_apply, build_masks, compose_mid,
+                         compose_outer)
 from .semiring import pagerank_update
 
 LANES = 128
@@ -384,13 +385,14 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def put_route(masks_packed, net_log2, dtype):
-        """(mid_idx, outer words, spec): the middle stages composed on the
-        device into one tile-local index; their mask planes (64 MB for
-        the f32 edge net) are not kept."""
+        """(mid_idx, outer_idx, spec): the middle stages composed on the
+        device into one tile-local index, each outer side into one row
+        index (None when the net fits one tile); the mask planes (64 MB
+        each for the f32 edge net) are not kept."""
         spec, mid, out = build_masks(masks_packed, net_log2,
                                      K_BY_DTYPE[dtype])
         return (compose_mid(put(mid), spec),
-                None if out is None else put(out), spec)
+                None if out is None else compose_outer(put(out), spec), spec)
 
     big = put_route(plan.masks_packed, plan.net_log2, route_dtype)
     node = put_route(plan.node_masks_packed, plan.node_net_log2,

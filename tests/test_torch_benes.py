@@ -43,7 +43,8 @@ def _port_apply(x, packed, n, K, dtype):
     got = BC.benes_apply(
         torch.from_numpy(x).to(_TDT[dtype]).reshape(shape),
         BC.compose_mid(torch.from_numpy(midw), spec),
-        None if outw is None else torch.from_numpy(outw), spec)
+        None if outw is None else BC.compose_outer(torch.from_numpy(outw),
+                                                   spec), spec)
     return got.to(torch.float32).numpy().reshape(-1), spec
 
 
@@ -131,14 +132,16 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     want = BC.benes_apply_reference(x, torch.from_numpy(mid),
                                     torch.from_numpy(out), spec)
     mid_idx = BC.compose_mid(torch.from_numpy(mid), spec)
-    got = BC.benes_apply(x, mid_idx, torch.from_numpy(out), spec)
+    outer_idx = BC.compose_outer(torch.from_numpy(out), spec)
+    got = BC.benes_apply(x, mid_idx, outer_idx, spec)
     assert torch.equal(got, want)
     # the plain version launches nothing
     assert (BC.benes_mid.launches, BC.benes_mid_gather.launches,
-            BC.benes_outer.launches) == (0, 0, 0)
+            BC.benes_outer.launches, BC.benes_outer_gather.launches
+            ) == (0, 0, 0, 0)
     with pytest.raises(ValueError):
         BC.benes_apply(x.to("meta"), mid_idx.to("meta"),
-                       torch.from_numpy(out).to("meta"), spec)
+                       outer_idx.to("meta"), spec)
 
 
 def _imports(path):

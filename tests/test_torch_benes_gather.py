@@ -83,7 +83,8 @@ def test_positions_above_32767_survive_int16_storage():
     tile_base = iota & ~((1 << K) - 1)
     assert torch.equal(staged - tile_base, pos.to(torch.int64))
     x = torch.randn(1 << n).to(torch.bfloat16).view(-1, 128)
-    got = BC.benes_apply(x, mid_idx, torch.from_numpy(outw), spec)
+    got = BC.benes_apply(x, mid_idx,
+                         BC.compose_outer(torch.from_numpy(outw), spec), spec)
     assert torch.equal(_bits(got.reshape(-1)),
                        _bits(x.reshape(-1)[torch.from_numpy(perm)]))
 
@@ -112,7 +113,8 @@ def test_identity_network_composes_and_launches_nothing():
     x = torch.randn(1 << n).view(-1, 128)
     assert BC.benes_apply(x, mid_idx, None, spec) is x
     assert (BC.benes_mid.launches, BC.benes_mid_gather.launches,
-            BC.benes_outer.launches) == (0, 0, 0)
+            BC.benes_outer.launches, BC.benes_outer_gather.launches
+            ) == (0, 0, 0, 0)
 
 
 def test_gather_wrapper_takes_the_plain_version_only_for_cpu_tensors():
