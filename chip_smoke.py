@@ -27,14 +27,18 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    (each counter must move by what its entry point's timing implies).
    Then each of the ten kernels is held against its plain version on the
    card (bit-exact, or within its stated tolerance), transpose_loop and
-   sandwich also on random values at an odd iteration count, and timed:
+   sandwich also on random values at an odd iteration count, big_matmul
+   also at (64, 32, 32) x 3 and (256, 512, 96) x 7 (its smaller tiles; it
+   fails if its time is under 0.95 x its on-chip bound, which would mean
+   the loop-invariant product was hoisted), and timed:
    warm device time (``ms``: launches queued behind a device spin, so the
    Python wrapper's cost hides), cold (a 128 MB scratch write between
    launches, where the inputs fit in the 50 MB L2), back to back from
    Python (``host_ms``), plain, one PyTorch call (or the loop of calls a
    looping kernel stands for), the bound, and for kernels that loop on
    chip the on-chip bound (shared-memory bytes over 128 B/clock/SM on the
-   SMs the shape occupies, at ``clocks.max.sm``).  One ``micro`` line per
+   SMs the shape occupies, at ``clocks.max.sm``; for big_matmul its FMAs
+   over 256 flop/clock on every SM of the card).  One ``micro`` line per
    kernel and size.
 4. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
    and 10,000,000 edges from seed 7 (``dst = rand**2 * n``), ``from_coo``
@@ -375,6 +379,7 @@ def phase_benes():
 L2_BYTES = 50 * 2**20                 # H100 L2
 SMEM_BYTES_PER_CLOCK = 128            # shared memory per SM per clock
 FP32_FLOP_PER_CLOCK = 256             # 128 FMA lanes per SM per clock
+HOISTED_BELOW = 0.95                  # big_matmul under 0.95 x its bound
 MICRO_REPLACES = {
     "col_gather": "benchmarks/pallas_micro.py:46",
     "lane_gather": "benchmarks/pallas_micro.py:78",
@@ -610,20 +615,30 @@ def micro_cases(sm_hz: float, n_sms: int):
                    f"loop of {it} x (3 torch.gather + 2 tile transposes)",
                    20 * R * 128, 0, timed=timed,
                    **onchip((5 * 8 + 3) * R * 128 * it, R // 128))
-    a, b = put(*M3.matmul_inputs())
-    (M, K), N, it = a.shape, b.shape[1], 500
-    flops = 2 * M * N * K * it
-    sms = min(n_sms, (M // 32) * (N // 32))
-    yield case("big_matmul", f"{M}x{K}x{N} x{it}",
-               partial(M3.big_matmul, a, b, it),
-               partial(M3.big_matmul_reference, a, b, it),
-               partial(lib_mm, a, b, it), f"loop of {it} x acc.addmm_(a, b)",
-               4 * (M * K + K * N + M * N), flops + M * N * it,
-               rtol=M3.MATMUL_RTOL,
-               onchip_bound_ms=flops / (FP32_FLOP_PER_CLOCK * sms * sm_hz)
-               * 1e3,
-               onchip_by=f"f32 FMA pipes ({FP32_FLOP_PER_CLOCK} flop/clock) "
-                         f"on {sms} SMs at {sm_hz / 1e6:.0f} MHz")
+    # shapes the 128 x 128 tile does not fit take the kernel's smaller
+    # tiles; then the main shape, timed
+    rng = np.random.default_rng(6)
+    for (M, K, N), it, timed in (((64, 32, 32), 3, False),
+                                 ((256, 512, 96), 7, False),
+                                 (M3.MATMUL_SHAPE, 500, True)):
+        a, b = (put(*M3.matmul_inputs()) if timed else
+                put(rng.random((M, K), dtype=np.float32),
+                    rng.random((K, N), dtype=np.float32)))
+        flops = 2 * M * N * K * it
+        # the work on every SM of the card, whatever kernel does it
+        yield case("big_matmul", f"{M}x{K}x{N} x{it}",
+                   partial(M3.big_matmul, a, b, it),
+                   partial(M3.big_matmul_reference, a, b, it),
+                   partial(lib_mm, a, b, it),
+                   f"loop of {it} x acc.addmm_(a, b)",
+                   4 * (M * K + K * N + M * N), flops + M * N * it,
+                   rtol=M3.MATMUL_RTOL, timed=timed,
+                   tiling=M3.big_matmul_tiling(M, K, N, n_sms),
+                   onchip_bound_ms=flops / (FP32_FLOP_PER_CLOCK * n_sms
+                                            * sm_hz) * 1e3,
+                   onchip_by=f"f32 FMA pipes ({FP32_FLOP_PER_CLOCK} "
+                             f"flop/clock) on {n_sms} SMs at "
+                             f"{sm_hz / 1e6:.0f} MHz")
 
 
 def phase_micro(sm_hz: float):
@@ -672,6 +687,13 @@ def phase_micro(sm_hz: float):
                 library_ms=device_ms(c["library"], 3 if loops else reps),
                 library_call=c["library_call"], bound_ms=b, bound_by=by,
                 **c["extra"])
+            if c["name"] == "big_matmul":
+                # quicker than the FMA pipes allow: the loop-invariant
+                # product was not recomputed every iteration
+                check(line["ms"] >= HOISTED_BELOW * line["onchip_bound_ms"],
+                      f"big_matmul {c['size']} took {line['ms']} ms, under "
+                      f"{HOISTED_BELOW} x its on-chip bound "
+                      f"{line['onchip_bound_ms']} ms: work was skipped")
         lines.setdefault(c["name"], []).append(line)
         print("micro", json.dumps(line), flush=True)
     print(f"micro_phase entry_points_s {entry_s:.3f} total_s "
@@ -732,7 +754,8 @@ def phase_main_path():
 
     state = graph._mxu_state
     plan = state["plan"]
-    runs = {p: run for (_, p), run in state["runs"].items()}
+    precisions = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    runs = {precisions[dt]: run for (_, dt), run in state["runs"].items()}
     expected = dict.fromkeys(launches, 0)
     for p, run in runs.items():
         per_iteration = dict.fromkeys(("benes_mid_gather",

@@ -25,7 +25,8 @@ _SIGNATURES = {
     "micro_lane_gather_loop": [_VP, _VP, _VP, _I64, _I32, _VP],
     "micro_transpose_loop": [_VP, _VP, _I64, _I32, _VP],
     "micro_sandwich": [_VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP],
-    "micro_big_matmul": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP],
+    "micro_big_matmul": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+                         _I32, _VP],
 }
 
 

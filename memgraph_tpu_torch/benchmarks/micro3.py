@@ -8,7 +8,7 @@ These are the primitives of the radix-routed PageRank design:
     transpose, lane gather s3], which realises an arbitrary permutation
     of a 128 x 128 tile;
   - ``big_matmul``: iters x (acc += A @ B), A (1024, 2048), B (2048, 128),
-    full f32.
+    full f32, split over the blocks by K (``big_matmul_tiling``).
 
 Wrappers, launch counters and plain versions as in ``micro``.
 
@@ -32,8 +32,13 @@ MATMUL_SHAPE = (1024, 2048, 128)
 # big_matmul against another summation order (and cuBLAS or the TPU's
 # dot): each of the iters products sums K positive terms, then adds to
 # acc, so the relative error is at most about (K + iters) * 2^-24 =
-# (2048 + 500) * 2^-24 = 1.5e-4; rounded up
+# (2048 + 500) * 2^-24 = 1.5e-4; rounded up.  The kernel's split order
+# (each K-slice's ks terms, its iters products, then the slices) stays
+# under (ks + iters + K / ks) * 2^-24 = 3.8e-5 at ks = 128.
 MATMUL_RTOL = 2e-4
+MATMUL_TILES = (128, 64, 32)   # big_matmul's block tiles, fastest first
+BLOCK_SMEM_BYTES = 232_448     # shared memory a block may use on an H100
+H100_SMS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -138,20 +143,55 @@ def sandwich(x, s1, s2, s3, iters: int = 200):
     return out
 
 
+def big_matmul_tiling(M: int, K: int, N: int, n_sms: int) -> dict:
+    """big_matmul's launch for (M, K) @ (K, N) on a card of n_sms SMs.
+
+    tile: the largest of MATMUL_TILES dividing M and N (32 divides every
+    shape the wrapper takes).  ks: the K-slice a block keeps in shared
+    memory, a multiple of 32 dividing K whose A and B slices (8 * ks * tile
+    bytes) fit in BLOCK_SMEM_BYTES: the largest that still gives blocks to
+    at least 90% of the SMs (128 of an H100's 132 at the main shape), else
+    the smallest.  blocks = (M / tile) (N / tile) (K / ks); the product
+    kernel writes K / ks slices that a second kernel sums."""
+    tile = next(t for t in MATMUL_TILES if M % t == 0 and N % t == 0)
+    tiles = (M // tile) * (N // tile)
+    fits = [ks for ks in range(32, K + 1, 32)
+            if K % ks == 0 and 8 * ks * tile <= BLOCK_SMEM_BYTES]
+    filling = [ks for ks in fits if tiles * (K // ks) >= 0.9 * n_sms]
+    ks = max(filling) if filling else fits[0]
+    return {"tile": tile, "ks": ks, "splits": K // ks,
+            "blocks": tiles * (K // ks), "smem_bytes": 8 * ks * tile}
+
+
+def _sm_count(dev) -> int:
+    """SMs of the card the tensors lie on (an H100's for another device,
+    which only a test that records the launch hands in)."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
 @count
 def big_matmul(a, b, iters: int = 500):
-    """iters x (acc += a @ b) from zero, in full f32, in one launch;
+    """iters x (acc += a @ b) from zero, in full f32, in one call (the
+    product kernel, then the sum of its K-slices where there are several);
     a (M, K), b (K, N), each a multiple of 32."""
     check("big_matmul a", a, torch.float32, (None, None))
     check("big_matmul b", b, torch.float32, (a.shape[1], None))
     if not on_card("big_matmul", a, b):
         return big_matmul_reference(a, b, iters)
     (M, K), N = a.shape, b.shape[1]
-    if M % 32 or K % 32 or N % 32:
+    if M % 32 or K % 32 or N % 32 or not (M and K and N):
         raise ValueError(f"big_matmul: ({M}, {K}) @ ({K}, {N}) needs "
                          "multiples of 32")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("big_matmul: a and b must be 16-byte aligned")
+    t = big_matmul_tiling(M, K, N, _sm_count(a.device))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    launch("big_matmul", a, b, out, M, K, N, iters)
+    part = (torch.empty((t["splits"], M, N), dtype=torch.float32,
+                        device=a.device) if t["splits"] > 1 else None)
+    launch("big_matmul", a, b, out, part, M, K, N, iters, t["tile"],
+           t["ks"])
     big_matmul.launches += 1
     return out
 

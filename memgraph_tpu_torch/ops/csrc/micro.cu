@@ -29,6 +29,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // grid-stride kernels launch at most 16 blocks of 256 threads per SM of
 // an H100 (132 SMs)
 constexpr long long kMaxBlocks = 132 * 16;
+// shared memory a block may use on an H100 (227 KB)
+constexpr size_t kMaxBlockSmem = 232448;
 
 unsigned grid_for(long long units, int per_block) {
   long long b = (units + per_block - 1) / per_block;
@@ -391,59 +393,158 @@ sandwich_kernel(const float* __restrict__ x, const int32_t* __restrict__ s1,
 // ---------------------------------------------------------------------------
 // big_matmul <- benchmarks/pallas_micro3.py:156 (bench_big_matmul)
 //   acc = 0;  iters x  acc <- acc + A @ B     (A M x K, B K x N, f32)
-// Bound: operations (2 M N K a product, no TF32: the reference is full
-// f32).  A SIMT tiled GEMM: a block owns a 32 x 32 tile of acc in
-// registers for all iterations (4 rows x 1 column a thread, 256 threads),
-// streams 32 x 32 tiles of A and B through shared memory (A stored
-// transposed so a thread reads its 4 A values as one broadcast float4),
-// and recomputes the product every iteration: the loop-invariant product
-// is the measurement and is not hoisted.  Each iteration's product is
-// summed apart and then added to acc, as the Pallas body does.
+// Bound: operations (2 M N K a product in f32 FMA; no TF32 and no tensor
+// cores: the reference is full f32).  The TPU kernel keeps A and B whole
+// in VMEM for all iterations; here they are split over the blocks' shared
+// memory.  A block owns a T x T tile of the output and a K-slice of ks: it
+// loads A[tile, slice] (transposed, k-major) and B[slice, tile] once and
+// runs all iters products from shared memory, so the loop reads nothing
+// from L2 or device memory.  A thread computes a TT x TT sub-tile as
+// outer products (8 x 8 on the 128 x 128 tile: 4 float4 shared loads per
+// 64 FMAs, so the FMA pipe and not the shared-load pipe is the limit), its
+// rows and columns in TT / 4 groups of 4, T / (TT / 4) apart; a warp is
+// 4 thread rows x 8 thread columns, so each of its loads touches 64 or 128
+// contiguous bytes.  Each iteration's product p is summed apart and then
+// added to acc, as the Pallas body does.  A compiler memory barrier at the
+// top of each iteration makes it reload A and B from shared memory, so the
+// loop-invariant product cannot be hoisted out of the iteration loop.
+// Split K: each block writes its slice's acc into part[slice], and
+// split_sum_kernel adds the slices in index order (no atomics: the answer
+// does not depend on the order the blocks run in).  The caller chooses T,
+// ks and so the split (benchmarks/micro3.py:big_matmul_tiling).
 // ---------------------------------------------------------------------------
-constexpr int kBM = 32, kBN = 32, kBK = 32;
-__global__ void __launch_bounds__(256)
+template <int T, int TT>
+__global__ void __launch_bounds__((T / TT) * (T / TT))
 big_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, int K, int N, int iters) {
-  __shared__ __align__(16) float At[kBK][kBM + 4];   // At[k][m]
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;       // 0..7
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                  float* __restrict__ part, int K, int N, int ks,
+                  int iters) {
+  constexpr int kEdge = T / TT;                // threads along a tile edge
+  constexpr int kThreads = kEdge * kEdge;
+  constexpr int kGroups = TT / 4;              // float4 groups a thread
+  constexpr int kGroupStride = T / kGroups;
+  static_assert(TT % 4 == 0 && kEdge % 8 == 0, "tile shape");
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;               // As[k * T + m] = A[m0 + m, k0 + k]
+  float* Bs = smem + ks * T;      // Bs[k * T + n] = B[k0 + k, n0 + n]
+  const int m0 = blockIdx.y * T;
+  const int n0 = blockIdx.x * T;
+  const long long k0 = static_cast<long long>(blockIdx.z) * ks;
+  // A: 4 k of one row a thread, stored k-major; neighbouring threads take
+  // neighbouring rows, so the shared stores are free of bank conflicts
+  for (int e = threadIdx.x; e < T * (ks / 4); e += kThreads) {
+    const int m = e % T, kq = e / T;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(
+                               A + static_cast<long long>(m0 + m) * K + k0) +
+                           kq);
+    float* d = As + 4 * kq * T + m;
+    d[0] = v.x;
+    d[T] = v.y;
+    d[2 * T] = v.z;
+    d[3 * T] = v.w;
+  }
+  for (int e = threadIdx.x; e < ks * (T / 4); e += kThreads) {
+    const int k = e / (T / 4), nq = e % (T / 4);
+    reinterpret_cast<float4*>(Bs + k * T)[nq] = __ldg(
+        reinterpret_cast<const float4*>(B + (k0 + k) * N + n0) + nq);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = (warp % (kEdge / 8)) * 8 + (lane & 7);
+  const int ty = (warp / (kEdge / 8)) * 4 + (lane >> 3);
+  const float* a_at = As + ty * 4;
+  const float* b_at = Bs + tx * 4;
+  float acc[TT][TT];
+#pragma unroll
+  for (int i = 0; i < TT; ++i)
+#pragma unroll
+    for (int j = 0; j < TT; ++j) acc[i][j] = 0.0f;
   for (int it = 0; it < iters; ++it) {
-    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k0 = 0; k0 < K; k0 += kBK) {
+    // A and B may have changed for all the compiler knows: every iteration
+    // reloads them and recomputes its product
+    asm volatile("" ::: "memory");
+    float p[TT][TT];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = ty + 8 * q;
-        At[tx][r] = __ldg(A + static_cast<long long>(m0 + r) * K + k0 + tx);
-        Bs[r][tx] = __ldg(B + static_cast<long long>(k0 + r) * N + n0 + tx);
-      }
-      __syncthreads();
+    for (int i = 0; i < TT; ++i)
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&At[kk][ty * 4]);
-        const float b = Bs[kk][tx];
-        p[0] = fmaf(a.x, b, p[0]);
-        p[1] = fmaf(a.y, b, p[1]);
-        p[2] = fmaf(a.z, b, p[2]);
-        p[3] = fmaf(a.w, b, p[3]);
+      for (int j = 0; j < TT; ++j) p[i][j] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < ks; ++k) {
+      float a[TT], b[TT];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const float4 av = *reinterpret_cast<const float4*>(
+            a_at + k * T + g * kGroupStride);
+        const float4 bv = *reinterpret_cast<const float4*>(
+            b_at + k * T + g * kGroupStride);
+        a[4 * g] = av.x;
+        a[4 * g + 1] = av.y;
+        a[4 * g + 2] = av.z;
+        a[4 * g + 3] = av.w;
+        b[4 * g] = bv.x;
+        b[4 * g + 1] = bv.y;
+        b[4 * g + 2] = bv.z;
+        b[4 * g + 3] = bv.w;
       }
-      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+#pragma unroll
+        for (int j = 0; j < TT; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
     }
 #pragma unroll
-    for (int m = 0; m < 4; ++m) acc[m] += p[m];
-  }
+    for (int i = 0; i < TT; ++i)
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-    C[static_cast<long long>(m0 + ty * 4 + m) * N + n0 + tx] = acc[m];
+      for (int j = 0; j < TT; ++j) acc[i][j] += p[i][j];
+  }
+  float* o = part + static_cast<long long>(blockIdx.z) * gridDim.y * T * N;
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    const long long row =
+        m0 + (i / 4) * kGroupStride + ty * 4 + (i % 4);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      *reinterpret_cast<float4*>(o + row * N + n0 + g * kGroupStride +
+                                 tx * 4) =
+          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                      acc[i][4 * g + 3]);
+  }
+}
+
+// out = part[0] + part[1] + ... + part[splits - 1], in that order.
+__global__ void split_sum_kernel(const float4* __restrict__ part,
+                                 float4* __restrict__ out, long long n4,
+                                 int splits) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n4; i += stride) {
+    float4 s = part[i];
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = part[q * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
 }
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+template <int T, int TT>
+cudaError_t launch_big_matmul(dim3 grid, size_t smem, cudaStream_t stream,
+                              const float* A, const float* B, float* part,
+                              int K, int N, int ks, int iters) {
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(big_matmul_kernel<T, TT>), smem);
+  if (err != cudaSuccess) return err;
+  big_matmul_kernel<T, TT><<<grid, (T / TT) * (T / TT), smem, stream>>>(
+      A, B, part, K, N, ks, iters);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -570,16 +671,46 @@ int micro_sandwich(const void* x, const void* s1, const void* s2,
   return cudaGetLastError();
 }
 
-// C = iters x (+ A @ B) from zero; A (M, K), B (K, N), all multiples of 32.
-int micro_big_matmul(const void* A, const void* B, void* C, int M, int K,
-                     int N, int iters, void* stream) {
-  if (M < kBM || K < kBK || N < kBN || M % kBM || K % kBK || N % kBN ||
-      iters < 0)
+// C = iters x (+ A @ B) from zero; A (M, K), B (K, N).  Block tile
+// tile x tile (128, 64 or 32, dividing M and N), K-slice ks (a multiple of
+// 32 dividing K, 8 * ks * tile bytes of shared memory at most 227 KB); part
+// holds (K / ks) x M x N floats where K / ks > 1, and is not read otherwise.
+int micro_big_matmul(const void* A, const void* B, void* C, void* part,
+                     int M, int K, int N, int iters, int tile, int ks,
+                     void* stream) {
+  if ((tile != 32 && tile != 64 && tile != 128) || M < tile || N < tile ||
+      M % tile || N % tile || ks < 32 || ks % 32 || K % ks || iters < 0)
     return cudaErrorInvalidValue;
-  const dim3 grid(N / kBN, M / kBM);
-  big_matmul_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<float*>(C), K, N, iters);
+  const int splits = K / ks;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(ks) * tile;
+  if (smem > kMaxBlockSmem || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  float* dst = static_cast<float*>(splits > 1 ? part : C);
+  const dim3 grid(N / tile, M / tile, splits);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  cudaError_t err;
+  switch (tile) {
+    case 128:
+      err = launch_big_matmul<128, 8>(grid, smem, s, a, b, dst, K, N, ks,
+                                      iters);
+      break;
+    case 64:
+      err = launch_big_matmul<64, 4>(grid, smem, s, a, b, dst, K, N, ks,
+                                     iters);
+      break;
+    case 32:
+      err = launch_big_matmul<32, 4>(grid, smem, s, a, b, dst, K, N, ks,
+                                     iters);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n4 = static_cast<long long>(M) * N / 4;
+  split_sum_kernel<<<grid_for(n4, 256), 256, 0, s>>>(
+      static_cast<const float4*>(part), static_cast<float4*>(C), n4, splits);
   return cudaGetLastError();
 }
 

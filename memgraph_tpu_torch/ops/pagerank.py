@@ -24,11 +24,15 @@ from .csr import DeviceGraph
 # monkeypatching this module attribute
 MXU_MIN_EDGES = S.MXU_MIN_EDGES
 
-_ROUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the route dtype each precision asks for; None: MEMGRAPH_TPU_ROUTE_DTYPE
+# decides (spmv_mxu.resolve_route_dtype), as on the reference's f32 path
+_ROUTE_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
-# serializes the plan build (about 30 s host-side at 10M edges) so that
-# concurrent first calls on one snapshot build it once
-_mxu_lock = threading.Lock()
+# serializes the plan build (about 30 s host-side at 10M edges) and the
+# kernel placements PER GRAPH, so that concurrent first calls on one
+# snapshot build once while unrelated graphs build in parallel; the guard
+# only serializes the creation of each graph's lock
+_mxu_locks_guard = threading.Lock()
 
 
 def _pagerank_setup(A, P, n_out):
@@ -56,15 +60,26 @@ def _pagerank_epilogue(rank, acc, env, P):
     return new_rank, err
 
 
+def _build_lock(graph: DeviceGraph) -> threading.Lock:
+    """The graph's own lock for its plan build and kernel placements."""
+    with _mxu_locks_guard:
+        lock = getattr(graph, "_mxu_build_lock", None)
+        if lock is None:
+            lock = threading.Lock()
+            # DeviceGraph is frozen; bypass its setattr guard
+            object.__setattr__(graph, "_mxu_build_lock", lock)
+    return lock
+
+
 def _mxu_state(graph: DeviceGraph) -> dict:
     """The graph's MXU plan and its kernels, built once per snapshot and
-    cached on it ({"plan", "plan_build_s", "runs": {(device, precision):
+    cached on it ({"plan", "plan_build_s", "runs": {(device, route dtype):
     run}})."""
     state = getattr(graph, "_mxu_state", None)
     if state is not None:
         return state
     from . import spmv_mxu
-    with _mxu_lock:
+    with _build_lock(graph):
         state = getattr(graph, "_mxu_state", None)
         if state is None:
             t0 = time.perf_counter()
@@ -81,19 +96,27 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
                       max_iterations, tol, precision: str = "f32", x0=None):
     """Large-graph path: the gather-free MXU kernel, one plan per graph
     snapshot serving every precision (the route dtype only changes the
-    contributions' width)."""
+    contributions' width).
+
+    The placed kernel is cached per (device, route dtype), the dtype
+    resolved at each call: f32 takes MEMGRAPH_TPU_ROUTE_DTYPE's, so
+    under ``bf16`` it routes bf16 and shares the bf16 run.  The reference
+    caches its f32 kernel once per graph, with the variable as it was at
+    the first call; here a later change of the variable takes effect on
+    the next call (another run is placed), and no run is returned under a
+    dtype it was not built for."""
     from . import spmv_mxu
     state = _mxu_state(graph)
     plan = state["plan"]
-    key = (str(device), precision)
+    route_dtype = spmv_mxu.resolve_route_dtype(_ROUTE_DTYPES[precision])
+    key = (str(device), route_dtype)
     run = state["runs"].get(key)
     if run is None:
-        with _mxu_lock:
+        with _build_lock(graph):
             run = state["runs"].get(key)
             if run is None:
                 run = spmv_mxu.make_pagerank_kernel(
-                    plan, route_dtype=_ROUTE_DTYPES[precision],
-                    device=device)
+                    plan, route_dtype=route_dtype, device=device)
                 run.out_relabel = torch.from_numpy(
                     plan.out_relabel).to(device)
                 state["runs"][key] = run

@@ -31,6 +31,7 @@ placed on the device once, in ``make_semiring_kernel``.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import zipfile
 from dataclasses import dataclass
@@ -350,7 +351,17 @@ def _flat_layout(N: int):
     return (N // LANES, LANES) if N >= LANES else (N,)
 
 
-def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
+def resolve_route_dtype(route_dtype=None) -> torch.dtype:
+    """route_dtype as given, or for None the MEMGRAPH_TPU_ROUTE_DTYPE
+    variable's: ``bf16`` -> torch.bfloat16, anything else (or unset) ->
+    torch.float32, as the reference's make_semiring_kernel reads it."""
+    if route_dtype is not None:
+        return route_dtype
+    return (torch.bfloat16 if os.environ.get(
+        "MEMGRAPH_TPU_ROUTE_DTYPE", "f32") == "bf16" else torch.float32)
+
+
+def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
                          x0_default: str = "uniform", device=None):
     """Returns fn(x0_flat, params, max_iter, tol) -> (x_flat, err, iters);
     state vectors are flat in OUT labeling, length G*SG_ROWS*LANES.  The
@@ -363,7 +374,8 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
 
     route_dtype: dtype of the per-edge contributions through the big Benes
     (the dominant memory traffic).  torch.bfloat16 halves it; sums still
-    accumulate in f32.  torch.float32 is the exact path.
+    accumulate in f32.  torch.float32 is the exact path.  None takes
+    MEMGRAPH_TPU_ROUTE_DTYPE's (resolve_route_dtype).
 
     x0_default: the on-device start when x0 is None — "uniform"
     (valid/n, pagerank) or "zeros" (katz).
@@ -373,6 +385,7 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
     the host once per iteration.
     """
     dev = resolve_device(device)
+    route_dtype = resolve_route_dtype(route_dtype)
     _exact_f32_matmuls()
     t0 = time.perf_counter()
     G, R_G, C, W = plan.G, plan.R_G, plan.C, plan.W
@@ -459,8 +472,7 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=torch.float32,
     return run
 
 
-def make_pagerank_kernel(plan: MXUPlan, route_dtype=torch.float32,
-                         device=None):
+def make_pagerank_kernel(plan: MXUPlan, route_dtype=None, device=None):
     """The semiring kernel with the fused PageRank epilogue.  Returns
     fn(rank0_flat, damping, max_iter, tol) -> (rank_flat, err, iters)."""
     run = make_semiring_kernel(plan, epilogue=pagerank_mxu_epilogue,

@@ -206,6 +206,98 @@ def test_big_matmul_matches_pallas(jm3, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# big_matmul's launch: tiling, split-K summation order, arguments
+# ---------------------------------------------------------------------------
+
+def test_big_matmul_tiling_fills_the_card_at_the_main_shape():
+    t = micro3.big_matmul_tiling(*micro3.MATMUL_SHAPE, n_sms=132)
+    assert t["blocks"] >= 128 and t["smem_bytes"] <= 227 * 1024
+    assert t == {"tile": 128, "ks": 128, "splits": 16, "blocks": 128,
+                 "smem_bytes": 131072}
+
+
+@pytest.mark.parametrize("n_sms", [132, 114])
+@pytest.mark.parametrize("shape", [(64, 32, 32), (256, 512, 96),
+                                   (1024, 2048, 128), (32, 32, 32),
+                                   (96, 4096, 160), (128, 8192, 128)])
+def test_big_matmul_tiling_is_valid(shape, n_sms):
+    M, K, N = shape
+    t = micro3.big_matmul_tiling(M, K, N, n_sms)
+    assert t["tile"] in micro3.MATMUL_TILES
+    assert M % t["tile"] == 0 and N % t["tile"] == 0
+    assert t["ks"] % 32 == 0 and t["ks"] * t["splits"] == K
+    assert t["smem_bytes"] == 8 * t["ks"] * t["tile"]
+    assert t["smem_bytes"] <= micro3.BLOCK_SMEM_BYTES
+    assert t["blocks"] == (M // t["tile"]) * (N // t["tile"]) * t["splits"]
+    # the 128 x 128 tile wherever it fits, smaller ones only where not
+    assert (t["tile"] == 128) == (M % 128 == 0 and N % 128 == 0)
+
+
+def _split_order(a, b, iters, ks):
+    """big_matmul's summation order in torch: each K-slice's product as a
+    chain of rank-1 updates in k order, its iters products added to the
+    slice's acc one after another, then the slices summed in index
+    order."""
+    (M, K), N = a.shape, b.shape[1]
+    S = K // ks
+    a_s = a.view(M, S, ks).permute(1, 0, 2)
+    b_s = b.view(S, ks, N)
+    p = torch.zeros((S, M, N))
+    for k in range(ks):
+        p += a_s[:, :, k:k + 1] * b_s[:, k:k + 1, :]
+    acc = torch.zeros_like(p)
+    for _ in range(iters):
+        acc += p
+    out = acc[0].clone()
+    for s in range(1, S):
+        out += acc[s]
+    return out
+
+
+@pytest.mark.parametrize("shape,iters", [(micro3.MATMUL_SHAPE, 3),
+                                         ((128, 1024, 64), 500)])
+def test_big_matmul_split_order_stays_inside_rtol(shape, iters):
+    M, K, N = shape
+    t = micro3.big_matmul_tiling(M, K, N, 132)
+    assert t["splits"] > 1
+    rng = np.random.default_rng(9)
+    a = rng.random((M, K), dtype=np.float32)
+    b = rng.random((K, N), dtype=np.float32)
+    got = _split_order(*_t(a, b), iters, t["ks"]).numpy()
+    want = (a.astype(np.float64) @ b.astype(np.float64)) * iters
+    rel = np.abs(got - want) / np.abs(want)
+    assert rel.max() <= micro3.MATMUL_RTOL
+    # and the plain version, the kernel's oracle, is inside it too
+    plain = micro3.big_matmul(*_t(a, b), iters).numpy()
+    assert (np.abs(plain - want) <= micro3.MATMUL_RTOL * want).all()
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 32), (256, 512, 96),
+                                   (1024, 2048, 128)])
+def test_big_matmul_launch_carries_its_tiling(shape, monkeypatch):
+    """On the card the wrapper hands the kernel its tile and K-slice, and
+    a (splits, M, N) scratch where there are several slices."""
+    M, K, N = shape
+    calls = []
+    monkeypatch.setattr(micro3, "on_card", lambda name, *t: True)
+    monkeypatch.setattr(micro3, "launch", lambda *a: calls.append(a))
+    before = micro3.big_matmul.launches
+    a, b = torch.zeros((M, K)), torch.zeros((K, N))
+    out = micro3.big_matmul(a, b, 5)
+    micro3.big_matmul.launches = before
+    t = micro3.big_matmul_tiling(M, K, N, micro3.H100_SMS)
+    (name, ga, gb, gout, part, *ints), = calls
+    assert name == "big_matmul" and ga is a and gb is b and gout is out
+    assert out.shape == (M, N)
+    assert ints == [M, K, N, 5, t["tile"], t["ks"]]
+    if t["splits"] == 1:
+        assert part is None
+    else:
+        assert part.shape == (t["splits"], M, N)
+        assert part.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
 # plain versions against numpy, on random values at odd iteration counts
 # ---------------------------------------------------------------------------
 
