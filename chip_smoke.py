@@ -6,21 +6,24 @@
 Run from the root of a checkout.  Phases (any failed check exits nonzero):
 
 1. Card: print ``nvidia-smi``'s name and power limit; build the CUDA
-   kernels (``memgraph_tpu_torch/ops/csrc/*.cu``, nvcc, in parallel) and
-   the host Benes router (g++), timed.
+   kernels (``memgraph_tpu_torch/ops/csrc/*.cu``, nvcc, in parallel), the
+   host Benes router and the native CSR builder (g++), timed.
 2. Benes kernels against their plain PyTorch versions on the card:
-   random permutations routed by the port's router at n = 7, 12, 16, 20,
-   24 slots (log2), in f32 and bf16, plus two small-K networks (n = 20,
-   K = 8: 4096 rows; n = 16, K = 1: 2^15 rows) and the identity
-   permutation (every stage dead).  Each network is placed on the card:
-   its middle stages composed (``compose_mid``: one ``benes_mid`` launch)
-   into the index that ``benes_mid_gather`` applies, each outer side
-   (``compose_outer``: one ``benes_outer`` launch per live side) into the
-   row index that ``benes_outer_gather`` applies; both indices must equal
-   the CPU composition, and the kernels' ``benes_apply`` the
-   stage-by-stage plain network.  Bit-exact; the launch counters must
-   move.  At n = 20 and 24: each kernel against its plain version, and
-   kernel, plain-version, bound and gather (``x[perm]``) times.
+   random permutations routed by the port's router at n = 7, 10, 12, 14,
+   16, 17, 20, 24 slots (log2), in f32 and bf16, plus two small-K
+   networks (n = 20, K = 8: 4096 rows; n = 16, K = 1: 2^15 rows) and the
+   identity permutation (every stage dead).  Each network is placed on
+   the card: its middle stages composed (``compose_mid``: one
+   ``benes_mid`` launch) into the index that ``benes_mid_gather``
+   applies, each outer side (``compose_outer``: one ``benes_outer``
+   launch per live side) into the row index that ``benes_outer_gather``
+   applies; both indices must equal the CPU composition, and the
+   kernels' ``benes_apply`` the stage-by-stage plain network.  Bit-exact;
+   the launch counters must move.  At n = 7, 10, 12, 14 and 17 (single
+   tiles under K, and nets a few tiles wide) each of the four kernels is
+   also held alone against its plain version; at n = 20 and 24 it is
+   held and timed (kernel, plain-version, bound and gather
+   ``x[perm]`` times).
 3. Microbenchmark kernels (``memgraph_tpu_torch/benchmarks/micro*.py``,
    ``ops/csrc/micro.cu``): the three entry points run at the JAX module's
    sizes with the launch counters reset just before and read just after
@@ -36,13 +39,14 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    launches, where the inputs fit in the 50 MB L2), back to back from
    Python (``host_ms``), plain, one PyTorch call (or the loop of calls a
    looping kernel stands for), the bound, and for kernels that loop on
-   chip the on-chip bound (shared-memory bytes over 128 B/clock/SM on the
-   SMs the shape occupies, at ``clocks.max.sm``; for big_matmul its FMAs
-   over 256 flop/clock on every SM of the card).  One ``micro`` line per
-   kernel and size.
+   chip the on-chip bound (shared-memory or shuffle bytes, 4 B a value a
+   shuffle, over 128 B/clock/SM on every SM of the card, at
+   ``clocks.max.sm``; for big_matmul its FMAs over 256 flop/clock on
+   every SM).  One ``micro`` line per kernel and size.
 4. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
    and 10,000,000 edges from seed 7 (``dst = rand**2 * n``), ``from_coo``
-   -> ``to_device("cuda")`` -> ``ops.pagerank.pagerank`` with 50
+   (which must go through the native CSR builder) ->
+   ``to_device("cuda")`` -> ``ops.pagerank.pagerank`` with 50
    iterations at damping 0.85 and tol 0, in f32 and in bf16 (one MXU
    plan serves both).  Launch counts are reset just before and read just
    after, and must equal what the plan's networks imply.  f32 ranks
@@ -51,7 +55,22 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    plain version on the main path's own networks and timed there (the
    stage kernels ``benes_mid`` and ``benes_outer``, which run only at
    placement, fed the same masks that were composed).
-5. A JSON line of kernels ({"kernels": [...]}), the card's name and power
+5. Snapshot refresh: the main path's graph mutated from seed 11 (5,000
+   edges removed, 5,000 added on the graph's skew, 8 nodes emptied of
+   out-edges, 8 dangling nodes given one), ``from_coo`` of the successor
+   with the same node gids (native builder), placed on the card and
+   marked with ``_delta_ctx`` as ``GraphCache.get`` marks it; PageRank at
+   f32 and bf16, cold and warm, with launch counts reset just before and
+   read just after.  It fails if ``build_plan`` ran, if the runs did not
+   share the base plan's placed routes, if the launches are not base +
+   delta per iteration plus the delta's placement, if f32 leaves the
+   main path's bounds against float64 on the mutated graph, if bf16
+   leaves ``PRECISION_BOUNDS["bf16"]`` against the f32 delta run, or if
+   the bf16 run did not move with the mutation (it sits nearer the base
+   snapshot's ranks, or its change from the base's bf16 ranks misses the
+   f32 change by half of it).  One ``refresh`` line;
+   each kernel held and timed on the delta nets.
+6. A JSON line of kernels ({"kernels": [...]}), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
@@ -78,12 +97,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 
-N_NODES = 1_000_000
-N_EDGES = 10_000_000
 ITERATIONS = 50
 DAMPING = 0.85
-BENES_SIZES = (7, 12, 16, 20, 24)
+BENES_SIZES = (7, 10, 12, 14, 16, 17, 20, 24)
 TIMED_SIZES = (20, 24)
+# each kernel held alone against its plain version (untimed) at these
+# sizes too: single tiles below K and the delta nets' small multi-tile
+# sizes
+KERNEL_SIZES = (7, 10, 12, 14, 17)
 # networks of n slots (log2) placed at a small K besides their dtype's K:
 # many more rows (2^(n-K)) than the main path's for the outer gather
 SMALL_K = {16: 1, 20: 8}
@@ -121,15 +142,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def generate_graph(n_nodes=N_NODES, n_edges=N_EDGES, seed=7):
-    """Skewed random digraph (bench.py:78-85): heavy-tail in-degree via
-    squared sampling of destinations."""
-    rng = np.random.default_rng(seed)
-    src = rng.integers(0, n_nodes, n_edges, dtype=np.int64)
-    dst = (rng.random(n_edges) ** 2 * n_nodes).astype(np.int64)
-    return src, dst
 
 
 def reference_pagerank(src, dst, n_nodes, iterations=ITERATIONS,
@@ -231,12 +243,13 @@ def random_values(N, dtype, seed):
     return x.view(-1, 128) if N >= 128 else x
 
 
-def measure_kernels(x, masks, route, reps: int) -> dict:
+def measure_kernels(x, masks, route, reps: int = 20,
+                    timed: bool = True) -> dict:
     """Each kernel of one network against its plain version on x: exact
-    check, then kernel / plain / bound / gather times per launch.  route:
-    (mid_idx, outer_idx, spec); masks: (mid words, outer words), the masks
-    the indices were composed from, which feed the stage kernels benes_mid
-    and benes_outer (placement)."""
+    check, then (timed) kernel / plain / bound / gather times per launch.
+    route: (mid_idx, outer_idx, spec); masks: (mid words, outer words), the
+    masks the indices were composed from, which feed the stage kernels
+    benes_mid and benes_outer (placement)."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     mid_idx, outer_idx, spec = route
@@ -273,17 +286,20 @@ def measure_kernels(x, masks, route, reps: int) -> dict:
         check(same_bits(got, want),
               f"{name} disagrees with its plain version at N={N} {x.dtype}")
         err = float((got.float() - want.float()).abs().max())
+        res[name] = {"net_log2": spec.net_log2, "K": spec.K,
+                     "dtype": str(x.dtype), "max_abs_err": err}
+        if not timed:
+            continue
         perm = plain(iota)          # the same function as one gather
         flat = x.view(-1)
         b, by = bound_ms(n_bytes, n_ops)
-        res[name] = {
-            "net_log2": spec.net_log2, "K": spec.K, "dtype": str(x.dtype),
-            "ops_per_slot": n_ops // N, "max_abs_err": err,
+        res[name].update({
+            "ops_per_slot": n_ops // N,
             "ms": device_ms(lambda: kern(x), reps),
             "host_ms": cuda_ms(lambda: kern(x), reps),
             "plain_ms": device_ms(lambda: plain(x), max(1, reps // 4)),
             "bound_ms": b, "bound_by": by, "n_bytes": n_bytes,
-            "library_ms": device_ms(lambda: flat[perm], reps)}
+            "library_ms": device_ms(lambda: flat[perm], reps)})
     return res
 
 
@@ -320,6 +336,10 @@ def hold_network(packed, n, dtype, K=None, timed=False, route_s=0.0):
           f"launch counters moved {moved} at n={n} K={spec.K} {dtype}")
     line = {"n": n, "dtype": str(dtype), "K": spec.K,
             "route_s": route_s, "exact": True, "launches": moved}
+    if n in KERNEL_SIZES:
+        held = measure_kernels(x, (mid, out), (mid_idx, outer_idx, spec),
+                               timed=False)
+        line["kernels_exact"] = sorted(held)
     if timed:
         # values in and out, plus each pass's 2-byte index
         apply_bytes = 2 * N * x.element_size() + 2 * N * sum(per.values())
@@ -333,7 +353,7 @@ def hold_network(packed, n, dtype, K=None, timed=False, route_s=0.0):
         flat = x.view(-1)
         line["apply_library_ms"] = device_ms(lambda: flat[perm], 20)
         line["kernels"] = measure_kernels(x, (mid, out),
-                                          (mid_idx, outer_idx, spec), 20)
+                                          (mid_idx, outer_idx, spec))
     print("benes", json.dumps(line), flush=True)
 
 
@@ -509,13 +529,14 @@ def micro_cases(sm_hz: float, n_sms: int):
     def put(*arrays):
         return [torch.from_numpy(a).cuda() for a in arrays]
 
-    def onchip(n_bytes, sms):
-        sms = min(sms, n_sms)
-        return {"onchip_bound_ms": n_bytes / (SMEM_BYTES_PER_CLOCK * sms
+    def onchip(n_bytes):
+        # on every SM of the card, whatever share of them a kernel's
+        # design occupies today
+        return {"onchip_bound_ms": n_bytes / (SMEM_BYTES_PER_CLOCK * n_sms
                                               * sm_hz) * 1e3,
                 "onchip_by": f"{n_bytes} B of shared memory or shuffle "
                              f"traffic at {SMEM_BYTES_PER_CLOCK} B/clock on "
-                             f"{sms} SMs at {sm_hz / 1e6:.0f} MHz"}
+                             f"{n_sms} SMs at {sm_hz / 1e6:.0f} MHz"}
 
     def case(name, size, kern, plain, library, library_call, n_bytes,
              n_ops, rtol=0.0, timed=True, **extra):
@@ -554,7 +575,7 @@ def micro_cases(sm_hz: float, n_sms: int):
                partial(M1.gather_loop_reference, tab, idx, it),
                partial(lib_gl, tab, idx.long(), it),
                f"loop of {it} x torch.gather(acc, 0, idx)", 12 * R * 128, 0,
-               **onchip(8 * R * 128 * it, 128))
+               **onchip(8 * R * 128 * it))
 
     grp, row3, rank = put(*M2.dynslice_inputs())
     R = row3.shape[0]
@@ -590,7 +611,7 @@ def micro_cases(sm_hz: float, n_sms: int):
                partial(lib_lgl, x, idx.long(), it),
                f"loop of {it} x torch.gather(acc, 1, idx).add_(1)",
                12 * R * 128, it * R * 128,
-               **onchip(8 * R * 128 * it, -(-R // 8)))
+               **onchip(4 * R * 128 * it))      # 4 B a value a shuffle
     R = 8192
     gen = torch.Generator(device="cuda").manual_seed(10)
     for label, x, it, timed in (
@@ -603,7 +624,7 @@ def micro_cases(sm_hz: float, n_sms: int):
                    partial(lib_tl, x, it),
                    f"loop of {it} x torch.add(tiles(acc).transpose(1, 2), "
                    "1, out=...)", 8 * R * 128, it * R * 128, timed=timed,
-                   **onchip(8 * R * 128 * it, R // 128))
+                   **onchip(8 * R * 128 * it))
     R = 4096
     x, s1, s2, s3 = put(*M3.lane_loop_inputs(R, 3))
     longs = [s.long() for s in (s1, s2, s3)]
@@ -614,7 +635,7 @@ def micro_cases(sm_hz: float, n_sms: int):
                    partial(lib_sw, x, *longs, it),
                    f"loop of {it} x (3 torch.gather + 2 tile transposes)",
                    20 * R * 128, 0, timed=timed,
-                   **onchip((5 * 8 + 3) * R * 128 * it, R // 128))
+                   **onchip((5 * 8 + 3) * R * 128 * it))
     # shapes the 128 x 128 tile does not fit take the kernel's smaller
     # tiles; then the main shape, timed
     rng = np.random.default_rng(6)
@@ -720,17 +741,59 @@ def micro_kernel_entries(launches: dict, lines: dict) -> list:
     return out
 
 
+def route_kernels(label, route, packed, dtype) -> dict:
+    """Each kernel of one placed network of a PageRank run against its
+    plain version, timed (these launches are not the run's).  The placed
+    indices are held against the composition of the network's masks (the
+    placement kept only the indices)."""
+    import torch
+    spec = route[2]
+    mid, out, spec2 = place(packed, spec.net_log2, dtype)
+    check(spec2 == spec and torch.equal(route[0], composed(mid, spec))
+          and (route[1] is None if out is None
+               else torch.equal(route[1], composed_outer(out, spec))),
+          f"placed indices of the {label} net != its masks' composition")
+    x = random_values(1 << spec.net_log2, dtype, seed=3)
+    res = measure_kernels(x, (mid, out), route)
+    print("route_kernels", label, json.dumps(res), flush=True)
+    return res
+
+
+def expected_run_launches(run, calls: int, placed_base: bool) -> dict:
+    """The launches `calls` runs of ITERATIONS iterations of one placed
+    PageRank run make, its placement included: per iteration one
+    benes_apply of every route (edge, node and, on a delta run, delta),
+    per placement the stage kernels of the delta route (placed by the
+    run) and, where `placed_base`, of the base plan's edge and node
+    routes (placed once per device and route dtype on the base state)."""
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    out = dict.fromkeys(("benes_mid", "benes_mid_gather", "benes_outer",
+                         "benes_outer_gather"), 0)
+    for name, route in run.routes.items():
+        for k, v in BC.launches_per_apply(route[2]).items():
+            out[k] += calls * ITERATIONS * v
+        if name == "delta" or placed_base:
+            for k, v in BC.launches_per_placement(route[2]).items():
+                out[k] += v
+    return out
+
+
 def phase_main_path():
     import torch
+    from memgraph_tpu_torch.northstar import N_EDGES, N_NODES, generate_graph
     from memgraph_tpu_torch.ops import benes_cuda as BC
     from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.native import build_csr_csc_native
     from memgraph_tpu_torch.ops.pagerank import pagerank
     from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
-    t0 = time.perf_counter()
     src, dst = generate_graph()
+    served = build_csr_csc_native.served
+    t0 = time.perf_counter()
     host = from_coo(src, dst, n_nodes=N_NODES)
     host_s = time.perf_counter() - t0
+    check(build_csr_csc_native.served == served + 1,
+          "the native CSR builder did not serve the north-star graph")
     t0 = time.perf_counter()
     graph = host.to_device("cuda")
     torch.cuda.synchronize()
@@ -758,22 +821,16 @@ def phase_main_path():
     runs = {precisions[dt]: run for (_, dt), run in state["runs"].items()}
     expected = dict.fromkeys(launches, 0)
     for p, run in runs.items():
-        per_iteration = dict.fromkeys(("benes_mid_gather",
-                                       "benes_outer_gather"), 0)
-        per_placement = dict.fromkeys(("benes_mid", "benes_outer"), 0)
-        for route in run.routes.values():
-            for k, v in BC.launches_per_apply(route[2]).items():
-                per_iteration[k] += v
-            for k, v in BC.launches_per_placement(route[2]).items():
-                per_placement[k] += v
-        check(per_iteration == {"benes_mid_gather": 2,
-                                "benes_outer_gather": 4}
-              and per_placement == {"benes_mid": 2, "benes_outer": 4},
-              f"{p} plan launches {per_iteration} an iteration and "
-              f"{per_placement} a placement")
-        expected = {k: v + 2 * ITERATIONS * per_iteration.get(k, 0)
-                    + per_placement.get(k, 0)      # placed in the cold run
-                    for k, v in expected.items()}
+        # per plan: 2 mid / 4 outer gathers an iteration (edge + node
+        # nets), 2 benes_mid / 4 benes_outer at its placement (cold run)
+        one = expected_run_launches(run, 1, placed_base=True)
+        check(one == {"benes_mid": 2, "benes_mid_gather": 2 * ITERATIONS,
+                      "benes_outer": 4, "benes_outer_gather": 4 * ITERATIONS},
+              f"{p} plan launches {one} over one run and its placement")
+        for k, v in expected_run_launches(run, 2, placed_base=True).items():
+            expected[k] += v
+    check(set(state["placed"]) == set(state["runs"]),
+          "the base routes were not placed once per run's device and dtype")
     check(it32 == it16 == it32w == it16w == ITERATIONS,
           f"iterations {it32}/{it16}/{it32w}/{it16w} != {ITERATIONS}")
     check(launches == expected,
@@ -801,9 +858,12 @@ def phase_main_path():
 
     summary = {
         "n_nodes": N_NODES, "n_edges": N_EDGES, "iterations": ITERATIONS,
-        "from_coo_s": host_s, "to_device_s": to_device_s,
+        "from_coo_s": host_s, "from_coo_builder": "native",
+        "to_device_s": to_device_s,
         "plan_build_s": state["plan_build_s"],
-        "placement_s": {p: r.placement_s for p, r in runs.items()},
+        "placement_s": {precisions[key[1]]: placed["placement_s"]
+                        + state["runs"][key].placement_s
+                        for key, placed in state["placed"].items()},
         "cold_run_s": {"f32": cold32, "bf16": cold16},
         "warm_run_s": {"f32": warm32, "bf16": warm16},
         "iteration_ms": {"f32": warm32 / ITERATIONS * 1e3,
@@ -828,18 +888,180 @@ def phase_main_path():
             ("node_f32", runs["f32"].routes["node"],
              plan.node_masks_packed)):
         dtype = torch.bfloat16 if label == "edge_bf16" else torch.float32
-        spec = route[2]
-        # the masks the placement composed (it kept only the indices)
-        mid, out, spec2 = place(packed, spec.net_log2, dtype)
-        check(spec2 == spec and torch.equal(route[0], composed(mid, spec))
-              and torch.equal(route[1], composed_outer(out, spec)),
-              f"placed indices of the {label} net != its masks' "
-              "composition")
-        x = random_values(1 << spec.net_log2, dtype, seed=3)
-        shapes[label] = measure_kernels(x, (mid, out), route, 20)
-        del mid, out
-        print("main_path_kernels", label, json.dumps(shapes[label]),
-              flush=True)
+        shapes[label] = route_kernels(label, route, packed, dtype)
+    base = {"src": src, "dst": dst, "host": host, "graph": graph,
+            "ranks": {"f32": a32, "bf16": a16}, "summary": summary,
+            "placed_keys": list(state["placed"])}
+    return launches, shapes, base
+
+
+def phase_refresh(base: dict):
+    """A mutated successor of the main path's graph through the delta
+    path: no second plan build, the base routes shared, only the delta
+    net placed; f32 against float64 on the mutated graph, bf16 against
+    the f32 delta run."""
+    import torch
+    from memgraph_tpu_torch.northstar import N_NODES, mutate
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    from memgraph_tpu_torch.ops import spmv_mxu
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.native import build_csr_csc_native
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+
+    graph, host = base["graph"], base["host"]
+    t0 = time.perf_counter()
+    src2, dst2, changed = mutate(base["src"], base["dst"], N_NODES)
+    mutate_s = time.perf_counter() - t0
+    served = build_csr_csc_native.served
+    t0 = time.perf_counter()
+    succ_host = from_coo(src2, dst2, n_nodes=N_NODES,
+                         node_gids=host.node_gids)
+    from_coo_s = time.perf_counter() - t0
+    check(build_csr_csc_native.served == served + 1,
+          "the native CSR builder did not serve the mutated graph")
+    t0 = time.perf_counter()
+    succ = succ_host.to_device("cuda")
+    torch.cuda.synchronize()
+    to_device_s = time.perf_counter() - t0
+    # as GraphCache.get marks a successor snapshot of a planned base
+    object.__setattr__(succ, "_delta_ctx", (graph, frozenset(
+        int(g) for g in host.node_gids[changed])))
+
+    real_build_plan, plan_builds = spmv_mxu.build_plan, []
+
+    def counted_build_plan(*args, **kw):
+        plan_builds.append(1)
+        return real_build_plan(*args, **kw)
+
+    def drive(precision):
+        t0 = time.perf_counter()
+        ranks, err, iters = pagerank(succ, damping=DAMPING,
+                                     max_iterations=ITERATIONS, tol=0.0,
+                                     precision=precision)
+        torch.cuda.synchronize()
+        check(iters == ITERATIONS, f"refresh {precision} ran {iters} "
+                                   f"iterations, not {ITERATIONS}")
+        return ranks, time.perf_counter() - t0
+
+    spmv_mxu.build_plan = counted_build_plan
+    try:
+        # the refresh path: counts set to 0 just before, read just after
+        BC.reset_launch_counts()
+        r32, cold32 = drive("f32")
+        r16, cold16 = drive("bf16")
+        _, warm32 = drive("f32")
+        _, warm16 = drive("bf16")
+        launches = counts()
+    finally:
+        spmv_mxu.build_plan = real_build_plan
+    check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) "
+                           "for the successor snapshot")
+
+    state = succ._mxu_state
+    delta = state.get("delta")
+    check(delta is not None and state["plan"] is graph._mxu_state["plan"],
+          "the successor did not take the delta path on the base plan")
+    precisions = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    runs = {precisions[dt]: run for (_, dt), run in state["runs"].items()}
+    base_placed = graph._mxu_state["placed"]
+    check(list(base_placed) == base["placed_keys"],
+          f"the refresh placed base routes: {list(base_placed)} against "
+          f"{base['placed_keys']} after the main path")
+    expected = dict.fromkeys(launches, 0)
+    for key, run in state["runs"].items():
+        check(all(run.routes[r] is base_placed[key][r]
+                  for r in ("edge", "node")),
+              f"the {precisions[key[1]]} delta run does not share the base "
+              "routes")
+        for k, v in expected_run_launches(run, 2, placed_base=False).items():
+            expected[k] += v
+    check(launches == expected,
+          f"refresh launch counts {launches} != expected {expected}")
+
+    # base iterations again, in the same minute as the delta's
+    # (not counted: the refresh counts were read above)
+    base_warm = {}
+    for p in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        pagerank(graph, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0,
+                 precision=p)
+        torch.cuda.synchronize()
+        base_warm[p] = time.perf_counter() - t0
+
+    ref = reference_pagerank(src2, dst2, N_NODES)
+    a32 = r32.double().cpu().numpy()
+    a16 = r16.double().cpu().numpy()
+    check(bool(np.isfinite(a32).all() and np.isfinite(a16).all())
+          and a32.shape == a16.shape == (N_NODES,),
+          "refresh ranks non-finite or misshaped")
+    rel = float((np.abs(a32 - ref) / ref).max())
+    l1 = float(np.abs(a32 - ref).sum())
+    top = len(set(np.argsort(-a32)[:100]) & set(np.argsort(-ref)[:100]))
+    check(rel <= F32_REL_TOL and l1 <= F32_L1_TOL and top == 100,
+          f"refresh f32 off the float64 reference of the mutated graph: "
+          f"rel {rel} l1 {l1} top-100 {top}")
+    bounds = PRECISION_BOUNDS["bf16"]
+    linf16 = float(np.abs(a16 - a32).max())
+    l1_16 = float(np.abs(a16 - a32).sum())
+    k = bounds["topk_order"]
+    top_order = bool((np.argsort(-a16)[:k] == np.argsort(-a32)[:k]).all())
+    check(linf16 <= bounds["pagerank_linf"] and l1_16 <= bounds["pagerank_l1"]
+          and top_order, f"refresh bf16 outside PRECISION_BOUNDS: linf "
+          f"{linf16} l1 {l1_16} top-{k} order {top_order}")
+    # the bf16 run must have moved with the mutation: its change from the
+    # base's bf16 ranks tracks the f32 change (the common rounding of the
+    # base contributions cancels); a bf16 run served by the bare base plan
+    # (the JAX package's defect) has no change at all
+    moved32 = a32 - base["ranks"]["f32"]
+    moved16 = a16 - base["ranks"]["bf16"]
+    moved_l1 = float(np.abs(moved32).sum())
+    miss_l1 = float(np.abs(moved16 - moved32).sum())
+    check(moved_l1 > 0 and miss_l1 < 0.5 * moved_l1,
+          f"refresh bf16 did not move with the mutation: |bf16 change - "
+          f"f32 change| {miss_l1} against |f32 change| {moved_l1}")
+    to_base_l1 = float(np.abs(a16 - base["ranks"]["f32"]).sum())
+    check(l1_16 < to_base_l1,
+          f"refresh bf16 sits closer to the base snapshot's ranks (L1 "
+          f"{to_base_l1}) than to the f32 delta run's (L1 {l1_16})")
+
+    placement = {p: r.placement_s for p, r in runs.items()}
+    first = state["diff_s"] + state["delta_build_s"]
+    summary = {
+        "n_delta": delta.n_delta, "changed_nodes": int(len(changed)),
+        "delta": {"net_log2": delta.net_log2, "R_G": delta.R_G,
+                  "C": delta.C},
+        "mutate_s": mutate_s, "from_coo_s": from_coo_s,
+        "from_coo_builder": "native", "to_device_s": to_device_s,
+        "diff_s": state["diff_s"], "delta_build_s": state["delta_build_s"],
+        "placement_s": placement,
+        "refresh_cold_s": {"f32": first + placement["f32"],
+                           "bf16": placement["bf16"]},
+        "base_plan_build_s": base["summary"]["plan_build_s"],
+        "base_placement_s": base["summary"]["placement_s"],
+        "cold_run_s": {"f32": cold32, "bf16": cold16},
+        "warm_run_s": {"f32": warm32, "bf16": warm16},
+        "cold_iteration_ms": {
+            "f32": (cold32 - first - placement["f32"]) / ITERATIONS * 1e3,
+            "bf16": (cold16 - placement["bf16"]) / ITERATIONS * 1e3},
+        "iteration_ms": {"f32": warm32 / ITERATIONS * 1e3,
+                         "bf16": warm16 / ITERATIONS * 1e3},
+        "base_iteration_ms": {p: t / ITERATIONS * 1e3
+                              for p, t in base_warm.items()},
+        "base_iteration_ms_main_path": base["summary"]["iteration_ms"],
+        "launches": launches, "expected_launches": expected,
+        "f32_vs_f64": {"max_rel": rel, "l1": l1, "top100": top},
+        "bf16_vs_f32": {"linf": linf16, "l1": l1_16,
+                        f"top{k}_order": top_order},
+        "bf16_moved": {"f32_change_l1": moved_l1,
+                       "bf16_change_miss_l1": miss_l1,
+                       "bf16_vs_base_f32_l1": to_base_l1}}
+    print("refresh", json.dumps(summary), flush=True)
+
+    shapes = {}
+    for p, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        shapes[f"delta_{p}"] = route_kernels(
+            f"delta_{p}", runs[p].routes["delta"], delta.masks_packed, dtype)
     return launches, shapes
 
 
@@ -850,29 +1072,46 @@ def main():
     sys.path.insert(0, HERE)
     from memgraph_tpu_torch.ops import benes_cuda as BC
     from memgraph_tpu_torch.ops._build import load_kernels
-    from memgraph_tpu_torch.ops.native import get_router
+    from memgraph_tpu_torch.ops.native import get_csr_builder, get_router
 
     card = card_line()
     print("card", card, flush=True)
     t0 = time.perf_counter()
     load_kernels()
     check(get_router() is not None, "host Benes router did not build")
+    check(get_csr_builder() is not None, "native CSR builder did not build")
     print(f"build_s {time.perf_counter() - t0:.3f}", flush=True)
 
-    phase_benes()
-    micro_launches, micro_lines = phase_micro(sm_clock_hz())
-    launches, shapes = phase_main_path()
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"phase_s {name} {time.perf_counter() - t0:.3f}", flush=True)
+        return out
+
+    timed("benes", phase_benes)
+    micro_launches, micro_lines = timed("micro", phase_micro, sm_clock_hz())
+    launches, shapes, base = timed("main_path", phase_main_path)
+    refresh_launches, refresh_shapes = timed("refresh", phase_refresh, base)
+    del base
 
     replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
                 "benes_mid": "memgraph_tpu/ops/benes_pallas.py:225",
                 "benes_outer_gather": "memgraph_tpu/ops/benes_pallas.py:208",
                 "benes_outer": "memgraph_tpu/ops/benes_pallas.py:208"}
-    roles = {"benes_mid_gather": "middle pass, twice per iteration",
+    roles = {"benes_mid_gather": "middle pass, once per routed net an "
+                                 "iteration (2 on the main path, 3 on a "
+                                 "refresh)",
              "benes_mid": "placement: composes the middle stages into "
                           "mid_idx, once per network and placement",
-             "benes_outer_gather": "outer passes, four times per iteration",
+             "benes_outer_gather": "outer passes, two per net past one "
+                                   "tile an iteration (4 on the main "
+                                   "path, 6 on a refresh)",
              "benes_outer": "placement: composes each outer side into "
                             "outer_idx, twice per network and placement"}
+    check(refresh_launches["benes_mid_gather"] > 0
+          and refresh_launches["benes_outer_gather"] > 0,
+          f"the refresh path launched no gather: {refresh_launches}")
+    shapes.update(refresh_shapes)
     kernels = []
     for name in ("benes_mid_gather", "benes_mid", "benes_outer_gather",
                  "benes_outer"):
@@ -882,6 +1121,8 @@ def main():
             "source": "memgraph_tpu_torch/ops/csrc/benes.cu",
             "replaces": replaces[name], "role": roles[name],
             "launches": launches[name],
+            "launches_by_path": {"main_path": launches[name],
+                                 "refresh": refresh_launches[name]},
             "max_abs_err": max(s[name]["max_abs_err"]
                                for s in shapes.values() if name in s),
             "ms": main["ms"], "plain_ms": main["plain_ms"],

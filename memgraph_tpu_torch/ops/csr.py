@@ -4,7 +4,9 @@ tensors on a device.
 Port of memgraph_tpu/ops/csr.py (``DeviceGraph``, ``from_coo``).  Node ids
 are dense; ``n_nodes``/``n_edges`` are padded up to powers of two, and the
 padding edges are zero-weight self loops on a sink row (index
-``n_nodes``), so segment reductions ignore them.
+``n_nodes``), so segment reductions ignore them.  ``from_coo`` takes the
+native counting-sort builder (native/csr_builder.cpp) first and the numpy
+lexsort path where that builder is unavailable; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ class DeviceGraph:
     out_degree: (n_pad,) float32 — true out-degrees (0 for padding rows)
     n_nodes / n_edges: true counts;  n_pad / e_pad: padded counts
     node_gids:  (n_nodes,) int64 host array — dense index -> storage gid
+    host_coo:   (src int32, dst int32, w float32) host arrays of the true
+                edges in input order, or None — kept so that a successor
+                snapshot can diff its edges against this one for the
+                O(delta) MXU plan refresh (spmv_mxu.DeltaPlan) without
+                copying the edges back from the device
     """
 
     row_ptr: object
@@ -60,6 +67,8 @@ class DeviceGraph:
     e_pad: int
     node_gids: np.ndarray
     gid_to_idx: dict = field(repr=False, hash=False, compare=False)
+    host_coo: tuple = field(default=None, repr=False, hash=False,
+                            compare=False)
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -112,10 +121,43 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
 
     n_pad = _bucket(n_nodes + 1) if pad else n_nodes + 1
     e_pad = _bucket(n_edges) if pad else max(n_edges, 1)
+    from .native import build_csr_csc_native
+    native = (build_csr_csc_native(src, dst, weights, n_nodes, n_pad, e_pad)
+              if n_edges else None)
+    if native is not None:
+        row_ptr, out_degree = native["row_ptr"], native["out_degree"]
+        src_full, dst_full, w_full = (native["csr_src"], native["csr_dst"],
+                                      native["csr_w"])
+        csc_src, csc_dst, csc_w = (native["csc_src"], native["csc_dst"],
+                                   native["csc_w"])
+    else:
+        (row_ptr, src_full, dst_full, w_full, csc_src, csc_dst, csc_w,
+         out_degree) = _csr_csc_numpy(src, dst, weights, n_nodes, n_pad,
+                                      e_pad)
+
+    if node_gids is None:
+        node_gids = np.arange(n_nodes, dtype=np.int64)
+    node_gids = np.asarray(node_gids, dtype=np.int64)
+    gid_to_idx = dict(zip(node_gids.tolist(), range(len(node_gids))))
+
+    return DeviceGraph(row_ptr=row_ptr, col_idx=dst_full, src_idx=src_full,
+                       weights=w_full,
+                       csc_src=csc_src, csc_dst=csc_dst, csc_weights=csc_w,
+                       out_degree=out_degree,
+                       n_nodes=n_nodes, n_edges=n_edges,
+                       n_pad=n_pad, e_pad=e_pad,
+                       node_gids=node_gids, gid_to_idx=gid_to_idx,
+                       host_coo=(src.astype(np.int32), dst.astype(np.int32),
+                                 weights))
+
+
+def _csr_csc_numpy(src, dst, weights, n_nodes, n_pad, e_pad):
+    """The numpy path of ``from_coo``: (row_ptr, csr src, csr dst, csr w,
+    csc src, csc dst, csc w, out_degree), padded."""
+    n_edges = len(src)
     # padding edges: sink->sink self loops with zero weight; the sink is the
     # extra padding row n_nodes (guaranteed to exist since n_pad >= n_nodes+1)
     sink = n_nodes
-
     # lexicographic (src, dst) order: rows contiguous AND sorted by dst
     order = np.lexsort((dst, src))
     s_sorted = src[order]
@@ -147,16 +189,5 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
     out_degree = np.zeros(n_pad, dtype=np.float32)
     out_degree[:n_nodes] = np.bincount(
         src, minlength=n_nodes).astype(np.float32)[:n_nodes]
-
-    if node_gids is None:
-        node_gids = np.arange(n_nodes, dtype=np.int64)
-    gid_to_idx = {int(g): i for i, g in enumerate(node_gids)}
-
-    return DeviceGraph(row_ptr=row_ptr, col_idx=dst_full, src_idx=src_full,
-                       weights=w_full,
-                       csc_src=csc_src, csc_dst=csc_dst, csc_weights=csc_w,
-                       out_degree=out_degree,
-                       n_nodes=n_nodes, n_edges=n_edges,
-                       n_pad=n_pad, e_pad=e_pad,
-                       node_gids=np.asarray(node_gids, dtype=np.int64),
-                       gid_to_idx=gid_to_idx)
+    return (row_ptr, src_full, dst_full, w_full, csc_src, csc_dst, csc_w,
+            out_degree)

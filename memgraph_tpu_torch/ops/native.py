@@ -1,8 +1,14 @@
-"""ctypes bridge to the host Benes router (native/benes_router.cpp).
+"""ctypes bridges to the port's host C++ code (``native/*.cpp``).
 
-The router is built with ``g++`` into the port's build directory at first
-use.  At 2^24 slots the python router in ops/benes.py is far too slow; the
-native one keeps the 10M-edge plan build near half a minute.
+  benes_router.cpp -> ``benes_route_native``: the host Benes router.  At
+                      2^24 slots the python router in ops/benes.py is far
+                      too slow; the native one keeps the 10M-edge plan
+                      build near half a minute.
+  csr_builder.cpp  -> ``build_csr_csc_native``: the O(E + N) counting-sort
+                      CSR + CSC builder that ``csr.from_coo`` takes first.
+
+Each library is built with ``g++`` into the port's build directory at
+first use.  Without a compiler the callers take their numpy paths.
 """
 
 from __future__ import annotations
@@ -19,36 +25,61 @@ from ._build import PKG_DIR, compile_all, lib_path
 
 log = logging.getLogger(__name__)
 
-_ROUTER_SRC = os.path.join(PKG_DIR, "native", "benes_router.cpp")
-
 _lock = threading.Lock()
-_lib = None
-_tried = False
+_libs: dict = {}
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64 = ctypes.c_int64
+
+# source -> {function: (restype, argtypes)}
+_SIGNATURES = {
+    "benes_router.cpp": {
+        "benes_route": (ctypes.c_int, [_I64P, _I64, _U8P])},
+    "csr_builder.cpp": {
+        "build_csr_csc": (ctypes.c_int, [
+            _I64P, _I64P, _F32P, _I64, _I64, _I64, _I64,
+            _I32P, _I32P, _F32P, _I32P, _I32P, _F32P, _I32P, _F32P])},
+}
+
+
+def _load(source: str):
+    """Load (building if needed) one native library, or None when the host
+    has no C++ compiler or the build fails.  Tried once per process."""
+    with _lock:
+        if source in _libs:
+            return _libs[source]
+        _libs[source] = None
+        src = os.path.join(PKG_DIR, "native", source)
+        out = lib_path(src)
+        if not os.path.exists(out):
+            if shutil.which("g++") is None:
+                log.info("no g++ on this host; %s not built", source)
+                return None
+            try:
+                compile_all([(["g++", "-O3", "-std=c++17", "-shared",
+                               "-fPIC", "-Wall", src], out)])
+            except (OSError, RuntimeError) as e:
+                log.warning("%s did not build (%s)", source, e)
+                return None
+        lib = ctypes.CDLL(out)
+        for name, (restype, argtypes) in _SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _libs[source] = lib
+        return lib
 
 
 def get_router():
-    """Load (building if needed) the router library, or None when the host
-    has no C++ compiler."""
-    global _lib, _tried
-    with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        out = lib_path(_ROUTER_SRC)
-        if not os.path.exists(out):
-            if shutil.which("g++") is None:
-                log.info("no g++ on this host; python Benes router in use")
-                return None
-            compile_all([(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                           "-Wall", _ROUTER_SRC], out)])
-        lib = ctypes.CDLL(out)
-        lib.benes_route.restype = ctypes.c_int
-        lib.benes_route.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint8),
-        ]
-        _lib = lib
-        return _lib
+    """The Benes router library, or None when it cannot be built here."""
+    return _load("benes_router.cpp")
+
+
+def get_csr_builder():
+    """The CSR builder library, or None when it cannot be built here."""
+    return _load("csr_builder.cpp")
 
 
 def benes_route_native(perm: np.ndarray):
@@ -66,9 +97,59 @@ def benes_route_native(perm: np.ndarray):
         raise ValueError("benes_route_native requires power-of-two N >= 2")
     n_stages = 2 * (N.bit_length() - 1) - 1
     out = np.zeros((n_stages, (N + 7) // 8), dtype=np.uint8)
-    rc = lib.benes_route(
-        perm.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        N, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    rc = lib.benes_route(perm.ctypes.data_as(_I64P), N,
+                         out.ctypes.data_as(_U8P))
     if rc != 0:
         raise ValueError("invalid permutation for benes_route")
     return out
+
+
+def build_csr_csc_native(src: np.ndarray, dst: np.ndarray, weights,
+                         n_nodes: int, n_pad: int, e_pad: int):
+    """Run the native CSR + CSC builder.  Returns a dict of the padded
+    arrays (``csr_src``, ``csr_dst``, ``csr_w``, ``csc_src``, ``csc_dst``,
+    ``csc_w``, ``row_ptr``, ``out_degree``), or None when the builder is
+    unavailable or fails (the caller then takes the numpy path).  An
+    endpoint id outside [0, n_nodes) raises ValueError."""
+    lib = get_csr_builder()
+    if lib is None:
+        return None
+    n_edges = len(src)
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    if len(dst) != n_edges or (weights is not None
+                               and len(weights) != n_edges):
+        raise ValueError("src, dst and weights must have one entry an edge")
+    w_ptr = None
+    if weights is not None:
+        weights = np.ascontiguousarray(weights, dtype=np.float32)
+        w_ptr = weights.ctypes.data_as(_F32P)
+    out = {name: np.empty(e_pad, dtype=dt) for name, dt in (
+        ("csr_src", np.int32), ("csr_dst", np.int32), ("csr_w", np.float32),
+        ("csc_src", np.int32), ("csc_dst", np.int32), ("csc_w", np.float32))}
+    out["row_ptr"] = np.empty(n_pad + 1, dtype=np.int32)
+    out["out_degree"] = np.empty(n_pad, dtype=np.float32)
+
+    def ptr(name):
+        a = out[name]
+        return a.ctypes.data_as(_F32P if a.dtype == np.float32 else _I32P)
+
+    rc = lib.build_csr_csc(
+        src.ctypes.data_as(_I64P), dst.ctypes.data_as(_I64P), w_ptr,
+        n_edges, n_nodes, n_pad, e_pad,
+        *(ptr(k) for k in ("csr_src", "csr_dst", "csr_w", "csc_src",
+                           "csc_dst", "csc_w", "row_ptr", "out_degree")))
+    if rc == 2:
+        # invalid input, not "builder unavailable": the numpy path would
+        # build a corrupt graph from the same ids
+        raise ValueError(
+            f"edge endpoint id out of range [0, {n_nodes}) in COO input")
+    if rc != 0:
+        log.warning("native csr builder returned %d; numpy path in use", rc)
+        return None
+    build_csr_csc_native.served += 1
+    return out
+
+
+#: graphs the native builder has built in this process
+build_csr_csc_native.served = 0

@@ -6,6 +6,12 @@ backends).  Weighted power iteration: the setup hoists the per-edge
 update (semiring.pagerank_update) and the L1 convergence partial.
 Dangling-node mass is redistributed uniformly each round.  Padding edges
 carry weight 0 into a sink row, so they contribute nothing.
+
+Snapshot refresh: a snapshot whose ``_delta_ctx`` is ``(base graph,
+changed gids)`` (set as the JAX package's ``GraphCache.get`` sets it, with
+``object.__setattr__`` on the frozen graph) and whose base holds a full
+MXU plan takes an O(changed-edges) ``spmv_mxu.DeltaPlan`` side-net
+instead of a full replan; its runs share the base plan's placed routes.
 """
 
 from __future__ import annotations
@@ -71,25 +77,138 @@ def _build_lock(graph: DeviceGraph) -> threading.Lock:
     return lock
 
 
+# a delta larger than this fraction of the base edge set triggers a full
+# replan (padding inflation + per-iteration delta cost outgrow the saving)
+DELTA_RECOMPACT_FRACTION = 0.10
+
+
+def _edge_diff(base_g: DeviceGraph, new_g: DeviceGraph, changed_gids):
+    """Multiset edge diff restricted to vertices in changed_gids.
+    Returns (added, removed) as (src, dst, w) tuples of host arrays, or
+    None when the diff cannot be derived (node set changed, no host
+    arrays kept, ...).  Reads ``host_coo``: nothing is copied back from
+    the device."""
+    if base_g.host_coo is None or new_g.host_coo is None:
+        return None
+    if base_g.n_nodes != new_g.n_nodes or \
+            not np.array_equal(base_g.node_gids, new_g.node_gids):
+        return None     # node set changed: dense ids shifted
+    bitmap = np.zeros(new_g.n_nodes, dtype=bool)
+    for gid in changed_gids:
+        idx = new_g.gid_to_idx.get(gid)
+        if idx is not None:
+            bitmap[idx] = True
+    os_, od, ow = base_g.host_coo
+    ns_, nd, nw = new_g.host_coo
+    o_sel = bitmap[os_]
+    n_sel = bitmap[ns_]
+    # multiset diff over (src, dst, w) rows: +1 for new, -1 for old;
+    # weights compare as their int32 bits
+    rows = np.stack([
+        np.concatenate([ns_[n_sel].astype(np.int64),
+                        os_[o_sel].astype(np.int64)]),
+        np.concatenate([nd[n_sel].astype(np.int64),
+                        od[o_sel].astype(np.int64)]),
+        np.concatenate([nw[n_sel], ow[o_sel]]).view(np.int32).astype(
+            np.int64),
+    ], axis=1)
+    sign = np.concatenate([np.ones(int(n_sel.sum()), dtype=np.int64),
+                           -np.ones(int(o_sel.sum()), dtype=np.int64)])
+    uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+    counts = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(counts, inv.reshape(-1), sign)
+    add_idx = np.repeat(np.arange(len(uniq)), np.maximum(counts, 0))
+    rem_idx = np.repeat(np.arange(len(uniq)), np.maximum(-counts, 0))
+
+    def w_back(col):
+        return col.astype(np.int32).view(np.float32)
+
+    added = (uniq[add_idx, 0], uniq[add_idx, 1], w_back(uniq[add_idx, 2]))
+    removed = (uniq[rem_idx, 0], uniq[rem_idx, 1], w_back(uniq[rem_idx, 2]))
+    return added, removed
+
+
+def _try_delta_plan(graph: DeviceGraph):
+    """Derive this snapshot's MXU state from a predecessor's full plan
+    via an O(changed-edges) DeltaPlan.  None -> the caller does a full
+    build.  The state keeps the base plan, the DeltaPlan and the base
+    state, whose placed routes this snapshot's runs share."""
+    from . import spmv_mxu
+    ctx = getattr(graph, "_delta_ctx", None)
+    if ctx is None:
+        return None
+    base_g, changed_gids = ctx
+    base_state = getattr(base_g, "_mxu_state", None)
+    # a delta-derived state anchors nothing: its plan is its own base's,
+    # so a diff against its snapshot's edges would drop the first delta
+    if base_state is None or base_state["plan"].wsum is None \
+            or base_state.get("delta") is not None:
+        return None
+    t0 = time.perf_counter()
+    diff = _edge_diff(base_g, graph, changed_gids)
+    if diff is None:
+        return None
+    (a_s, a_d, a_w), (r_s, r_d, r_w) = diff
+    n_delta = len(a_s) + len(r_s)
+    if n_delta == 0:
+        return base_state    # property-only bump: plan still exact
+    if n_delta > max(DELTA_RECOMPACT_FRACTION * base_g.n_edges, 1024):
+        return None          # recompact: full replan is the better deal
+    diff_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    delta = spmv_mxu.build_delta_plan(base_state["plan"], a_s, a_d, a_w,
+                                      r_s, r_d, r_w)
+    return {"plan": base_state["plan"], "delta": delta, "base": base_state,
+            "diff_s": diff_s, "delta_build_s": time.perf_counter() - t0,
+            "runs": {}, "lock": _build_lock(graph)}
+
+
 def _mxu_state(graph: DeviceGraph) -> dict:
-    """The graph's MXU plan and its kernels, built once per snapshot and
-    cached on it ({"plan", "plan_build_s", "runs": {(device, route dtype):
-    run}})."""
+    """The graph's MXU state, built once per snapshot and cached on it:
+    a full build {"plan", "plan_build_s", "runs": {(device, route dtype):
+    run}, "placed": {(device, route dtype): place_plan's state}, "lock":
+    the graph's build lock}, or a delta refresh of a predecessor's
+    (``_try_delta_plan``: "delta", "base", "diff_s" and "delta_build_s"
+    in place of "plan_build_s" and "placed")."""
     state = getattr(graph, "_mxu_state", None)
     if state is not None:
         return state
     from . import spmv_mxu
-    with _build_lock(graph):
+    lock = _build_lock(graph)
+    with lock:
         state = getattr(graph, "_mxu_state", None)
+        if state is None:
+            state = _try_delta_plan(graph)
+            if state is not None:
+                object.__setattr__(graph, "_mxu_state", state)
         if state is None:
             t0 = time.perf_counter()
             src, dst, w = graph.host_edges()
             plan = spmv_mxu.build_plan(src, dst, w, graph.n_nodes)
             state = {"plan": plan,
-                     "plan_build_s": time.perf_counter() - t0, "runs": {}}
+                     "plan_build_s": time.perf_counter() - t0, "runs": {},
+                     "placed": {}, "lock": lock}
             # DeviceGraph is frozen; bypass its setattr guard
             object.__setattr__(graph, "_mxu_state", state)
+            # full plans anchor later delta refreshes
+            object.__setattr__(graph, "_mxu_base_self", True)
     return state
+
+
+def _placed(state: dict, device: torch.device, route_dtype) -> dict:
+    """The base plan's placed routes on (device, route dtype): placed once
+    on the full-build state that holds the plan, under its graph's lock,
+    and shared by that snapshot's runs and every delta snapshot's, in
+    whichever order they come."""
+    from . import spmv_mxu
+    base = state.get("base", state)
+    key = (str(device), route_dtype)
+    with base["lock"]:
+        placed = base["placed"].get(key)
+        if placed is None:
+            placed = spmv_mxu.place_plan(base["plan"], route_dtype, device)
+            base["placed"][key] = placed
+    return placed
 
 
 def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
@@ -104,7 +223,13 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
     caches its f32 kernel once per graph, with the variable as it was at
     the first call; here a later change of the variable takes effect on
     the next call (another run is placed), and no run is returned under a
-    dtype it was not built for."""
+    dtype it was not built for.
+
+    On a delta snapshot every run routes the delta, whatever its dtype.
+    The reference builds its bf16 run from the bare base plan
+    (memgraph_tpu/ops/pagerank.py:_pagerank_via_mxu), so its bf16 ranks
+    of a refreshed snapshot are the base snapshot's; the port does not
+    copy that."""
     from . import spmv_mxu
     state = _mxu_state(graph)
     plan = state["plan"]
@@ -112,13 +237,17 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
     key = (str(device), route_dtype)
     run = state["runs"].get(key)
     if run is None:
-        with _build_lock(graph):
+        # the base routes first, under the base graph's lock; then the
+        # run (and its delta) under the lock of the state's own graph
+        placed = _placed(state, device, route_dtype)
+        with state["lock"]:
             run = state["runs"].get(key)
             if run is None:
                 run = spmv_mxu.make_pagerank_kernel(
-                    plan, route_dtype=route_dtype, device=device)
-                run.out_relabel = torch.from_numpy(
-                    plan.out_relabel).to(device)
+                    plan, route_dtype=route_dtype, device=device,
+                    delta=state.get("delta"), placed=placed)
+                run.out_relabel = torch.from_numpy(plan.out_relabel).to(
+                    device)
                 state["runs"][key] = run
     x0_flat = None
     if x0 is not None:

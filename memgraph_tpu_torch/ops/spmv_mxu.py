@@ -25,7 +25,9 @@ mult(edge)`` is computed with no data-dependent addressing on the device:
 
 All routing, masks and layouts are computed on the host (numpy, the same
 code as the JAX package, so both packages build identical plans) and
-placed on the device once, in ``make_semiring_kernel``.
+placed on the device once per plan, device and route dtype
+(``place_plan``); a snapshot refresh adds a ``DeltaPlan`` side-net,
+placed by ``make_semiring_kernel``.
 """
 
 from __future__ import annotations
@@ -309,6 +311,120 @@ def build_plan(src: np.ndarray, dst: np.ndarray,
         wsum=wsum)
 
 
+# ---------------------------------------------------------------------------
+# delta plans: O(changed-edges) refresh instead of a full replan
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeltaPlan:
+    """Side-plan covering edges added/removed since the base plan.
+
+    The base plan keeps serving its (now stale) edges; this plan routes
+    only the delta, and two correction vectors make the combination
+    exact:
+      - scale_out: rank is pre-scaled by wsum_old/wsum_new per source
+        before the BASE expand, so stale w/wsum_old multipliers become
+        w/wsum_new;
+      - removed edges ride the delta net with NEGATIVE multipliers
+        -w/wsum_new, cancelling the base contribution exactly;
+      - dangling_out replaces the base vector (nodes may gain/lose all
+        out-edges).
+    Valid only while the node set is unchanged.
+    """
+    n_delta: int
+    R_G: int
+    rowid: np.ndarray          # (G, R_G) int16
+    mult: np.ndarray           # (G, R_G, LANES) f32 (signed)
+    net_log2: int
+    masks_packed: np.ndarray
+    C: int
+    run_k: np.ndarray
+    win_oh: np.ndarray
+    scale_out: np.ndarray      # (node_flat,) f32
+    dangling_out: np.ndarray   # (node_flat,) f32 — replaces base's
+    wsum: np.ndarray           # updated per-node out-weight sums
+
+
+def build_delta_plan(base: MXUPlan,
+                     add_src, add_dst, add_w=None,
+                     rem_src=None, rem_dst=None, rem_w=None) -> DeltaPlan:
+    """Build the O(delta) side-plan. All ids are ORIGINAL node ids and
+    must be < base.n_nodes (node additions require a full replan).
+
+    R_G and C are padded to powers of two (C with dead chunks: run_k -1
+    rows extract nothing, zero win_oh rows route no window), so that
+    growing deltas keep the same shapes between bucket jumps.
+
+    The delta net is never below 2^15 slots: the scatter layout gives
+    every dst row of the base's whole 256-row windows at least one row."""
+    if base.wsum is None:
+        raise ValueError("base plan predates delta support (no wsum)")
+    n = base.n_nodes
+    add_src = np.asarray(add_src, dtype=np.int64)
+    add_dst = np.asarray(add_dst, dtype=np.int64)
+    a_w = (np.ones(len(add_src)) if add_w is None
+           else np.asarray(add_w, dtype=np.float64))
+    rem_src = np.asarray(
+        rem_src if rem_src is not None else [], dtype=np.int64)
+    rem_dst = np.asarray(
+        rem_dst if rem_dst is not None else [], dtype=np.int64)
+    r_w = (np.ones(len(rem_src)) if rem_w is None
+           else np.asarray(rem_w, dtype=np.float64))
+    for arr in (add_src, add_dst, rem_src, rem_dst):
+        if len(arr) and (arr.min() < 0 or arr.max() >= n):
+            raise ValueError("delta references nodes outside the base plan")
+
+    wsum_new = base.wsum.copy()
+    if len(add_src):
+        wsum_new += np.bincount(add_src, weights=a_w, minlength=n)
+    if len(rem_src):
+        wsum_new -= np.bincount(rem_src, weights=r_w, minlength=n)
+    wsum_new[np.abs(wsum_new) < 1e-9] = 0.0     # cancel fp dust at zero
+    inv_new = np.where(wsum_new > 0, 1.0 / np.maximum(wsum_new, 1e-300),
+                       0.0)
+
+    d_src = np.concatenate([add_src, rem_src])
+    d_dst = np.concatenate([add_dst, rem_dst])
+    d_w = np.concatenate([a_w, -r_w])           # removals route negative
+
+    G = base.G
+    n_drows_p = base.W * K_C
+    R_G, rowid, mult, gp = _gather_layout(d_src, d_w, base.out_relabel,
+                                          inv_new, G)
+    if R_G & (R_G - 1):
+        R_G = 1 << R_G.bit_length()
+        R_G, rowid, mult, gp = _gather_layout(
+            d_src, d_w, base.out_relabel, inv_new, G, force_R_G=R_G)
+    C, run_k, win_oh, sp, R_total = _scatter_layout(
+        d_dst, base.in_relabel, n_drows_p)
+    if C & (C - 1):
+        C_pad = 1 << C.bit_length()
+        run_k = np.concatenate(
+            [run_k, np.full((C_pad - C, R_C), -1, dtype=run_k.dtype)])
+        win_oh = np.concatenate(
+            [win_oh, np.zeros((C_pad - C, win_oh.shape[1]),
+                              dtype=win_oh.dtype)])
+        C, R_total = C_pad, C_pad * R_C
+    net = max(G * R_G * LANES, R_total * LANES, 2)
+    net_log2 = int(np.ceil(np.log2(net)))
+    masks_packed = _edge_perm_masks(gp, sp, net_log2)
+
+    node_flat = G * SG_ROWS * LANES
+    # exact-1 scale for untouched nodes: only rescale where wsum changed
+    changed = wsum_new != base.wsum
+    scale_nodes = np.ones(n, dtype=np.float64)
+    scale_nodes[changed] = base.wsum[changed] * inv_new[changed]
+    scale_out = np.zeros(node_flat, dtype=np.float32)
+    scale_out[base.out_relabel] = scale_nodes
+    dangling_out = np.zeros(node_flat, dtype=np.float32)
+    dangling_out[base.out_relabel[wsum_new <= 0]] = 1.0
+
+    return DeltaPlan(
+        n_delta=len(d_src), R_G=R_G, rowid=rowid, mult=mult,
+        net_log2=net_log2, masks_packed=masks_packed,
+        C=C, run_k=run_k, win_oh=win_oh,
+        scale_out=scale_out, dangling_out=dangling_out, wsum=wsum_new)
+
 
 # ---------------------------------------------------------------------------
 # device kernel
@@ -361,8 +477,80 @@ def resolve_route_dtype(route_dtype=None) -> torch.dtype:
         "MEMGRAPH_TPU_ROUTE_DTYPE", "f32") == "bf16" else torch.float32)
 
 
+def _put(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _put_route(masks_packed, net_log2, dtype, dev):
+    """(mid_idx, outer_idx, spec) of one routed network on dev: the middle
+    stages composed into one tile-local index, each outer side into one
+    row index (None when the net fits one tile), by the stage kernels on
+    the card; the mask planes (64 MB each for the f32 edge net) are not
+    kept."""
+    spec, mid, out = build_masks(masks_packed, net_log2, K_BY_DTYPE[dtype])
+    return (compose_mid(_put(mid, dev), spec),
+            None if out is None else compose_outer(_put(out, dev), spec),
+            spec)
+
+
+def _put_layout(rowid, mult, run_k, win_oh, dev):
+    """One gather/scatter layout (the base plan's or a delta's) on dev:
+    (oh, mult, ohe_t, win_oh_t).  oh (G, R_G, 128) is the expand's
+    one-hot; ohe_t (C, K_C, R_C) the extract's, transposed for bmm and
+    f32, so a bf16 route is upcast (exactly) and summed in f32."""
+    rowid = _put(rowid.astype(np.int64), dev)
+    run_k = _put(run_k.astype(np.int64), dev)
+    oh = (rowid[:, :, None] == torch.arange(SG_ROWS, device=dev)
+          ).to(torch.float32)
+    ohe_t = ((run_k[:, :, None] == torch.arange(K_C, device=dev))
+             & (run_k[:, :, None] >= 0)
+             ).to(torch.float32).transpose(1, 2).contiguous()
+    return (oh, _put(mult.astype(np.float32), dev), ohe_t,
+            _put(win_oh.astype(np.float32).T, dev))           # (W, C)
+
+
+def _route_acc(rank_planes, layout, route, route_dtype):
+    """Expand -> Benes route -> one-hot reduce/extract of one layout: the
+    (W, K_C*128) f32 window accumulator, in-degree labeling."""
+    oh, mult, ohe_t, win_oh_t = layout
+    N_net, C = 1 << route[2].net_log2, ohe_t.shape[0]
+    T = torch.bmm(oh, rank_planes)                          # grw,gwl->grl
+    contrib = (T * mult).to(route_dtype).reshape(-1)
+    x2 = torch.zeros(N_net, dtype=route_dtype, device=rank_planes.device)
+    x2[:contrib.numel()] = contrib
+    x2 = benes_apply(x2.view(_flat_layout(N_net)), *route)
+    xc = x2.reshape(-1)[:C * R_C * LANES].view(C, R_C, LANES)
+    per_chunk = torch.bmm(ohe_t, xc.to(torch.float32))      # cik,cil->ckl
+    return win_oh_t @ per_chunk.view(C, K_C * LANES)        # cw,ckl->wkl
+
+
+def place_plan(plan: MXUPlan, route_dtype=None, device=None) -> dict:
+    """The base plan's device state: its edge and node routes, its layout
+    and the valid-node vector, placed once, with the seconds it took
+    (``placement_s``).  Every run of the plan on that device and route
+    dtype can share it (``make_semiring_kernel``'s ``placed``), the delta
+    runs of later snapshots included."""
+    dev = resolve_device(device)
+    route_dtype = resolve_route_dtype(route_dtype)
+    t0 = time.perf_counter()
+    placed = {"plan": plan, "route_dtype": route_dtype, "device": dev,
+              "edge": _put_route(plan.masks_packed, plan.net_log2,
+                                 route_dtype, dev),
+              "node": _put_route(plan.node_masks_packed, plan.node_net_log2,
+                                 torch.float32, dev),
+              "layout": _put_layout(plan.rowid, plan.mult, plan.run_k,
+                                    plan.win_oh, dev),
+              "valid": _put(plan.valid_out.astype(np.float32), dev)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    placed["placement_s"] = time.perf_counter() - t0
+    return placed
+
+
 def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
-                         x0_default: str = "uniform", device=None):
+                         delta: DeltaPlan = None,
+                         x0_default: str = "uniform", device=None,
+                         placed: dict = None):
     """Returns fn(x0_flat, params, max_iter, tol) -> (x_flat, err, iters);
     state vectors are flat in OUT labeling, length G*SG_ROWS*LANES.  The
     matvec (expand -> Benes route -> one-hot reduce/extract -> node
@@ -377,6 +565,20 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     accumulate in f32.  torch.float32 is the exact path.  None takes
     MEMGRAPH_TPU_ROUTE_DTYPE's (resolve_route_dtype).
 
+    delta: optional DeltaPlan — per iteration the base expand reads rank
+    pre-scaled by delta.scale_out, the delta edges (expanded from the
+    UNSCALED rank) route through their own net, placed and applied by the
+    same Benes kernels as the base nets, and both accumulators sum before
+    the node relabel; delta.dangling_out replaces the plan's dangling
+    vector.  Exact for edge additions AND removals.
+
+    placed: the base plan's device state from ``place_plan`` on this
+    device and route dtype; None places it here.  The base routes depend
+    only on the plan, so a delta run shares them with the base snapshot's
+    runs and places only its delta (about 6 s of placement per route dtype
+    at 10M edges is then skipped); ``run.placement_s`` counts only what
+    the call placed.
+
     x0_default: the on-device start when x0 is None — "uniform"
     (valid/n, pagerank) or "zeros" (katz).
 
@@ -388,58 +590,42 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     route_dtype = resolve_route_dtype(route_dtype)
     _exact_f32_matmuls()
     t0 = time.perf_counter()
-    G, R_G, C, W = plan.G, plan.R_G, plan.C, plan.W
-    N_net = 1 << plan.net_log2
+    G = plan.G
     N_nn = 1 << plan.node_net_log2
     node_flat = G * SG_ROWS * LANES
     n_f = float(plan.n_nodes)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def put_route(masks_packed, net_log2, dtype):
-        """(mid_idx, outer_idx, spec): the middle stages composed on the
-        device into one tile-local index, each outer side into one row
-        index (None when the net fits one tile); the mask planes (64 MB
-        each for the f32 edge net) are not kept."""
-        spec, mid, out = build_masks(masks_packed, net_log2,
-                                     K_BY_DTYPE[dtype])
-        return (compose_mid(put(mid), spec),
-                None if out is None else compose_outer(put(out), spec), spec)
-
-    big = put_route(plan.masks_packed, plan.net_log2, route_dtype)
-    node = put_route(plan.node_masks_packed, plan.node_net_log2,
-                     torch.float32)
-    rowid = put(plan.rowid.astype(np.int64))
-    run_k = put(plan.run_k.astype(np.int64))
-    iota_sg = torch.arange(SG_ROWS, device=dev)
-    iota_kc = torch.arange(K_C, device=dev)
-    oh = (rowid[:, :, None] == iota_sg).to(torch.float32)    # (G, R_G, 128)
-    # (C, K_C, R_C): the extract's one-hot, transposed for bmm; f32, so a
-    # bf16 route is upcast (exactly) and summed in f32
-    ohe_t = ((run_k[:, :, None] == iota_kc) & (run_k[:, :, None] >= 0)
-             ).to(torch.float32).transpose(1, 2).contiguous()
-    del rowid, run_k
-    mult = put(plan.mult.astype(np.float32))
-    win_oh_t = put(plan.win_oh.astype(np.float32).T)          # (W, C)
-    env = {"valid": put(plan.valid_out.astype(np.float32)),
-           "dangling": put(plan.dangling_out.astype(np.float32)),
-           "n_f": n_f}
+    if placed is None:
+        placed = place_plan(plan, route_dtype, dev)
+    elif (placed["plan"] is not plan or placed["route_dtype"] != route_dtype
+          or placed["device"] != dev):
+        raise ValueError("placed state belongs to another plan, route "
+                         "dtype or device")
+    big, node, layout = placed["edge"], placed["node"], placed["layout"]
+    dangling = plan.dangling_out
+    if delta is not None:
+        d_route = _put_route(delta.masks_packed, delta.net_log2,
+                             route_dtype, dev)
+        d_layout = _put_layout(delta.rowid, delta.mult, delta.run_k,
+                               delta.win_oh, dev)
+        d_scale = _put(delta.scale_out.astype(np.float32), dev)
+        dangling = delta.dangling_out        # REPLACES the base vector
+    env = {"valid": placed["valid"],
+           "dangling": _put(dangling.astype(np.float32), dev), "n_f": n_f}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     placement_s = time.perf_counter() - t0
 
     def matvec(rank_flat):
         """⊕ = sum matvec in OUT labeling; ⊗ is baked into mult."""
-        rank_planes = rank_flat.view(G, SG_ROWS, LANES)
-        T = torch.bmm(oh, rank_planes)                      # grw,gwl->grl
-        contrib = (T * mult).to(route_dtype).reshape(-1)
-        x2 = torch.zeros(N_net, dtype=route_dtype, device=dev)
-        x2[:contrib.numel()] = contrib
-        x2 = benes_apply(x2.view(_flat_layout(N_net)), *big)
-        xc = x2.reshape(-1)[:C * R_C * LANES].view(C, R_C, LANES)
-        per_chunk = torch.bmm(ohe_t, xc.to(torch.float32))  # cik,cil->ckl
-        accw = win_oh_t @ per_chunk.view(C, K_C * LANES)    # cw,ckl->wkl
+        # the base expand reads rank pre-scaled so that stale w/wsum_old
+        # multipliers become w/wsum_new (exact; see DeltaPlan)
+        base_in = rank_flat if delta is None else rank_flat * d_scale
+        accw = _route_acc(base_in.view(G, SG_ROWS, LANES), layout, big,
+                          route_dtype)
+        if delta is not None:
+            accw = accw + _route_acc(rank_flat.view(G, SG_ROWS, LANES),
+                                     d_layout, d_route, route_dtype)
         xa = torch.zeros(N_nn, dtype=torch.float32, device=dev)
         xa[:accw.numel()] = accw.reshape(-1)
         xa = benes_apply(xa.view(_flat_layout(N_nn)), *node)
@@ -468,23 +654,26 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
 
     run.placement_s = placement_s
     run.routes = {"edge": big, "node": node}
+    if delta is not None:
+        run.routes["delta"] = d_route
     run.device = dev
     return run
 
 
-def make_pagerank_kernel(plan: MXUPlan, route_dtype=None, device=None):
+def make_pagerank_kernel(plan: MXUPlan, route_dtype=None, device=None,
+                         delta: DeltaPlan = None, placed: dict = None):
     """The semiring kernel with the fused PageRank epilogue.  Returns
     fn(rank0_flat, damping, max_iter, tol) -> (rank_flat, err, iters)."""
     run = make_semiring_kernel(plan, epilogue=pagerank_mxu_epilogue,
-                               route_dtype=route_dtype,
-                               x0_default="uniform", device=device)
+                               route_dtype=route_dtype, delta=delta,
+                               x0_default="uniform", device=device,
+                               placed=placed)
 
     def run_pr(rank0, damping, max_iterations, tol):
         return run(rank0, {"damping": damping}, max_iterations, tol)
 
-    run_pr.placement_s = run.placement_s
-    run_pr.routes = run.routes
-    run_pr.device = run.device
+    for attr in ("placement_s", "routes", "device"):
+        setattr(run_pr, attr, getattr(run, attr))
     return run_pr
 
 

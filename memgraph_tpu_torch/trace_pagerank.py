@@ -1,17 +1,24 @@
 """Where a PageRank iteration's time goes on the card.
 
     python -m memgraph_tpu_torch.trace_pagerank [--nodes N] [--edges E]
-        [--iterations I] [--out DIR]
+        [--iterations I] [--refresh] [--out DIR]
 
-Builds the skewed north-star digraph (seed 7, ``dst = rand**2 * n``;
-1,000,000 nodes and 10,000,000 edges by default), runs ``pagerank`` once
-per precision to build the plan and the kernels, then traces a warm run
-of ``--iterations`` iterations per precision with ``torch.profiler``.
-Prints one JSON line per precision: wall ms per iteration, device-busy
-share of the window (the union of kernel intervals over the window's
-span), and device time per kernel name, largest first.  Chrome traces go
-to ``--out`` (default ``memgraph_tpu_torch/_build/trace``, git-ignored).
-Needs a CUDA device.
+Builds the skewed north-star digraph (``northstar.generate_graph``, seed
+7; 1,000,000 nodes and 10,000,000 edges by default), runs ``pagerank``
+once per precision to build the plan and the kernels, then traces a warm
+run of ``--iterations`` iterations per precision with ``torch.profiler``.
+With ``--refresh`` it then does the same for a successor snapshot
+mutated by ``northstar.mutate`` (seed 11), served by the delta path.
+Prints one JSON line per snapshot and precision: wall ms per iteration,
+device-busy share of the window (the union of kernel intervals over the
+window's span), device time per kernel name, largest first, and the
+host side of the window: host ms per iteration in each route's
+expand/route/extract (``spmv_mxu._route_acc``, labelled by its net's
+size), kernel-launch calls per iteration and their mean host time.
+First a ``csr`` line: ``from_coo`` of the graph (native builder) and the
+numpy path on the same edges, timed one after the other.  Chrome traces
+go to ``--out`` (default ``memgraph_tpu_torch/_build/trace``,
+git-ignored).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,11 +29,17 @@ import os
 import re
 import time
 
-import numpy as np
 import torch
 
-from .ops.csr import from_coo
+from .northstar import generate_graph, mutate
+from .ops import spmv_mxu
+from .ops.csr import _csr_csc_numpy, from_coo
+from .ops.native import build_csr_csc_native
 from .ops.pagerank import pagerank
+
+# the host-side span around each route's _route_acc (its GPU-side shadow
+# is no kernel and is left out of the device times)
+ROUTE_LABEL = "_route_acc net 2^"
 
 
 def _short(name: str) -> str:
@@ -56,48 +69,101 @@ def main(argv=None):
     ap.add_argument("--nodes", type=int, default=1_000_000)
     ap.add_argument("--edges", type=int, default=10_000_000)
     ap.add_argument("--iterations", type=int, default=10)
+    ap.add_argument("--refresh", action="store_true",
+                    help="also trace a mutated successor (delta path)")
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "_build", "trace"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trace_pagerank needs a CUDA device")
 
-    rng = np.random.default_rng(7)
-    src = rng.integers(0, args.nodes, args.edges, dtype=np.int64)
-    dst = (rng.random(args.edges) ** 2 * args.nodes).astype(np.int64)
-    graph = from_coo(src, dst, n_nodes=args.nodes).to_device("cuda")
+    src, dst = generate_graph(args.nodes, args.edges)
+    served = build_csr_csc_native.served
+    t0 = time.perf_counter()
+    host = from_coo(src, dst, n_nodes=args.nodes)
+    from_coo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _csr_csc_numpy(src, dst, host.host_coo[2], args.nodes, host.n_pad,
+                   host.e_pad)
+    print(json.dumps({
+        "csr": {"from_coo_s": from_coo_s,
+                "native": build_csr_csc_native.served == served + 1,
+                "numpy_path_s": time.perf_counter() - t0}}), flush=True)
+    graph = host.to_device("cuda")
     os.makedirs(args.out, exist_ok=True)
+    snapshots = [("base", graph)]
+    if args.refresh:
+        src2, dst2, changed = mutate(src, dst, args.nodes)
+        succ = from_coo(src2, dst2, n_nodes=args.nodes,
+                        node_gids=graph.node_gids).to_device("cuda")
+        # as GraphCache.get marks a successor of a planned base
+        object.__setattr__(succ, "_delta_ctx", (graph, frozenset(
+            int(g) for g in graph.node_gids[changed])))
+        snapshots.append(("refresh", succ))
+    route_acc = spmv_mxu._route_acc
+
+    def labelled_route_acc(rank_planes, layout, route, route_dtype):
+        with torch.profiler.record_function(
+                f"{ROUTE_LABEL}{route[2].net_log2}"):
+            return route_acc(rank_planes, layout, route, route_dtype)
+
+    spmv_mxu._route_acc = labelled_route_acc
+    try:
+        # base and refresh windows alternate, so that each pair of one
+        # precision is read in the same minute
+        for precision in ("f32", "bf16"):
+            for label, g in snapshots:
+                _trace(g, label, precision, args)
+    finally:
+        spmv_mxu._route_acc = route_acc
+
+
+def _trace(graph, label, precision, args):
     from torch.profiler import ProfilerActivity, profile
 
-    for precision in ("f32", "bf16"):
-        pagerank(graph, max_iterations=2, tol=-1.0, precision=precision)
+    pagerank(graph, max_iterations=2, tol=-1.0, precision=precision)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, iters = pagerank(graph, max_iterations=args.iterations,
+                               tol=-1.0, precision=precision)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, _, iters = pagerank(graph, max_iterations=args.iterations,
-                                   tol=-1.0, precision=precision)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        prof.export_chrome_trace(
-            os.path.join(args.out, f"pagerank_{precision}.json"))
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy, span = _busy_us(kernels)
-        by_name: dict = {}
-        for e in kernels:
-            name = _short(e.name)
-            by_name[name] = by_name.get(name, 0.0) + (
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(
+        os.path.join(args.out, f"pagerank_{label}_{precision}.json"))
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(ROUTE_LABEL)]
+    busy, span = _busy_us(kernels)
+    by_name: dict = {}
+    for e in kernels:
+        name = _short(e.name)
+        by_name[name] = by_name.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    route_acc: dict = {}
+    for e in host:
+        if e.name.startswith(ROUTE_LABEL):
+            route_acc[e.name] = route_acc.get(e.name, 0.0) + (
                 e.time_range.end - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])
-        print(json.dumps({
-            "precision": precision, "iterations": iters,
-            "wall_ms_per_iteration": wall / iters * 1e3,
-            "device_busy_share": busy / span if span else None,
-            "device_ms_per_iteration": busy / iters / 1e3,
-            "kernels_ms_per_iteration": {
-                name: us / iters / 1e3 for name, us in top[:12]},
-            "card": torch.cuda.get_device_name(0)}), flush=True)
+    launch_us = [e.time_range.end - e.time_range.start for e in host
+                 if e.name.startswith("cudaLaunchKernel")]
+    print(json.dumps({
+        "snapshot": label, "precision": precision, "iterations": iters,
+        "wall_ms_per_iteration": wall / iters * 1e3,
+        "device_busy_share": busy / span if span else None,
+        "device_ms_per_iteration": busy / iters / 1e3,
+        "kernels_ms_per_iteration": {
+            name: us / iters / 1e3 for name, us in top[:14]},
+        "host_route_acc_ms_per_iteration": {
+            name: us / iters / 1e3 for name, us in sorted(route_acc.items())},
+        "launch_calls_per_iteration": len(launch_us) / iters,
+        "launch_call_us_mean": (sum(launch_us) / len(launch_us)
+                                if launch_us else None),
+        "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ bit-exact (bf16 inputs are rounded once, identically, by both packages).
 
 import ast
 import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,6 +156,11 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Statically (every import statement of every module of the package
+    and of chip_smoke.py), then at run time: a fresh interpreter imports
+    every module of the package and chip_smoke.py and must have loaded
+    neither jax nor the JAX package (this also catches imports built at
+    run time, e.g. by importlib)."""
     paths = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(_REPO, "memgraph_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -161,3 +168,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(p, m) for p in paths for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "memgraph_tpu")]
     assert not bad, bad
+    probe = (
+        "import importlib, pkgutil, sys\n"
+        "import memgraph_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'memgraph_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & "
+        "{'jax', 'jaxlib', 'memgraph_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (_REPO, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, loaded = out.stdout.split("\n")[-3:-1]
+    assert int(n_modules) >= 15
+    assert loaded == "[]", loaded
