@@ -13,17 +13,18 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    16, 17, 20, 24 slots (log2), in f32 and bf16, plus two small-K
    networks (n = 20, K = 8: 4096 rows; n = 16, K = 1: 2^15 rows) and the
    identity permutation (every stage dead).  Each network is placed on
-   the card: its middle stages composed (``compose_mid``: one
-   ``benes_mid`` launch) into the index that ``benes_mid_gather``
-   applies, each outer side (``compose_outer``: one ``benes_outer``
-   launch per live side) into the row index that ``benes_outer_gather``
-   applies; both indices must equal the CPU composition, and the
-   kernels' ``benes_apply`` the stage-by-stage plain network.  Bit-exact;
-   the launch counters must move.  At n = 7, 10, 12, 14 and 17 (single
-   tiles under K, and nets a few tiles wide) each of the four kernels is
-   also held alone against its plain version; at n = 20 and 24 it is
-   held and timed (kernel, plain-version, bound and gather
-   ``x[perm]`` times).
+   the card from the router's packed mask rows (``build_masks`` selects
+   the live rows; nothing is unpacked): its middle stages composed
+   (``compose_mid``: one ``benes_mid`` launch on the iota) into the index
+   that ``benes_mid_gather`` applies, each outer side (``compose_outer``:
+   one ``benes_outer`` launch per live side) into the row index that
+   ``benes_outer_gather`` applies; both indices must equal the CPU
+   composition, and the kernels' ``benes_apply`` the stage-by-stage
+   plain network.  Bit-exact; the launch counters must move.  Every
+   network's four kernels are also held alone against their plain
+   versions on values; at n = 20 and 24 they are timed too (kernel,
+   plain-version, bound and gather ``x[perm]`` times; the stage kernels
+   also on the 16-bit iota that placement feeds them).
 3. Microbenchmark kernels (``memgraph_tpu_torch/benchmarks/micro*.py``,
    ``ops/csrc/micro.cu``): the three entry points run at the JAX module's
    sizes with the launch counters reset just before and read just after
@@ -51,10 +52,13 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    plan serves both).  Launch counts are reset just before and read just
    after, and must equal what the plan's networks imply.  f32 ranks
    against a float64 scipy power iteration; bf16 against f32 inside
-   ``PRECISION_BOUNDS["bf16"]``.  Each kernel is then held against its
-   plain version on the main path's own networks and timed there (the
-   stage kernels ``benes_mid`` and ``benes_outer``, which run only at
-   placement, fed the same masks that were composed).
+   ``PRECISION_BOUNDS["bf16"]``.  Placement must not call
+   ``np.unpackbits``; the line gives each route's placement split (host
+   mask selection, upload, CUDA-event compose time).  Each kernel is then
+   held against its plain version on the main path's own networks and
+   timed there (the stage kernels ``benes_mid`` and ``benes_outer``,
+   which run only at placement, fed the same packed rows that were
+   composed).
 5. Snapshot refresh: the main path's graph mutated from seed 11 (5,000
    edges removed, 5,000 added on the graph's skew, 8 nodes emptied of
    out-edges, 8 dangling nodes given one), ``from_coo`` of the successor
@@ -84,6 +88,7 @@ once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -101,10 +106,6 @@ ITERATIONS = 50
 DAMPING = 0.85
 BENES_SIZES = (7, 10, 12, 14, 16, 17, 20, 24)
 TIMED_SIZES = (20, 24)
-# each kernel held alone against its plain version (untimed) at these
-# sizes too: single tiles below K and the delta nets' small multi-tile
-# sizes
-KERNEL_SIZES = (7, 10, 12, 14, 17)
 # networks of n slots (log2) placed at a small K besides their dtype's K:
 # many more rows (2^(n-K)) than the main path's for the outer gather
 SMALL_K = {16: 1, 20: 8}
@@ -194,7 +195,8 @@ def same_bits(a, b) -> bool:
 
 
 def place(masks_packed, n, dtype, K=None):
-    """(mid words, outer words, spec) on the card, at the dtype's K or K."""
+    """(mid rows, outer rows, spec) on the card, at the dtype's K or K:
+    the live stages' packed mask rows, as placement uploads them."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     spec, mid, out = BC.build_masks(masks_packed, n,
@@ -203,14 +205,14 @@ def place(masks_packed, n, dtype, K=None):
             None if out is None else torch.from_numpy(out).cuda(), spec)
 
 
-def composed(mid_words, spec):
-    """compose_mid on the card (the stage kernel, once), held against the
-    CPU composition (the plain ``_apply_stages``)."""
+def composed(mid_rows, spec):
+    """compose_mid on the card (the stage kernel on the iota, once), held
+    against the CPU composition (the plain ``_apply_stages``)."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     before = BC.benes_mid.launches
-    mid_idx = BC.compose_mid(mid_words, spec)
-    want = BC.compose_mid(mid_words.cpu(), spec)
+    mid_idx = BC.compose_mid(mid_rows, spec)
+    want = BC.compose_mid(mid_rows.cpu(), spec)
     check(torch.equal(mid_idx.cpu(), want)
           and BC.benes_mid.launches - before == int(bool(spec.mid_stages)),
           f"compose_mid on the card != CPU composition at "
@@ -218,16 +220,17 @@ def composed(mid_words, spec):
     return mid_idx
 
 
-def composed_outer(outer_words, spec):
-    """compose_outer on the card (the stage kernel, once per live side),
-    held against the CPU composition; None where the net fits one tile."""
+def composed_outer(outer_rows, spec):
+    """compose_outer on the card (the stage kernel on the row iota, once
+    per live side), held against the CPU composition; None where the net
+    fits one tile."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    if outer_words is None:
+    if outer_rows is None:
         return None
     before = BC.benes_outer.launches
-    outer_idx = BC.compose_outer(outer_words, spec)
-    want = BC.compose_outer(outer_words.cpu(), spec)
+    outer_idx = BC.compose_outer(outer_rows, spec)
+    want = BC.compose_outer(outer_rows.cpu(), spec)
     check(torch.equal(outer_idx.cpu(), want)
           and BC.benes_outer.launches - before
           == BC.launches_per_placement(spec)["benes_outer"],
@@ -247,51 +250,62 @@ def measure_kernels(x, masks, route, reps: int = 20,
                     timed: bool = True) -> dict:
     """Each kernel of one network against its plain version on x: exact
     check, then (timed) kernel / plain / bound / gather times per launch.
-    route: (mid_idx, outer_idx, spec); masks: (mid words, outer words), the
-    masks the indices were composed from, which feed the stage kernels
-    benes_mid and benes_outer (placement)."""
+    route: (mid_idx, outer_idx, spec); masks: (mid rows, outer rows), the
+    packed rows the indices were composed from, which feed the stage
+    kernels benes_mid and benes_outer (placement).  The stage kernels are
+    also held, and timed, on the 16-bit iota placement feeds them
+    (``iota_*``)."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     mid_idx, outer_idx, spec = route
-    mid_words, outer_words = masks
+    mid_rows, outer_rows = masks
     N, e = x.numel(), x.element_size()
+    row_bytes = -(-N // 8)
     iota = torch.arange(N, device="cuda", dtype=torch.int64)
+    iota16 = iota.to(torch.int16).view(torch.bfloat16).view(x.shape)
     res = {}
     live = bool(spec.mid_stages)
+    # bytes: values in and out, plus each live stage's packed row once
     cases = [("benes_mid_gather",
               lambda v: BC.benes_mid_gather(v, mid_idx, spec),
               lambda v: BC.benes_mid_gather_reference(v, mid_idx, spec),
-              2 * N * e + 2 * N, N, live),
-             ("benes_mid", lambda v: BC.benes_mid(v, mid_words, spec),
-              lambda v: BC.benes_mid_reference(v, mid_words, spec),
-              2 * N * e + spec.mid_planes * N * 4,
+              2 * N, N, live),
+             ("benes_mid", lambda v: BC.benes_mid(v, mid_rows, spec),
+              lambda v: BC.benes_mid_reference(v, mid_rows, spec),
+              len(spec.mid_stages) * row_bytes,
               len(spec.mid_stages) * N, live)]
     if spec.outer_down:
         down = outer_idx[0]
         cases += [("benes_outer_gather",
                    lambda v: BC.benes_outer_gather(v, down, spec),
                    lambda v: BC.benes_outer_gather_reference(v, down, spec),
-                   2 * N * e + 2 * N, N, True),
+                   2 * N, N, True),
                   ("benes_outer",
-                   lambda v: BC.benes_outer(v, outer_words, spec.outer_down,
+                   lambda v: BC.benes_outer(v, outer_rows, spec.outer_down,
                                             spec),
                    lambda v: BC.benes_outer_reference(
-                       v, outer_words, spec.outer_down),
-                   2 * N * e + N * 4, len(spec.outer_down) * N, True)]
-    for name, kern, plain, n_bytes, n_ops, live in cases:
+                       v, outer_rows, spec.outer_down),
+                   len(spec.outer_down) * row_bytes,
+                   len(spec.outer_down) * N, True)]
+    for name, kern, plain, extra_bytes, n_ops, live in cases:
         if not live:
             continue
-        got, want = kern(x), plain(x)
-        torch.cuda.synchronize()
-        check(same_bits(got, want),
-              f"{name} disagrees with its plain version at N={N} {x.dtype}")
-        err = float((got.float() - want.float()).abs().max())
+        stage = name in ("benes_mid", "benes_outer")
+        for v in (iota16, x) if stage else (x,):
+            got, want = kern(v), plain(v)
+            torch.cuda.synchronize()
+            check(same_bits(got, want),
+                  f"{name} disagrees with its plain version at N={N} "
+                  f"{'16-bit iota' if v is iota16 else v.dtype}")
+        err = float((got.float() - want.float()).abs().max())   # on x
         res[name] = {"net_log2": spec.net_log2, "K": spec.K,
-                     "dtype": str(x.dtype), "max_abs_err": err}
+                     "dtype": str(x.dtype), "max_abs_err": err,
+                     "held_on": ["values", "iota"] if stage else ["values"]}
         if not timed:
             continue
         perm = plain(iota)          # the same function as one gather
         flat = x.view(-1)
+        n_bytes = 2 * N * e + extra_bytes
         b, by = bound_ms(n_bytes, n_ops)
         res[name].update({
             "ops_per_slot": n_ops // N,
@@ -300,6 +314,13 @@ def measure_kernels(x, masks, route, reps: int = 20,
             "plain_ms": device_ms(lambda: plain(x), max(1, reps // 4)),
             "bound_ms": b, "bound_by": by, "n_bytes": n_bytes,
             "library_ms": device_ms(lambda: flat[perm], reps)})
+        if stage:
+            iota_bytes = 2 * N * 2 + extra_bytes
+            ib, iby = bound_ms(iota_bytes, n_ops)
+            res[name].update({
+                "iota_ms": device_ms(lambda: kern(iota16), reps),
+                "iota_bound_ms": ib, "iota_bound_by": iby,
+                "iota_n_bytes": iota_bytes})
     return res
 
 
@@ -336,11 +357,11 @@ def hold_network(packed, n, dtype, K=None, timed=False, route_s=0.0):
           f"launch counters moved {moved} at n={n} K={spec.K} {dtype}")
     line = {"n": n, "dtype": str(dtype), "K": spec.K,
             "route_s": route_s, "exact": True, "launches": moved}
-    if n in KERNEL_SIZES:
+    if not timed:
         held = measure_kernels(x, (mid, out), (mid_idx, outer_idx, spec),
                                timed=False)
         line["kernels_exact"] = sorted(held)
-    if timed:
+    else:
         # values in and out, plus each pass's 2-byte index
         apply_bytes = 2 * N * x.element_size() + 2 * N * sum(per.values())
         line["apply_ms"] = device_ms(
@@ -778,6 +799,32 @@ def expected_run_launches(run, calls: int, placed_base: bool) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def placement_guard():
+    """Count the routes placed (``spmv_mxu._put_route`` calls) and fail if
+    any of them calls ``np.unpackbits``: placement hands the router's
+    packed rows to the card as they are.  Yields the list of calls."""
+    from memgraph_tpu_torch.ops import spmv_mxu
+    real_put, real_unpack, calls = spmv_mxu._put_route, np.unpackbits, []
+
+    def refuse(*args, **kw):
+        fail("np.unpackbits ran during placement on the card")
+
+    def guarded(*args, **kw):
+        calls.append(args[1])           # the net's log2 size
+        np.unpackbits = refuse
+        try:
+            return real_put(*args, **kw)
+        finally:
+            np.unpackbits = real_unpack
+
+    spmv_mxu._put_route = guarded
+    try:
+        yield calls
+    finally:
+        spmv_mxu._put_route = real_put
+
+
 def phase_main_path():
     import torch
     from memgraph_tpu_torch.northstar import N_EDGES, N_NODES, generate_graph
@@ -808,12 +855,13 @@ def phase_main_path():
         return ranks, iters, time.perf_counter() - t0
 
     # the main path: counts set to 0 just before, read just after
-    BC.reset_launch_counts()
-    r32, it32, cold32 = drive("f32")
-    r16, it16, cold16 = drive("bf16")
-    _, it32w, warm32 = drive("f32")
-    _, it16w, warm16 = drive("bf16")
-    launches = counts()
+    with placement_guard() as placed_nets:
+        BC.reset_launch_counts()
+        r32, it32, cold32 = drive("f32")
+        r16, it16, cold16 = drive("bf16")
+        _, it32w, warm32 = drive("f32")
+        _, it16w, warm16 = drive("bf16")
+        launches = counts()
 
     state = graph._mxu_state
     plan = state["plan"]
@@ -831,6 +879,8 @@ def phase_main_path():
             expected[k] += v
     check(set(state["placed"]) == set(state["runs"]),
           "the base routes were not placed once per run's device and dtype")
+    check(len(placed_nets) == 2 * len(state["placed"]),
+          f"{len(placed_nets)} routes placed, not edge + node per dtype")
     check(it32 == it16 == it32w == it16w == ITERATIONS,
           f"iterations {it32}/{it16}/{it32w}/{it16w} != {ITERATIONS}")
     check(launches == expected,
@@ -864,6 +914,8 @@ def phase_main_path():
         "placement_s": {precisions[key[1]]: placed["placement_s"]
                         + state["runs"][key].placement_s
                         for key, placed in state["placed"].items()},
+        "placement_split": {precisions[key[1]]: placed["route_split"]
+                            for key, placed in state["placed"].items()},
         "cold_run_s": {"f32": cold32, "bf16": cold16},
         "warm_run_s": {"f32": warm32, "bf16": warm16},
         "iteration_ms": {"f32": warm32 / ITERATIONS * 1e3,
@@ -947,12 +999,13 @@ def phase_refresh(base: dict):
     spmv_mxu.build_plan = counted_build_plan
     try:
         # the refresh path: counts set to 0 just before, read just after
-        BC.reset_launch_counts()
-        r32, cold32 = drive("f32")
-        r16, cold16 = drive("bf16")
-        _, warm32 = drive("f32")
-        _, warm16 = drive("bf16")
-        launches = counts()
+        with placement_guard() as placed_nets:
+            BC.reset_launch_counts()
+            r32, cold32 = drive("f32")
+            r16, cold16 = drive("bf16")
+            _, warm32 = drive("f32")
+            _, warm16 = drive("bf16")
+            launches = counts()
     finally:
         spmv_mxu.build_plan = real_build_plan
     check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) "
@@ -962,6 +1015,9 @@ def phase_refresh(base: dict):
     delta = state.get("delta")
     check(delta is not None and state["plan"] is graph._mxu_state["plan"],
           "the successor did not take the delta path on the base plan")
+    check(placed_nets == [delta.net_log2] * 2,
+          f"the refresh placed nets {placed_nets}, not the delta net once "
+          "per dtype")
     precisions = {torch.float32: "f32", torch.bfloat16: "bf16"}
     runs = {precisions[dt]: run for (_, dt), run in state["runs"].items()}
     base_placed = graph._mxu_state["placed"]
@@ -1035,6 +1091,7 @@ def phase_refresh(base: dict):
         "from_coo_builder": "native", "to_device_s": to_device_s,
         "diff_s": state["diff_s"], "delta_build_s": state["delta_build_s"],
         "placement_s": placement,
+        "placement_split": {p: r.route_split for p, r in runs.items()},
         "refresh_cold_s": {"f32": first + placement["f32"],
                            "bf16": placement["bf16"]},
         "base_plan_build_s": base["summary"]["plan_build_s"],

@@ -22,9 +22,11 @@ memory:
                        (2^(n-K), 2^K) view it takes its value from (outer
                        stages exchange rows within a column).
 
-Masks are per-element int32 bit-planes: bit b of word[plane, i] is stage
-(plane*31+b)'s swap decision for element i.  The middle stages fill as
-many planes as they need; the outer stages of both sides share one plane.
+Masks go to the card as the router packed them: one row of ⌈N/8⌉ bytes
+a live stage, bit i of a row being ``(row[i >> 3] >> (7 - (i & 7))) & 1``
+(np.packbits order).  ``build_masks`` only selects and orders the live
+rows (middle stages, then the outer stages, down side first); nothing on
+the placement path unpacks them.
 
 K is the tile size of the middle pass: a tile lives in one block's shared
 memory on the card, so 2^K values must fit in it (K = 15 for f32, 16 for
@@ -48,8 +50,6 @@ import torch
 
 from .benes import benes_stage_distances
 
-LANES = 128
-BITS_PER_PLANE = 31
 #: shared memory one block may use on an H100 (232,448 bytes)
 SMEM_BYTES = 227 * 1024
 #: middle-tile log2 size per routed dtype: 2^K values in 128 KB
@@ -61,89 +61,87 @@ _MAX_STAGES = 64            # StageList capacity in csrc/benes.cu
 class BenesSpec:
     """Static routing metadata of one network.
 
-    mid_stages / outer_down / outer_up: tuples of (plane, bit, distance)
-    in application order. Dead (all-zero-mask) stages are omitted.
+    mid_stages / outer_down / outer_up: tuples of (row, distance) in
+    application order, row indexing ``build_masks``' mid rows (middle
+    stages) or outer rows (both outer sides).  Dead (all-zero-mask)
+    stages are omitted.
     """
     net_log2: int
     K: int
-    mid_planes: int
     mid_stages: tuple
     outer_down: tuple
     outer_up: tuple
 
 
-def _layout(N: int) -> tuple:
-    """The JAX package's layout of an N-slot vector: (N/128, 128), or
-    flat when N < 128."""
-    return (N // LANES, LANES) if N >= LANES else (N,)
-
-
 def build_masks(masks_packed: np.ndarray, net_log2: int, K: int):
-    """Reorganize bit-packed stage masks (n_stages, N/8 uint8, packbits
-    order) into per-element int32 bit-planes + static spec.
+    """Select the live stages of bit-packed stage masks (n_stages, ⌈N/8⌉
+    uint8, packbits order, as the router emits them) and split them into
+    the middle pass (d < 2^K) and the two outer sides, as the JAX
+    package's ``build_pallas_masks`` does; nothing is unpacked.
 
-    Returns (spec, mid_words, outer_words):
-      mid_words   (mid_planes, *layout) int32
-      outer_words layout-shaped int32, or None when the net fits one tile
+    Returns (spec, mid_rows, outer_rows):
+      mid_rows   (n_mid, ⌈N/8⌉) uint8, the live middle stages' rows in
+                 application order
+      outer_rows (n_outer, ⌈N/8⌉) uint8, the live outer stages' rows, down
+                 side first, or None when the net fits one tile
+    Tiles above 2^16 slots and row indices above 15 bits (n - K > 15) are
+    refused: the placed indices store tile positions in 16 bits and rows
+    as int16.
     """
     N = 1 << net_log2
     K = min(K, net_log2)
+    if K > 16:
+        raise ValueError(f"2^{K}-slot tiles: the middle index holds "
+                         "positions of at most 2^16-slot tiles")
+    if net_log2 - K > 15:
+        raise ValueError(f"2^{net_log2 - K} rows of 2^{K} slots: the outer "
+                         "row index holds at most 2^15 rows")
     dists = benes_stage_distances(net_log2)
     n_stages = len(dists)
-    assert masks_packed.shape[0] == n_stages
-    shape = _layout(N)
-
-    mid_stages, outer_down, outer_up = [], [], []
-    mid_pos = 0
-    n_mid_planes = max(1, -(-(2 * K - 1) // BITS_PER_PLANE))
-    mid_words = np.zeros((n_mid_planes,) + shape, dtype=np.int64)
-    outer_words = np.zeros(shape, dtype=np.int64)
-    outer_bit = 0
+    assert masks_packed.shape == (n_stages, -(-N // 8)), masks_packed.shape
+    mid, down, up = [], [], []
     for s, d in enumerate(dists):
-        row = masks_packed[s]
-        if not row.any():
+        if not masks_packed[s].any():
             continue                   # dead stage: no swaps routed
-        bits = np.unpackbits(row)[:N].astype(np.int64).reshape(shape)
         if d < (1 << K):
-            plane, bit = divmod(mid_pos, BITS_PER_PLANE)
-            mid_words[plane] |= bits << bit
-            mid_stages.append((plane, bit, d))
-            mid_pos += 1
+            mid.append(s)
         else:
-            assert outer_bit < 31, "outer stages exceed one int32 plane"
-            outer_words |= bits << outer_bit
-            if s < n_stages // 2:
-                outer_down.append((0, outer_bit, d))
-            else:
-                outer_up.append((0, outer_bit, d))
-            outer_bit += 1
+            (down if s < n_stages // 2 else up).append(s)
     spec = BenesSpec(
-        net_log2=net_log2, K=K, mid_planes=n_mid_planes,
-        mid_stages=tuple(mid_stages), outer_down=tuple(outer_down),
-        outer_up=tuple(outer_up))
-    ow = outer_words.astype(np.int32) if net_log2 > K else None
-    return spec, mid_words.astype(np.int32), ow
+        net_log2=net_log2, K=K,
+        mid_stages=tuple((i, dists[s]) for i, s in enumerate(mid)),
+        outer_down=tuple((i, dists[s]) for i, s in enumerate(down)),
+        outer_up=tuple((len(down) + i, dists[s]) for i, s in enumerate(up)))
+    outer = (np.take(masks_packed, down + up, axis=0)
+             if net_log2 > K else None)
+    return spec, np.take(masks_packed, mid, axis=0), outer
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path, and the kernels' oracle on the card)
 # ---------------------------------------------------------------------------
 
-def _apply_stages(x, planes, stages):
-    """x[i] <- bit ? x[i ^ d] : x[i] for each (plane, bit, d) in order;
-    planes: (P, N) int32."""
+def _stage_bits(row, N: int):
+    """The (N,) bool mask of one packed row (uint8 tensor, packbits
+    order), unpacked with torch shifts on the row's device."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=row.device)
+    return ((row.unsqueeze(1) >> shifts) & 1).reshape(-1)[:N].bool()
+
+
+def _apply_stages(x, rows, stages):
+    """x[i] <- bit_i ? x[i ^ d] : x[i] for each (row, d) in order;
+    rows: (R, ⌈N/8⌉) uint8 packed mask rows."""
     flat = x.reshape(-1)
     N = flat.numel()
-    for plane, bit, d in stages:
-        m = ((planes[plane] >> bit) & 1).bool()
+    for r, d in stages:
+        m = _stage_bits(rows[r], N)
         sw = flat.view(N // (2 * d), 2, d).flip(1).reshape(N)
         flat = torch.where(m, sw, flat)
     return flat.view(x.shape)
 
 
-def benes_mid_reference(x, mid_words, spec: BenesSpec):
-    return _apply_stages(x, mid_words.reshape(spec.mid_planes, -1),
-                         spec.mid_stages)
+def benes_mid_reference(x, mid_rows, spec: BenesSpec):
+    return _apply_stages(x, mid_rows, spec.mid_stages)
 
 
 def benes_mid_gather_reference(x, mid_idx, spec: BenesSpec):
@@ -154,8 +152,8 @@ def benes_mid_gather_reference(x, mid_idx, spec: BenesSpec):
     return x.reshape(-1, T).gather(1, src).view(x.shape)
 
 
-def benes_outer_reference(x, outer_words, stages):
-    return _apply_stages(x, outer_words.reshape(1, -1), stages)
+def benes_outer_reference(x, outer_rows, stages):
+    return _apply_stages(x, outer_rows, stages)
 
 
 def benes_outer_gather_reference(x, outer_idx, spec: BenesSpec):
@@ -166,15 +164,15 @@ def benes_outer_gather_reference(x, outer_idx, spec: BenesSpec):
     return x.reshape(-1, M).gather(0, src).view(x.shape)
 
 
-def benes_apply_reference(x, mid_words, outer_words, spec: BenesSpec):
-    """The whole network in plain PyTorch, stage by stage (from the mask
-    words: ``benes_apply``'s oracle covers the composition too)."""
+def benes_apply_reference(x, mid_rows, outer_rows, spec: BenesSpec):
+    """The whole network in plain PyTorch, stage by stage (from the packed
+    rows: ``benes_apply``'s oracle covers the composition too)."""
     if spec.outer_down:
-        x = benes_outer_reference(x, outer_words, spec.outer_down)
+        x = benes_outer_reference(x, outer_rows, spec.outer_down)
     if spec.mid_stages:
-        x = benes_mid_reference(x, mid_words, spec)
+        x = benes_mid_reference(x, mid_rows, spec)
     if spec.outer_up:
-        x = benes_outer_reference(x, outer_words, spec.outer_up)
+        x = benes_outer_reference(x, outer_rows, spec.outer_up)
     return x
 
 
@@ -193,7 +191,7 @@ def _lib():
     lib.benes_mid_gather.restype = i32
     lib.benes_mid_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.benes_outer.restype = i32
-    lib.benes_outer.argtypes = [vp, vp, vp, i64, i32, i32, ip, i32, vp]
+    lib.benes_outer.argtypes = [vp, vp, vp, i64, i64, i32, i32, ip, i32, vp]
     lib.benes_outer_gather.restype = i32
     lib.benes_outer_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.benes_error_string.restype = ctypes.c_char_p
@@ -203,28 +201,54 @@ def _lib():
 
 @functools.cache
 def _codes(stages: tuple):
-    """Stage list as the kernel's ints: plane << 16 | bit << 8 | log2(d)."""
+    """Stage list as the kernel's ints: row << 8 | log2(d)."""
     if len(stages) > _MAX_STAGES:
         raise ValueError(f"{len(stages)} stages > {_MAX_STAGES}")
     arr = (ctypes.c_int * max(1, len(stages)))(
-        *[(p << 16) | (b << 8) | (d.bit_length() - 1) for p, b, d in stages])
+        *[(r << 8) | (d.bit_length() - 1) for r, d in stages])
     return arr, len(stages)
 
 
-def _check(x, words, spec: BenesSpec, n_planes: int, dtype=torch.int32):
+def _check(x, idx, spec: BenesSpec):
+    """x (values) and a gather's placed int16 index."""
     N = 1 << spec.net_log2
     if x.dtype not in K_BY_DTYPE:
         raise TypeError(f"Benes kernels move float32 or bfloat16, "
                         f"not {x.dtype}")
     if x.numel() != N or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous tensor of {N} values")
-    if (words.device != x.device or words.dtype != dtype
-            or words.numel() != n_planes * N or not words.is_contiguous()):
-        raise ValueError(f"mask words or index must be contiguous {dtype} "
-                         f"({n_planes} x {N}) on {x.device}")
+    if (idx.device != x.device or idx.dtype != torch.int16
+            or idx.numel() != N or not idx.is_contiguous()):
+        raise ValueError(f"the index must be a contiguous int16 tensor of "
+                         f"{N} on {x.device}")
     if (1 << spec.K) * x.element_size() > SMEM_BYTES:
         raise ValueError(f"a 2^{spec.K} tile of {x.dtype} does not fit in "
                          "one block's shared memory")
+
+
+def _check_stages(x, rows, stages, spec: BenesSpec, y, align_from: int):
+    """x (values), y (output) and the packed mask rows a stage kernel
+    reads: (R, ⌈N/8⌉) contiguous uint8 on x's device holding every row
+    the stages name; 16-byte aligned where 2^K >= 2^align_from (the
+    kernel then moves 16-byte vectors)."""
+    N = 1 << spec.net_log2
+    if x.dtype not in K_BY_DTYPE:
+        raise TypeError(f"Benes kernels move float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if x.numel() != N or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous tensor of {N} values")
+    if y.numel() != N or y.dtype != x.dtype or not y.is_contiguous():
+        raise ValueError("out must be a contiguous tensor like x")
+    if (rows.device != x.device or rows.dtype != torch.uint8
+            or rows.dim() != 2 or rows.shape[1] != -(-N // 8)
+            or rows.shape[0] <= max((r for r, _ in stages), default=-1)
+            or not rows.is_contiguous()):
+        raise ValueError(f"mask rows must be a contiguous uint8 tensor of "
+                         f"packed rows (R, {-(-N // 8)}) on {x.device} "
+                         "holding every row the stages name")
+    if spec.K >= align_from and any(t.data_ptr() % 16 for t in (x, y, rows)):
+        raise ValueError("the stage kernels move 16-byte vectors: x, out "
+                         "and the mask rows must be 16-byte aligned")
 
 
 def _raise_on(rc: int, name: str):
@@ -245,19 +269,23 @@ def _target(x, out):
     return torch.empty_like(x) if out is None else out
 
 
-def benes_mid(x, mid_words, spec: BenesSpec, out=None):
-    """All middle stages.  CUDA: one launch of ``benes_mid``; writes into
-    ``out`` (may be ``x`` itself) or a new tensor.  CPU: plain version."""
+def benes_mid(x, mid_rows, spec: BenesSpec, out=None):
+    """All middle stages, from the packed mask rows (``build_masks``).
+    CUDA: one launch of ``benes_mid``; writes into ``out`` (may be ``x``
+    itself) or a new tensor.  CPU: plain version."""
     y = _target(x, out)
     if y is None:
-        res = benes_mid_reference(x, mid_words, spec)
+        res = benes_mid_reference(x, mid_rows, spec)
         return res if out is None else out.copy_(res)
-    _check(x, mid_words, spec, spec.mid_planes)
+    _check_stages(x, mid_rows, spec.mid_stages, spec, y, align_from=7)
+    # the tile and a ring of 8 stage slices of 2^K/8 bytes
+    if (1 << spec.K) * (x.element_size() + 1) > SMEM_BYTES:
+        raise ValueError(f"a 2^{spec.K} tile of {x.dtype} and its mask ring "
+                         "do not fit in one block's shared memory")
     codes, n = _codes(spec.mid_stages)
-    N = 1 << spec.net_log2
     rc = _lib().benes_mid(
-        x.data_ptr(), y.data_ptr(), mid_words.data_ptr(), N, N, spec.K,
-        x.element_size(), codes, n, _stream(x))
+        x.data_ptr(), y.data_ptr(), mid_rows.data_ptr(), mid_rows.shape[1],
+        1 << spec.net_log2, spec.K, x.element_size(), codes, n, _stream(x))
     _raise_on(rc, "benes_mid")
     benes_mid.launches += 1
     return y
@@ -274,7 +302,7 @@ def benes_mid_gather(x, mid_idx, spec: BenesSpec, out=None):
     if y is None:
         res = benes_mid_gather_reference(x, mid_idx, spec)
         return res if out is None else out.copy_(res)
-    _check(x, mid_idx, spec, 1, dtype=torch.int16)
+    _check(x, mid_idx, spec)
     if y.numel() != x.numel() or y.dtype != x.dtype or not y.is_contiguous():
         raise ValueError("out must be a contiguous tensor like x")
     if spec.K >= 3 and any(t.data_ptr() % 16 for t in (x, y, mid_idx)):
@@ -291,42 +319,43 @@ def benes_mid_gather(x, mid_idx, spec: BenesSpec, out=None):
 benes_mid_gather.launches = 0
 
 
-def compose_mid(mid_words, spec: BenesSpec):
+def compose_mid(mid_rows, spec: BenesSpec):
     """The middle stages composed into one tile-local index, once per plan:
-    an (N,) int16 tensor on mid_words' device whose slot i holds the
+    an (N,) int16 tensor on mid_rows' device whose slot i holds the
     position inside i's 2^K tile that slot i takes its value from (stored
     as int16, read as unsigned 16 bits: K <= 16).
 
     The stages are applied to an iota of tile-local positions, moved as
-    raw 16-bit words (a 2^16 tile of 32-bit words would not fit in one
-    block's shared memory): on the card by the stage kernel ``benes_mid``
-    (one launch), on the CPU by the plain ``_apply_stages``.  A network
-    with no live middle stage launches nothing and gets the iota."""
+    raw 16-bit words, straight from the packed mask rows: on the card by
+    the stage kernel ``benes_mid`` (one launch), on the CPU by the plain
+    ``_apply_stages``.  A network with no live middle stage launches
+    nothing and gets the iota."""
     N, T = 1 << spec.net_log2, 1 << spec.K
     tile = torch.from_numpy(np.arange(T, dtype=np.uint16).view(np.int16))
-    iota = tile.to(mid_words.device).repeat(N // T)
+    iota = tile.to(mid_rows.device).repeat(N // T)
     if not spec.mid_stages:
         return iota
-    if mid_words.device.type == "cpu":
-        return _apply_stages(iota, mid_words.reshape(spec.mid_planes, -1),
-                             spec.mid_stages)
-    return benes_mid(iota.view(torch.bfloat16), mid_words,
+    if mid_rows.device.type == "cpu":
+        return _apply_stages(iota, mid_rows, spec.mid_stages)
+    return benes_mid(iota.view(torch.bfloat16), mid_rows,
                      spec).view(torch.int16)
 
 
-def benes_outer(x, outer_words, stages: tuple, spec: BenesSpec, out=None):
-    """One side's outer stages.  CUDA: one launch of ``benes_outer``;
-    writes into ``out`` (may be ``x``) or a new tensor.  CPU: plain
-    version.  Runs at placement only (``compose_outer``)."""
+def benes_outer(x, outer_rows, stages: tuple, spec: BenesSpec, out=None):
+    """One side's outer stages, from the packed mask rows
+    (``build_masks``).  CUDA: one launch of ``benes_outer``; writes into
+    ``out`` (may be ``x``) or a new tensor.  CPU: plain version.  Runs at
+    placement only (``compose_outer``)."""
     y = _target(x, out)
     if y is None:
-        res = benes_outer_reference(x, outer_words, stages)
+        res = benes_outer_reference(x, outer_rows, stages)
         return res if out is None else out.copy_(res)
-    _check(x, outer_words, spec, 1)
+    _check_stages(x, outer_rows, stages, spec, y, align_from=5)
     codes, n = _codes(stages)
     rc = _lib().benes_outer(
-        x.data_ptr(), y.data_ptr(), outer_words.data_ptr(),
-        1 << spec.net_log2, spec.K, x.element_size(), codes, n, _stream(x))
+        x.data_ptr(), y.data_ptr(), outer_rows.data_ptr(),
+        outer_rows.shape[1], 1 << spec.net_log2, spec.K, x.element_size(),
+        codes, n, _stream(x))
     _raise_on(rc, "benes_outer")
     benes_outer.launches += 1
     return y
@@ -344,7 +373,7 @@ def benes_outer_gather(x, outer_idx, spec: BenesSpec, out=None):
     if y is None:
         res = benes_outer_gather_reference(x, outer_idx, spec)
         return res if out is None else out.copy_(res)
-    _check(x, outer_idx, spec, 1, dtype=torch.int16)
+    _check(x, outer_idx, spec)
     if y.numel() != x.numel() or y.dtype != x.dtype or not y.is_contiguous():
         raise ValueError("out must be a contiguous tensor like x")
     # 16-byte copies wherever a row of the (2^(n-K), 2^K) view has 16 bytes
@@ -363,19 +392,20 @@ def benes_outer_gather(x, outer_idx, spec: BenesSpec, out=None):
 benes_outer_gather.launches = 0
 
 
-def compose_outer(outer_words, spec: BenesSpec):
+def compose_outer(outer_rows, spec: BenesSpec):
     """Each side's outer stages composed into one row index, once per
-    plan: a (2, N) int16 tensor on outer_words' device, row 0 the down
+    plan: a (2, N) int16 tensor on outer_rows' device, row 0 the down
     side and row 1 the up side, whose slot g·2^K + c holds the row that
     slot (g, c) of the (2^(n-K), 2^K) view takes its value from in that
     side's pass (the column is always c; rows < 2^15).
 
     The stages are applied to an iota of rows (``i >> K``), moved as raw
-    16-bit words: on the card by the stage kernel ``benes_outer`` (one
-    launch per live side), on the CPU by the plain ``_apply_stages``.  A
-    side with no live stage launches nothing and gets the iota."""
+    16-bit words, straight from the packed mask rows: on the card by the
+    stage kernel ``benes_outer`` (one launch per live side), on the CPU by
+    the plain ``_apply_stages``.  A side with no live stage launches
+    nothing and gets the iota."""
     N = 1 << spec.net_log2
-    dev = outer_words.device
+    dev = outer_rows.device
     rows = (torch.arange(N, dtype=torch.int32, device=dev)
             >> spec.K).to(torch.int16)
     idx = rows.repeat(2, 1)
@@ -383,10 +413,9 @@ def compose_outer(outer_words, spec: BenesSpec):
         if not stages:
             continue
         if dev.type == "cpu":
-            idx[side] = _apply_stages(rows, outer_words.reshape(1, -1),
-                                      stages)
+            idx[side] = _apply_stages(rows, outer_rows, stages)
         else:
-            benes_outer(rows.view(torch.bfloat16), outer_words, stages, spec,
+            benes_outer(rows.view(torch.bfloat16), outer_rows, stages, spec,
                         out=idx[side].view(torch.bfloat16))
     return idx
 

@@ -481,16 +481,36 @@ def _put(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def _put_route(masks_packed, net_log2, dtype, dev):
+def _put_route(masks_packed, net_log2, dtype, dev, split: dict = None):
     """(mid_idx, outer_idx, spec) of one routed network on dev: the middle
     stages composed into one tile-local index, each outer side into one
     row index (None when the net fits one tile), by the stage kernels on
-    the card; the mask planes (64 MB each for the f32 edge net) are not
-    kept."""
+    the card straight from the router's packed mask rows (uploaded, used
+    and freed: at most 47 rows of 2 MB for the 2^24 edge net).
+
+    split, where given, receives where the time went: ``mask_prep_s``
+    (host: selecting the live rows), ``upload_s`` (host wall time of the
+    rows' copy to dev, synchronised) and, on the card, ``compose_ms``
+    (CUDA events around the stage kernels; None on the CPU)."""
+    t0 = time.perf_counter()
     spec, mid, out = build_masks(masks_packed, net_log2, K_BY_DTYPE[dtype])
-    return (compose_mid(_put(mid, dev), spec),
-            None if out is None else compose_outer(_put(out, dev), spec),
-            spec)
+    t1 = time.perf_counter()
+    mid, out = _put(mid, dev), None if out is None else _put(out, dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+    t2 = time.perf_counter()
+    route = (compose_mid(mid, spec),
+             None if out is None else compose_outer(out, spec), spec)
+    if cuda:
+        end.record()
+        end.synchronize()
+    if split is not None:
+        split.update(mask_prep_s=t1 - t0, upload_s=t2 - t1,
+                     compose_ms=start.elapsed_time(end) if cuda else None)
+    return route
 
 
 def _put_layout(rowid, mult, run_k, win_oh, dev):
@@ -527,17 +547,20 @@ def _route_acc(rank_planes, layout, route, route_dtype):
 def place_plan(plan: MXUPlan, route_dtype=None, device=None) -> dict:
     """The base plan's device state: its edge and node routes, its layout
     and the valid-node vector, placed once, with the seconds it took
-    (``placement_s``).  Every run of the plan on that device and route
+    (``placement_s``) and each route's placement split (``route_split``,
+    see ``_put_route``).  Every run of the plan on that device and route
     dtype can share it (``make_semiring_kernel``'s ``placed``), the delta
     runs of later snapshots included."""
     dev = resolve_device(device)
     route_dtype = resolve_route_dtype(route_dtype)
     t0 = time.perf_counter()
+    split = {"edge": {}, "node": {}}
     placed = {"plan": plan, "route_dtype": route_dtype, "device": dev,
               "edge": _put_route(plan.masks_packed, plan.net_log2,
-                                 route_dtype, dev),
+                                 route_dtype, dev, split["edge"]),
               "node": _put_route(plan.node_masks_packed, plan.node_net_log2,
-                                 torch.float32, dev),
+                                 torch.float32, dev, split["node"]),
+              "route_split": split,
               "layout": _put_layout(plan.rowid, plan.mult, plan.run_k,
                                     plan.win_oh, dev),
               "valid": _put(plan.valid_out.astype(np.float32), dev)}
@@ -575,9 +598,10 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     placed: the base plan's device state from ``place_plan`` on this
     device and route dtype; None places it here.  The base routes depend
     only on the plan, so a delta run shares them with the base snapshot's
-    runs and places only its delta (about 6 s of placement per route dtype
-    at 10M edges is then skipped); ``run.placement_s`` counts only what
-    the call placed.
+    runs and places only its delta (the base routes, one-hots and valid
+    vector are then skipped); ``run.placement_s`` counts only what the
+    call placed, and ``run.route_split`` holds the delta route's
+    placement split (``_put_route``; empty without a delta).
 
     x0_default: the on-device start when x0 is None — "uniform"
     (valid/n, pagerank) or "zeros" (katz).
@@ -590,6 +614,7 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     route_dtype = resolve_route_dtype(route_dtype)
     _exact_f32_matmuls()
     t0 = time.perf_counter()
+    route_split = {}
     G = plan.G
     N_nn = 1 << plan.node_net_log2
     node_flat = G * SG_ROWS * LANES
@@ -605,7 +630,8 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     dangling = plan.dangling_out
     if delta is not None:
         d_route = _put_route(delta.masks_packed, delta.net_log2,
-                             route_dtype, dev)
+                             route_dtype, dev, route_split.setdefault(
+                                 "delta", {}))
         d_layout = _put_layout(delta.rowid, delta.mult, delta.run_k,
                                delta.win_oh, dev)
         d_scale = _put(delta.scale_out.astype(np.float32), dev)
@@ -653,6 +679,7 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
         return x, err, it
 
     run.placement_s = placement_s
+    run.route_split = route_split
     run.routes = {"edge": big, "node": node}
     if delta is not None:
         run.routes["delta"] = d_route
@@ -672,7 +699,7 @@ def make_pagerank_kernel(plan: MXUPlan, route_dtype=None, device=None,
     def run_pr(rank0, damping, max_iterations, tol):
         return run(rank0, {"damping": damping}, max_iterations, tol)
 
-    for attr in ("placement_s", "routes", "device"):
+    for attr in ("placement_s", "route_split", "routes", "device"):
         setattr(run_pr, attr, getattr(run, attr))
     return run_pr
 

@@ -8,6 +8,7 @@ bit-exact (bf16 inputs are rounded once, identically, by both packages).
 """
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -69,19 +70,171 @@ def test_plain_version_matches_pallas_interpret(n, K, dtype):
         assert spec.outer_down and spec.outer_up
 
 
+def _planes(rows, stages, n_planes, N):
+    """The JAX package's int32 bit-planes rebuilt from the port's packed
+    rows: stage i sets bit i % 31 of plane i // 31 (the test unpacks; the
+    port does not)."""
+    words = np.zeros((n_planes, N), dtype=np.int64)
+    for i, (r, _) in enumerate(stages):
+        bits = np.unpackbits(rows[r])[:N].astype(np.int64)
+        words[i // 31] |= bits << (i % 31)
+    return words.astype(np.int32).reshape(n_planes, N // 128, 128)
+
+
+def _jax_stage_codes(spec):
+    """The port's (row, d) stages as the JAX spec's (plane, bit, d)."""
+    mid = tuple((i // 31, i % 31, d) for i, (_, d) in
+                enumerate(spec.mid_stages))
+    outer = [(0, i, d) for i, (_, d) in
+             enumerate(spec.outer_down + spec.outer_up)]
+    return (mid, tuple(outer[:len(spec.outer_down)]),
+            tuple(outer[len(spec.outer_down):]))
+
+
 @pytest.mark.parametrize("K", [8, 12])
 def test_masks_and_spec_match_the_jax_package(K):
-    n = 12
+    """The port's packed rows, unpacked here, are the JAX package's
+    bit-planes, and its spec the same stages in the same order."""
+    n, N = 12, 1 << 12
     packed = jbenes.pack_masks(jbenes.benes_route(
         np.random.default_rng(K).permutation(1 << n)))
     jspec, jmid, jout = build_pallas_masks(packed, n, K=K)
     spec, mid, out = BC.build_masks(packed, n, K)
-    assert np.array_equal(jmid, mid)
-    assert (jout is None and out is None) or np.array_equal(jout, out)
-    assert (spec.net_log2, spec.K, spec.mid_planes, spec.mid_stages,
-            spec.outer_down, spec.outer_up) == (
-        jspec.net_log2, jspec.K, jspec.mid_planes, jspec.mid_stages,
-        jspec.outer_down, jspec.outer_up)
+    assert mid.dtype == np.uint8 and mid.shape == (len(spec.mid_stages),
+                                                   N // 8)
+    assert np.array_equal(
+        jmid, _planes(mid, spec.mid_stages, jspec.mid_planes, N))
+    if jout is None:
+        assert out is None
+    else:
+        both = spec.outer_down + spec.outer_up
+        assert out.shape == (len(both), N // 8)
+        assert [r for r, _ in both] == list(range(len(both)))
+        assert np.array_equal(jout, _planes(out, both, 1, N)[0])
+    assert (spec.net_log2, spec.K) == (jspec.net_log2, jspec.K)
+    assert _jax_stage_codes(spec) == (jspec.mid_stages, jspec.outer_down,
+                                      jspec.outer_up)
+
+
+@pytest.mark.parametrize("case", ["random", "identity", "one_dead_side"])
+@pytest.mark.parametrize("n,K", [(7, 1), (8, 2), (10, 3), (12, 8), (14, 9),
+                                 (17, 3), (16, 16)])
+def test_spec_stage_order_and_split_match_the_jax_package(n, K, case):
+    """Stage order, distances and the down/up split of the port's spec
+    equal build_pallas_masks' spec, dead stages dropped alike (the
+    identity permutation has none live), and each row of the port's
+    arrays is the router's row for that stage.  (The JAX builder takes
+    nets of 128 slots and more, and at most 31 outer stages.)"""
+    N = 1 << n
+    perm = (np.arange(N) if case == "identity" else
+            np.random.default_rng(n * 7 + K).permutation(N))
+    packed = _routed(n, 0) if case == "random" else tbenes.route_packed(perm)
+    if case == "one_dead_side":
+        packed = packed.copy()
+        packed[:n - 1] = 0                       # every down stage dead
+    jspec, _, _ = build_pallas_masks(packed, n, K=K)
+    spec, mid, out = BC.build_masks(packed, n, K)
+    assert _jax_stage_codes(spec) == (jspec.mid_stages, jspec.outer_down,
+                                      jspec.outer_up)
+    dists = tbenes.benes_stage_distances(n)
+    live = [s for s in range(2 * n - 1) if packed[s].any()]
+    mids = [s for s in live if dists[s] < (1 << spec.K)]
+    outers = [s for s in live if s not in mids]
+    assert np.array_equal(mid, packed[mids])
+    if n > spec.K:
+        assert np.array_equal(out, packed[outers])
+    else:
+        assert out is None and not outers
+    if case == "identity":
+        assert not (spec.mid_stages or spec.outer_down or spec.outer_up)
+    if case == "one_dead_side":
+        assert not spec.outer_down
+
+
+@functools.cache
+def _routed(n, seed):
+    return tbenes.route_packed(
+        np.random.default_rng(1000 * n + seed).permutation(1 << n))
+
+
+@functools.cache
+def _rolls_reference(n, dtype):
+    """The JAX package's network (``_benes_apply_rolls``, every stage as
+    XLA rolls) on seeded values: the composition tests' reference."""
+    N = 1 << n
+    packed = _routed(n, 0)
+    x = np.random.default_rng(n).standard_normal(N).astype(np.float32)
+    xr = jnp.asarray(x).astype(_JDT[dtype])
+    got = _benes_apply_rolls(
+        xr, jnp.asarray(np.stack(jbenes.unpack_masks(packed, N))), n)
+    return x, np.asarray(got.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [1, 2, 3, 8, None])
+@pytest.mark.parametrize("n", [3, 7, 10, 12, 14, 17])
+def test_packed_row_composition_matches_the_jax_network(n, K, dtype):
+    """compose_mid / compose_outer from the packed rows, applied by the
+    gathers' plain versions, bit-equal to the JAX package's network:
+    sub-byte tiles (K < 3), nets under one byte (n = 3), K past n.  Rows
+    of more than 15 bits (n = 17 at K = 1) and tiles past 2^16 slots
+    (n = K = 17) are refused."""
+    K = n if K is None else K
+    packed = _routed(n, 0)
+    if n - min(K, n) > 15 or min(K, n) > 16:
+        with pytest.raises(ValueError, match="2\\^15 rows|2\\^16-slot"):
+            BC.build_masks(packed, n, K)
+        return
+    x, want = _rolls_reference(n, dtype)
+    got, spec = _port_apply(x, packed, n, K, dtype)
+    assert np.array_equal(got, want)
+    assert spec.K == min(K, n)
+    if n > K:
+        assert spec.outer_down and spec.outer_up
+
+
+def test_put_route_never_unpacks(monkeypatch):
+    """_put_route on the CPU with np.unpackbits made to raise: the placed
+    indices still equal the composition of the unpacked masks, computed
+    here stage by stage on the old bit-planes."""
+    from memgraph_tpu_torch.ops import spmv_mxu
+    n, N = 17, 1 << 17
+    packed = _routed(n, 1)
+    unpacked = np.stack(jbenes.unpack_masks(packed, N))
+    real = np.unpackbits
+
+    def refuse(*a, **kw):
+        raise AssertionError("np.unpackbits on the placement path")
+
+    monkeypatch.setattr(np, "unpackbits", refuse)
+    for dtype in (torch.float32, torch.bfloat16):
+        split = {}
+        mid_idx, outer_idx, spec = spmv_mxu._put_route(
+            packed, n, dtype, torch.device("cpu"), split)
+        K = spec.K
+        assert set(split) == {"mask_prep_s", "upload_s", "compose_ms"}
+        assert split["compose_ms"] is None      # no device time on the CPU
+        dists = tbenes.benes_stage_distances(n)
+        live = [s for s in range(2 * n - 1) if unpacked[s].any()]
+
+        def compose(iota, stages):
+            out = iota.copy()
+            for s in stages:
+                d = dists[s]
+                sw = out.reshape(-1, 2, d)[:, ::-1, :].reshape(-1)
+                out = np.where(unpacked[s], sw, out)
+            return out
+        pos = np.arange(N)
+        mid = [s for s in live if dists[s] < (1 << K)]
+        assert np.array_equal(compose(pos & ((1 << K) - 1), mid),
+                              mid_idx.numpy().astype(np.int64) & 0xFFFF)
+        half = (2 * n - 1) // 2
+        for side, stages in enumerate(
+                ([s for s in live if s < half and s not in mid],
+                 [s for s in live if s >= half and s not in mid])):
+            assert np.array_equal(compose(pos >> K, stages),
+                                  outer_idx[side].numpy())
+    monkeypatch.setattr(np, "unpackbits", real)
 
 
 def test_identity_perm_skips_dead_stages():

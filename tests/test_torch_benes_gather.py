@@ -141,6 +141,10 @@ class _RecordingLib:
         self.calls.append(args)
         return 0
 
+    def benes_mid(self, *args):
+        self.calls.append(("benes_mid",) + args)
+        return 0
+
 
 def _as_card(monkeypatch):
     """Make the wrappers treat CPU tensors as card tensors: the kernel's
@@ -181,11 +185,55 @@ def test_gather_wrapper_launches_its_kernel_for_a_card_tensor(monkeypatch):
     BC.benes_mid_gather.launches = before
 
 
+def test_stage_kernel_takes_the_packed_rows_for_a_card_tensor(monkeypatch):
+    """compose_mid's card branch: one benes_mid launch on the iota, fed
+    the packed rows, their row stride and (row << 8 | log2 d) codes;
+    rows that are not packed uint8 rows, or misaligned, are refused."""
+    n, K = 10, 8
+    _, packed = _route(n, 5)
+    spec, mid_rows, _ = BC.build_masks(packed, n, K)
+    rows = torch.from_numpy(mid_rows)
+    lib = _as_card(monkeypatch)
+    monkeypatch.setattr(BC, "_apply_stages",
+                        lambda *a: pytest.fail("plain version taken"))
+    monkeypatch.setattr(BC, "benes_mid_reference",
+                        lambda *a: pytest.fail("plain version taken"))
+    before = BC.benes_mid.launches
+    tile = torch.arange(1 << n, dtype=torch.int16).view(torch.bfloat16)
+    BC.compose_mid(rows.to("meta"), spec)       # meta stands in for cuda
+    assert BC.benes_mid.launches == before + 1
+    (args,) = lib.calls
+    assert args[0] == "benes_mid" and args[4:8] == (128, 1 << n, K, 2)
+    codes, n_codes = args[8], args[9]
+    assert n_codes == len(spec.mid_stages) == 2 * K - 1
+    assert [codes[i] for i in range(n_codes)] == [
+        (r << 8) | (d.bit_length() - 1) for r, d in spec.mid_stages]
+    x = tile.clone()
+    with pytest.raises(ValueError, match="packed rows"):
+        BC.benes_mid(x, rows.to(torch.int32), spec)
+    with pytest.raises(ValueError, match="packed rows"):
+        BC.benes_mid(x, rows[:, :-16], spec)
+    with pytest.raises(ValueError, match="packed rows"):
+        BC.benes_mid(x, rows[:1], spec)
+    off = torch.empty(rows.numel() + 1, dtype=torch.uint8)[1:]
+    off = off.view(rows.shape)
+    off.copy_(rows)                             # 1 byte past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BC.benes_mid(x, off, spec)
+    with pytest.raises(TypeError):
+        BC.benes_mid(x.to(torch.float16), rows, spec)
+    assert BC.benes_mid.launches == before + 1
+    BC.benes_mid.launches = before
+
+
 def test_kernel_source_defines_and_binds_the_gather():
     src = open(os.path.join(_REPO, "memgraph_tpu_torch", "ops", "csrc",
                             "benes.cu")).read()
     assert "int benes_mid_gather(" in src
     assert "benes_pallas.py:138, launched at :225" in src
+    # the stage kernels read the router's packed rows, a cp.async ring
+    assert "int benes_mid(const void* x, void* y, const void* rows" in src
+    assert "cp.async.wait_group" in src and "kRing" in src
     includes = [ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")]
     assert includes == ["<cuda_runtime.h>", "<cstdint>"]
@@ -195,8 +243,8 @@ def test_kernel_source_defines_and_binds_the_gather():
 
 @pytest.mark.parametrize("route_dtype", [torch.float32, torch.bfloat16])
 def test_placed_route_holds_the_composed_index(route_dtype):
-    """make_semiring_kernel places mid_idx (not the mask planes) and the
-    matvec runs through it."""
+    """make_semiring_kernel places mid_idx (not the packed mask rows) and
+    the matvec runs through it."""
     rng = np.random.default_rng(11)
     n, e = 3000, 30000
     src = rng.integers(0, n, e)

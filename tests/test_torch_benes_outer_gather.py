@@ -157,6 +157,14 @@ def test_dead_side_launches_nothing_and_its_row_is_the_iota(monkeypatch):
     BC.compose_outer(torch.from_numpy(outw).to("meta"), half)
     assert [c[0] for c in lib.calls] == ["benes_outer"]
     assert BC.benes_outer.launches == before + 1
+    # the packed rows, their stride (N/8 bytes) and the side's codes, whose
+    # rows index the down side first in outw
+    (call,) = lib.calls
+    assert call[4:8] == ((1 << n) // 8, 1 << n, K, 2)
+    assert [call[8][i] for i in range(call[9])] == [
+        (r << 8) | (d.bit_length() - 1) for r, d in half.outer_down]
+    assert [r for r, _ in spec.outer_down + spec.outer_up] == list(
+        range(outw.shape[0]))
     BC.benes_outer.launches = before
 
 
@@ -219,8 +227,8 @@ def test_kernel_source_defines_and_binds_the_outer_gather():
 
 @pytest.mark.parametrize("route_dtype", [torch.float32, torch.bfloat16])
 def test_placed_route_holds_the_composed_outer_index(route_dtype):
-    """make_semiring_kernel places outer_idx (not the mask plane) and the
-    matvec runs through it."""
+    """make_semiring_kernel places outer_idx (not the packed mask rows) and
+    the matvec runs through it."""
     rng = np.random.default_rng(11)
     n, e = 3000, 30000
     src = rng.integers(0, n, e)
