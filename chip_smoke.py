@@ -32,9 +32,12 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    Then each of the ten kernels is held against its plain version on the
    card (bit-exact, or within its stated tolerance), transpose_loop and
    sandwich also on random values at an odd iteration count, big_matmul
-   also at (64, 32, 32) x 3 and (256, 512, 96) x 7 (its smaller tiles; it
-   fails if its time is under 0.95 x its on-chip bound, which would mean
-   the loop-invariant product was hoisted), and timed:
+   also at (64, 32, 32) x 3 and (256, 512, 96) x 7 (its smaller tiles).
+   transpose_loop, sandwich and big_matmul fail if their time is under
+   0.95 x their on-chip bound, which would mean work was skipped (a
+   hoisted product, passes merged); their lines print the launch design
+   (blocks, cluster size, threads, shared memory, SMs occupied) and the
+   share of the bound reached.  Each kernel is timed:
    warm device time (``ms``: launches queued behind a device spin, so the
    Python wrapper's cost hides), cold (a 128 MB scratch write between
    launches, where the inputs fit in the 50 MB L2), back to back from
@@ -42,8 +45,10 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    looping kernel stands for), the bound, and for kernels that loop on
    chip the on-chip bound (shared-memory or shuffle bytes, 4 B a value a
    shuffle, over 128 B/clock/SM on every SM of the card, at
-   ``clocks.max.sm``; for big_matmul its FMAs over 256 flop/clock on
-   every SM).  One ``micro`` line per kernel and size.
+   ``clocks.max.sm``; sandwich counts 24 B a value an iteration, the
+   fewest its five passes need with each gather folded into the round
+   trip of the transpose after it; for big_matmul its FMAs over 256
+   flop/clock on every SM).  One ``micro`` line per kernel and size.
 4. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
    and 10,000,000 edges from seed 7 (``dst = rand**2 * n``), ``from_coo``
    (which must go through the native CSR builder) ->
@@ -420,7 +425,10 @@ def phase_benes():
 L2_BYTES = 50 * 2**20                 # H100 L2
 SMEM_BYTES_PER_CLOCK = 128            # shared memory per SM per clock
 FP32_FLOP_PER_CLOCK = 256             # 128 FMA lanes per SM per clock
-HOISTED_BELOW = 0.95                  # big_matmul under 0.95 x its bound
+SKIPPED_BELOW = 0.95                  # under 0.95 x the on-chip bound
+# kernels whose time under SKIPPED_BELOW x their on-chip bound means work
+# was skipped
+WORK_CHECKED = ("transpose_loop", "sandwich", "big_matmul")
 MICRO_REPLACES = {
     "col_gather": "benchmarks/pallas_micro.py:46",
     "lane_gather": "benchmarks/pallas_micro.py:78",
@@ -550,14 +558,21 @@ def micro_cases(sm_hz: float, n_sms: int):
     def put(*arrays):
         return [torch.from_numpy(a).cuda() for a in arrays]
 
-    def onchip(n_bytes):
+    def onchip(n_bytes, tiling=None):
         # on every SM of the card, whatever share of them a kernel's
-        # design occupies today
-        return {"onchip_bound_ms": n_bytes / (SMEM_BYTES_PER_CLOCK * n_sms
-                                              * sm_hz) * 1e3,
-                "onchip_by": f"{n_bytes} B of shared memory or shuffle "
-                             f"traffic at {SMEM_BYTES_PER_CLOCK} B/clock on "
-                             f"{n_sms} SMs at {sm_hz / 1e6:.0f} MHz"}
+        # design occupies; with the design's launch, also on the SMs it
+        # occupies
+        out = {"onchip_bound_ms": n_bytes / (SMEM_BYTES_PER_CLOCK * n_sms
+                                             * sm_hz) * 1e3,
+               "onchip_by": f"{n_bytes} B of shared memory or shuffle "
+                            f"traffic at {SMEM_BYTES_PER_CLOCK} B/clock on "
+                            f"{n_sms} SMs at {sm_hz / 1e6:.0f} MHz"}
+        if tiling is not None:
+            out["design"] = {k: tiling[k] for k in (
+                "blocks", "cluster", "threads", "smem_bytes", "sms")}
+            out["onchip_bound_occupied_ms"] = (
+                out["onchip_bound_ms"] * n_sms / tiling["sms"])
+        return out
 
     def case(name, size, kern, plain, library, library_call, n_bytes,
              n_ops, rtol=0.0, timed=True, **extra):
@@ -645,7 +660,8 @@ def micro_cases(sm_hz: float, n_sms: int):
                    partial(lib_tl, x, it),
                    f"loop of {it} x torch.add(tiles(acc).transpose(1, 2), "
                    "1, out=...)", 8 * R * 128, it * R * 128, timed=timed,
-                   **onchip(8 * R * 128 * it))
+                   **onchip(8 * R * 128 * it,
+                            M3.transpose_loop_tiling(R, n_sms)))
     R = 4096
     x, s1, s2, s3 = put(*M3.lane_loop_inputs(R, 3))
     longs = [s.long() for s in (s1, s2, s3)]
@@ -656,7 +672,7 @@ def micro_cases(sm_hz: float, n_sms: int):
                    partial(lib_sw, x, *longs, it),
                    f"loop of {it} x (3 torch.gather + 2 tile transposes)",
                    20 * R * 128, 0, timed=timed,
-                   **onchip((5 * 8 + 3) * R * 128 * it))
+                   **onchip(24 * R * 128 * it, M3.sandwich_tiling(R, n_sms)))
     # shapes the 128 x 128 tile does not fit take the kernel's smaller
     # tiles; then the main shape, timed
     rng = np.random.default_rng(6)
@@ -729,12 +745,14 @@ def phase_micro(sm_hz: float):
                 library_ms=device_ms(c["library"], 3 if loops else reps),
                 library_call=c["library_call"], bound_ms=b, bound_by=by,
                 **c["extra"])
-            if c["name"] == "big_matmul":
-                # quicker than the FMA pipes allow: the loop-invariant
-                # product was not recomputed every iteration
-                check(line["ms"] >= HOISTED_BELOW * line["onchip_bound_ms"],
-                      f"big_matmul {c['size']} took {line['ms']} ms, under "
-                      f"{HOISTED_BELOW} x its on-chip bound "
+            if loops:
+                line["onchip_share"] = line["onchip_bound_ms"] / line["ms"]
+            if c["name"] in WORK_CHECKED:
+                # quicker than shared memory or the FMA pipes allow: a
+                # loop-invariant product hoisted, or passes merged
+                check(line["ms"] >= SKIPPED_BELOW * line["onchip_bound_ms"],
+                      f"{c['name']} {c['size']} took {line['ms']} ms, under "
+                      f"{SKIPPED_BELOW} x its on-chip bound "
                       f"{line['onchip_bound_ms']} ms: work was skipped")
         lines.setdefault(c["name"], []).append(line)
         print("micro", json.dumps(line), flush=True)

@@ -23,8 +23,9 @@ _SIGNATURES = {
     "micro_dynslice_gather": [_VP, _VP, _VP, _VP, _I64, _VP],
     "micro_onehot_scatter": [_VP, _VP, _VP, _VP, _I64, _VP],
     "micro_lane_gather_loop": [_VP, _VP, _VP, _I64, _I32, _VP],
-    "micro_transpose_loop": [_VP, _VP, _I64, _I32, _VP],
-    "micro_sandwich": [_VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP],
+    "micro_transpose_loop": [_VP, _VP, _I64, _I32, _I64, _I32, _I64, _VP],
+    "micro_sandwich": [_VP, _VP, _VP, _VP, _VP, _I64, _I32, _I64, _I32,
+                       _I32, _I64, _VP],
     "micro_big_matmul": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
                          _I32, _VP],
 }

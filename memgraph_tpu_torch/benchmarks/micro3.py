@@ -3,14 +3,20 @@ one launch: the port of benchmarks/pallas_micro3.py.
 
 These are the primitives of the radix-routed PageRank design:
   - ``lane_gather_loop``: iters x (lane gather, + 1) on (R, 128);
-  - ``transpose_loop``: iters x (transpose every 128 x 128 tile, + 1);
+  - ``transpose_loop``: iters x (transpose every 128 x 128 tile, + 1),
+    each tile split by the transpose's quadrant orbits over two blocks
+    (``transpose_loop_tiling``);
   - ``sandwich``: iters x [lane gather s1, transpose, lane gather s2,
     transpose, lane gather s3], which realises an arbitrary permutation
-    of a 128 x 128 tile;
+    of a 128 x 128 tile; a tile a block, each gather fused with the
+    transpose after it (``sandwich_tiling``);
   - ``big_matmul``: iters x (acc += A @ B), A (1024, 2048), B (2048, 128),
     full f32, split over the blocks by K (``big_matmul_tiling``).
 
-Wrappers, launch counters and plain versions as in ``micro``.
+Wrappers, launch counters and plain versions as in ``micro``.  The
+``*_schedule`` functions replay a kernel's design in plain torch (each
+block's share of a tile and its passes as the kernel makes them); the
+tests hold them against the plain versions.
 
     python -m memgraph_tpu_torch.benchmarks.micro3 [--device cpu]
 """
@@ -39,6 +45,8 @@ MATMUL_RTOL = 2e-4
 MATMUL_TILES = (128, 64, 32)   # big_matmul's block tiles, fastest first
 BLOCK_SMEM_BYTES = 232_448     # shared memory a block may use on an H100
 H100_SMS = 132
+TILE_THREADS = 1024            # threads of a transpose_loop / sandwich block
+QUAD = LANES // 2              # transpose_loop's region edge
 
 
 # ---------------------------------------------------------------------------
@@ -121,8 +129,10 @@ def transpose_loop(x, iters: int = 500):
     _check_tiles("transpose_loop", x)
     if not on_card("transpose_loop", x):
         return transpose_loop_reference(x, iters)
+    t = transpose_loop_tiling(x.shape[0], _sm_count(x.device))
     out = torch.empty_like(x)
-    launch("transpose_loop", x, out, x.shape[0], iters)
+    launch("transpose_loop", x, out, x.shape[0], iters, t["blocks"],
+           t["threads"], t["smem_bytes"])
     transpose_loop.launches += 1
     return out
 
@@ -137,8 +147,10 @@ def sandwich(x, s1, s2, s3, iters: int = 200):
         check(f"sandwich s{i}", s, torch.int32, tuple(x.shape))
     if not on_card("sandwich", x, s1, s2, s3):
         return sandwich_reference(x, s1, s2, s3, iters)
+    t = sandwich_tiling(x.shape[0], _sm_count(x.device))
     out = torch.empty_like(x)
-    launch("sandwich", x, s1, s2, s3, out, x.shape[0], iters)
+    launch("sandwich", x, s1, s2, s3, out, x.shape[0], iters, t["blocks"],
+           t["cluster"], t["threads"], t["smem_bytes"])
     sandwich.launches += 1
     return out
 
@@ -161,6 +173,94 @@ def big_matmul_tiling(M: int, K: int, N: int, n_sms: int) -> dict:
     ks = max(filling) if filling else fits[0]
     return {"tile": tile, "ks": ks, "splits": K // ks,
             "blocks": tiles * (K // ks), "smem_bytes": 8 * ks * tile}
+
+
+def transpose_loop_tiling(R: int, n_sms: int) -> dict:
+    """transpose_loop's launch for (R, 128) on a card of n_sms SMs.
+
+    The transpose maps the 64 x 64 quadrant pairs {Q00, Q11} and {Q01,
+    Q10} of a tile onto themselves, so each pair is one block's for the
+    whole launch: block 2t owns Q00 and Q11 of tile t, block 2t + 1 owns
+    Q01 and Q10 (R / 64 blocks).  regions: each block's (tile, row, column)
+    region corners, each region ``region`` in size; a block keeps its two
+    regions twice in shared memory (64 x 65 floats each).  sms: the SMs the
+    blocks occupy."""
+    tiles = R // LANES
+    blocks = 2 * tiles
+    return {"blocks": blocks, "cluster": 1, "threads": TILE_THREADS,
+            "smem_bytes": 2 * 2 * QUAD * (QUAD + 1) * 4,
+            "region": (QUAD, QUAD),
+            "regions": [((b >> 1, 0, QUAD * (b & 1)),
+                         (b >> 1, QUAD, QUAD * (1 - (b & 1))))
+                        for b in range(blocks)],
+            "sms": min(blocks, n_sms)}
+
+
+def sandwich_tiling(R: int, n_sms: int) -> dict:
+    """sandwich's launch for (R, 128) on a card of n_sms SMs.
+
+    One block of TILE_THREADS a tile for the whole launch (R / 128
+    blocks, no cluster: a tile split over a cluster of blocks measured
+    slower): the tile in three 128 x 129-float buffers (its values, and
+    the targets of the two transposing passes).  Warp w owns rows
+    warp_rows * w and the next warp_rows - 1, so its third gather stays in
+    the warp.  regions: each block's (tile, row, column) corner, each
+    ``region`` in size.  sms: the SMs the blocks occupy."""
+    tiles = R // LANES
+    return {"blocks": tiles, "cluster": 1, "threads": TILE_THREADS,
+            "smem_bytes": 3 * LANES * (LANES + 1) * 4,
+            "region": (LANES, LANES),
+            "warp_rows": LANES // (TILE_THREADS // 32),
+            "regions": [((t, 0, 0),) for t in range(tiles)],
+            "sms": min(tiles, n_sms)}
+
+
+def transpose_loop_schedule(x, iters, tiling=None):
+    """transpose_loop as its kernel deals it out, in plain torch: each
+    block's regions taken from x and transposed apart from every other
+    block's for iters passes (new region at (r, c) = old region at (c, r),
+    transposed, + 1), then written back where they were taken."""
+    t = tiling or transpose_loop_tiling(x.shape[0], H100_SMS)
+    h, w = t["region"]
+    tiles = x.view(-1, LANES, LANES)
+    out = torch.empty_like(tiles)
+    for regs in t["regions"]:
+        corners = [(r, c) for _, r, c in regs]
+        # the region whose transpose lands on each region: the block owns
+        # it too, or the tiling is wrong
+        src = [corners.index((c, r)) for r, c in corners]
+        cur = [tiles[tl, r:r + h, c:c + w] for tl, r, c in regs]
+        for _ in range(iters):
+            cur = [cur[g].transpose(0, 1) + 1.0 for g in src]
+        for (tl, r, c), v in zip(regs, cur):
+            out[tl, r:r + h, c:c + w] = v
+    return out.view_as(x)
+
+
+def sandwich_schedule(x, s1, s2, s3, iters):
+    """sandwich as its kernel deals it out, in plain torch: each block
+    holds its tile in three buffers X, Y, Z; each warp's rows of X are
+    gathered by s1 and written as columns of Y, then (after a block
+    barrier) its rows of Y gathered by s2 into columns of Z, then (after
+    another) its rows of Z gathered by s3 back into its own rows of X."""
+    t = sandwich_tiling(x.shape[0], H100_SMS)
+    warps = [slice(r, r + t["warp_rows"])
+             for r in range(0, LANES, t["warp_rows"])]
+    view = [a.view(-1, LANES, LANES) for a in (x, s1, s2, s3)]
+    out = torch.empty_like(view[0])
+    for (tile, _, _), in t["regions"]:
+        X = view[0][tile].clone()
+        Y, Z = torch.empty_like(X), torch.empty_like(X)
+        p1, p2, p3 = (s[tile].long() for s in view[1:])
+        for _ in range(iters):
+            for w in warps:
+                Y[:, w] = torch.gather(X[w], 1, p1[w]).transpose(0, 1)
+            for w in warps:
+                Z[:, w] = torch.gather(Y[w], 1, p2[w]).transpose(0, 1)
+            for w in warps:
+                X[w] = torch.gather(Z[w], 1, p3[w])
+        out[tile] = X
+    return out.view_as(x)
 
 
 def _sm_count(dev) -> int:

@@ -7,7 +7,8 @@
 // int32 indices.  Its note says what bounds it and what its design does
 // about that.  These are the simple first versions: one thread (or warp,
 // or block) per natural unit of work, shared memory where a value is
-// reused; TMA, wgmma and clusters are later work.  Indices are promised
+// reused; transpose_loop splits each tile over two blocks by the
+// transpose's quadrant orbits.  Indices are promised
 // in bounds, as the Pallas kernels promise them (mode="promise_in_bounds").
 //
 // Every entry point launches on the given stream and returns the launch's
@@ -24,7 +25,6 @@ constexpr int kTile = 128;             // a 128 x 128 tile
 constexpr int kPad = kTile + 1;        // padded tile row: no bank conflicts
 constexpr int kTileElems = kTile * kTile;
 constexpr int kBlockThreads = 1024;
-constexpr int kPerThread = kTileElems / kBlockThreads;   // 16
 constexpr unsigned kFull = 0xffffffffu;
 // grid-stride kernels launch at most 16 blocks of 256 threads per SM of
 // an H100 (132 SMs)
@@ -276,118 +276,178 @@ __global__ void lane_gather_loop_kernel(const float* __restrict__ x,
   }
 }
 
-// Tile passes for one block of 1024 threads on a padded 128 x 129 tile in
-// shared memory.  Thread t owns positions e = t + 1024 k (k < 16), that
-// is row i = e / 128 and column j = e % 128.  Each pass reads its 16
-// sources into registers, waits, writes, and waits.  Row-major and
-// transposed reads both stay off shared-memory bank conflicts thanks to
-// the pad (address i * 129 + j).
-template <bool kAddOne>
-__device__ __forceinline__ void tile_transpose(float* t) {
-  float r[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    r[k] = t[(e & (kTile - 1)) * kPad + (e >> 7)];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    t[(e >> 7) * kPad + (e & (kTile - 1))] = kAddOne ? r[k] + 1.0f : r[k];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void tile_lane_gather(float* t,
-                                                 const uint8_t* ix) {
-  float r[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    r[k] = t[(e >> 7) * kPad + ix[e]];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    t[(e >> 7) * kPad + (e & (kTile - 1))] = r[k];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void tile_load(float* t, const float* x) {
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    t[(e >> 7) * kPad + (e & (kTile - 1))] = x[e];
-  }
-}
-
-__device__ __forceinline__ void tile_store(const float* t, float* y) {
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    y[e] = t[(e >> 7) * kPad + (e & (kTile - 1))];
-  }
-}
-
-constexpr size_t kTileBytes = sizeof(float) * kTile * kPad;   // 66,048
-
 // ---------------------------------------------------------------------------
 // transpose_loop <- benchmarks/pallas_micro3.py:84 (bench_transpose_loop)
 //   iters x  (every 128 x 128 tile) acc <- acc^T + 1
-// Bound: on chip (shared memory: 8 B a value an iteration).  One block
-// per tile for the whole launch, the tile in shared memory padded to 129
-// floats a row.  The shape gives R / 128 blocks (64 at R = 8192), so about
-// half the SMs have nothing to do.
+// Bound: on chip (shared memory: 8 B a value an iteration).  The transpose
+// maps the 64 x 64 quadrants {Q00, Q11} and {Q01, Q10} of a tile onto
+// themselves, so a tile splits into two blocks that never meet: block 2t
+// owns Q00 and Q11 of tile t, block 2t + 1 owns Q01 and Q10 (R / 64
+// blocks, 128 at R = 8192).  A block's two regions live in shared memory
+// twice (ping-pong, 64 x 65 floats each: row reads and transposed writes
+// both on 32 banks), and each iteration is one pass with one barrier:
+// new region g = (old region g, or 1 - g off the diagonal)^T + 1, written
+// back into region g's own slot, so the regions are where they belong
+// after any iteration count.  Loaded and stored with 16-byte accesses.
+// The caller passes the launch shape (micro3.transpose_loop_tiling).
 // ---------------------------------------------------------------------------
+constexpr int kQuad = 64;                         // quadrant edge
+constexpr int kQPad = kQuad + 1;                  // padded quadrant row
+constexpr int kRegion = kQuad * kQPad;            // floats of one region
+constexpr int kPairPerThread = 2 * kQuad * kQuad / kBlockThreads;   // 8
+constexpr size_t kTransposeSmem = 2 * 2 * kRegion * sizeof(float);  // 66,560
+
 __global__ void __launch_bounds__(kBlockThreads)
 transpose_loop_kernel(const float* __restrict__ x, float* __restrict__ out,
                       int iters) {
-  extern __shared__ __align__(16) float t[];
-  const long long base = static_cast<long long>(blockIdx.x) * kTileElems;
-  tile_load(t, x + base);
+  extern __shared__ __align__(16) float q[];
+  const long long base = static_cast<long long>(blockIdx.x >> 1) * kTileElems;
+  const int off = blockIdx.x & 1;                 // 1: the {Q01, Q10} pair
+  // region g sits at rows 64 g and columns 64 g (diagonal) or 64 (1 - g)
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int f = threadIdx.x + k * kBlockThreads;    // float4 of the pair
+    const int g = f >> 10, row = (f >> 4) & (kQuad - 1), c4 = (f & 15) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(
+        x + base + (kQuad * g + row) * kTile + kQuad * (g ^ off) + c4));
+    float* d = q + g * kRegion + row * kQPad + c4;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
   __syncthreads();
-  for (int it = 0; it < iters; ++it) tile_transpose<true>(t);
-  tile_store(t, out + base);
+  // thread t writes rows i + 16 m of both regions at column j, reading
+  // column i + 16 m of the source region at row j
+  const int i = threadIdx.x >> 6, j = threadIdx.x & (kQuad - 1);
+  const int src0 = off * kRegion, src1 = (1 - off) * kRegion;
+  int cur = 0, nxt = 2 * kRegion;
+  for (int it = 0; it < iters; ++it) {
+    float r[kPairPerThread];
+#pragma unroll
+    for (int k = 0; k < kPairPerThread; ++k) {
+      const int src = (k < 4 ? src0 : src1) + cur;
+      r[k] = q[src + j * kQPad + i + 16 * (k & 3)];
+    }
+#pragma unroll
+    for (int k = 0; k < kPairPerThread; ++k)
+      q[nxt + (k >> 2) * kRegion + (i + 16 * (k & 3)) * kQPad + j] =
+          r[k] + 1.0f;
+    // the reads of cur are done before the next pass writes into it
+    __syncthreads();
+    const int t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int f = threadIdx.x + k * kBlockThreads;
+    const int g = f >> 10, row = (f >> 4) & (kQuad - 1), c4 = (f & 15) * 4;
+    const float* s = q + cur + g * kRegion + row * kQPad + c4;
+    *reinterpret_cast<float4*>(out + base + (kQuad * g + row) * kTile +
+                               kQuad * (g ^ off) + c4) =
+        make_float4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// The byte k of a register of packed indices (each < 128).
+__device__ __forceinline__ int byte_of(unsigned w, int k) {
+  return static_cast<int>((w >> (8 * k)) & 0xffu);
 }
 
 // ---------------------------------------------------------------------------
 // sandwich <- benchmarks/pallas_micro3.py:124 (bench_sandwich)
 //   iters x  [lane-gather s1, transpose, lane-gather s2, transpose,
 //             lane-gather s3] on every 128 x 128 tile
-// Bound: on chip (shared memory: 5 passes of 8 B a value plus 3 index
-// bytes an iteration).  One block per tile for the whole launch.  A tile
-// and three int32 index tiles would be 256 KB, over the 227 KB a block
-// may have, so the indices (< 128) are kept as uint8: 48 KB beside the
-// 66 KB padded tile.
+// Bound: on chip (shared memory).  A gather followed by a transpose is one
+// round trip: read cur[i][s[i][j]], write nxt[j][i].  So an iteration is
+// three round trips (gather s1 + transpose X -> Y, gather s2 + transpose
+// Y -> Z, gather s3 Z -> X): 24 B a value, every value still moved by all
+// five primitives.  One block of 1024 threads a tile (R / 128 blocks, 32
+// at R = 4096), the tile in three 128 x 129-float buffers.  Rows to warps:
+// warp w owns rows 4 w .. 4 w + 3, lane l columns l + 32 m, so the third
+// gather reads and writes only its warp's rows and needs a warp barrier,
+// the two transposing passes a block barrier each.  Each thread's
+// positions are fixed for the launch, so are its indices: packed 4 to a
+// register (12 registers for 48 indices).  Transposed writes are free of
+// bank conflicts (pitch 129); the random in-row reads keep an expected
+// ~3.5-way conflict.  A tile split over a cluster of 4 blocks (rows
+// pushed to their owner through distributed shared memory) measured
+// slower on an H100: each of a launch's 400 exchanges waits on a cluster
+// barrier or a remote mbarrier, and distributed shared memory carries a
+// small fraction of the local rate (PERF.md).  The caller passes the
+// launch shape (micro3.sandwich_tiling).
 // ---------------------------------------------------------------------------
+constexpr int kSwRows = kTile / (kBlockThreads / 32);     // 4 rows a warp
+constexpr size_t kSandwichSmem = 3 * kTile * kPad * sizeof(float);  // 198,144
+
 __global__ void __launch_bounds__(kBlockThreads)
 sandwich_kernel(const float* __restrict__ x, const int32_t* __restrict__ s1,
                 const int32_t* __restrict__ s2,
                 const int32_t* __restrict__ s3, float* __restrict__ out,
                 int iters) {
-  extern __shared__ __align__(16) float t[];
-  uint8_t* ix = reinterpret_cast<uint8_t*>(t + kTile * kPad);
+  extern __shared__ __align__(16) float sw[];
+  float* X = sw;
+  float* Y = sw + kTile * kPad;
+  float* Z = sw + 2 * kTile * kPad;
+  const int l = threadIdx.x & 31;
+  const int row0 = kSwRows * (threadIdx.x >> 5);
   const long long base = static_cast<long long>(blockIdx.x) * kTileElems;
-  tile_load(t, x + base);
+  unsigned p1[kSwRows], p2[kSwRows], p3[kSwRows];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int e = threadIdx.x + k * kBlockThreads;
-    ix[e] = static_cast<uint8_t>(__ldg(s1 + base + e));
-    ix[kTileElems + e] = static_cast<uint8_t>(__ldg(s2 + base + e));
-    ix[2 * kTileElems + e] = static_cast<uint8_t>(__ldg(s3 + base + e));
+  for (int a = 0; a < kSwRows; ++a) {
+    p1[a] = p2[a] = p3[a] = 0;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int e = (row0 + a) * kTile + l + 32 * m;
+      X[(row0 + a) * kPad + l + 32 * m] = __ldg(x + base + e);
+      p1[a] |= static_cast<unsigned>(__ldg(s1 + base + e)) << (8 * m);
+      p2[a] |= static_cast<unsigned>(__ldg(s2 + base + e)) << (8 * m);
+      p3[a] |= static_cast<unsigned>(__ldg(s3 + base + e)) << (8 * m);
+    }
   }
-  __syncthreads();
+  __syncwarp();
   for (int it = 0; it < iters; ++it) {
-    tile_lane_gather(t, ix);
-    tile_transpose<false>(t);
-    tile_lane_gather(t, ix + kTileElems);
-    tile_transpose<false>(t);
-    tile_lane_gather(t, ix + 2 * kTileElems);
+    // gather s1 + transpose: row i of X to column i of Y
+#pragma unroll
+    for (int a = 0; a < kSwRows; ++a) {
+      float t[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        t[m] = X[(row0 + a) * kPad + byte_of(p1[a], m)];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) Y[(l + 32 * m) * kPad + row0 + a] = t[m];
+    }
+    __syncthreads();
+    // gather s2 + transpose: Y to Z
+#pragma unroll
+    for (int a = 0; a < kSwRows; ++a) {
+      float t[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        t[m] = Y[(row0 + a) * kPad + byte_of(p2[a], m)];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) Z[(l + 32 * m) * kPad + row0 + a] = t[m];
+    }
+    __syncthreads();
+    // gather s3: the warp's own rows of Z to X
+#pragma unroll
+    for (int a = 0; a < kSwRows; ++a) {
+      float t[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        t[m] = Z[(row0 + a) * kPad + byte_of(p3[a], m)];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) X[(row0 + a) * kPad + l + 32 * m] = t[m];
+    }
+    __syncwarp();
   }
-  tile_store(t, out + base);
+#pragma unroll
+  for (int a = 0; a < kSwRows; ++a)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      out[base + (row0 + a) * kTile + l + 32 * m] =
+          X[(row0 + a) * kPad + l + 32 * m];
 }
 
 // ---------------------------------------------------------------------------
@@ -639,32 +699,41 @@ int micro_lane_gather_loop(const void* x, const void* idx, void* out,
   return cudaGetLastError();
 }
 
-// iters x (transpose every 128 x 128 tile, + 1); rows % 128 == 0.
+// iters x (transpose every 128 x 128 tile, + 1); rows % 128 == 0.  The
+// launch shape (micro3.transpose_loop_tiling) must be the kernel's: two
+// blocks a tile of 1024 threads, 66,560 bytes of shared memory each.
 int micro_transpose_loop(const void* x, void* out, long long rows, int iters,
+                         long long blocks, int threads, long long smem,
                          void* stream) {
-  if (rows < kTile || rows % kTile != 0 || iters < 0)
+  if (rows < kTile || rows % kTile != 0 || iters < 0 ||
+      blocks != 2 * (rows / kTile) || threads != kBlockThreads ||
+      smem != static_cast<long long>(kTransposeSmem))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(transpose_loop_kernel), kTileBytes);
+      reinterpret_cast<const void*>(transpose_loop_kernel), kTransposeSmem);
   if (err != cudaSuccess) return err;
-  transpose_loop_kernel<<<static_cast<unsigned>(rows / kTile), kBlockThreads,
-                          kTileBytes, static_cast<cudaStream_t>(stream)>>>(
+  transpose_loop_kernel<<<static_cast<unsigned>(blocks), kBlockThreads,
+                          kTransposeSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), iters);
   return cudaGetLastError();
 }
 
-// iters x the 5-pass sandwich on every tile; rows % 128 == 0.
+// iters x the 5-pass sandwich on every tile; rows % 128 == 0.  The launch
+// shape (micro3.sandwich_tiling) must be the kernel's: a block of 1024
+// threads a tile, 198,144 bytes of shared memory each.
 int micro_sandwich(const void* x, const void* s1, const void* s2,
                    const void* s3, void* out, long long rows, int iters,
-                   void* stream) {
-  if (rows < kTile || rows % kTile != 0 || iters < 0)
+                   long long blocks, int cluster, int threads,
+                   long long smem, void* stream) {
+  if (rows < kTile || rows % kTile != 0 || iters < 0 ||
+      blocks != rows / kTile || cluster != 1 || threads != kBlockThreads ||
+      smem != static_cast<long long>(kSandwichSmem))
     return cudaErrorInvalidValue;
-  const size_t smem = kTileBytes + 3 * kTileElems;
   cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(sandwich_kernel), smem);
+      allow_smem(reinterpret_cast<const void*>(sandwich_kernel), kSandwichSmem);
   if (err != cudaSuccess) return err;
-  sandwich_kernel<<<static_cast<unsigned>(rows / kTile), kBlockThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  sandwich_kernel<<<static_cast<unsigned>(blocks), kBlockThreads,
+                    kSandwichSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(s1),
       static_cast<const int32_t*>(s2), static_cast<const int32_t*>(s3),
       static_cast<float*>(out), iters);
