@@ -31,21 +31,26 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    (each counter must move by what its entry point's timing implies).
    Then each of the ten kernels is held against its plain version on the
    card (bit-exact, or within its stated tolerance), transpose_loop and
-   sandwich also on random values at an odd iteration count, big_matmul
-   also at (64, 32, 32) x 3 and (256, 512, 96) x 7 (its smaller tiles).
-   transpose_loop, sandwich and big_matmul fail if their time is under
+   sandwich also on random values at an odd iteration count,
+   lane_gather_loop also at R = 100 (a ragged last block) x 501 on random
+   values, gather_loop also at R = 256 x 51 and at its largest R = 16384
+   x 3, big_matmul also at (64, 32, 32) x 3 and (256, 512, 96) x 7 (its
+   smaller tiles).  The five looping kernels fail if their time is under
    0.95 x their on-chip bound, which would mean work was skipped (a
-   hoisted product, passes merged); their lines print the launch design
-   (blocks, cluster size, threads, shared memory, SMs occupied) and the
-   share of the bound reached.  Each kernel is timed:
-   warm device time (``ms``: launches queued behind a device spin, so the
-   Python wrapper's cost hides), cold (a 128 MB scratch write between
-   launches, where the inputs fit in the 50 MB L2), back to back from
-   Python (``host_ms``), plain, one PyTorch call (or the loop of calls a
-   looping kernel stands for), the bound, and for kernels that loop on
-   chip the on-chip bound (shared-memory or shuffle bytes, 4 B a value a
-   shuffle, over 128 B/clock/SM on every SM of the card, at
-   ``clocks.max.sm``; sandwich counts 24 B a value an iteration, the
+   hoisted product, passes merged, gathers composed); their lines print
+   the launch design (blocks, cluster size, threads, shared memory, SMs
+   occupied) and the share of the bound reached; gather_loop's and
+   lane_gather_loop's also their ``split``: the time at several iteration
+   counts, t(0) (entry, exit, launch) and the time an iteration.  Each
+   kernel is timed: warm device time (``ms``: launches queued behind a
+   device spin, so the Python wrapper's cost hides), cold (a 128 MB
+   scratch write between launches, where the inputs fit in the 50 MB L2),
+   back to back from Python (``host_ms``), plain, one PyTorch call (or the
+   loop of calls a looping kernel stands for), the bound, and for kernels
+   that loop on chip the on-chip bound (shared-memory or shuffle bytes
+   over 128 B/clock/SM on every SM of the card, at ``clocks.max.sm``:
+   lane_gather_loop 4 B a value an iteration, one shuffle's or one
+   read's, gather_loop 8 B, a read and a write; sandwich 24 B, the
    fewest its five passes need with each gather folded into the round
    trip of the transpose after it; for big_matmul its FMAs over 256
    flop/clock on every SM).  One ``micro`` line per kernel and size.
@@ -428,7 +433,8 @@ FP32_FLOP_PER_CLOCK = 256             # 128 FMA lanes per SM per clock
 SKIPPED_BELOW = 0.95                  # under 0.95 x the on-chip bound
 # kernels whose time under SKIPPED_BELOW x their on-chip bound means work
 # was skipped
-WORK_CHECKED = ("transpose_loop", "sandwich", "big_matmul")
+WORK_CHECKED = ("gather_loop", "lane_gather_loop", "transpose_loop",
+                "sandwich", "big_matmul")
 MICRO_REPLACES = {
     "col_gather": "benchmarks/pallas_micro.py:46",
     "lane_gather": "benchmarks/pallas_micro.py:78",
@@ -553,6 +559,7 @@ def micro_cases(sm_hz: float, n_sms: int):
     from memgraph_tpu_torch.benchmarks import micro as M1
     from memgraph_tpu_torch.benchmarks import micro2 as M2
     from memgraph_tpu_torch.benchmarks import micro3 as M3
+    from memgraph_tpu_torch.benchmarks.loop_split import SPLITS
     lib_gl, lib_lgl, lib_tl, lib_sw, lib_mm = _library_loops()
 
     def put(*arrays):
@@ -575,11 +582,12 @@ def micro_cases(sm_hz: float, n_sms: int):
         return out
 
     def case(name, size, kern, plain, library, library_call, n_bytes,
-             n_ops, rtol=0.0, timed=True, **extra):
+             n_ops, rtol=0.0, timed=True, split=None, **extra):
+        # split: (iteration counts, the kernel at a count) of a loop
         return dict(name=name, size=size, kern=kern, plain=plain,
                     library=library, library_call=library_call,
                     n_bytes=n_bytes, n_ops=n_ops, rtol=rtol, timed=timed,
-                    extra=extra)
+                    split=split, extra=extra)
 
     for R in (8, 64, 512, 2048, 8192):
         tab, idx = put(*M1.gather_inputs(R, R))
@@ -604,14 +612,20 @@ def micro_cases(sm_hz: float, n_sms: int):
                    partial(torch.addcmul, one, x, two),
                    "torch.addcmul(one, x, two)", 8 * R * 128, 2 * R * 128)
         del x
-    R, it = 8192, 50
-    tab, idx = put(*M1.gather_inputs(R, R))
-    yield case("gather_loop", f"R={R} x{it}",
-               partial(M1.gather_loop, tab, idx, it),
-               partial(M1.gather_loop_reference, tab, idx, it),
-               partial(lib_gl, tab, idx.long(), it),
-               f"loop of {it} x torch.gather(acc, 0, idx)", 12 * R * 128, 0,
-               **onchip(8 * R * 128 * it))
+    # the largest R the wrapper takes and a small one, then the main shape
+    for R, it, timed in ((M1.MAX_LOOP_ROWS, 3, False), (256, 51, False),
+                         (8192, 50, True)):
+        tab, idx = put(*M1.gather_inputs(R, R))
+        yield case("gather_loop", f"R={R} x{it}",
+                   partial(M1.gather_loop, tab, idx, it),
+                   partial(M1.gather_loop_reference, tab, idx, it),
+                   partial(lib_gl, tab, idx.long(), it),
+                   f"loop of {it} x torch.gather(acc, 0, idx)", 12 * R * 128,
+                   0, timed=timed,
+                   split=(SPLITS["gather_loop"],
+                          partial(M1.gather_loop, tab, idx)),
+                   **onchip(8 * R * 128 * it,
+                            M1.gather_loop_tiling(R, n_sms)))
 
     grp, row3, rank = put(*M2.dynslice_inputs())
     R = row3.shape[0]
@@ -639,15 +653,24 @@ def micro_cases(sm_hz: float, n_sms: int):
                rtol=M2.ONEHOT_RTOL)
     del dblk, lanes, vals, bins
 
-    R, it = 4096, 500
-    x, idx = put(*M3.lane_loop_inputs(R))
-    yield case("lane_gather_loop", f"R={R} x{it}",
-               partial(M3.lane_gather_loop, x, idx, it),
-               partial(M3.lane_gather_loop_reference, x, idx, it),
-               partial(lib_lgl, x, idx.long(), it),
-               f"loop of {it} x torch.gather(acc, 1, idx).add_(1)",
-               12 * R * 128, it * R * 128,
-               **onchip(4 * R * 128 * it))      # 4 B a value a shuffle
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for R, it, timed in ((100, 501, False), (4096, 500, True)):
+        x, idx = put(*M3.lane_loop_inputs(R))
+        label = ""
+        if not timed:       # a ragged last block, on random values
+            x, label = torch.randn((R, 128), device="cuda",
+                                   generator=gen), " random x"
+        yield case("lane_gather_loop", f"R={R} x{it}{label}",
+                   partial(M3.lane_gather_loop, x, idx, it),
+                   partial(M3.lane_gather_loop_reference, x, idx, it),
+                   partial(lib_lgl, x, idx.long(), it),
+                   f"loop of {it} x torch.gather(acc, 1, idx).add_(1)",
+                   12 * R * 128, it * R * 128, timed=timed,
+                   split=(SPLITS["lane_gather_loop"],
+                          partial(M3.lane_gather_loop, x, idx)),
+                   # 4 B a value an iteration, a shuffle's or a read's
+                   **onchip(4 * R * 128 * it,
+                            M3.lane_gather_loop_tiling(R, n_sms)))
     R = 8192
     gen = torch.Generator(device="cuda").manual_seed(10)
     for label, x, it, timed in (
@@ -702,9 +725,12 @@ def micro_cases(sm_hz: float, n_sms: int):
 def phase_micro(sm_hz: float):
     """The three microbenchmark entry points, then each kernel against its
     plain version, timed."""
+    from functools import partial
+
     import torch
     from memgraph_tpu_torch.benchmarks import micro, micro2, micro3
     from memgraph_tpu_torch.benchmarks._common import compare
+    from memgraph_tpu_torch.benchmarks.loop_split import split_of
     mods = (micro, micro2, micro3)
     t0 = time.perf_counter()
     # the entry points: counts set to 0 just before, read just after
@@ -747,6 +773,11 @@ def phase_micro(sm_hz: float):
                 **c["extra"])
             if loops:
                 line["onchip_share"] = line["onchip_bound_ms"] / line["ms"]
+            if c["split"] is not None:
+                counts, at = c["split"]
+                line["split"] = split_of(
+                    {k: device_ms(partial(at, k), reps) for k in counts},
+                    counts)
             if c["name"] in WORK_CHECKED:
                 # quicker than shared memory or the FMA pipes allow: a
                 # loop-invariant product hoisted, or passes merged

@@ -12,6 +12,7 @@ import torch
 from ..device import resolve_device
 
 LANES = 128
+H100_SMS = 132
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # argument types of each entry point of micro.cu, stream last
@@ -19,10 +20,12 @@ _SIGNATURES = {
     "micro_col_gather": [_VP, _VP, _VP, _I64, _VP],
     "micro_lane_gather": [_VP, _VP, _VP, _I64, _VP],
     "micro_stream": [_VP, _VP, _I64, _VP],
-    "micro_gather_loop": [_VP, _VP, _VP, _I32, _I32, _VP],
+    "micro_gather_loop": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64,
+                          _I32, _VP],
     "micro_dynslice_gather": [_VP, _VP, _VP, _VP, _I64, _VP],
     "micro_onehot_scatter": [_VP, _VP, _VP, _VP, _I64, _VP],
-    "micro_lane_gather_loop": [_VP, _VP, _VP, _I64, _I32, _VP],
+    "micro_lane_gather_loop": [_VP, _VP, _VP, _I64, _I32, _I64, _I32, _I64,
+                               _VP],
     "micro_transpose_loop": [_VP, _VP, _I64, _I32, _I64, _I32, _I64, _VP],
     "micro_sandwich": [_VP, _VP, _VP, _VP, _VP, _I64, _I32, _I64, _I32,
                        _I32, _I64, _VP],
@@ -131,3 +134,19 @@ def platform(device) -> str:
     if dev.type == "cuda":
         return f"cuda ({torch.cuda.get_device_name(dev)})"
     return "cpu"
+
+
+def sm_count(dev) -> int:
+    """SMs of the card the tensors lie on (an H100's for another device,
+    which only a test that records the launch hands in)."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
+def bank_ways(words) -> int:
+    """The shared-memory wavefronts one warp instruction of 32-bit accesses
+    takes: the largest count of distinct word addresses that fall in one of
+    the 32 banks (bank = word % 32; lanes on one address share it)."""
+    words = torch.as_tensor(words).reshape(-1).long().unique()
+    return int(torch.bincount(words % 32, minlength=32).max())

@@ -2,7 +2,9 @@
 one launch: the port of benchmarks/pallas_micro3.py.
 
 These are the primitives of the radix-routed PageRank design:
-  - ``lane_gather_loop``: iters x (lane gather, + 1) on (R, 128);
+  - ``lane_gather_loop``: iters x (lane gather, + 1) on (R, 128), 32 rows
+    a block, a row a lane, positions dealt over warps, the rows
+    position-major in shared memory (``lane_gather_loop_tiling``);
   - ``transpose_loop``: iters x (transpose every 128 x 128 tile, + 1),
     each tile split by the transpose's quadrant orbits over two blocks
     (``transpose_loop_tiling``);
@@ -30,8 +32,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ._common import (LANES, check, compare, count, launch, on_card,
-                      platform, timeit)
+from ._common import (H100_SMS, LANES, check, compare, count, launch,
+                      on_card, platform, sm_count, timeit)
 
 TIMED_CALLS = 3           # pallas_micro3.timeit1's n
 MATMUL_SHAPE = (1024, 2048, 128)
@@ -44,9 +46,11 @@ MATMUL_SHAPE = (1024, 2048, 128)
 MATMUL_RTOL = 2e-4
 MATMUL_TILES = (128, 64, 32)   # big_matmul's block tiles, fastest first
 BLOCK_SMEM_BYTES = 232_448     # shared memory a block may use on an H100
-H100_SMS = 132
 TILE_THREADS = 1024            # threads of a transpose_loop / sandwich block
 QUAD = LANES // 2              # transpose_loop's region edge
+LANE_ROWS = 32                 # lane_gather_loop: rows a block, a row a lane
+LANE_WARPS = 8                 # lane_gather_loop: warps splitting a row
+STAGE_PITCH = LANES + 1        # lane_gather_loop's staging row, in words
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +120,10 @@ def lane_gather_loop(x, idx, iters: int = 500):
     check("lane_gather_loop idx", idx, torch.int32, tuple(x.shape))
     if not on_card("lane_gather_loop", x, idx):
         return lane_gather_loop_reference(x, idx, iters)
+    t = lane_gather_loop_tiling(x.shape[0], sm_count(x.device))
     out = torch.empty_like(x)
-    launch("lane_gather_loop", x, idx, out, x.shape[0], iters)
+    launch("lane_gather_loop", x, idx, out, x.shape[0], iters, t["blocks"],
+           t["threads"], t["smem_bytes"])
     lane_gather_loop.launches += 1
     return out
 
@@ -129,7 +135,7 @@ def transpose_loop(x, iters: int = 500):
     _check_tiles("transpose_loop", x)
     if not on_card("transpose_loop", x):
         return transpose_loop_reference(x, iters)
-    t = transpose_loop_tiling(x.shape[0], _sm_count(x.device))
+    t = transpose_loop_tiling(x.shape[0], sm_count(x.device))
     out = torch.empty_like(x)
     launch("transpose_loop", x, out, x.shape[0], iters, t["blocks"],
            t["threads"], t["smem_bytes"])
@@ -147,7 +153,7 @@ def sandwich(x, s1, s2, s3, iters: int = 200):
         check(f"sandwich s{i}", s, torch.int32, tuple(x.shape))
     if not on_card("sandwich", x, s1, s2, s3):
         return sandwich_reference(x, s1, s2, s3, iters)
-    t = sandwich_tiling(x.shape[0], _sm_count(x.device))
+    t = sandwich_tiling(x.shape[0], sm_count(x.device))
     out = torch.empty_like(x)
     launch("sandwich", x, s1, s2, s3, out, x.shape[0], iters, t["blocks"],
            t["cluster"], t["threads"], t["smem_bytes"])
@@ -173,6 +179,107 @@ def big_matmul_tiling(M: int, K: int, N: int, n_sms: int) -> dict:
     ks = max(filling) if filling else fits[0]
     return {"tile": tile, "ks": ks, "splits": K // ks,
             "blocks": tiles * (K // ks), "smem_bytes": 8 * ks * tile}
+
+
+def lane_gather_loop_tiling(R: int, n_sms: int) -> dict:
+    """lane_gather_loop's launch for (R, 128) on a card of n_sms SMs.
+
+    A block owns LANE_ROWS rows for the whole launch (R / 32 blocks, the
+    last one ragged): lane t of every warp owns row 32 b + t, and warp w
+    positions ``positions_per_warp`` w onwards.  The block's rows sit in
+    shared memory position-major, (p, t) at word 32 p + t, twice
+    (ping-pong), so every access of lane t is in bank t.  sms: the SMs
+    the blocks occupy."""
+    blocks = -(-R // LANE_ROWS)
+    return {"blocks": blocks, "cluster": 1, "warps": LANE_WARPS,
+            "threads": 32 * LANE_WARPS,
+            "smem_bytes": 2 * LANES * LANE_ROWS * 4,
+            "rows_per_block": LANE_ROWS,
+            "positions_per_warp": LANES // LANE_WARPS,
+            "sms": min(blocks, n_sms)}
+
+
+def _lane_stage_words(tiling):
+    """The staging words of a lane_gather_loop block's 16-byte loads and
+    stores: (warps, loads a thread, lanes, 4) words r 129 + 4 q + k, load i
+    of warp w covering rows 4 c .. 4 c + 3 and 16-byte columns 8 d ..
+    8 d + 7, c = g / 4 and d = g % 4 for g = w + warps i; with the rows
+    (warps, loads, lanes) and the 16-byte columns."""
+    W = tiling["warps"]
+    loads = LANE_ROWS * LANES // 4 // tiling["threads"]
+    g = torch.arange(W)[:, None] + W * torch.arange(loads)[None, :]
+    j = torch.arange(32)
+    r = 4 * (g // 4)[..., None] + j // 8
+    q = 8 * (g % 4)[..., None] + j % 8
+    words = (r * STAGE_PITCH + 4 * q)[..., None] + torch.arange(4)
+    return words, r, q
+
+
+def lane_gather_loop_schedule(x, idx, iters, tiling=None, trace=None):
+    """lane_gather_loop as its kernel deals it out, in plain torch, through
+    a flat model of each block's shared memory: rows loaded by 16-byte
+    accesses into the staging rows (pitch 129), indices taken from there
+    as source words 32 idx + t, values written position-major; then iters
+    passes, each warp reading all its gathered values (words 32 idx[t][p]
+    + t) before writing (words 32 p + t, + 1), buffers swapped after each
+    pass; then back out through the staging rows.  Rows past R (the last
+    block's) are zeros and are not written.  trace, where given, receives
+    the 32 shared word addresses of each warp instruction (of 32-bit
+    words) of every block."""
+    R = x.shape[0]
+    t = tiling or lane_gather_loop_tiling(R, H100_SMS)
+    W, P = t["warps"], t["positions_per_warp"]
+    buf = LANES * LANE_ROWS
+    stage, rows, cols = _lane_stage_words(t)
+    stage = stage.movedim(-1, 2)          # a warp instruction a word k
+    lane = torch.arange(32)
+    pos = (P * torch.arange(W))[:, None] + torch.arange(P)   # (warps, P)
+    # thread (w, t) at its positions: staging word 129 t + p, and the
+    # position-major word 32 p + t
+    staged = lane * STAGE_PITCH + pos[..., None]             # (warps, P, 32)
+    at = 32 * pos[..., None] + lane
+    xi = x.view(torch.int32)
+    out = torch.empty_like(xi)
+
+    def record(words):
+        if trace is not None:
+            trace.extend(words.reshape(-1, 32))
+
+    for b in range(t["blocks"]):
+        r0 = b * LANE_ROWS
+        n = min(LANE_ROWS, R - r0)
+        smem = torch.zeros(2 * buf, dtype=torch.int32)
+
+        def stage_in(a):
+            # the kernel's 16-byte loads, zeros past the block's rows
+            block = torch.zeros((LANE_ROWS, LANES), dtype=torch.int32)
+            block[:n] = a[r0:r0 + n]
+            smem[stage] = block.view(LANE_ROWS, LANES // 4, 4)[
+                rows, cols].movedim(-1, 2)
+            record(stage)
+
+        def access(words, vals=None):
+            record(words)
+            if vals is None:
+                return smem[words]
+            smem[words] = vals
+
+        stage_in(idx)
+        src = 32 * access(staged) + lane      # source words
+        stage_in(xi)
+        access(at, access(staged))
+        cur, nxt = 0, buf
+        f32 = smem.view(torch.float32)
+        for _ in range(iters):
+            record(cur + src)
+            record(nxt + at)
+            f32[nxt + at] = f32[cur + src] + 1.0
+            cur, nxt = nxt, cur
+        access(staged, access(cur + at))
+        block = torch.empty((LANE_ROWS, LANES // 4, 4), dtype=torch.int32)
+        block[rows, cols] = access(stage).movedim(2, -1)
+        out[r0:r0 + n] = block.view(LANE_ROWS, LANES)[:n]
+    return out.view(torch.float32)
 
 
 def transpose_loop_tiling(R: int, n_sms: int) -> dict:
@@ -263,14 +370,6 @@ def sandwich_schedule(x, s1, s2, s3, iters):
     return out.view_as(x)
 
 
-def _sm_count(dev) -> int:
-    """SMs of the card the tensors lie on (an H100's for another device,
-    which only a test that records the launch hands in)."""
-    if dev.type == "cuda":
-        return torch.cuda.get_device_properties(dev).multi_processor_count
-    return H100_SMS
-
-
 @count
 def big_matmul(a, b, iters: int = 500):
     """iters x (acc += a @ b) from zero, in full f32, in one call (the
@@ -286,7 +385,7 @@ def big_matmul(a, b, iters: int = 500):
                          "multiples of 32")
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("big_matmul: a and b must be 16-byte aligned")
-    t = big_matmul_tiling(M, K, N, _sm_count(a.device))
+    t = big_matmul_tiling(M, K, N, sm_count(a.device))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     part = (torch.empty((t["splits"], M, N), dtype=torch.float32,
                         device=a.device) if t["splits"] > 1 else None)

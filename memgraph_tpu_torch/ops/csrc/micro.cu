@@ -5,11 +5,14 @@
 // Each kernel replaces one pallas_call of benchmarks/pallas_micro*.py and
 // computes what its Pallas body computes on an (R, 128) f32 array with
 // int32 indices.  Its note says what bounds it and what its design does
-// about that.  These are the simple first versions: one thread (or warp,
+// about that.  Most are the simple first versions: one thread (or warp,
 // or block) per natural unit of work, shared memory where a value is
-// reused; transpose_loop splits each tile over two blocks by the
-// transpose's quadrant orbits.  Indices are promised
-// in bounds, as the Pallas kernels promise them (mode="promise_in_bounds").
+// reused.  The looping kernels were redesigned: transpose_loop splits each
+// tile over two blocks by the transpose's quadrant orbits, sandwich fuses
+// its gathers with its transposes, lane_gather_loop keeps a row a lane in
+// a bank-aligned layout, gather_loop takes its columns in and out through
+// tile transposes.  Indices are promised in bounds, as the Pallas kernels
+// promise them (mode="promise_in_bounds").
 //
 // Every entry point launches on the given stream and returns the launch's
 // CUDA error (0 on success); none synchronises or allocates.
@@ -125,40 +128,106 @@ __global__ void stream_kernel(const float4* __restrict__ x,
   }
 }
 
+// Waits for the grid launched before this one on the stream (a no-op
+// unless this grid was launched by launch_after).
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// tile_transpose: dst[c * dp + r] = src[r * sp + c] over 32 x 32 tiles,
+// src rows r < src_rows (zeros read past them), dst rows c < dst_rows.
+// One 256-thread block a tile (blockIdx.z picks one of two matrices):
+// 16-byte loads and stores on both sides, 8 lanes to a 128-byte row, and a
+// 32 x 33 shared tile that both the row-wise writes and the column-wise
+// reads cross on 32 distinct banks.  Values move as 32-bit words.
+// ---------------------------------------------------------------------------
+constexpr int kTT = 32;                // transpose tile edge
+constexpr int kTTThreads = 256;
+__global__ void __launch_bounds__(kTTThreads)
+tile_transpose_kernel(const uint32_t* __restrict__ src0,
+                      uint32_t* __restrict__ dst0,
+                      const uint32_t* __restrict__ src1,
+                      uint32_t* __restrict__ dst1, int src_rows, int sp,
+                      int dst_rows, int dp) {
+  __shared__ uint32_t tile[kTT][kTT + 1];
+  wait_prior_grid();
+  const uint32_t* src = blockIdx.z ? src1 : src0;
+  uint32_t* dst = blockIdx.z ? dst1 : dst0;
+  const int r0 = blockIdx.y * kTT, c0 = blockIdx.x * kTT;
+  const int j = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // lane j: row 4 w + j / 8 of the tile, its 16 bytes j % 8
+  const int r = 4 * w + (j >> 3), q = j & 7;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (r0 + r < src_rows)
+    v = __ldg(reinterpret_cast<const uint4*>(
+                  src + static_cast<long long>(r0 + r) * sp + c0) + q);
+  // bank r + 4 q + k: 32 distinct over the warp for each k
+  tile[r][4 * q] = v.x;
+  tile[r][4 * q + 1] = v.y;
+  tile[r][4 * q + 2] = v.z;
+  tile[r][4 * q + 3] = v.w;
+  __syncthreads();
+  // lane j: dst row c0 + 4 w + j / 8, its source rows 4 (j % 8) .. + 3
+  const int c = 4 * w + (j >> 3);
+  if (c0 + c < dst_rows) {
+    const uint4 o = make_uint4(tile[4 * q][c], tile[4 * q + 1][c],
+                               tile[4 * q + 2][c], tile[4 * q + 3][c]);
+    *(reinterpret_cast<uint4*>(dst + static_cast<long long>(c0 + c) * dp +
+                               r0) + q) = o;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // gather_loop <- benchmarks/pallas_micro.py:138 (bench_gather_loop)
 //   iters x  acc[s, l] <- acc[idx[s, l], l]
 // Bound: on chip.  The chain never leaves its column, so one block owns
-// one column for the whole launch: the column lives in shared memory
-// twice (ping-pong, 2 x R x 4 B) and the column's indices in registers
-// (R / 1024 a thread), with one __syncthreads() per iteration and no
-// grid-wide barrier.  128 blocks for 132 SMs.  The column is loaded and
-// stored with a 512 B stride, once per launch.
+// one column for the whole launch (128 blocks for 132 SMs).  The column
+// enters and leaves the block contiguously: tile_transpose first turns
+// tab and idx into column-major (128, pitch) scratch, pitch = R rounded
+// up to 32 (padding: value 0, index 0), the loop kernel reads its column
+// and writes it back with 16-byte accesses, and tile_transpose writes out
+// from the result; the second and third launches start while the one
+// before drains (launch_after).  In the loop the column lives in shared
+// memory twice (ping-pong, 2 x pitch x 4 B); thread k owns the 4-position
+// groups k, k + 1024, ... and keeps their indices in registers.  Each
+// iteration it reads all of its gathered values before it stores any (one
+// 16-byte store a group), then one __syncthreads().  The random reads are
+// the limit: 32 sources fall on an expected ~3.6 distinct addresses of
+// the busiest bank.
 // ---------------------------------------------------------------------------
-constexpr int kLoopPerThread = 16;     // R <= 16384
+constexpr int kLoopVecs = 4;   // 4-position groups a thread: R <= 16384
 __global__ void __launch_bounds__(kBlockThreads)
-gather_loop_kernel(const float* __restrict__ tab,
-                   const int32_t* __restrict__ idx, float* __restrict__ out,
-                   int R, int iters) {
+gather_loop_kernel(const float* __restrict__ tabT,
+                   const int32_t* __restrict__ idxT,
+                   float* __restrict__ outT, int pitch, int iters) {
   extern __shared__ __align__(16) float col[];
   float* a = col;
-  float* b = col + R;
-  const int l = blockIdx.x;
-  int ix[kLoopPerThread];
+  float* b = col + pitch;
+  const long long base = static_cast<long long>(blockIdx.x) * pitch;
+  const int groups = pitch / 4;
+  wait_prior_grid();
+  int4 ix[kLoopVecs];
 #pragma unroll
-  for (int k = 0; k < kLoopPerThread; ++k) {
-    const int s = threadIdx.x + k * kBlockThreads;
-    if (s < R) {
-      ix[k] = __ldg(idx + static_cast<long long>(s) * kLanes + l);
-      a[s] = __ldg(tab + static_cast<long long>(s) * kLanes + l);
+  for (int m = 0; m < kLoopVecs; ++m) {
+    const int g = threadIdx.x + m * kBlockThreads;
+    if (g < groups) {
+      ix[m] = __ldg(reinterpret_cast<const int4*>(idxT + base) + g);
+      reinterpret_cast<float4*>(a)[g] =
+          __ldg(reinterpret_cast<const float4*>(tabT + base) + g);
     }
   }
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
+    float4 v[kLoopVecs];
 #pragma unroll
-    for (int k = 0; k < kLoopPerThread; ++k) {
-      const int s = threadIdx.x + k * kBlockThreads;
-      if (s < R) b[s] = a[ix[k]];
+    for (int m = 0; m < kLoopVecs; ++m)
+      if (threadIdx.x + m * kBlockThreads < groups)
+        v[m] = make_float4(a[ix[m].x], a[ix[m].y], a[ix[m].z], a[ix[m].w]);
+#pragma unroll
+    for (int m = 0; m < kLoopVecs; ++m) {
+      const int g = threadIdx.x + m * kBlockThreads;
+      if (g < groups) reinterpret_cast<float4*>(b)[g] = v[m];
     }
     // every read of a in this iteration is done before the next one
     // writes into it
@@ -168,9 +237,11 @@ gather_loop_kernel(const float* __restrict__ tab,
     b = t;
   }
 #pragma unroll
-  for (int k = 0; k < kLoopPerThread; ++k) {
-    const int s = threadIdx.x + k * kBlockThreads;
-    if (s < R) out[static_cast<long long>(s) * kLanes + l] = a[s];
+  for (int m = 0; m < kLoopVecs; ++m) {
+    const int g = threadIdx.x + m * kBlockThreads;
+    if (g < groups)
+      reinterpret_cast<float4*>(outT + base)[g] =
+          reinterpret_cast<const float4*>(a)[g];
   }
 }
 
@@ -241,38 +312,149 @@ onehot_scatter_kernel(const int32_t* __restrict__ dblk,
 // ---------------------------------------------------------------------------
 // lane_gather_loop <- benchmarks/pallas_micro3.py:49 (bench_lane_gather_loop)
 //   iters x  acc[s, l] <- acc[s, idx[s, l]] + 1
-// Bound: on chip (the shuffle crossbar).  One warp per row for the whole
-// launch: values and indices stay in registers, each iteration is 16
-// shuffles and 4 adds a lane.  The gather then + 1 keeps the Pallas
-// body's order, so the result is exact.
+// Bound: on chip (shared memory: 8 B a value an iteration, a read and a
+// write).  A block owns 32 rows, lane t of every warp row r0 + t, and its
+// kLaneWarps warps split the 128 positions (warp w: 16 w .. 16 w + 15).
+// The rows live in shared memory position-major, (position p, row t) at
+// word 32 p + t, twice (ping-pong, 32 KB): every read A[32 idx + t] and
+// every write B[32 p + t] of lane t lands in bank t whatever the index,
+// one wavefront a warp instruction, no shuffle.  An iteration reads all of
+// a thread's gathered values, then adds 1 and writes them (the Pallas
+// body's order: exact), then one __syncthreads().  The source offsets are
+// loop-invariant registers, and the loop runs two iterations a trip so
+// that both buffers are at fixed addresses.  Rows enter and leave by
+// 16-byte accesses through a staging buffer of pitch 129 over the same
+// shared memory (8 lanes to a 128-byte row: its writes and the transposed
+// reads both cross 32 banks).  R / 32 blocks; rows past R (the last
+// block's) are read as zeros and not written.  The caller passes the
+// launch shape (micro3.lane_gather_loop_tiling).
 // ---------------------------------------------------------------------------
-__global__ void lane_gather_loop_kernel(const float* __restrict__ x,
-                                        const int32_t* __restrict__ idx,
-                                        float* __restrict__ out,
-                                        long long rows, int iters) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long stride = static_cast<long long>(gridDim.x) * warps;
-  for (long long r = static_cast<long long>(blockIdx.x) * warps +
-                     (threadIdx.x >> 5);
-       r < rows; r += stride) {
-    const long long base = r * kLanes + lane;
-    float v[4];
-    int ix[4];
+constexpr int kLaneWarps = 8;
+constexpr int kLaneThreads = 32 * kLaneWarps;
+constexpr int kLanePos = kLanes / kLaneWarps;        // positions a warp
+constexpr int kLaneRows = 32;                        // rows a block
+constexpr int kLaneBuf = kLanes * kLaneRows;         // floats a buffer
+constexpr int kStagePitch = kLanes + 1;
+constexpr size_t kLaneSmem = 2 * kLaneBuf * sizeof(float);      // 32,768
+constexpr int kLaneLoads = kLaneRows * kLanes / 4 / kLaneThreads;
+static_assert(kLaneRows * kStagePitch <= 2 * kLaneBuf, "staging fits");
+
+// Load i of a thread covers rows 4 c .. 4 c + 3 and 16-byte columns
+// 8 d .. 8 d + 7 of the block, c = g / 4, d = g % 4, g = w + kLaneWarps i:
+// its row and 16-byte column.
+__device__ __forceinline__ int lane_load_row(int g, int j) {
+  return 4 * (g >> 2) + (j >> 3);
+}
+__device__ __forceinline__ int lane_load_col4(int g, int j) {
+  return 8 * (g & 3) + (j & 7);
+}
+
+__device__ __forceinline__ void lane_loop_pass(const float* src, float* dst,
+                                               const int (&off)[kLanePos],
+                                               int at) {
+  float v[kLanePos];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      v[m] = __ldg(x + base + 32 * m);
-      ix[m] = __ldg(idx + base + 32 * m);
+  for (int i = 0; i < kLanePos; ++i)
+    v[i] = *reinterpret_cast<const float*>(
+        reinterpret_cast<const char*>(src) + off[i]);
+#pragma unroll
+  for (int i = 0; i < kLanePos; ++i) dst[at + 32 * i] = v[i] + 1.0f;
+}
+
+__global__ void __launch_bounds__(kLaneThreads)
+lane_gather_loop_kernel(const float* __restrict__ x,
+                        const int32_t* __restrict__ idx,
+                        float* __restrict__ out, long long rows, int iters) {
+  extern __shared__ __align__(16) float lg[];
+  float* A = lg;
+  float* B = lg + kLaneBuf;
+  float* S = lg;                       // staging, pitch kStagePitch
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p0 = w * kLanePos;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kLaneRows;
+  const long long left = rows - r0;
+  const int nrows = left < kLaneRows ? static_cast<int>(left) : kLaneRows;
+  float4 xv[kLaneLoads];
+  int4 iv[kLaneLoads];
+#pragma unroll
+  for (int i = 0; i < kLaneLoads; ++i) {
+    const int g = w + kLaneWarps * i;
+    const int r = lane_load_row(g, t), q = lane_load_col4(g, t);
+    xv[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    iv[i] = make_int4(0, 0, 0, 0);
+    if (r < nrows) {
+      const long long e = (r0 + r) * kLanes + 4 * q;
+      xv[i] = __ldg(reinterpret_cast<const float4*>(x + e));
+      iv[i] = __ldg(reinterpret_cast<const int4*>(idx + e));
     }
-    for (int it = 0; it < iters; ++it) {
-      float n[4];
+  }
+  // indices: staged, then each thread takes its row's positions as byte
+  // offsets of its source words, 4 (32 idx + t)
+  int* Si = reinterpret_cast<int*>(S);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) n[m] = lane_take(v, ix[m]) + 1.0f;
+  for (int i = 0; i < kLaneLoads; ++i) {
+    const int g = w + kLaneWarps * i;
+    int* d =
+        Si + lane_load_row(g, t) * kStagePitch + 4 * lane_load_col4(g, t);
+    d[0] = iv[i].x;
+    d[1] = iv[i].y;
+    d[2] = iv[i].z;
+    d[3] = iv[i].w;
+  }
+  __syncthreads();
+  int off[kLanePos];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) v[m] = n[m];
+  for (int i = 0; i < kLanePos; ++i)
+    off[i] = 4 * (32 * Si[t * kStagePitch + p0 + i] + t);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kLaneLoads; ++i) {
+    const int g = w + kLaneWarps * i;
+    float* d =
+        S + lane_load_row(g, t) * kStagePitch + 4 * lane_load_col4(g, t);
+    d[0] = xv[i].x;
+    d[1] = xv[i].y;
+    d[2] = xv[i].z;
+    d[3] = xv[i].w;
+  }
+  __syncthreads();
+  float v[kLanePos];
+#pragma unroll
+  for (int i = 0; i < kLanePos; ++i) v[i] = S[t * kStagePitch + p0 + i];
+  __syncthreads();
+  const int at = 32 * p0 + t;          // word of (p0, t)
+#pragma unroll
+  for (int i = 0; i < kLanePos; ++i) A[at + 32 * i] = v[i];
+  __syncthreads();
+  int it = 0;
+  for (; it + 1 < iters; it += 2) {
+    lane_loop_pass(A, B, off, at);
+    // every read of a buffer is done before the next pass writes into it
+    __syncthreads();
+    lane_loop_pass(B, A, off, at);
+    __syncthreads();
+  }
+  const float* F = A;
+  if (it < iters) {
+    lane_loop_pass(A, B, off, at);
+    __syncthreads();
+    F = B;
+  }
+#pragma unroll
+  for (int i = 0; i < kLanePos; ++i) v[i] = F[at + 32 * i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kLanePos; ++i) S[t * kStagePitch + p0 + i] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kLaneLoads; ++i) {
+    const int g = w + kLaneWarps * i;
+    const int r = lane_load_row(g, t), q = lane_load_col4(g, t);
+    if (r < nrows) {
+      const float* s = S + r * kStagePitch + 4 * q;
+      *reinterpret_cast<float4*>(out + (r0 + r) * kLanes + 4 * q) =
+          make_float4(s[0], s[1], s[2], s[3]);
     }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) out[base + 32 * m] = v[m];
   }
 }
 
@@ -589,6 +771,25 @@ __global__ void split_sum_kernel(const float4* __restrict__ part,
   }
 }
 
+// Launches kernel after the grid before it on the stream, its blocks
+// starting while that grid drains (programmatic dependent launch): the
+// kernel calls wait_prior_grid() before it reads what that grid wrote.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, int threads,
+                         size_t smem, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -644,20 +845,48 @@ int micro_stream(const void* x, void* o, long long n, void* stream) {
   return cudaGetLastError();
 }
 
-// iters chained column gathers of (rows, 128), rows <= 16384.
-int micro_gather_loop(const void* tab, const void* idx, void* out, int rows,
-                      int iters, void* stream) {
-  if (rows < 1 || rows > kLoopPerThread * kBlockThreads || iters < 0)
+// iters chained column gathers of (rows, 128), 1 <= rows <= 16384.  The
+// launch shape (micro.gather_loop_tiling) must be the kernels': pitch =
+// rows rounded up to 32, 128 loop blocks of 1024 threads with 2 x pitch
+// floats of shared memory; scratch holds 3 x 128 x pitch floats (tab, idx
+// and the result, column-major).  Three launches: tab and idx transposed
+// into scratch, the loop, the result transposed into out; the last two by
+// programmatic dependent launch.
+int micro_gather_loop(const void* tab, const void* idx, void* out,
+                      void* scratch, int rows, int iters, int blocks,
+                      int threads, long long smem, int pitch, void* stream) {
+  const int max_rows = kLoopVecs * 4 * kBlockThreads;
+  if (rows < 1 || rows > max_rows || iters < 0 || blocks != kLanes ||
+      threads != kBlockThreads || pitch != (rows + kTT - 1) / kTT * kTT ||
+      smem != 2 * static_cast<long long>(sizeof(float)) * pitch ||
+      scratch == nullptr)
     return cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(rows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(gather_loop_kernel), smem);
   if (err != cudaSuccess) return err;
-  gather_loop_kernel<<<kLanes, kBlockThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<float*>(out), rows, iters);
-  return cudaGetLastError();
+  const long long plane = static_cast<long long>(kLanes) * pitch;
+  uint32_t* tabT = static_cast<uint32_t*>(scratch);
+  uint32_t* idxT = tabT + plane;
+  uint32_t* outT = idxT + plane;
+  tile_transpose_kernel<<<dim3(kLanes / kTT, pitch / kTT, 2), kTTThreads, 0,
+                          s>>>(static_cast<const uint32_t*>(tab), tabT,
+                               static_cast<const uint32_t*>(idx), idxT, rows,
+                               kLanes, kLanes, pitch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_after(gather_loop_kernel, dim3(kLanes), kBlockThreads, smem, s,
+                     reinterpret_cast<const float*>(tabT),
+                     reinterpret_cast<const int32_t*>(idxT),
+                     reinterpret_cast<float*>(outT), pitch, iters);
+  if (err != cudaSuccess) return err;
+  return launch_after(tile_transpose_kernel,
+                      dim3(pitch / kTT, kLanes / kTT, 1), kTTThreads, 0, s,
+                      static_cast<const uint32_t*>(outT),
+                      static_cast<uint32_t*>(out),
+                      static_cast<const uint32_t*>(nullptr),
+                      static_cast<uint32_t*>(nullptr), kLanes,
+                      pitch, rows, kLanes);
 }
 
 // out[r, l] = rank[8 * grp[r / 8] + row3[r, l], l] over (rows, 128);
@@ -688,12 +917,18 @@ int micro_onehot_scatter(const void* dblk, const void* lanes,
   return cudaGetLastError();
 }
 
-// iters x (lane gather, + 1) over (rows, 128).
+// iters x (lane gather, + 1) over (rows, 128).  The launch shape
+// (micro3.lane_gather_loop_tiling) must be the kernel's: a block of
+// kLaneWarps warps for each 32 rows, 32,768 bytes of shared memory.
 int micro_lane_gather_loop(const void* x, const void* idx, void* out,
-                           long long rows, int iters, void* stream) {
-  if (rows < 1 || iters < 0) return cudaErrorInvalidValue;
-  lane_gather_loop_kernel<<<grid_for(rows, 8), 256, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+                           long long rows, int iters, long long blocks,
+                           int threads, long long smem, void* stream) {
+  if (rows < 1 || iters < 0 ||
+      blocks != (rows + kLaneRows - 1) / kLaneRows ||
+      threads != kLaneThreads || smem != static_cast<long long>(kLaneSmem))
+    return cudaErrorInvalidValue;
+  lane_gather_loop_kernel<<<static_cast<unsigned>(blocks), kLaneThreads,
+                            kLaneSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(idx),
       static_cast<float*>(out), rows, iters);
   return cudaGetLastError();
