@@ -84,7 +84,28 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    snapshot's ranks, or its change from the base's bf16 ranks misses the
    f32 change by half of it).  One ``refresh`` line;
    each kernel held and timed on the delta nets.
-6. A JSON line of kernels ({"kernels": [...]}), the card's name and power
+6. Katz on the main path's placed graph (after the main path, before
+   the refresh): ``ops.katz.katz_centrality`` at α = 0.05 (about 0.5 / λ
+   for the north star's Aᵀ), β = 1, 50 iterations, tol -1, f32 and
+   bf16, cold and warm, launch counts reset just before and read just
+   after.  The line prints λ of Aᵀ (a float64 power iteration) and α λ.
+   It rides PageRank's plan and placed routes: it fails if
+   ``build_plan`` ran, if any route was placed, if a stage kernel ran, or
+   if a run made other than 2 x 50 ``benes_mid_gather`` and 4 x 50
+   ``benes_outer_gather`` launches.  f32 against a float64 scipy run of
+   the recurrence (max relative 1e-4, top-100 100/100), bf16 against f32
+   inside ``PRECISION_BOUNDS["bf16"]["katz_rel"]``.  One ``katz`` line:
+   the unnormalized plan's derivation and the multipliers' placement
+   (seconds), iteration ms beside PageRank's in the same minute.
+7. (after the refresh) The segment backend on the card: a graph of
+   100,000 nodes and 450,000 edges from the north star's generator (under
+   ``MXU_MIN_EDGES``); PageRank (damping 0.85) and katz (α = 0.05) at f32
+   against float64 with the main path's bounds, HITS against a float64
+   run of the same steps (``HITS_TOL`` of the largest entry), 50
+   iterations each, cold and warm.  Degree centrality, in, out and total,
+   on this graph and on the north star, bit-equal to numpy's float32
+   counts over n - 1.  ``segment`` and ``degree`` lines.
+8. A JSON line of kernels ({"kernels": [...]}), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
@@ -1171,6 +1192,260 @@ def phase_refresh(base: dict):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: katz on PageRank's routes, the segment backend, degree
+# ---------------------------------------------------------------------------
+
+KATZ_ALPHA = 0.05       # about 0.5 / λ, λ of the north star's Aᵀ (katz line)
+KATZ_BETA = 1.0
+SEGMENT_NODES, SEGMENT_EDGES = 100_000, 450_000
+# HITS against a float64 run of the same steps, relative to the largest
+# entry: the CPU rehearsal at this size reads 1.2e-7 (hubs) and 1.1e-8
+# (authorities); index_add_'s atomics reorder the f32 sums on the card;
+# budgeted ~100x
+HITS_TOL = 1e-5
+
+
+def transposed_adjacency(src, dst, n_nodes):
+    """Aᵀ as a float64 scipy matrix (row v: the edges into v)."""
+    import scipy.sparse as sp
+    return sp.csr_matrix((np.ones(len(src)), (dst, src)),
+                         shape=(n_nodes, n_nodes))
+
+
+def reference_katz(a_t, alpha, beta=KATZ_BETA, iterations=ITERATIONS):
+    """float64 scipy run of x <- alpha Aᵀx + beta from zeros."""
+    x = np.zeros(a_t.shape[0])
+    for _ in range(iterations):
+        x = alpha * (a_t @ x) + beta
+    return x
+
+
+def spectral_radius(a_t, iterations=100) -> float:
+    """λ of Aᵀ by a float64 power iteration (||Aᵀx|| / ||x||): katz
+    contracts for α λ < 1, and ``katz_rel`` holds for α λ <= 1/2."""
+    n_nodes = a_t.shape[0]
+    x = np.ones(n_nodes) / np.sqrt(n_nodes)
+    lam = 0.0
+    for _ in range(iterations):
+        y = a_t @ x
+        lam = float(np.linalg.norm(y))
+        x = y / max(lam, 1e-300)
+    return lam
+
+
+def reference_hits(a_t, iterations=ITERATIONS):
+    """float64 scipy run of HITS's steps (ops/katz.py:_hits_step): the
+    authorities from the hubs, then the hubs from the new authorities,
+    each L2-normalized, from ones."""
+    a = a_t.T.tocsr()
+    hub = np.ones(a_t.shape[0])
+    auth = hub
+    for _ in range(iterations):
+        auth = a_t @ hub
+        auth = auth / max(np.linalg.norm(auth), 1e-30)
+        hub = a @ auth
+        hub = hub / max(np.linalg.norm(hub), 1e-30)
+    return hub, auth
+
+
+def vs_float64(got, ref) -> dict:
+    """max relative error, and the overlap of the top 100."""
+    a = got.double().cpu().numpy()
+    check(bool(np.isfinite(a).all()) and a.shape == ref.shape,
+          "non-finite or misshaped centralities")
+    return {"max_rel": float((np.abs(a - ref) / ref).max()),
+            "top100": len(set(np.argsort(-a)[:100])
+                          & set(np.argsort(-ref)[:100]))}
+
+
+def timed_run(fn):
+    """(fn's result, host seconds to the end of its device work)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_katz(base: dict):
+    """Katz on the main path's placed graph, riding PageRank's plan and
+    routes: no build_plan, no route placed, no stage kernel, the gathers
+    of two nets an iteration; f32 against float64, bf16 against f32."""
+    import torch
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    from memgraph_tpu_torch.ops import spmv_mxu
+    from memgraph_tpu_torch.ops.katz import katz_centrality
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+
+    graph = base["graph"]
+    state = graph._mxu_state
+    real_build_plan, plan_builds = spmv_mxu.build_plan, []
+
+    def counted_build_plan(*args, **kw):
+        plan_builds.append(1)
+        return real_build_plan(*args, **kw)
+
+    def katz(precision):
+        return timed_run(lambda: katz_centrality(
+            graph, alpha=KATZ_ALPHA, beta=KATZ_BETA,
+            max_iterations=ITERATIONS, tol=-1.0, precision=precision))
+
+    spmv_mxu.build_plan = counted_build_plan
+    try:
+        # the katz path: counts set to 0 just before, read just after
+        with placement_guard() as placed_nets:
+            BC.reset_launch_counts()
+            (k32, _, it32), cold32 = katz("f32")
+            (k16, _, it16), cold16 = katz("bf16")
+            (_, _, it32w), warm32 = katz("f32")
+            (_, _, it16w), warm16 = katz("bf16")
+            launches = counts()
+    finally:
+        spmv_mxu.build_plan = real_build_plan
+    # PageRank in the same minute (not counted)
+    pr_warm = {p: timed_run(lambda p=p: pagerank(
+        graph, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0,
+        precision=p))[1] for p in ("f32", "bf16")}
+
+    check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) for "
+                           "katz on a planned graph")
+    check(not placed_nets, f"katz placed routes {placed_nets}")
+    check(it32 == it16 == it32w == it16w == ITERATIONS,
+          f"katz iterations {it32}/{it16}/{it32w}/{it16w} != {ITERATIONS}")
+    per_run = {"benes_mid": 0, "benes_mid_gather": 2 * ITERATIONS,
+               "benes_outer": 0, "benes_outer_gather": 4 * ITERATIONS}
+    expected = {k: 4 * v for k, v in per_run.items()}
+    check(launches == expected,
+          f"katz launch counts {launches} != expected {expected} (4 runs)")
+    cache = state["semiring"]
+    precisions = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    for (_, dev, dt), placed in cache["placed"].items():
+        shared = state["placed"][(dev, dt)]
+        check(placed["shares"] is shared
+              and all(placed[r] is shared[r] for r in ("edge", "node")),
+              f"katz {precisions[dt]} does not ride PageRank's routes")
+
+    a_t = transposed_adjacency(base["src"], base["dst"], graph.n_nodes)
+    f32 = vs_float64(k32, reference_katz(a_t, KATZ_ALPHA))
+    check(f32["max_rel"] <= F32_REL_TOL and f32["top100"] == 100,
+          f"katz f32 off the float64 reference: {f32}")
+    # katz_rel is derived for α λ <= 1/2 (ops/semiring.py)
+    lam = spectral_radius(a_t)
+    check(KATZ_ALPHA * lam <= 0.5,
+          f"α λ = {KATZ_ALPHA * lam} > 1/2: katz_rel does not hold there")
+    bound = PRECISION_BOUNDS["bf16"]["katz_rel"]
+    rel16 = float(((k16 - k32).abs() / k32).max())
+    check(rel16 <= bound, f"katz bf16 off f32 by {rel16} > {bound}")
+    summary = {
+        "alpha": KATZ_ALPHA, "beta": KATZ_BETA, "iterations": ITERATIONS,
+        "lambda": lam, "alpha_lambda": KATZ_ALPHA * lam,
+        "plan_builds": len(plan_builds), "routes_placed": len(placed_nets),
+        "derive_s": cache["plan_s"][False],
+        "placement_s": {precisions[dt]: p["placement_s"]
+                        for (_, _, dt), p in cache["placed"].items()},
+        "cold_run_s": {"f32": cold32, "bf16": cold16},
+        "iteration_ms": {"f32": warm32 / ITERATIONS * 1e3,
+                         "bf16": warm16 / ITERATIONS * 1e3},
+        "pagerank_iteration_ms": {p: t / ITERATIONS * 1e3
+                                  for p, t in pr_warm.items()},
+        "launches": launches, "expected_launches": expected,
+        "f32_vs_f64": f32, "bf16_vs_f32": {"max_rel": rel16,
+                                           "bound": bound}}
+    print("katz", json.dumps(summary), flush=True)
+    return launches
+
+
+def degree_line(label, graph, src, dst) -> dict:
+    """Degree centrality in each direction, bit-equal to numpy's float32
+    counts over n - 1; with its device time."""
+    import torch
+    from memgraph_tpu_torch.ops.katz import degree_centrality
+    n = graph.n_nodes
+    plain = {"in": np.bincount(dst, minlength=n),
+             "out": np.bincount(src, minlength=n)}
+    plain["total"] = plain["in"] + plain["out"]
+    out = {}
+    for direction, count in plain.items():
+        got = degree_centrality(graph, direction)
+        want = torch.from_numpy(count.astype(np.float32)
+                                / np.float32(max(n - 1, 1)))
+        check(got.dtype == torch.float32
+              and torch.equal(got.cpu().view(torch.int32),
+                              want.view(torch.int32)),
+              f"degree_centrality {direction} on the {label} graph is not "
+              "numpy's")
+        out[direction] = cuda_ms(lambda d=direction: degree_centrality(
+            graph, d), 10)
+    return {"graph": label, "ms": out, "bit_equal": True}
+
+
+def phase_segment(base: dict):
+    """The segment backend on the card: PageRank, katz and HITS on a graph
+    under MXU_MIN_EDGES, against float64; degree centrality on it and on
+    the north star."""
+    import torch
+    from memgraph_tpu_torch.northstar import generate_graph
+    from memgraph_tpu_torch.ops import semiring as S
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.katz import hits, katz_centrality
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+
+    n = SEGMENT_NODES
+    src, dst = generate_graph(n_nodes=n, n_edges=SEGMENT_EDGES)
+    check(SEGMENT_EDGES < S.MXU_MIN_EDGES,
+          "the segment graph is not under MXU_MIN_EDGES")
+    graph = from_coo(src, dst, n_nodes=n).to_device("cuda")
+    runs = {}
+    for name, fn in (
+            ("pagerank", lambda: pagerank(graph, damping=DAMPING,
+                                          max_iterations=ITERATIONS,
+                                          tol=0.0)),
+            ("katz", lambda: katz_centrality(graph, alpha=KATZ_ALPHA,
+                                             max_iterations=ITERATIONS,
+                                             tol=-1.0)),
+            ("hits", lambda: hits(graph, max_iterations=ITERATIONS,
+                                  tol=-1.0))):
+        _, cold = timed_run(fn)
+        out, warm = timed_run(fn)
+        check(out[-1] == ITERATIONS, f"segment {name} ran {out[-1]} "
+                                     f"iterations, not {ITERATIONS}")
+        runs[name] = (out, cold, warm)
+    check(getattr(graph, "_mxu_state", None) is None,
+          "the segment graph took the MXU plan")
+
+    pr = vs_float64(runs["pagerank"][0][0],
+                    reference_pagerank(src, dst, n))
+    a_t = transposed_adjacency(src, dst, n)
+    kz = vs_float64(runs["katz"][0][0], reference_katz(a_t, KATZ_ALPHA))
+    for name, got in (("pagerank", pr), ("katz", kz)):
+        check(got["max_rel"] <= F32_REL_TOL and got["top100"] == 100,
+              f"segment {name} off the float64 reference: {got}")
+    hub64, auth64 = reference_hits(a_t)
+    hub, auth = (v.double().cpu().numpy() for v in runs["hits"][0][:2])
+    hits_err = {"hub": float(np.abs(hub - hub64).max() / hub64.max()),
+                "auth": float(np.abs(auth - auth64).max() / auth64.max())}
+    check(max(hits_err.values()) <= HITS_TOL,
+          f"segment HITS off the float64 steps: {hits_err} > {HITS_TOL}")
+    lam = spectral_radius(a_t)
+    summary = {
+        "n_nodes": n, "n_edges": SEGMENT_EDGES, "iterations": ITERATIONS,
+        "katz_alpha_lambda": KATZ_ALPHA * lam,
+        "cold_run_s": {k: v[1] for k, v in runs.items()},
+        "iteration_ms": {k: v[2] / ITERATIONS * 1e3
+                         for k, v in runs.items()},
+        "pagerank_vs_f64": pr, "katz_vs_f64": kz,
+        "hits_vs_f64": hits_err, "hits_tol": HITS_TOL}
+    print("segment", json.dumps(summary), flush=True)
+    for label, g, s, d in (("segment", graph, src, dst),
+                           ("north_star", base["graph"], base["src"],
+                            base["dst"])):
+        print("degree", json.dumps(degree_line(label, g, s, d)), flush=True)
+    del graph
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1197,7 +1472,9 @@ def main():
     timed("benes", phase_benes)
     micro_launches, micro_lines = timed("micro", phase_micro, sm_clock_hz())
     launches, shapes, base = timed("main_path", phase_main_path)
+    katz_launches = timed("katz", phase_katz, base)
     refresh_launches, refresh_shapes = timed("refresh", phase_refresh, base)
+    timed("segment", phase_segment, base)
     del base
 
     replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
@@ -1228,6 +1505,7 @@ def main():
             "replaces": replaces[name], "role": roles[name],
             "launches": launches[name],
             "launches_by_path": {"main_path": launches[name],
+                                 "katz": katz_launches[name],
                                  "refresh": refresh_launches[name]},
             "max_abs_err": max(s[name]["max_abs_err"]
                                for s in shapes.values() if name in s),

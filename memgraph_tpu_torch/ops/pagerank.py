@@ -66,6 +66,21 @@ def _pagerank_epilogue(rank, acc, env, P):
     return new_rank, err
 
 
+def graph_device(graph: DeviceGraph, device=None) -> torch.device:
+    """The normalized device an entry point runs ``graph`` on: explicit,
+    else the graph's (after ``graph.to_device``), else the card."""
+    return resolve_device(device, like=None if graph.device is None
+                          else graph.row_ptr)
+
+
+def on_device(graph: DeviceGraph, dev: torch.device) -> DeviceGraph:
+    """``graph`` with its arrays on the normalized device ``dev``."""
+    placed = graph.device
+    if placed is not None and resolve_device(placed) == dev:
+        return graph
+    return graph.to_device(dev)
+
+
 def _build_lock(graph: DeviceGraph) -> threading.Lock:
     """The graph's own lock for its plan build and kernel placements."""
     with _mxu_locks_guard:
@@ -163,13 +178,23 @@ def _try_delta_plan(graph: DeviceGraph):
             "runs": {}, "lock": _build_lock(graph)}
 
 
+def _semiring_cache() -> dict:
+    """The runs of other plus-times algorithms kept beside a plan state
+    (``semiring_run``): {"plans": {normalize: plan}, "plan_s":
+    {normalize: seconds to derive or build it}, "placed": {(normalize,
+    device, route dtype): placed state}, "runs": {key: run}}."""
+    return {"plans": {}, "plan_s": {}, "placed": {}, "runs": {}}
+
+
 def _mxu_state(graph: DeviceGraph) -> dict:
     """The graph's MXU state, built once per snapshot and cached on it:
     a full build {"plan", "plan_build_s", "runs": {(device, route dtype):
-    run}, "placed": {(device, route dtype): place_plan's state}, "lock":
-    the graph's build lock}, or a delta refresh of a predecessor's
-    (``_try_delta_plan``: "delta", "base", "diff_s" and "delta_build_s"
-    in place of "plan_build_s" and "placed")."""
+    run}, "placed": {(device, route dtype): place_plan's state},
+    "semiring": the other algorithms' runs on this plan
+    (``semiring_run``), "lock": the graph's build lock}, devices
+    normalized (``resolve_device``); or a delta refresh of a
+    predecessor's (``_try_delta_plan``: "delta", "base", "diff_s" and
+    "delta_build_s" in place of "plan_build_s" and "placed")."""
     state = getattr(graph, "_mxu_state", None)
     if state is not None:
         return state
@@ -187,7 +212,8 @@ def _mxu_state(graph: DeviceGraph) -> dict:
             plan = spmv_mxu.build_plan(src, dst, w, graph.n_nodes)
             state = {"plan": plan,
                      "plan_build_s": time.perf_counter() - t0, "runs": {},
-                     "placed": {}, "lock": lock}
+                     "placed": {}, "semiring": _semiring_cache(),
+                     "lock": lock}
             # DeviceGraph is frozen; bypass its setattr guard
             object.__setattr__(graph, "_mxu_state", state)
             # full plans anchor later delta refreshes
@@ -202,13 +228,102 @@ def _placed(state: dict, device: torch.device, route_dtype) -> dict:
     whichever order they come."""
     from . import spmv_mxu
     base = state.get("base", state)
-    key = (str(device), route_dtype)
+    key = (resolve_device(device), route_dtype)
     with base["lock"]:
         placed = base["placed"].get(key)
         if placed is None:
             placed = spmv_mxu.place_plan(base["plan"], route_dtype, device)
             base["placed"][key] = placed
     return placed
+
+
+def _semiring_home(graph: DeviceGraph):
+    """(home, shared): where a plus-times run other than PageRank's is
+    cached.  A full-build state (PageRank's, or built here when the graph
+    has none and is no delta snapshot) is shared: the run rides its plan
+    and placed routes.  A delta snapshot's routes are another snapshot's,
+    so it gets a home of its own on the graph, with plans of its own (as
+    the reference builds them)."""
+    state = getattr(graph, "_mxu_state", None)
+    if state is None and getattr(graph, "_delta_ctx", None) is None:
+        state = _mxu_state(graph)
+    if state is not None and state.get("delta") is None:
+        return state, True
+    lock = _build_lock(graph)
+    with lock:
+        home = getattr(graph, "_mxu_semiring", None)
+        if home is None:
+            home = {"lock": lock, "semiring": _semiring_cache()}
+            object.__setattr__(graph, "_mxu_semiring", home)
+    return home, False
+
+
+def semiring_run(graph: DeviceGraph, device: torch.device, *, epilogue,
+                 normalize: bool, precision: str, cache_tag: str,
+                 x0_default: str):
+    """The placed MXU run of a plus-times fixpoint (``semiring.
+    mxu_fixpoint``), cached per (cache_tag, normalize, precision,
+    epilogue, x0_default, device), under the graph's own lock.
+
+    On a shared full-build state the normalized plan is PageRank's and
+    the unnormalized one is derived from it (``unnormalized_plan``: a new
+    ``mult`` from the graph's edges, no route rebuilt); both ride
+    PageRank's placed routes for the device and route dtype, the latter
+    placing only its ``mult`` (``place_mult``).  On a home of its own the
+    plan is built and placed in full.  The run carries ``out_relabel``
+    (on the device) and ``plan``.
+
+    The route dtype follows ``precision`` alone (bf16 or f32), as the
+    reference's ``mxu_fixpoint`` fixes it; MEMGRAPH_TPU_ROUTE_DTYPE moves
+    only PageRank's f32 routes.  With that variable at bf16, an f32 run
+    here finds no f32 routes of PageRank's and places its own beside
+    them: a second edge and node route on the device, the price of the
+    reference's f32 answer."""
+    from . import spmv_mxu
+    route_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    key = (cache_tag, bool(normalize), precision, epilogue, x0_default,
+           device)
+    home, shared = _semiring_home(graph)
+    cache = home["semiring"]
+    run = cache["runs"].get(key)
+    if run is not None:
+        return run
+    # PageRank's routes first, under the same lock, taken and released
+    base_placed = _placed(home, device, route_dtype) if shared else None
+    with home["lock"]:
+        run = cache["runs"].get(key)
+        if run is None:
+            plan = cache["plans"].get(bool(normalize))
+            if plan is None:
+                t0 = time.perf_counter()
+                if shared and normalize:
+                    plan = home["plan"]
+                elif shared:
+                    src, _, w = graph.host_edges()
+                    plan = spmv_mxu.unnormalized_plan(home["plan"], src, w)
+                else:
+                    src, dst, w = graph.host_edges()
+                    plan = spmv_mxu.build_plan(src, dst, w, graph.n_nodes,
+                                               normalize=normalize)
+                cache["plans"][bool(normalize)] = plan
+                cache["plan_s"][bool(normalize)] = time.perf_counter() - t0
+            pkey = (bool(normalize), device, route_dtype)
+            placed = cache["placed"].get(pkey)
+            if placed is None:
+                if not shared:
+                    placed = spmv_mxu.place_plan(plan, route_dtype, device)
+                elif normalize:
+                    placed = base_placed
+                else:
+                    placed = spmv_mxu.place_mult(base_placed, plan)
+                cache["placed"][pkey] = placed
+            run = spmv_mxu.make_semiring_kernel(
+                plan, epilogue=epilogue, route_dtype=route_dtype,
+                x0_default=x0_default, device=device, placed=placed)
+            run.out_relabel = torch.from_numpy(plan.out_relabel).to(device)
+            run.plan = plan
+            cache["runs"][key] = run
+    return run
 
 
 def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
@@ -234,7 +349,7 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
     state = _mxu_state(graph)
     plan = state["plan"]
     route_dtype = spmv_mxu.resolve_route_dtype(_ROUTE_DTYPES[precision])
-    key = (str(device), route_dtype)
+    key = (resolve_device(device), route_dtype)
     run = state["runs"].get(key)
     if run is None:
         # the base routes first, under the base graph's lock; then the
@@ -281,14 +396,13 @@ def pagerank(graph: DeviceGraph, damping: float = 0.85,
     answer at the same tol — the seed only cuts the iteration count).
     """
     S._check_precision(precision)
-    dev = resolve_device(device, like=None if graph.device is None
-                         else graph.row_ptr)
+    dev = graph_device(graph, device)
     backend = S.route_backend(graph, dev, precision=precision,
                               min_edges=MXU_MIN_EDGES)
     if backend == "mxu":
         return _pagerank_via_mxu(graph, dev, damping, max_iterations, tol,
                                  precision, x0=x0)
-    g = graph if graph.device == dev else graph.to_device(dev)
+    g = on_device(graph, dev)
     x0_pad = None
     if x0 is not None:
         x0 = np.asarray(x0, dtype=np.float32)[:g.n_nodes]

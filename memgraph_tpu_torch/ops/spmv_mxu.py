@@ -311,6 +311,30 @@ def build_plan(src: np.ndarray, dst: np.ndarray,
         wsum=wsum)
 
 
+# the fields that fix a plan's routes and layouts: a plan derived from
+# another (``unnormalized_plan``) shares them, array for array
+ROUTED_FIELDS = ("rowid", "out_relabel", "valid_out", "masks_packed",
+                 "run_k", "win_oh", "in_relabel", "node_masks_packed")
+
+
+def unnormalized_plan(plan: MXUPlan, src: np.ndarray,
+                      weights: Optional[np.ndarray]) -> MXUPlan:
+    """The ``normalize=False`` plan of the edges (``src``, ``weights``, in
+    the order they were given) a normalized ``plan`` was built from:
+    ``mult`` laid out anew with unit out-weight multipliers under the
+    plan's out labeling, every other field the plan's own (the same
+    arrays).  Equal, bit for bit, to ``build_plan(..., normalize=False)``:
+    normalization changes the multipliers alone, never the labelings or
+    the slot each edge takes."""
+    src = np.asarray(src, dtype=np.int64)
+    w = (np.ones(len(src), dtype=np.float64) if weights is None
+         else np.asarray(weights, dtype=np.float64))
+    _, _, mult, _ = _gather_layout(src, w, plan.out_relabel,
+                                   np.ones(plan.n_nodes), plan.G,
+                                   force_R_G=plan.R_G)
+    return dataclasses.replace(plan, mult=mult)
+
+
 # ---------------------------------------------------------------------------
 # delta plans: O(changed-edges) refresh instead of a full replan
 # ---------------------------------------------------------------------------
@@ -570,6 +594,27 @@ def place_plan(plan: MXUPlan, route_dtype=None, device=None) -> dict:
     return placed
 
 
+def place_mult(placed: dict, plan: MXUPlan) -> dict:
+    """``plan``'s device state from ``placed``, another plan's: the edge
+    and node routes, one-hots and valid vector shared, only ``mult``
+    uploaded.  ``plan`` must share every routed field (``ROUTED_FIELDS``)
+    with the placed plan, as ``unnormalized_plan`` makes it; anything else
+    raises.  ``placement_s`` counts the upload alone."""
+    base = placed["plan"]
+    if any(getattr(plan, f) is not getattr(base, f) for f in ROUTED_FIELDS):
+        raise ValueError("the plan's routes are not the placed plan's")
+    dev = placed["device"]
+    t0 = time.perf_counter()
+    oh, _, ohe_t, win_oh_t = placed["layout"]
+    out = dict(placed, plan=plan, route_split={},
+               layout=(oh, _put(plan.mult.astype(np.float32), dev), ohe_t,
+                       win_oh_t), shares=placed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["placement_s"] = time.perf_counter() - t0
+    return out
+
+
 def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
                          delta: DeltaPlan = None,
                          x0_default: str = "uniform", device=None,
@@ -595,8 +640,9 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     the node relabel; delta.dangling_out replaces the plan's dangling
     vector.  Exact for edge additions AND removals.
 
-    placed: the base plan's device state from ``place_plan`` on this
-    device and route dtype; None places it here.  The base routes depend
+    placed: the base plan's device state from ``place_plan`` (or
+    ``place_mult``) on this device and route dtype, for this very plan;
+    None places it here.  The base routes depend
     only on the plan, so a delta run shares them with the base snapshot's
     runs and places only its delta (the base routes, one-hots and valid
     vector are then skipped); ``run.placement_s`` counts only what the

@@ -366,7 +366,7 @@ def test_bf16_refresh_routes_the_delta(force_mxu, no_build_plan):
     assert np.array_equal(np.argsort(-got)[:k], np.argsort(-jr2)[:k])
     assert np.abs(got - jr2).max() < np.abs(got - jr1).max()
     # the run placed for bf16 shares the base's bf16 routes
-    key = ("cpu", torch.bfloat16)
+    key = (torch.device("cpu"), torch.bfloat16)
     run = t2._mxu_state["runs"][key]
     assert run.routes["edge"] is t1._mxu_state["placed"][key]["edge"]
     assert run.routes["node"] is t1._mxu_state["placed"][key]["node"]
@@ -396,10 +396,10 @@ def test_base_routes_placed_once_whatever_the_order(force_mxu,
         return real(*args, **kw)
 
     monkeypatch.setattr(T, "place_plan", counted)
-    key = ("cpu", torch.bfloat16)
+    key = (torch.device("cpu"), torch.bfloat16)
     got2 = _port_rank(t2, "bf16")          # the successor asks first
     assert len(places) == 1 and list(t1._mxu_state["placed"]) == [
-        ("cpu", torch.float32), key]
+        (torch.device("cpu"), torch.float32), key]
     got1 = _port_rank(t1, "bf16")          # the base takes the same routes
     assert len(places) == 1
     placed = t1._mxu_state["placed"][key]

@@ -84,7 +84,7 @@ def _within(got, want, rtol):
 # pallas_micro.py
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("R", [8, 64, 512])
+@pytest.mark.parametrize("R", [8, 64, 512, 2048, 8192])
 def test_col_gather_matches_pallas(jm1, monkeypatch, R):
     calls = _capture(monkeypatch, jm1, "timeit")
     jm1.bench_col_gather(R)

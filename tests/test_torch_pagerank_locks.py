@@ -212,3 +212,44 @@ def test_resolve_route_dtype_reads_the_variable_as_the_reference(
     # an explicit dtype wins over the variable
     assert spmv_mxu.resolve_route_dtype(torch.float32) is torch.float32
     assert spmv_mxu.resolve_route_dtype(torch.bfloat16) is torch.bfloat16
+
+
+def test_cpu_and_cpu0_place_one_plan_and_keep_one_run(force_mxu,
+                                                      monkeypatch):
+    """"cpu" and "cpu:0" name one device: the second call finds the run
+    (and the routes) the first one placed."""
+    real, calls = spmv_mxu.place_plan, []
+
+    def place_plan(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(spmv_mxu, "place_plan", place_plan)
+    n = 3000
+    src, dst = _edges(n, 30000, 3042)
+    graph = from_coo(src, dst, n_nodes=n)
+    a, _, _ = tpr.pagerank(graph, max_iterations=5, tol=-1.0, device="cpu")
+    b, _, _ = tpr.pagerank(graph, max_iterations=5, tol=-1.0,
+                           device="cpu:0")
+    assert len(calls) == 1
+    key = (torch.device("cpu"), torch.float32)
+    assert list(graph._mxu_state["runs"]) == [key]
+    assert list(graph._mxu_state["placed"]) == [key]
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,current,want", [
+    ("cpu", 0, "cpu"), ("cpu:0", 0, "cpu"), (torch.device("cpu", 0), 0,
+                                             "cpu"),
+    ("cuda", 0, "cuda:0"), ("cuda:0", 0, "cuda:0"), ("cuda", 1, "cuda:1"),
+    ("cuda:1", 0, "cuda:1"), (torch.device("cuda"), 0, "cuda:0")])
+def test_resolve_device_names_each_device_one_way(name, current, want,
+                                                  monkeypatch):
+    """A bare "cuda" is the current card, with its index; the CPU never
+    carries one: so keys and comparisons of one device agree."""
+    from memgraph_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    got = resolve_device(name)
+    assert got == torch.device(want) and str(got) == want
+    assert resolve_device(got) == got
