@@ -105,8 +105,43 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    iterations each, cold and warm.  Degree centrality, in, out and total,
    on this graph and on the north star, bit-equal to numpy's float32
    counts over n - 1.  ``segment`` and ``degree`` lines.
-8. A JSON line of kernels ({"kernels": [...]}), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   Both runs of each are bit-equal (the segment sums are the
+   deterministic ``csr_spmm_sum``); its launches are counted: one an
+   iteration (two for HITS) and one for PageRank's setup.
+8. (after the refresh, before the segment backend) The deterministic
+   segment sums (``ops/csrc/segment.cu``) on the north star:
+   ``csr_spmm_sum`` over the CSC runs (the pull matvec) and the CSR runs
+   (the reversed one), f32 and bf16, 1, 3 and 32 lanes, and
+   ``lane_sum`` in its three forms at 1, 3 and 32 lanes: bit-equal to
+   the plain versions on CPU copies, a column alone bit-equal to itself
+   inside B lanes, two launches bit-equal.  Timed with the plain version
+   on the card, the byte bound and library calls (a
+   ``torch.sparse_csr_tensor`` product and ``index_add_`` for K1,
+   ``torch.sum`` for K2).  ``segment_kernels`` lines.
+9. PPR on the north star (``ppr`` line), counts reset just before and
+   read just after: one PPR (3 seeded sources, 50 iterations) against a
+   float64 scipy power iteration (max error 1e-4 of the largest entry,
+   top-100 100/100); a 32-lane batch (1-5 seeded sources a lane, tol
+   1e-6) whose lanes 0, 7, 19 and 31 are bit-equal to sequential runs
+   with equal iterations; a 3-lane batch (bucket 4, padding dropped)
+   bit-equal to the big batch's first lanes; bf16 within
+   ``PRECISION_BOUNDS["bf16"]``; a warm start from the converged batch
+   in at most 2 iterations; ``ppr_topk`` equal to the sorted vectors,
+   ties to the lower index; iteration ms single and batched; launches
+   equal to one K1 and one K2 a setup, one K1 and two K2 an iteration.
+10. Components and traversal on the north star (``traversal`` line):
+   WCC and SCC against ``scipy.sparse.csgraph.connected_components``
+   (weak, strong; labels the minimum index), SCC's rounds; SSSP with
+   weights uniform in [0.5, 1.5) from seed 17 against Dijkstra (same
+   unreachable set, max relative error 1e-5); BFS levels exact against
+   unweighted shortest paths with push and pull levels both run;
+   ``multi_source_sssp`` (8 sources) and ``khop_neighborhood`` (k = 2)
+   exact; seconds a call.  No hand-written kernel is on this path (min
+   is exact: ``scatter_reduce_``).
+11. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+   micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
+   launches by path), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -125,6 +160,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1201,7 +1237,7 @@ KATZ_BETA = 1.0
 SEGMENT_NODES, SEGMENT_EDGES = 100_000, 450_000
 # HITS against a float64 run of the same steps, relative to the largest
 # entry: the CPU rehearsal at this size reads 1.2e-7 (hubs) and 1.1e-8
-# (authorities); index_add_'s atomics reorder the f32 sums on the card;
+# (authorities); the card sums in the same order (csr_spmm_sum);
 # budgeted ~100x
 HITS_TOL = 1e-5
 
@@ -1398,6 +1434,8 @@ def phase_segment(base: dict):
           "the segment graph is not under MXU_MIN_EDGES")
     graph = from_coo(src, dst, n_nodes=n).to_device("cuda")
     runs = {}
+    # the segment path: counts set to 0 just before, read just after
+    reset_all_counts()
     for name, fn in (
             ("pagerank", lambda: pagerank(graph, damping=DAMPING,
                                           max_iterations=ITERATIONS,
@@ -1407,13 +1445,24 @@ def phase_segment(base: dict):
                                              tol=-1.0)),
             ("hits", lambda: hits(graph, max_iterations=ITERATIONS,
                                   tol=-1.0))):
-        _, cold = timed_run(fn)
+        first, cold = timed_run(fn)
         out, warm = timed_run(fn)
         check(out[-1] == ITERATIONS, f"segment {name} ran {out[-1]} "
                                      f"iterations, not {ITERATIONS}")
+        vectors = [v for v in out if isinstance(v, torch.Tensor)]
+        check(all(same_bits(a, b) for a, b in zip(
+            [v for v in first if isinstance(v, torch.Tensor)], vectors)),
+              f"two segment {name} runs are not bit-equal")
         runs[name] = (out, cold, warm)
+    launches = all_counts()
     check(getattr(graph, "_mxu_state", None) is None,
           "the segment graph took the MXU plan")
+    # an iteration: one run sum (two for HITS); PageRank's setup one more
+    expected = {"csr_spmm_sum": 2 * ((ITERATIONS + 1) + ITERATIONS
+                                     + 2 * ITERATIONS),
+                "lane_sum": 0}
+    check({k: launches[k] for k in expected} == expected,
+          f"segment launch counts {launches} != expected {expected}")
 
     pr = vs_float64(runs["pagerank"][0][0],
                     reference_pagerank(src, dst, n))
@@ -1436,7 +1485,9 @@ def phase_segment(base: dict):
         "iteration_ms": {k: v[2] / ITERATIONS * 1e3
                          for k, v in runs.items()},
         "pagerank_vs_f64": pr, "katz_vs_f64": kz,
-        "hits_vs_f64": hits_err, "hits_tol": HITS_TOL}
+        "hits_vs_f64": hits_err, "hits_tol": HITS_TOL,
+        "reruns_bit_equal": True, "launches": launches,
+        "expected_launches": expected}
     print("segment", json.dumps(summary), flush=True)
     for label, g, s, d in (("segment", graph, src, dst),
                            ("north_star", base["graph"], base["src"],
@@ -1444,6 +1495,467 @@ def phase_segment(base: dict):
         print("degree", json.dumps(degree_line(label, g, s, d)), flush=True)
     del graph
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: the deterministic segment sums, PPR, components and traversal
+# ---------------------------------------------------------------------------
+
+SEG_LANES = (1, 3, 32)
+SEGMENT_REPLACES = ("no pallas_call: port's own; the JAX package's sorted "
+                    "jax.ops.segment_sum, memgraph_tpu/ops/semiring.py:182")
+PPR_TOL = 1e-6
+PPR_MAX_ITERATIONS = 100
+PPR_LANES = 32
+PPR_SEED = 13
+# single PPR against float64 after ITERATIONS fixed iterations, relative
+# to the largest entry: f32 rounding as for PageRank's 1e-4 (F32_REL_TOL)
+PPR_REL_TOL = 1e-4
+PPR_TOPK = 100
+SSSP_SEED = 17
+# Bellman-Ford in f32 against float64 Dijkstra: a path of h hops carries
+# h f32 roundings (2^-24 relative each, h ~ 10-20 here); budgeted ~10x
+SSSP_REL_TOL = 1e-5
+MSSP_SOURCES = 8
+KHOP_K = 2
+
+
+def seg_counts() -> dict:
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+    return {"csr_spmm_sum": SC.csr_spmm_sum.launches,
+            "lane_sum": SC.lane_sum.launches}
+
+
+def reset_all_counts():
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+    BC.reset_launch_counts()
+    SC.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    return {**counts(), **seg_counts()}
+
+
+def spmm_bytes(n_edges: int, n_seg: int, lanes: int) -> int:
+    """K1's bytes: each edge's index, weight and B gathered values, the
+    run offsets, and the output written once."""
+    return n_edges * (4 + 4 + 4 * lanes) + (n_seg + 1) * 4 \
+        + n_seg * lanes * 4
+
+
+def segment_kernel_line(label, x, ptr, g, w, precision, n_in) -> dict:
+    """K1 on the card against its plain version on CPU copies, column by
+    column against its 1-lane call, and against a second launch; timed,
+    with the plain version on the card and two library calls."""
+    import torch
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+    lanes = x.shape[1]
+
+    def k1(xx=x):
+        return SC.csr_spmm_sum(xx, ptr, g, w, precision=precision)
+
+    got = k1()
+    again = k1()
+    want = SC.csr_spmm_sum_reference(x.cpu(), ptr.cpu(), g.cpu(), w.cpu(),
+                                     precision=precision)
+    check(same_bits(got.cpu(), want),
+          f"csr_spmm_sum {label} {precision} B={lanes} is not its plain "
+          "version's bits")
+    check(same_bits(got, again),
+          f"csr_spmm_sum {label} {precision} B={lanes}: two launches differ")
+    col = k1(x[:, lanes - 1].contiguous())
+    check(same_bits(col, got[:, lanes - 1].contiguous()),
+          f"csr_spmm_sum {label} {precision}: a column alone is not its "
+          f"bits inside {lanes} lanes")
+    n_seg = ptr.numel() - 1
+    n_edges = int(ptr[-1]) - int(ptr[0])
+    t, by = bound_ms(spmm_bytes(n_edges, n_seg, lanes),
+                     2.0 * n_edges * lanes)
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    crow = (ptr - lo).contiguous()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # torch's beta-state notices
+        mat = torch.sparse_csr_tensor(crow, g[lo:hi].contiguous(),
+                                      w[lo:hi].contiguous(),
+                                      size=(n_seg, n_in))
+    ids = torch.repeat_interleave(
+        torch.arange(n_seg, device=x.device), (ptr[1:] - ptr[:-1]).long())
+    vals = x[g[lo:hi]] * w[lo:hi].unsqueeze(1)
+    line = {
+        "runs": label, "precision": precision, "lanes": lanes,
+        "n_seg": n_seg, "n_edges": n_edges, "bit_equal": True,
+        "lanes_independent": True, "rerun_equal": True, "max_abs_err": 0.0,
+        "ms": device_ms(k1, 10),
+        "plain_ms": cuda_ms(lambda: SC.csr_spmm_sum_reference(
+            x, ptr, g, w, precision=precision), 3),
+        "bound_ms": t, "bound_by": by,
+        "library_ms": cuda_ms(lambda: mat @ x, 5),
+        "library": "torch.sparse_csr_tensor(ptr, g, w) @ x (f32)",
+        "index_add_ms": cuda_ms(lambda: torch.zeros(
+            n_seg, lanes, device=x.device).index_add_(0, ids, vals), 5)}
+    return line
+
+
+def lane_sum_line(a, m) -> dict:
+    """K2 in each form against its plain version, and B-independence."""
+    import torch
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+    lanes = a.shape[1]
+    b = a.flip(0).contiguous()
+    forms = {"sum": {}, "dot": {"m": m}, "l1": {"b": b}}
+    for form, kw in forms.items():
+        got = SC.lane_sum(a, **kw)
+        want = SC.lane_sum_reference(a.cpu(), **{k: v.cpu()
+                                                 for k, v in kw.items()})
+        check(same_bits(got.cpu(), want),
+              f"lane_sum {form} B={lanes} is not its plain version's bits")
+        check(same_bits(got, SC.lane_sum(a, **kw)),
+              f"lane_sum {form} B={lanes}: two launches differ")
+        one = SC.lane_sum(a[:, -1].contiguous(),
+                          **{k: (v[:, -1].contiguous() if k == "b" else v)
+                             for k, v in kw.items()})
+        check(same_bits(one.view(1), got[-1:]),
+              f"lane_sum {form}: a column alone is not its bits inside "
+              f"{lanes} lanes")
+    n = a.shape[0]
+    t, by = bound_ms(n * lanes * 4 + n * 4 + lanes * 4, 2.0 * n * lanes)
+    return {"lanes": lanes, "rows": n, "bit_equal": True,
+            "lanes_independent": True, "max_abs_err": 0.0,
+            "ms": device_ms(lambda: SC.lane_sum(a, m=m), 20),
+            "plain_ms": cuda_ms(lambda: SC.lane_sum_reference(a, m=m), 5),
+            "bound_ms": t, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.sum(a * m.unsqueeze(1),
+                                                    dim=0), 20),
+            "library": "torch.sum(a * m[:, None], dim=0)",
+            "at": "dot form (the dangling mass)"}
+
+
+def phase_segment_kernels(base: dict):
+    """K1 and K2 on the north star against their plain versions: CSC runs
+    (the pull matvec) and CSR runs (the reversed one), f32 and bf16, 1, 3
+    and 32 lanes; bit-equal, lane-independent, rerun-equal; timed."""
+    import torch
+    graph = base["graph"]
+    rng = np.random.default_rng(PPR_SEED)
+    k1 = []
+    for lanes in SEG_LANES:
+        x = torch.from_numpy(rng.random((graph.n_pad, lanes),
+                                        dtype=np.float32)).cuda()
+        for label, ptr, g, w in (
+                ("csc", graph.csc_runs(), graph.csc_src, graph.csc_weights),
+                ("csr", graph.row_ptr, graph.col_idx, graph.weights)):
+            for precision in ("f32", "bf16"):
+                line = segment_kernel_line(label, x, ptr, g, w, precision,
+                                           graph.n_pad)
+                print("segment_kernels", json.dumps(line), flush=True)
+                k1.append(line)
+    k2 = []
+    m = torch.from_numpy((rng.random(graph.n_pad) < 0.1).astype(
+        np.float32)).cuda()
+    for lanes in SEG_LANES:
+        a = torch.from_numpy(rng.random((graph.n_pad, lanes),
+                                        dtype=np.float32)).cuda()
+        line = lane_sum_line(a, m)
+        print("segment_kernels", json.dumps({"lane_sum": line}), flush=True)
+        k2.append(line)
+    return {"csr_spmm_sum": k1, "lane_sum": k2}
+
+
+def segment_kernel_entries(lines: dict, mxu: dict, by_path: dict) -> list:
+    """K1's and K2's entries of the {"kernels": [...]} line: numbers at
+    the single PPR's shape (CSC runs, f32, one lane), every shape under
+    shapes; launches those of the PPR path, by path beside them."""
+    out = []
+    for name, at in (("csr_spmm_sum", {"runs": "csc", "precision": "f32",
+                                       "lanes": 1}),
+                     ("lane_sum", {"lanes": 1})):
+        shapes = lines[name]
+        main = next(ln for ln in shapes
+                    if all(ln[k] == v for k, v in at.items()))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "memgraph_tpu_torch/ops/csrc/segment.cu",
+            "replaces": SEGMENT_REPLACES,
+            "launches": by_path["ppr"][name],
+            "launches_by_path": {**{p: c[name] for p, c in mxu.items()},
+                                 **{p: c[name] for p, c in by_path.items()}},
+            "max_abs_err": max(ln["max_abs_err"] for ln in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at": at, "shapes": shapes})
+    return out
+
+
+def reference_ppr(src, dst, n_nodes, sources, iterations=ITERATIONS,
+                  damping=DAMPING):
+    """float64 scipy power iteration of PPR (ops/pagerank.py's update)
+    from the normalized restart vector."""
+    import scipy.sparse as sp
+    deg = np.bincount(src, minlength=n_nodes).astype(np.float64)
+    inv_deg = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+    mat = sp.csr_matrix((inv_deg[src], (dst, src)),
+                        shape=(n_nodes, n_nodes))
+    dangling = deg == 0
+    p = np.zeros(n_nodes)
+    p[np.asarray(sources)] = 1.0
+    p /= p.sum()
+    x = p.copy()
+    for _ in range(iterations):
+        x = (1 - damping) * p + damping * (mat @ x + x[dangling].sum() * p)
+    return x
+
+
+def phase_ppr(base: dict):
+    """PPR on the north star: single against float64, a 32-lane batch
+    with lanes bit-equal to sequential runs, a 3-lane batch, bf16 within
+    bounds, a warm start, top-k; K1/K2 launches against their counts."""
+    import torch
+    from memgraph_tpu_torch.ops import pagerank as PR
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n = graph.n_nodes
+    rng = np.random.default_rng(PPR_SEED)
+    single_sources = rng.choice(n, 3, replace=False)
+    sets = [rng.choice(n, int(rng.integers(1, 6)), replace=False)
+            for _ in range(PPR_LANES)]
+    seq_lanes = (0, 7, 19, PPR_LANES - 1)
+    expected = {"csr_spmm_sum": 0, "lane_sum": 0}
+
+    def ran(iterations: int):
+        # setup: the CSR weight sums (K1) and the restart norms (K2);
+        # an iteration: the matvec (K1), dangling mass and L1 error (K2)
+        expected["csr_spmm_sum"] += 1 + iterations
+        expected["lane_sum"] += 1 + 2 * iterations
+
+    def single(sources, **kw):
+        out, s = timed_run(lambda: PR.personalized_pagerank(
+            graph, sources, damping=DAMPING, **kw))
+        ran(out[2])
+        return out, s
+
+    def batch(lane_sets, raw=True, **kw):
+        # the loop runs until its slowest lane stops: max(iters)
+        out, s = timed_run(lambda: PR.personalized_pagerank_batch(
+            graph, lane_sets, damping=DAMPING, raw=raw, **kw))
+        ran(int(out[2].max()))
+        return out, s
+
+    # the PPR path: counts set to 0 just before, read just after
+    reset_all_counts()
+    (r1, _, it1), s1 = single(single_sources, max_iterations=ITERATIONS,
+                              tol=-1.0)
+    (_, _, it1w), s1w = single(single_sources, max_iterations=ITERATIONS,
+                               tol=-1.0)
+    (xb, eb, ib), sb = batch(sets, tol=PPR_TOL,
+                             max_iterations=PPR_MAX_ITERATIONS)
+    seq = {lane: single(sets[lane], tol=PPR_TOL,
+                        max_iterations=PPR_MAX_ITERATIONS)[0]
+           for lane in seq_lanes}
+    (x3, e3, i3), _ = batch(sets[:3], tol=PPR_TOL,
+                            max_iterations=PPR_MAX_ITERATIONS)
+    (r3, _, _), _ = batch(sets[:3], raw=False, tol=PPR_TOL,
+                          max_iterations=PPR_MAX_ITERATIONS)
+    (x16, _, i16), _ = batch(sets[:3], tol=PPR_TOL,
+                             max_iterations=PPR_MAX_ITERATIONS,
+                             precision="bf16")
+    (xw, _, iw), _ = batch(sets, tol=PPR_TOL,
+                           max_iterations=PPR_MAX_ITERATIONS,
+                           x0=xb.cpu().numpy())
+    (xt, _, it_t), st = batch(sets, tol=-1.0, max_iterations=ITERATIONS)
+    # a dangling source keeps its mass: every other entry ties at 0
+    dangling = int(rng.choice(np.flatnonzero(
+        np.bincount(src, minlength=n) == 0)))
+    (rd, _, _), _ = single([dangling], tol=PPR_TOL,
+                           max_iterations=PPR_MAX_ITERATIONS)
+    lanes_k = torch.cat([xb[:n].T, rd.unsqueeze(0)])
+    (vals, idx) = PR.ppr_topk(lanes_k, n, PPR_TOPK, raw=True)
+    torch.cuda.synchronize()
+    launches = all_counts()
+
+    check(launches["csr_spmm_sum"] > 0 and launches["lane_sum"] > 0,
+          f"the PPR path launched no segment kernel: {launches}")
+    check({k: launches[k] for k in expected} == expected,
+          f"PPR launch counts {launches} != expected {expected}")
+    check(it1 == it1w == ITERATIONS and int(it_t.max()) == ITERATIONS,
+          f"fixed-length PPR ran {it1}/{it1w}/{it_t.max()} iterations")
+
+    a = r1.double().cpu().numpy()
+    ref = reference_ppr(src, dst, n, single_sources)
+    check(bool(np.isfinite(a).all()) and a.shape == (n,),
+          "non-finite or misshaped PPR ranks")
+    rel = float(np.abs(a - ref).max() / ref.max())
+    top = len(set(np.argsort(-a)[:PPR_TOPK])
+              & set(np.argsort(-ref)[:PPR_TOPK]))
+    check(rel <= PPR_REL_TOL and top == PPR_TOPK,
+          f"PPR off float64: max err {rel} of the largest entry, top-"
+          f"{PPR_TOPK} {top}")
+
+    ranks = xb[:n].T.cpu()
+    iters = ib.cpu().numpy()
+    check(bool(torch.isfinite(ranks).all()) and bool((iters >= 1).all()),
+          "non-finite batch ranks or a lane that never ran")
+    for lane, (r, _, it) in seq.items():
+        check(same_bits(r.cpu().contiguous(), ranks[lane].contiguous())
+              and it == int(iters[lane]),
+              f"batch lane {lane} is not the sequential run: iters "
+              f"{iters[lane]} against {it}")
+    check(x3.shape[1] == 4 and tuple(i3.shape) == (4,),
+          f"3 lanes ran as {x3.shape[1]}, not the bucket of 4")
+    check(r3.shape == (3, n) and same_bits(
+        torch.from_numpy(r3), ranks[:3].contiguous()),
+          "the 3-lane batch is not the 32-lane batch's first lanes")
+    bounds = PRECISION_BOUNDS["bf16"]
+    d16 = (x16[:n, :3] - x3[:n, :3]).abs()
+    linf16 = float(d16.max())
+    l1_16 = float(d16.sum(dim=0).max())
+    check(linf16 <= bounds["pagerank_linf"] and l1_16 <= bounds["pagerank_l1"],
+          f"bf16 PPR outside PRECISION_BOUNDS: linf {linf16} l1 {l1_16}")
+    warm_iters = int(iw.max())
+    check(warm_iters <= 2, f"warm start took {warm_iters} iterations")
+    want_vals, _ = torch.sort(lanes_k, dim=1, descending=True)
+    vals_h, idx_h = vals.cpu(), idx.cpu().long()
+    check(same_bits(vals_h, want_vals[:, :PPR_TOPK].cpu().contiguous())
+          and same_bits(torch.gather(lanes_k.cpu(), 1, idx_h), vals_h),
+          "ppr_topk is not the sorted full vector")
+    ties = (vals_h[:, 1:] == vals_h[:, :-1])
+    check(bool((idx_h[:, 1:] > idx_h[:, :-1])[ties].all()),
+          "ppr_topk broke a tie toward the higher index")
+    summary = {
+        "n_nodes": n, "n_edges": graph.n_edges, "damping": DAMPING,
+        "single": {"sources": single_sources.tolist(),
+                   "iterations": ITERATIONS, "cold_s": s1,
+                   "iteration_ms": s1w / ITERATIONS * 1e3,
+                   "max_err_of_largest": rel, "top100": top},
+        "batch": {"lanes": PPR_LANES, "tol": PPR_TOL,
+                  "iters_min_max": [int(iters.min()), int(iters.max())],
+                  "run_s": sb, "sequential_bit_equal": list(seq_lanes),
+                  "fixed_iteration_ms": st / ITERATIONS * 1e3,
+                  "warm_iters_max": warm_iters,
+                  "bf16_vs_f32": {"linf": linf16, "l1": l1_16},
+                  "topk": PPR_TOPK, "topk_ties": int(ties.sum()),
+                  "topk_dangling_source": dangling},
+        "launches": launches, "expected_launches": expected}
+    print("ppr", json.dumps(summary), flush=True)
+    return launches
+
+
+def min_index_labels(labels) -> np.ndarray:
+    """Each node's label replaced by the minimum node index of its class."""
+    n = len(labels)
+    mins = np.full(int(labels.max()) + 1, n, dtype=np.int64)
+    np.minimum.at(mins, labels, np.arange(n))
+    return mins[labels].astype(np.int32)
+
+
+def dedup_min(src, dst, w):
+    """(src, dst, w) with one edge a (src, dst) pair, its least weight:
+    a scipy matrix would sum parallel edges."""
+    order = np.lexsort((w, dst, src))
+    s, d, ww = src[order], dst[order], w[order]
+    first = np.ones(len(s), dtype=bool)
+    first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
+    return s[first], d[first], ww[first]
+
+
+def phase_traversal(base: dict):
+    """WCC, SCC, SSSP, direction-optimizing BFS, multi-source SSSP and
+    k-hop on the north star against scipy.sparse.csgraph."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    import torch
+    from memgraph_tpu_torch.ops import components as C
+    from memgraph_tpu_torch.ops import traversal as T
+    from memgraph_tpu_torch.ops.csr import from_coo
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n = graph.n_nodes
+    rng = np.random.default_rng(SSSP_SEED)
+    weights = rng.uniform(0.5, 1.5, len(src)).astype(np.float32)
+    wgraph = from_coo(src, dst, weights, n_nodes=n).to_device("cuda")
+    out_deg = np.bincount(src, minlength=n)
+    source = int(rng.choice(np.flatnonzero(out_deg > 0)))
+    sources = rng.choice(n, MSSP_SOURCES, replace=False)
+    scc_stats = {}
+    secs = {}
+
+    def call(name, fn):
+        out, secs[name] = timed_run(fn)
+        return out
+
+    # the traversal path: counts set to 0 just before, read just after
+    reset_all_counts()
+    T.do_bfs.levels.update(push=0, pull=0)
+    comp, wcc_iters = call("wcc", lambda: C.weakly_connected_components(
+        graph))
+    scc = call("scc", lambda: C.strongly_connected_components(
+        graph, stats=scc_stats))
+    dist, sssp_iters = call("sssp", lambda: T.sssp(wgraph, source))
+    levels, bfs_iters = call("bfs_levels", lambda: T.bfs_levels(
+        graph, source))
+    mssp = call("multi_source_sssp", lambda: T.multi_source_sssp(
+        graph, sources, weighted=False))
+    khop = call("khop_neighborhood", lambda: T.khop_neighborhood(
+        graph, sources[:4], KHOP_K))
+    launches = all_counts()
+    bfs_split = dict(T.do_bfs.levels)
+
+    adj = sp.csr_matrix((np.ones(len(src), dtype=np.int8), (src, dst)),
+                        shape=(n, n))
+    _, weak = csgraph.connected_components(adj, directed=True,
+                                           connection="weak")
+    check(np.array_equal(comp, min_index_labels(weak)),
+          "WCC labels are not scipy's components by their minimum index")
+    _, strong = csgraph.connected_components(adj, directed=True,
+                                             connection="strong")
+    check(np.array_equal(scc, min_index_labels(strong)),
+          "SCC labels are not scipy's components by their minimum index")
+
+    s_, d_, w_ = dedup_min(src, dst, weights)
+    wadj = sp.csr_matrix((w_.astype(np.float64), (s_, d_)), shape=(n, n))
+    ref = csgraph.dijkstra(wadj, indices=source)
+    got = dist.double().cpu().numpy()
+    reach = np.isfinite(ref)
+    check(np.array_equal(np.isfinite(got), reach),
+          "SSSP's unreachable set is not Dijkstra's")
+    pos = reach & (ref > 0)
+    sssp_rel = float((np.abs(got[pos] - ref[pos]) / ref[pos]).max())
+    check(sssp_rel <= SSSP_REL_TOL and got[source] == 0.0,
+          f"SSSP off Dijkstra by {sssp_rel} > {SSSP_REL_TOL}")
+
+    hops = csgraph.shortest_path(adj, unweighted=True,
+                                 indices=np.concatenate([[source], sources]))
+    want_levels = np.where(np.isinf(hops[0]), -1, hops[0]).astype(np.int32)
+    check(np.array_equal(levels.cpu().numpy(), want_levels),
+          "BFS levels are not the unweighted shortest paths")
+    check(bfs_split["push"] > 0 and bfs_split["pull"] > 0,
+          f"BFS did not run both push and pull levels: {bfs_split}")
+    got_m = mssp.double().cpu().numpy()
+    check(got_m.shape == (MSSP_SOURCES, n)
+          and np.array_equal(got_m, hops[1:]),
+          "multi_source_sssp is not the unweighted shortest paths")
+    sym = (adj + adj.T).tocsr()
+    near = csgraph.dijkstra(sym, unweighted=True, indices=sources[:4],
+                            limit=KHOP_K + 0.5)
+    check(np.array_equal(khop.cpu().numpy(), (near <= KHOP_K).any(axis=0)),
+          "khop_neighborhood is not the k-hop set")
+    summary = {
+        "n_nodes": n, "n_edges": graph.n_edges,
+        "wcc": {"components": int(weak.max()) + 1, "iterations": wcc_iters},
+        "scc": {"components": int(strong.max()) + 1,
+                "rounds": scc_stats["rounds"]},
+        "sssp": {"source": source, "iterations": sssp_iters,
+                 "reached": int(reach.sum()), "max_rel": sssp_rel},
+        "bfs": {"iterations": bfs_iters, "levels": bfs_split},
+        "multi_source_sssp": {"sources": MSSP_SOURCES},
+        "khop": {"k": KHOP_K, "sources": 4, "reached": int(khop.sum())},
+        "seconds": secs, "launches": launches}
+    print("traversal", json.dumps(summary), flush=True)
+    del wgraph
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -1452,6 +1964,7 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, HERE)
     from memgraph_tpu_torch.ops import benes_cuda as BC
+    from memgraph_tpu_torch.ops import segment_cuda as SC
     from memgraph_tpu_torch.ops._build import load_kernels
     from memgraph_tpu_torch.ops.native import get_csr_builder, get_router
 
@@ -1471,10 +1984,23 @@ def main():
 
     timed("benes", phase_benes)
     micro_launches, micro_lines = timed("micro", phase_micro, sm_clock_hz())
-    launches, shapes, base = timed("main_path", phase_main_path)
-    katz_launches = timed("katz", phase_katz, base)
-    refresh_launches, refresh_shapes = timed("refresh", phase_refresh, base)
-    timed("segment", phase_segment, base)
+    # the segment kernels' counts over the MXU paths too (they stay 0)
+    seg_before = {}
+
+    def mxu_path(name, phase, *args):
+        SC.reset_launch_counts()
+        out = timed(name, phase, *args)
+        seg_before[name] = seg_counts()
+        return out
+
+    launches, shapes, base = mxu_path("main_path", phase_main_path)
+    katz_launches = mxu_path("katz", phase_katz, base)
+    refresh_launches, refresh_shapes = mxu_path("refresh", phase_refresh,
+                                                base)
+    seg_lines = timed("segment_kernels", phase_segment_kernels, base)
+    by_path = {"segment": timed("segment", phase_segment, base),
+               "ppr": timed("ppr", phase_ppr, base),
+               "traversal": timed("traversal", phase_traversal, base)}
     del base
 
     replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
@@ -1506,7 +2032,8 @@ def main():
             "launches": launches[name],
             "launches_by_path": {"main_path": launches[name],
                                  "katz": katz_launches[name],
-                                 "refresh": refresh_launches[name]},
+                                 "refresh": refresh_launches[name],
+                                 **{p: c[name] for p, c in by_path.items()}},
             "max_abs_err": max(s[name]["max_abs_err"]
                                for s in shapes.values() if name in s),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1515,6 +2042,9 @@ def main():
             "at": "edge net, f32",
             "shapes": {k: s[name] for k, s in shapes.items() if name in s}})
     kernels += micro_kernel_entries(micro_launches, micro_lines)
+    check(all(c == dict.fromkeys(c, 0) for c in seg_before.values()),
+          f"a segment kernel ran on an MXU path: {seg_before}")
+    kernels += segment_kernel_entries(seg_lines, seg_before, by_path)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

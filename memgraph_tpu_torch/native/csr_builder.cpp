@@ -28,8 +28,11 @@ extern "C" {
 // Outputs (caller-allocated):
 //   csr_src, csr_dst : e_pad int32   csr_w : e_pad float
 //   csc_src, csc_dst : e_pad int32   csc_w : e_pad float
-//   row_ptr  : n_pad + 1 int32
+//   row_ptr  : n_pad + 1 int32 (rows n_nodes.. are empty: padding edges
+//              lie in no CSR run)
 //   out_degree : n_pad float
+//   col_ptr  : n_pad + 1 int32 -- CSC run offsets; the padding edges form
+//              the sink's run [n_edges, e_pad), and later runs are empty
 // Returns 0 on success, nonzero on invalid input.
 int build_csr_csc(const int64_t* src, const int64_t* dst,
                   const float* weights,
@@ -37,7 +40,7 @@ int build_csr_csc(const int64_t* src, const int64_t* dst,
                   int64_t n_pad, int64_t e_pad,
                   int32_t* csr_src, int32_t* csr_dst, float* csr_w,
                   int32_t* csc_src, int32_t* csc_dst, float* csc_w,
-                  int32_t* row_ptr, float* out_degree) {
+                  int32_t* row_ptr, float* out_degree, int32_t* col_ptr) {
   if (n_pad < n_nodes + 1 || e_pad < n_edges) return 1;
   const int32_t sink = static_cast<int32_t>(n_nodes);
 
@@ -86,6 +89,9 @@ int build_csr_csc(const int64_t* src, const int64_t* dst,
   for (int64_t e = 0; e < n_edges; ++e) ++count[csr_dst[e]];
   offset[0] = 0;
   for (int64_t v = 1; v <= n_nodes; ++v) offset[v] = offset[v - 1] + count[v - 1];
+  for (int64_t v = 0; v <= n_pad; ++v) {
+    col_ptr[v] = static_cast<int32_t>(v <= n_nodes ? offset[v] : e_pad);
+  }
   for (int64_t e = 0; e < n_edges; ++e) {
     const int64_t pos = offset[csr_dst[e]]++;
     csc_src[pos] = csr_src[e];

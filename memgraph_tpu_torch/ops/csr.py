@@ -20,7 +20,7 @@ import torch
 from ..device import resolve_device
 
 _ARRAYS = ("row_ptr", "col_idx", "src_idx", "weights", "csc_src", "csc_dst",
-           "csc_weights", "out_degree")
+           "csc_weights", "out_degree", "col_ptr")
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -43,6 +43,12 @@ class DeviceGraph:
     segment reductions:
       csc_src / csc_dst: (e_pad,) int32
       csc_weights:       (e_pad,) float32
+      col_ptr:    (n_pad+1,) int32 — CSC run offsets: the edges into node j
+                  are [col_ptr[j], col_ptr[j+1]); the padding edges form
+                  the sink's run [n_edges, e_pad), so the runs cover every
+                  CSC edge in order (the deterministic segment sum of
+                  ops/segment_cuda.py walks them).  ``row_ptr``'s runs
+                  hold the true edges only.
     out_degree: (n_pad,) float32 — true out-degrees (0 for padding rows)
     n_nodes / n_edges: true counts;  n_pad / e_pad: padded counts
     node_gids:  (n_nodes,) int64 host array — dense index -> storage gid
@@ -61,6 +67,7 @@ class DeviceGraph:
     csc_dst: object
     csc_weights: object
     out_degree: object
+    col_ptr: object
     n_nodes: int
     n_edges: int
     n_pad: int
@@ -75,6 +82,17 @@ class DeviceGraph:
         """The device the arrays live on, or None for a host graph."""
         return (self.row_ptr.device if isinstance(self.row_ptr, torch.Tensor)
                 else None)
+
+    def csc_runs(self):
+        """``col_ptr`` without the padding edges: the CSC runs of the true
+        edges, as ``row_ptr`` gives the CSR ones.  The sink's run of
+        padding edges would be one thread's serial walk of e_pad -
+        n_edges edges in the run sum (ops/segment_cuda.py); they carry
+        weight 0 into the sink row, which every fixpoint masks, so
+        leaving them out leaves every true row as it was."""
+        if isinstance(self.col_ptr, torch.Tensor):
+            return self.col_ptr.clamp(max=self.n_edges)
+        return np.minimum(self.col_ptr, self.n_edges)
 
     def host_edges(self):
         """(src, dst, w) numpy arrays of the true edges, in CSR order."""
@@ -130,10 +148,11 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
                                       native["csr_w"])
         csc_src, csc_dst, csc_w = (native["csc_src"], native["csc_dst"],
                                    native["csc_w"])
+        col_ptr = native["col_ptr"]
     else:
         (row_ptr, src_full, dst_full, w_full, csc_src, csc_dst, csc_w,
-         out_degree) = _csr_csc_numpy(src, dst, weights, n_nodes, n_pad,
-                                      e_pad)
+         out_degree, col_ptr) = _csr_csc_numpy(src, dst, weights, n_nodes,
+                                               n_pad, e_pad)
 
     if node_gids is None:
         node_gids = np.arange(n_nodes, dtype=np.int64)
@@ -143,7 +162,7 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
     return DeviceGraph(row_ptr=row_ptr, col_idx=dst_full, src_idx=src_full,
                        weights=w_full,
                        csc_src=csc_src, csc_dst=csc_dst, csc_weights=csc_w,
-                       out_degree=out_degree,
+                       out_degree=out_degree, col_ptr=col_ptr,
                        n_nodes=n_nodes, n_edges=n_edges,
                        n_pad=n_pad, e_pad=e_pad,
                        node_gids=node_gids, gid_to_idx=gid_to_idx,
@@ -153,7 +172,7 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
 
 def _csr_csc_numpy(src, dst, weights, n_nodes, n_pad, e_pad):
     """The numpy path of ``from_coo``: (row_ptr, csr src, csr dst, csr w,
-    csc src, csc dst, csc w, out_degree), padded."""
+    csc src, csc dst, csc w, out_degree, col_ptr), padded."""
     n_edges = len(src)
     # padding edges: sink->sink self loops with zero weight; the sink is the
     # extra padding row n_nodes (guaranteed to exist since n_pad >= n_nodes+1)
@@ -186,8 +205,14 @@ def _csr_csc_numpy(src, dst, weights, n_nodes, n_pad, e_pad):
     row_ptr = np.zeros(n_pad + 1, dtype=np.int32)
     np.cumsum(counts, out=row_ptr[1:])
 
+    # CSC runs: the sink's run holds the padding edges, later runs are empty
+    col_ptr = np.full(n_pad + 1, e_pad, dtype=np.int32)
+    col_ptr[0] = 0
+    np.cumsum(np.bincount(d_sorted, minlength=n_nodes)[:n_nodes],
+              out=col_ptr[1:n_nodes + 1])
+
     out_degree = np.zeros(n_pad, dtype=np.float32)
     out_degree[:n_nodes] = np.bincount(
         src, minlength=n_nodes).astype(np.float32)[:n_nodes]
     return (row_ptr, src_full, dst_full, w_full, csc_src, csc_dst, csc_w,
-            out_degree)
+            out_degree, col_ptr)

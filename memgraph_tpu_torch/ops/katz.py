@@ -9,7 +9,9 @@ convergence partial fused into the loop body; it converges for α <
 PageRank plan exists (or that katz plans first) katz rides that plan's
 placed routes and places only its own multipliers.  HITS runs two
 matvecs a round on the segment backend (a ``step`` hook); degree
-centrality is one segment sum over the edges.
+centrality is one integer segment sum over the edges a direction.  The
+segment backend's float sums are the deterministic run sums of
+ops/segment_cuda.py, over the graph's CSC and CSR runs.
 
 Every entry point runs on the card unless the caller asks for the CPU
 (``device="cpu"`` or a graph placed there); without a card it raises.
@@ -22,7 +24,7 @@ import torch
 
 from . import semiring as S
 from .csr import DeviceGraph
-from .pagerank import graph_device, on_device
+from .pagerank import f32_scalar, graph_device, on_device
 
 
 def _valid(P, n_out, dev):
@@ -51,11 +53,6 @@ def _katz_normalized(x, normalized: bool):
     if not normalized:
         return x
     return x / torch.clamp(torch.sqrt(torch.sum(x * x)), min=1e-30)
-
-
-def _scalar(v, dev):
-    return torch.tensor(float(np.float32(v)), dtype=torch.float32,
-                        device=dev)
 
 
 def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
@@ -89,12 +86,14 @@ def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
         buf[:len(arr)] = arr
         x0_pad = torch.from_numpy(buf).to(dev)
     x, err, iters = S.fixpoint(
-        arrays={"src": g.csc_src.long(), "dst": g.csc_dst.long(),
-                "w": g.csc_weights},
-        params={"n_nodes": g.n_nodes, "alpha": _scalar(alpha, dev),
-                "beta": _scalar(beta, dev), "tol": np.float32(tol)},
+        "plus_times",
+        arrays={"src": g.csc_src, "dst": g.csc_dst, "w": g.csc_weights,
+                "dst_ptr": g.csc_runs()},
+        params={"n_nodes": g.n_nodes, "alpha": f32_scalar(alpha, dev),
+                "beta": f32_scalar(beta, dev), "tol": np.float32(tol)},
         n_out=g.n_pad, setup=_katz_setup, epilogue=_katz_epilogue,
-        max_iterations=max_iterations, precision=precision, x0=x0_pad)
+        max_iterations=max_iterations, sorted=True, precision=precision,
+        x0=x0_pad)
     return _katz_normalized(x, normalized)[:g.n_nodes], err, iters
 
 
@@ -105,13 +104,17 @@ def _l2_normalized(v):
 def _hits_step(x, A, env, P, n_out):
     """One HITS round: two plus-times matvecs (authority from the hubs
     over the CSC edges, then hubs from the new authorities over the CSR
-    edges reversed), each L2-normalized, over a (hub, auth) state."""
+    edges reversed), each L2-normalized, over a (hub, auth) state.  Both
+    sums are over sorted keys: CSC destinations (``csc_runs``), then CSR
+    sources (``row_ptr``'s runs)."""
     hub, _auth = x
     valid_f = env["valid_f"]
-    new_auth = _l2_normalized(S.spmv(hub, A["csrc"], A["cdst"], A["cw"],
-                                     n_out=n_out) * valid_f)
-    new_hub = _l2_normalized(S.spmv(new_auth, A["dst"], A["src"], A["w"],
-                                    n_out=n_out) * valid_f)
+    new_auth = _l2_normalized(S.spmv(
+        "plus_times", hub, A["csrc"], A["cdst"], A["cw"], n_out=n_out,
+        sorted=True, ptr=A["cptr"]) * valid_f)
+    new_hub = _l2_normalized(S.spmv(
+        "plus_times", new_auth, A["dst"], A["src"], A["w"], n_out=n_out,
+        sorted=True, ptr=A["rptr"]) * valid_f)
     return new_hub, new_auth
 
 
@@ -136,9 +139,10 @@ def hits(graph: DeviceGraph, max_iterations: int = 100, tol: float = 1e-6,
     dev = graph_device(graph, device)
     g = on_device(graph, dev)
     (hub, auth), err, iters = S.fixpoint(
-        arrays={"src": g.src_idx.long(), "dst": g.col_idx.long(),
-                "w": g.weights, "csrc": g.csc_src.long(),
-                "cdst": g.csc_dst.long(), "cw": g.csc_weights},
+        "plus_times",
+        arrays={"src": g.src_idx, "dst": g.col_idx, "w": g.weights,
+                "rptr": g.row_ptr, "csrc": g.csc_src, "cdst": g.csc_dst,
+                "cw": g.csc_weights, "cptr": g.csc_runs()},
         params={"n_nodes": g.n_nodes, "tol": np.float32(tol)},
         n_out=g.n_pad, setup=_hits_setup, step=_hits_step,
         epilogue=_hits_epilogue, max_iterations=max_iterations)
@@ -148,10 +152,12 @@ def hits(graph: DeviceGraph, max_iterations: int = 100, tol: float = 1e-6,
 def degree_centrality(graph: DeviceGraph, direction: str = "total",
                       device=None):
     """In-, out- or total degree over max(n - 1, 1), as a tensor on the
-    device (padding edges masked out)."""
+    device (padding edges masked out).  The counts are integer sums
+    (``index_add_``, exact in any order), the same values as the
+    reference's float32 sums of 0/1 (exact below 2^24)."""
     dev = graph_device(graph, device)
     g = on_device(graph, dev)
-    mask = (torch.arange(g.e_pad, device=dev) < g.n_edges).to(torch.float32)
+    mask = (torch.arange(g.e_pad, device=dev) < g.n_edges).to(torch.int32)
     if direction == "in":
         d = S.edge_reduce("sum", mask, g.col_idx, g.n_pad)
     elif direction == "out":
@@ -159,6 +165,7 @@ def degree_centrality(graph: DeviceGraph, direction: str = "total",
     else:
         d = (S.edge_reduce("sum", mask, g.col_idx, g.n_pad)
              + S.edge_reduce("sum", mask, g.src_idx, g.n_pad))
+    d = d.to(torch.float32)
     # a tensor divisor: CUDA divides by a host scalar as a product with
     # its reciprocal, which is not the division's rounding
     return (d / torch.full_like(d, max(g.n_nodes - 1, 1)))[:g.n_nodes]

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "csr_builder.cpp": {
         "build_csr_csc": (ctypes.c_int, [
             _I64P, _I64P, _F32P, _I64, _I64, _I64, _I64,
-            _I32P, _I32P, _F32P, _I32P, _I32P, _F32P, _I32P, _F32P])},
+            _I32P, _I32P, _F32P, _I32P, _I32P, _F32P, _I32P, _F32P,
+            _I32P])},
 }
 
 
@@ -108,8 +109,8 @@ def build_csr_csc_native(src: np.ndarray, dst: np.ndarray, weights,
                          n_nodes: int, n_pad: int, e_pad: int):
     """Run the native CSR + CSC builder.  Returns a dict of the padded
     arrays (``csr_src``, ``csr_dst``, ``csr_w``, ``csc_src``, ``csc_dst``,
-    ``csc_w``, ``row_ptr``, ``out_degree``), or None when the builder is
-    unavailable or fails (the caller then takes the numpy path).  An
+    ``csc_w``, ``row_ptr``, ``out_degree``, ``col_ptr``), or None when the
+    builder is unavailable or fails (the caller then takes the numpy path).  An
     endpoint id outside [0, n_nodes) raises ValueError."""
     lib = get_csr_builder()
     if lib is None:
@@ -128,6 +129,7 @@ def build_csr_csc_native(src: np.ndarray, dst: np.ndarray, weights,
         ("csr_src", np.int32), ("csr_dst", np.int32), ("csr_w", np.float32),
         ("csc_src", np.int32), ("csc_dst", np.int32), ("csc_w", np.float32))}
     out["row_ptr"] = np.empty(n_pad + 1, dtype=np.int32)
+    out["col_ptr"] = np.empty(n_pad + 1, dtype=np.int32)
     out["out_degree"] = np.empty(n_pad, dtype=np.float32)
 
     def ptr(name):
@@ -138,7 +140,8 @@ def build_csr_csc_native(src: np.ndarray, dst: np.ndarray, weights,
         src.ctypes.data_as(_I64P), dst.ctypes.data_as(_I64P), w_ptr,
         n_edges, n_nodes, n_pad, e_pad,
         *(ptr(k) for k in ("csr_src", "csr_dst", "csr_w", "csc_src",
-                           "csc_dst", "csc_w", "row_ptr", "out_degree")))
+                           "csc_dst", "csc_w", "row_ptr", "out_degree",
+                           "col_ptr")))
     if rc == 2:
         # invalid input, not "builder unavailable": the numpy path would
         # build a corrupt graph from the same ids

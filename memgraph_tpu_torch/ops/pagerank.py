@@ -1,11 +1,14 @@
-"""PageRank on the plus-times semiring core (ops/semiring.py), in PyTorch.
+"""PageRank and personalized PageRank on the plus-times semiring core
+(ops/semiring.py), in PyTorch.
 
-Port of memgraph_tpu/ops/pagerank.py (``pagerank`` and its MXU and segment
-backends).  Weighted power iteration: the setup hoists the per-edge
-``w / wsum[src]`` multipliers, the fused epilogue applies the damping
-update (semiring.pagerank_update) and the L1 convergence partial.
-Dangling-node mass is redistributed uniformly each round.  Padding edges
-carry weight 0 into a sink row, so they contribute nothing.
+Port of memgraph_tpu/ops/pagerank.py: ``pagerank`` and its MXU and segment
+backends, ``personalized_pagerank``, the batched multi-source
+``personalized_pagerank_batch`` and ``ppr_topk``.  Weighted power
+iteration: the setup hoists the per-edge ``w / wsum[src]`` multipliers,
+the fused epilogue applies the damping update (semiring.pagerank_update)
+and the L1 convergence partial.  Dangling-node mass is redistributed
+uniformly each round (PPR: to the restart vector).  Padding edges carry
+weight 0 into a sink row, so they contribute nothing.
 
 Snapshot refresh: a snapshot whose ``_delta_ctx`` is ``(base graph,
 changed gids)`` (set as the JAX package's ``GraphCache.get`` sets it, with
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import segment_cuda as SC
 from . import semiring as S
 from .csr import DeviceGraph
 
@@ -48,13 +52,21 @@ def _pagerank_setup(A, P, n_out):
     n_f = torch.tensor(float(n_nodes), dtype=torch.float32, device=dev)
     valid = torch.arange(n_out, device=dev) < n_nodes
     valid_f = valid.to(torch.float32)
-    wsum = S.edge_reduce("sum", A["csr_w"], A["csr_src"], n_out)
+    edge_mult, dangling_f = _hoisted(A, valid, n_out)
+    return {"w": edge_mult, "valid_f": valid_f, "dangling_f": dangling_f,
+            "n_f": n_f, "x0": valid_f / n_f}
+
+
+def _hoisted(A, valid, n_out):
+    """The per-edge ``w / wsum[src]`` multipliers (one gather per run) and
+    the dangling mask, from the CSR weight sums (over ``row_ptr``'s
+    runs)."""
+    wsum = S.edge_reduce("sum", A["csr_w"], A["csr_src"], n_out,
+                         sorted=True, ptr=A["csr_ptr"])
     inv_wsum = torch.where(wsum > 0, 1.0 / torch.clamp(wsum, min=1e-30),
                            torch.zeros_like(wsum))
     dangling_f = (valid & (wsum <= 0)).to(torch.float32)
-    edge_mult = A["w"] * inv_wsum[A["src"]]  # hoisted: one gather per run
-    return {"w": edge_mult, "valid_f": valid_f, "dangling_f": dangling_f,
-            "n_f": n_f, "x0": valid_f / n_f}
+    return A["w"] * inv_wsum[A["src"]], dangling_f
 
 
 def _pagerank_epilogue(rank, acc, env, P):
@@ -412,14 +424,204 @@ def pagerank(graph: DeviceGraph, damping: float = 0.85,
             buf[:len(x0)] = x0 / np.float32(total)
             x0_pad = torch.from_numpy(buf).to(dev)
     rank, err, iters = S.fixpoint(
-        arrays={"src": g.csc_src.long(), "dst": g.csc_dst.long(),
-                "w": g.csc_weights,
-                "csr_src": g.src_idx.long(), "csr_w": g.weights},
-        params={"n_nodes": g.n_nodes,
-                "damping": torch.tensor(damping, dtype=torch.float32,
-                                        device=dev),
+        "plus_times", arrays=_pull_arrays(g),
+        params={"n_nodes": g.n_nodes, "damping": f32_scalar(damping, dev),
                 "tol": np.float32(tol)},
         n_out=g.n_pad, setup=_pagerank_setup,
         epilogue=_pagerank_epilogue, max_iterations=max_iterations,
-        precision=precision, x0=x0_pad)
+        sorted=True, precision=precision, x0=x0_pad)
     return rank[:g.n_nodes], err, iters
+
+
+def f32_scalar(v, dev):
+    """A float32 scalar on the device: the update's arithmetic stays in
+    float32, as the reference's np.float32 parameters keep it."""
+    return torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                        device=dev)
+
+
+def _pull_arrays(g: DeviceGraph) -> dict:
+    """The edge arrays of a pull (CSC) plus-times fixpoint, with the run
+    offsets of the true edges: ``dst_ptr`` (CSC) and ``csr_ptr`` (CSR)."""
+    return {"src": g.csc_src, "dst": g.csc_dst, "w": g.csc_weights,
+            "dst_ptr": g.csc_runs(), "csr_src": g.src_idx,
+            "csr_w": g.weights, "csr_ptr": g.row_ptr}
+
+
+# ---------------------------------------------------------------------------
+# personalized PageRank
+# ---------------------------------------------------------------------------
+#
+# One PPR is a fixpoint over an (n_pad, 1) iterate; a batch of B is the
+# same over (n_pad, B) lanes, one SpMM an iteration.  Every reduction of
+# the loop is B-independent: the matvec is the run sum (segment_cuda
+# ``csr_spmm_sum``), and the restart vectors' normalization, the dangling
+# mass and the L1 error are ``lane_sum``s.  Elementwise work is the same
+# per element whatever B is, so a lane of a batch is bit-equal to the
+# sequential run of its sources, on the CPU and on the card.
+
+#: batch lanes are padded up to these bucket widths, as the reference
+#: pads them to reuse its compiled programs
+_PPR_LANE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _bucket_lanes(b: int) -> int:
+    for cap in _PPR_LANE_BUCKETS:
+        if b <= cap:
+            return cap
+    return b
+
+
+def _ppr_setup(A, P, n_out):
+    """PPR invariants: the restart vectors (n_out, B), each normalized to
+    unit mass, and the hoisted multipliers."""
+    valid = torch.arange(n_out, device=A["src"].device) < P["n_nodes"]
+    p = A["personalization"] * valid.to(torch.float32).unsqueeze(1)
+    p = p / torch.clamp(SC.lane_sum(p), min=1e-30)
+    edge_mult, dangling_f = _hoisted(A, valid, n_out)
+    return {"w": edge_mult, "p": p, "dangling_f": dangling_f, "x0": p}
+
+
+def _ppr_epilogue(rank, acc, env, P):
+    """Fused PPR update: restart mass flows to each lane's personalization
+    vector (dangling mass included); the L1 error a lane."""
+    p = env["p"]
+    dangling_mass = SC.lane_sum(rank, m=env["dangling_f"])
+    new_rank = (1.0 - P["damping"]) * p \
+        + P["damping"] * (acc + dangling_mass * p)
+    return new_rank, SC.lane_sum(new_rank, rank)
+
+
+def _ppr_params(g: DeviceGraph, damping, tol, dev) -> dict:
+    return {"n_nodes": g.n_nodes, "damping": f32_scalar(damping, dev),
+            "tol": np.float32(tol)}
+
+
+def personalized_pagerank(graph: DeviceGraph, source_nodes,
+                          damping: float = 0.85, max_iterations: int = 100,
+                          tol: float = 1e-6, precision: str = "f32",
+                          kernel=None, kernel_meta: dict | None = None,
+                          device=None):
+    """PPR with restart mass on ``source_nodes`` (dense indices).  Returns
+    (ranks[:n_nodes] as a tensor on the device, error, iterations).
+
+    ``kernel`` (the reference's route through the resident kernel
+    server) is not ported: a value other than None raises
+    NotImplementedError.  ``device``: explicit, else the graph's, else
+    the card."""
+    if kernel is not None:
+        raise NotImplementedError(
+            "kernel=: the resident kernel server's coalescing PPR route is "
+            "not ported (ROADMAP.md Queue 1 item 3); call without kernel= "
+            "to run in-process")
+    S._check_precision(precision)
+    dev = graph_device(graph, device)
+    g = on_device(graph, dev)
+    p = torch.zeros(g.n_pad, 1, dtype=torch.float32, device=dev)
+    p[torch.as_tensor(np.asarray(source_nodes, dtype=np.int64),
+                      device=dev)] = 1.0
+    rank, err, iters = S.fixpoint(
+        "plus_times", arrays={**_pull_arrays(g), "personalization": p},
+        params=_ppr_params(g, damping, tol, dev), n_out=g.n_pad,
+        setup=_ppr_setup, epilogue=_ppr_epilogue,
+        max_iterations=max_iterations, sorted=True, precision=precision)
+    return rank[:g.n_nodes, 0], err, iters
+
+
+def personalized_pagerank_batch(graph: DeviceGraph, source_sets,
+                                damping: float = 0.85,
+                                max_iterations: int = 100,
+                                tol: float = 1e-6, precision: str = "f32",
+                                x0=None, raw: bool = False, device=None):
+    """B independent PPR fixpoints as one SpMM power iteration.
+
+    ``source_sets`` is a list of dense-index lists (one per lane) or a
+    prebuilt (n_pad, B) personalization matrix.  ``x0`` optionally seeds
+    the lanes ((n_pad, B), a warm start: any seed converges to the same
+    fixpoint, in fewer iterations).
+
+    Returns (ranks (B, n_nodes), err (B,), iters (B,)) as host arrays.
+    Lanes are padded up to ``_PPR_LANE_BUCKETS``; padding lanes restart
+    on lane 0's sources and are dropped.  A lane that converges freezes
+    at its stopping iterate, so it is bit-equal to the sequential
+    ``personalized_pagerank`` of its sources, with the same iteration
+    count.  The loop stops once every lane is done or after
+    ``max_iterations``, read on the host once an iteration.  ``raw=True``
+    returns the device (n_pad, n_lanes) iterate, padding lanes included,
+    with err and iters as device tensors."""
+    S._check_precision(precision)
+    dev = graph_device(graph, device)
+    if getattr(source_sets, "ndim", None) == 2:
+        pm = np.asarray(source_sets, dtype=np.float32)
+        n_req = pm.shape[1]
+    else:
+        n_req = len(source_sets)
+        pm = np.zeros((graph.n_pad, n_req), dtype=np.float32)
+        for lane, sources in enumerate(source_sets):
+            pm[np.asarray(sources, dtype=np.int64), lane] = 1.0
+    if n_req == 0:
+        return (np.zeros((0, graph.n_nodes), dtype=np.float32),
+                np.zeros(0, dtype=np.float32), np.zeros(0, dtype=np.int32))
+    n_lanes = _bucket_lanes(n_req)
+    if n_lanes > n_req:
+        pad = np.repeat(pm[:, :1], n_lanes - n_req, axis=1)
+        pm = np.concatenate([pm, pad], axis=1)
+    if x0 is not None:
+        x0 = np.asarray(x0, dtype=np.float32)
+        if x0.shape[1] < n_lanes:
+            pad = np.repeat(pm[:, -1:], n_lanes - x0.shape[1], axis=1)
+            x0 = np.concatenate([x0, pad], axis=1)
+    g = on_device(graph, dev)
+    A = {**_pull_arrays(g),
+         "personalization": torch.from_numpy(pm).to(dev)}
+    P = _ppr_params(g, damping, tol, dev)
+    env = _ppr_setup(A, P, g.n_pad)
+    x = (torch.from_numpy(np.ascontiguousarray(x0)).to(dev)
+         if x0 is not None else env["x0"])
+    tol_t = torch.tensor(np.float32(tol), device=dev)
+    done = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    err = torch.full((n_lanes,), float("inf"), dtype=torch.float32,
+                     device=dev)
+    iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iterations and not bool(done.all()):
+        acc = S.spmv("plus_times", x, A["src"], A["dst"], env["w"],
+                     n_out=g.n_pad, sorted=True, precision=precision,
+                     ptr=A["dst_ptr"])
+        new_x, new_err = _ppr_epilogue(x, acc, env, P)
+        # freeze converged lanes: their iterate is exactly the
+        # sequential loop's stopping state
+        x = torch.where(done, x, new_x)
+        err = torch.where(done, err, new_err)
+        iters = torch.where(done, iters, iters + 1)
+        done = done | (err <= tol_t)
+        it += 1
+    if raw:
+        return x, err, iters
+    ranks = x[:g.n_nodes, :n_req].T.cpu().numpy()
+    return ranks, err[:n_req].cpu().numpy(), iters[:n_req].cpu().numpy()
+
+
+def ppr_topk(ranks_matrix, n_nodes: int, k: int, raw: bool = False,
+             device=None):
+    """Per-lane top-k over a (B, n) rank matrix, on the device.  Ties go
+    to the lower index, as ``jax.lax.top_k`` breaks them (a stable
+    descending sort; ``torch.topk`` on CUDA promises no order among
+    ties).
+
+    Returns (values (B, k), indices (B, k) int32) as host arrays, or as
+    device tensors with ``raw=True``.  ``device``: explicit, else the
+    matrix's when it is a tensor, else the card."""
+    if isinstance(ranks_matrix, torch.Tensor):
+        m = ranks_matrix
+        dev = resolve_device(device, like=m)
+    else:
+        m = torch.from_numpy(np.asarray(ranks_matrix, dtype=np.float32))
+        dev = resolve_device(device)
+    m = m.to(dev)[:, :n_nodes]
+    k = max(1, min(int(k), int(n_nodes)))
+    vals, idx = torch.sort(m, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    if raw:
+        return vals, idx
+    return vals.cpu().numpy(), idx.cpu().numpy()
