@@ -112,12 +112,22 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    segment sums (``ops/csrc/segment.cu``) on the north star:
    ``csr_spmm_sum`` over the CSC runs (the pull matvec) and the CSR runs
    (the reversed one), f32 and bf16, 1, 3 and 32 lanes, and
-   ``lane_sum`` in its three forms at 1, 3 and 32 lanes: bit-equal to
-   the plain versions on CPU copies, a column alone bit-equal to itself
-   inside B lanes, two launches bit-equal.  Timed with the plain version
-   on the card, the byte bound and library calls (a
-   ``torch.sparse_csr_tensor`` product and ``index_add_`` for K1,
-   ``torch.sum`` for K2).  ``segment_kernels`` lines.
+   ``lane_sum`` in its three forms at 1, 3 and 32 lanes; then K1 where
+   its design can break: run lengths around its short/long bound T
+   (T - 1, T, T + 1, 2T, 32T + 1, and empty runs), a star of 2^20 + 5
+   in-edges, the no-gather form (``g=None``, first, as
+   ``semiring._float_sum`` launches it) and int64 offsets and indices.
+   K1 is given the longest run as the main path gives it (a graph's
+   ``longest_csc_run`` / ``longest_csr_run``); where no run is long (the
+   CSR runs) the two-role launch is held to the same bits and timed
+   beside it (``two_role_ms``).  Each bit-equal to the plain version on
+   CPU copies, a column alone bit-equal to itself inside B lanes, two
+   launches bit-equal.  Timed with the plain version on the card, the
+   byte bound (K1: each distinct gathered row of x read once) and
+   library calls (a ``torch.sparse_csr_tensor`` product and
+   ``index_add_`` for K1, ``torch.sum`` for K2), the previous design's
+   time beside this run's where it was measured (``previous_ms``, on the
+   ``segment_kernels`` lines only).  ``segment_kernels`` lines.
 9. PPR on the north star (``ppr`` line), counts reset just before and
    read just after: one PPR (3 seeded sources, 50 iterations) against a
    float64 scipy power iteration (max error 1e-4 of the largest entry,
@@ -1538,63 +1548,110 @@ def all_counts() -> dict:
     return {**counts(), **seg_counts()}
 
 
-def spmm_bytes(n_edges: int, n_seg: int, lanes: int) -> int:
-    """K1's bytes: each edge's index, weight and B gathered values, the
-    run offsets, and the output written once."""
-    return n_edges * (4 + 4 + 4 * lanes) + (n_seg + 1) * 4 \
-        + n_seg * lanes * 4
+# The previous designs' kernel times (a thread a run for K1, a launch a
+# level for K2; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's at the shapes they were measured at: (runs, precision,
+# lanes) for K1, lanes for K2 (dot form)
+PREVIOUS_K1_MS = {("csc", "f32", 1): 0.817, ("csc", "bf16", 1): 0.941,
+              ("csc", "f32", 3): 0.740, ("csc", "f32", 32): 1.091,
+              ("csc", "bf16", 32): 1.255, ("csr", "f32", 1): 0.106,
+              ("csr", "bf16", 1): 0.106, ("csr", "f32", 3): 0.122,
+              ("csr", "f32", 32): 0.819}
+PREVIOUS_K2_MS = {1: 0.0254, 3: 0.0326, 32: 0.1257}
 
 
-def segment_kernel_line(label, x, ptr, g, w, precision, n_in) -> dict:
+def spmm_bytes(n_edges: int, n_seg: int, lanes: int, x_rows: int,
+               index_bytes: int = 4, weight_bytes: int = 4,
+               ptr_bytes: int = 4) -> int:
+    """K1's bytes: each edge's index and weight, the B values of each row
+    of x that a run reads, each read once (``x_rows``: the distinct
+    gathered rows, or the edges with no gather), the run offsets, and the
+    output written once."""
+    return n_edges * (index_bytes + weight_bytes) + x_rows * lanes * 4 \
+        + (n_seg + 1) * ptr_bytes + n_seg * lanes * 4
+
+
+def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
+                        mul="times") -> dict:
     """K1 on the card against its plain version on CPU copies, column by
-    column against its 1-lane call, and against a second launch; timed,
-    with the plain version on the card and two library calls."""
+    column against its 1-lane call, and against a second launch, given
+    the longest run as the main path gives it (``longest``: a graph's
+    ``longest_csc_run`` / ``longest_csr_run``); timed, with the plain
+    version on the card and the library calls: a
+    ``torch.sparse_csr_tensor`` product (gathered, f32) and ``index_add_``
+    of the precomputed contributions.  Where no run is long, the launch
+    with the longest run unknown (the two-role kernel) is held to the
+    same bits and timed beside it (``two_role_ms``)."""
     import torch
     from memgraph_tpu_torch.ops import segment_cuda as SC
     lanes = x.shape[1]
 
-    def k1(xx=x):
-        return SC.csr_spmm_sum(xx, ptr, g, w, precision=precision)
+    def k1(xx=x, longest=longest):
+        return SC.csr_spmm_sum(xx, ptr, g, w, mul=mul, precision=precision,
+                               longest=longest)
+
+    def cpu(t):
+        return None if t is None else t.cpu()
 
     got = k1()
     again = k1()
-    want = SC.csr_spmm_sum_reference(x.cpu(), ptr.cpu(), g.cpu(), w.cpu(),
-                                     precision=precision)
+    want = SC.csr_spmm_sum_reference(x.cpu(), ptr.cpu(), cpu(g), cpu(w),
+                                     mul=mul, precision=precision)
+    what = f"csr_spmm_sum {label} {mul} {precision} B={lanes}"
     check(same_bits(got.cpu(), want),
-          f"csr_spmm_sum {label} {precision} B={lanes} is not its plain "
-          "version's bits")
-    check(same_bits(got, again),
-          f"csr_spmm_sum {label} {precision} B={lanes}: two launches differ")
+          f"{what} is not its plain version's bits")
+    check(same_bits(got, again), f"{what}: two launches differ")
     col = k1(x[:, lanes - 1].contiguous())
     check(same_bits(col, got[:, lanes - 1].contiguous()),
-          f"csr_spmm_sum {label} {precision}: a column alone is not its "
-          f"bits inside {lanes} lanes")
+          f"{what}: a column alone is not its bits inside {lanes} lanes")
     n_seg = ptr.numel() - 1
-    n_edges = int(ptr[-1]) - int(ptr[0])
-    t, by = bound_ms(spmm_bytes(n_edges, n_seg, lanes),
-                     2.0 * n_edges * lanes)
+    longest_run = int((ptr[1:] - ptr[:-1]).max()) if n_seg else 0
+    check(longest == longest_run,
+          f"{what}: given longest run {longest}, has {longest_run}")
     lo, hi = int(ptr[0]), int(ptr[-1])
-    crow = (ptr - lo).contiguous()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")     # torch's beta-state notices
-        mat = torch.sparse_csr_tensor(crow, g[lo:hi].contiguous(),
-                                      w[lo:hi].contiguous(),
-                                      size=(n_seg, n_in))
+    n_edges = hi - lo
+    x_rows = n_edges if g is None else int(torch.unique(g[lo:hi]).numel())
+    t, by = bound_ms(spmm_bytes(
+        n_edges, n_seg, lanes, x_rows,
+        index_bytes=0 if g is None else g.element_size(),
+        weight_bytes=0 if w is None else 4, ptr_bytes=ptr.element_size()),
+        (2.0 if mul == "times" else 1.0) * n_edges * lanes)
     ids = torch.repeat_interleave(
         torch.arange(n_seg, device=x.device), (ptr[1:] - ptr[:-1]).long())
-    vals = x[g[lo:hi]] * w[lo:hi].unsqueeze(1)
+    vals = x[lo:hi] if g is None else x[g[lo:hi]]
+    if w is not None:
+        vals = vals * w[lo:hi].unsqueeze(1)
+    index_add_ms = cuda_ms(lambda: torch.zeros(
+        n_seg, lanes, device=x.device).index_add_(0, ids, vals), 5)
     line = {
-        "runs": label, "precision": precision, "lanes": lanes,
-        "n_seg": n_seg, "n_edges": n_edges, "bit_equal": True,
-        "lanes_independent": True, "rerun_equal": True, "max_abs_err": 0.0,
+        "runs": label, "mul": mul, "precision": precision, "lanes": lanes,
+        "ptr": str(ptr.dtype).replace("torch.", ""),
+        "g": None if g is None else str(g.dtype).replace("torch.", ""),
+        "n_seg": n_seg, "n_edges": n_edges, "x_rows": x_rows,
+        "longest_run": longest_run,
+        "bit_equal": True, "lanes_independent": True, "rerun_equal": True,
+        "max_abs_err": 0.0,
         "ms": device_ms(k1, 10),
+        "previous_ms": PREVIOUS_K1_MS.get((label, precision, lanes)),
         "plain_ms": cuda_ms(lambda: SC.csr_spmm_sum_reference(
-            x, ptr, g, w, precision=precision), 3),
+            x, ptr, g, w, mul=mul, precision=precision), 3),
         "bound_ms": t, "bound_by": by,
-        "library_ms": cuda_ms(lambda: mat @ x, 5),
-        "library": "torch.sparse_csr_tensor(ptr, g, w) @ x (f32)",
-        "index_add_ms": cuda_ms(lambda: torch.zeros(
-            n_seg, lanes, device=x.device).index_add_(0, ids, vals), 5)}
+        "index_add_ms": index_add_ms}
+    if longest <= SC.long_run():
+        check(same_bits(k1(longest=None), got),
+              f"{what}: the two-role launch is not the short one's bits")
+        line["two_role_ms"] = device_ms(lambda: k1(longest=None), 10)
+    if g is not None and w is not None:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # torch's beta-state notices
+            mat = torch.sparse_csr_tensor(
+                (ptr - lo).contiguous(), g[lo:hi].contiguous(),
+                w[lo:hi].contiguous(), size=(n_seg, n_in))
+        line["library_ms"] = cuda_ms(lambda: mat @ x, 5)
+        line["library"] = "torch.sparse_csr_tensor(ptr, g, w) @ x (f32)"
+    else:
+        line["library_ms"] = index_add_ms
+        line["library"] = "index_add_ of the contributions"
     return line
 
 
@@ -1624,6 +1681,7 @@ def lane_sum_line(a, m) -> dict:
     return {"lanes": lanes, "rows": n, "bit_equal": True,
             "lanes_independent": True, "max_abs_err": 0.0,
             "ms": device_ms(lambda: SC.lane_sum(a, m=m), 20),
+            "previous_ms": PREVIOUS_K2_MS.get(lanes),
             "plain_ms": cuda_ms(lambda: SC.lane_sum_reference(a, m=m), 5),
             "bound_ms": t, "bound_by": by,
             "library_ms": cuda_ms(lambda: torch.sum(a * m.unsqueeze(1),
@@ -1632,10 +1690,28 @@ def lane_sum_line(a, m) -> dict:
             "at": "dot form (the dangling mass)"}
 
 
+def straddle_lengths(n_runs: int, seed: int) -> np.ndarray:
+    """Run lengths around K1's short/long bound T (T - 1, T, T + 1, 2T,
+    32T + 1), mixed with empty runs."""
+    from memgraph_tpu_torch.ops.segment_cuda import long_run
+    T = long_run()
+    rng = np.random.default_rng(seed)
+    return rng.choice([0, 0, T - 1, T, T + 1, 2 * T, 32 * T + 1], n_runs)
+
+
+def star_lengths() -> np.ndarray:
+    """A star into one node, 2^20 + 5 in-edges, between short runs."""
+    return np.array([0, 3, 2**20 + 5, 0, 7, 1])
+
+
 def phase_segment_kernels(base: dict):
     """K1 and K2 on the north star against their plain versions: CSC runs
     (the pull matvec) and CSR runs (the reversed one), f32 and bf16, 1, 3
-    and 32 lanes; bit-equal, lane-independent, rerun-equal; timed."""
+    and 32 lanes; then K1 where its design can break: run lengths
+    straddling the short/long bound, one run of 2^20 + 5, the no-gather
+    form (``g=None``, ⊗ = first, as ``semiring._float_sum`` launches it)
+    and int64 offsets and indices.  Bit-equal, lane-independent,
+    rerun-equal; timed."""
     import torch
     graph = base["graph"]
     rng = np.random.default_rng(PPR_SEED)
@@ -1643,12 +1719,14 @@ def phase_segment_kernels(base: dict):
     for lanes in SEG_LANES:
         x = torch.from_numpy(rng.random((graph.n_pad, lanes),
                                         dtype=np.float32)).cuda()
-        for label, ptr, g, w in (
-                ("csc", graph.csc_runs(), graph.csc_src, graph.csc_weights),
-                ("csr", graph.row_ptr, graph.col_idx, graph.weights)):
+        for label, ptr, g, w, longest in (
+                ("csc", graph.csc_runs(), graph.csc_src, graph.csc_weights,
+                 graph.longest_csc_run),
+                ("csr", graph.row_ptr, graph.col_idx, graph.weights,
+                 graph.longest_csr_run)):
             for precision in ("f32", "bf16"):
                 line = segment_kernel_line(label, x, ptr, g, w, precision,
-                                           graph.n_pad)
+                                           graph.n_pad, longest)
                 print("segment_kernels", json.dumps(line), flush=True)
                 k1.append(line)
     k2 = []
@@ -1660,6 +1738,39 @@ def phase_segment_kernels(base: dict):
         line = lane_sum_line(a, m)
         print("segment_kernels", json.dumps({"lane_sum": line}), flush=True)
         k2.append(line)
+
+    def shape(label, x, ptr, g, w, lanes_list, longest, precisions=("f32",),
+              mul="times", n_in=graph.n_pad):
+        for lanes in lanes_list:
+            xl = x[:, :lanes].contiguous()
+            for precision in precisions:
+                line = segment_kernel_line(label, xl, ptr, g, w, precision,
+                                           n_in, longest, mul=mul)
+                print("segment_kernels", json.dumps(line), flush=True)
+                k1.append(line)
+
+    rng = np.random.default_rng(PPR_SEED + 1)
+    x = torch.from_numpy(rng.random((graph.n_pad, max(SEG_LANES)),
+                                    dtype=np.float32)).cuda()
+    csc = graph.csc_runs()
+    shape("csc_int64", x, csc.long(), graph.csc_src.long(),
+          graph.csc_weights, (1, 3), graph.longest_csc_run)
+    edges = int(csc[-1])
+    per_edge = torch.from_numpy(rng.random((edges, 3),
+                                           dtype=np.float32)).cuda()
+    shape("csc_no_gather", per_edge, csc, None, None, (1, 3),
+          graph.longest_csc_run, mul="first", n_in=edges)
+    del per_edge
+    for label, lengths in (("straddle", straddle_lengths(2**13, 5)),
+                           ("star", star_lengths())):
+        ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])
+                               .astype(np.int32)).cuda()
+        n = int(ptr[-1])
+        g = torch.from_numpy(rng.integers(0, graph.n_pad, n)
+                             .astype(np.int32)).cuda()
+        w = torch.from_numpy(rng.random(n, dtype=np.float32)).cuda()
+        shape(label, x, ptr, g, w, SEG_LANES, int(lengths.max()),
+              precisions=("f32", "bf16"))
     return {"csr_spmm_sum": k1, "lane_sum": k2}
 
 
@@ -1684,7 +1795,11 @@ def segment_kernel_entries(lines: dict, mxu: dict, by_path: dict) -> list:
             "max_abs_err": max(ln["max_abs_err"] for ln in shapes),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "at": at, "shapes": shapes})
+            "library_ms": main["library_ms"], "at": at,
+            # measured in this run only: the previous design's times stay
+            # on the segment_kernels lines
+            "shapes": [{k: v for k, v in ln.items() if k != "previous_ms"}
+                       for ln in shapes]})
     return out
 
 

@@ -57,6 +57,10 @@ class DeviceGraph:
                 snapshot can diff its edges against this one for the
                 O(delta) MXU plan refresh (spmv_mxu.DeltaPlan) without
                 copying the edges back from the device
+    longest_csr_run / longest_csc_run: the longest run of ``row_ptr`` /
+                ``csc_runs()`` (the largest out- / in-degree), counted
+                once on the host when the graph is built; the run sum
+                (ops/segment_cuda.py) takes its launch shape from it
     """
 
     row_ptr: object
@@ -76,6 +80,8 @@ class DeviceGraph:
     gid_to_idx: dict = field(repr=False, hash=False, compare=False)
     host_coo: tuple = field(default=None, repr=False, hash=False,
                             compare=False)
+    longest_csr_run: Optional[int] = None
+    longest_csc_run: Optional[int] = None
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -167,7 +173,15 @@ def from_coo(src: np.ndarray, dst: np.ndarray,
                        n_pad=n_pad, e_pad=e_pad,
                        node_gids=node_gids, gid_to_idx=gid_to_idx,
                        host_coo=(src.astype(np.int32), dst.astype(np.int32),
-                                 weights))
+                                 weights),
+                       longest_csr_run=_longest_run(row_ptr),
+                       longest_csc_run=_longest_run(
+                           np.minimum(col_ptr, n_edges)))
+
+
+def _longest_run(ptr) -> int:
+    """The longest run of host offsets ``ptr``."""
+    return int(np.diff(ptr).max(initial=0))
 
 
 def _csr_csc_numpy(src, dst, weights, n_nodes, n_pad, e_pad):

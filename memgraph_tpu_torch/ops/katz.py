@@ -88,7 +88,7 @@ def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
     x, err, iters = S.fixpoint(
         "plus_times",
         arrays={"src": g.csc_src, "dst": g.csc_dst, "w": g.csc_weights,
-                "dst_ptr": g.csc_runs()},
+                "dst_ptr": g.csc_runs(), "dst_longest": g.longest_csc_run},
         params={"n_nodes": g.n_nodes, "alpha": f32_scalar(alpha, dev),
                 "beta": f32_scalar(beta, dev), "tol": np.float32(tol)},
         n_out=g.n_pad, setup=_katz_setup, epilogue=_katz_epilogue,
@@ -111,10 +111,10 @@ def _hits_step(x, A, env, P, n_out):
     valid_f = env["valid_f"]
     new_auth = _l2_normalized(S.spmv(
         "plus_times", hub, A["csrc"], A["cdst"], A["cw"], n_out=n_out,
-        sorted=True, ptr=A["cptr"]) * valid_f)
+        sorted=True, ptr=A["cptr"], longest=A["clongest"]) * valid_f)
     new_hub = _l2_normalized(S.spmv(
         "plus_times", new_auth, A["dst"], A["src"], A["w"], n_out=n_out,
-        sorted=True, ptr=A["rptr"]) * valid_f)
+        sorted=True, ptr=A["rptr"], longest=A["rlongest"]) * valid_f)
     return new_hub, new_auth
 
 
@@ -141,8 +141,9 @@ def hits(graph: DeviceGraph, max_iterations: int = 100, tol: float = 1e-6,
     (hub, auth), err, iters = S.fixpoint(
         "plus_times",
         arrays={"src": g.src_idx, "dst": g.col_idx, "w": g.weights,
-                "rptr": g.row_ptr, "csrc": g.csc_src, "cdst": g.csc_dst,
-                "cw": g.csc_weights, "cptr": g.csc_runs()},
+                "rptr": g.row_ptr, "rlongest": g.longest_csr_run,
+                "csrc": g.csc_src, "cdst": g.csc_dst, "cw": g.csc_weights,
+                "cptr": g.csc_runs(), "clongest": g.longest_csc_run},
         params={"n_nodes": g.n_nodes, "tol": np.float32(tol)},
         n_out=g.n_pad, setup=_hits_setup, step=_hits_step,
         epilogue=_hits_epilogue, max_iterations=max_iterations)

@@ -62,7 +62,8 @@ def _hoisted(A, valid, n_out):
     the dangling mask, from the CSR weight sums (over ``row_ptr``'s
     runs)."""
     wsum = S.edge_reduce("sum", A["csr_w"], A["csr_src"], n_out,
-                         sorted=True, ptr=A["csr_ptr"])
+                         sorted=True, ptr=A["csr_ptr"],
+                         longest=A.get("csr_longest"))
     inv_wsum = torch.where(wsum > 0, 1.0 / torch.clamp(wsum, min=1e-30),
                            torch.zeros_like(wsum))
     dangling_f = (valid & (wsum <= 0)).to(torch.float32)
@@ -442,10 +443,12 @@ def f32_scalar(v, dev):
 
 def _pull_arrays(g: DeviceGraph) -> dict:
     """The edge arrays of a pull (CSC) plus-times fixpoint, with the run
-    offsets of the true edges: ``dst_ptr`` (CSC) and ``csr_ptr`` (CSR)."""
+    offsets of the true edges: ``dst_ptr`` (CSC) and ``csr_ptr`` (CSR),
+    and the longest run of each (``dst_longest``, ``csr_longest``)."""
     return {"src": g.csc_src, "dst": g.csc_dst, "w": g.csc_weights,
-            "dst_ptr": g.csc_runs(), "csr_src": g.src_idx,
-            "csr_w": g.weights, "csr_ptr": g.row_ptr}
+            "dst_ptr": g.csc_runs(), "dst_longest": g.longest_csc_run,
+            "csr_src": g.src_idx, "csr_w": g.weights, "csr_ptr": g.row_ptr,
+            "csr_longest": g.longest_csr_run}
 
 
 # ---------------------------------------------------------------------------
@@ -587,7 +590,7 @@ def personalized_pagerank_batch(graph: DeviceGraph, source_sets,
     while it < max_iterations and not bool(done.all()):
         acc = S.spmv("plus_times", x, A["src"], A["dst"], env["w"],
                      n_out=g.n_pad, sorted=True, precision=precision,
-                     ptr=A["dst_ptr"])
+                     ptr=A["dst_ptr"], longest=A["dst_longest"])
         new_x, new_err = _ppr_epilogue(x, acc, env, P)
         # freeze converged lanes: their iterate is exactly the
         # sequential loop's stopping state

@@ -21,6 +21,23 @@ Each is bit-equal to its plain version (``*_reference``) and gives a
 column the same bits alone or beside other lanes.  The plain version of K1
 is ``index_add_`` in edge order on the CPU, which adds sequentially.
 
+The designs (one launch a call each; the order of the adds is the
+contract, what they spread is the loads):
+  K1  short runs (at most ``long_run()`` elements) get a thread a (run,
+      lane); longer ones a warp of the long role (the first blocks of the
+      launch), whose lanes copy a chunk of run elements at once by
+      cp.async into a ring in shared memory, chunks ahead of the adds,
+      which stay in run order.  The caller may pass the longest run
+      (a graph records its own once, ``DeviceGraph.longest_csc_run`` /
+      ``longest_csr_run``): when no run is long, the launch is the short
+      walk alone, with no long role and no ring.  The kernel's C entry
+      decides the launch shape.
+  K2  a warp reduces a chunk of a column in registers and shuffles (lane t
+      holds rows 32k + t; replayed by ``lane_sum_schedule``); the block
+      that arrives last at a chunk of the next level reduces it, so every
+      level runs in the one launch.  Its tickets are a zeroed buffer a
+      stream, which every call leaves zeroed.
+
 The wrappers take the plain version for a CPU tensor; for a CUDA tensor
 they launch the kernel (and count the launch in ``.launches``) or raise.
 Nothing falls back.
@@ -35,6 +52,10 @@ import torch
 
 #: rows a lane_sum chunk reduces (kChunk in csrc/segment.cu)
 CHUNK = 256
+#: lanes a lane_sum block holds (kLaneTile), past WARP_LANES lanes; up to
+#: WARP_LANES, lane_sum runs by warps alone (kWarpLanes)
+LANE_TILE = 32
+WARP_LANES = 8
 
 _MULS = {"first": 0, "times": 1}
 _FORMS = {"sum": 0, "dot": 1, "l1": 2}
@@ -112,6 +133,58 @@ def lane_sum_reference(a, b=None, m=None):
 
 
 # ---------------------------------------------------------------------------
+# lane_sum's scratch and schedule (replayed on the CPU by the tests)
+# ---------------------------------------------------------------------------
+
+def lane_sum_scratch(rows: int, lanes: int):
+    """K2's scratch: (floats, tickets) — the partials of every level after
+    the first, and a ticket counter a chunk of those levels and lane
+    tile."""
+    tiles = 1 if lanes <= WARP_LANES else -(-lanes // LANE_TILE)
+    floats = tickets = 0
+    r = rows
+    while True:
+        chunks = max(1, -(-r // CHUNK))
+        if chunks == 1:
+            return floats, tickets
+        r = chunks
+        floats += r * lanes
+        tickets += max(1, -(-r // CHUNK)) * tiles
+
+
+def lane_sum_schedule(a, b=None, m=None):
+    """K2 replayed as the kernel computes it: each chunk of a column by a
+    warp (from device memory up to WARP_LANES lanes, else from the block's
+    shared copy), lane t holding rows 32k + t in v[k]; h = 128, 64, 32 as
+    adds of registers (v[k] += v[k+4], v[k] += v[k+2], v[0] += v[1]),
+    h = 16 .. 1 as ``__shfl_down_sync`` (a lane past 31 reads its own
+    value), lane 0's value the chunk's; then the partials, level by
+    level."""
+    v = _lane_form(a, b, m)
+    lanes = v.shape[1]
+    t = torch.arange(32)
+    while True:
+        rows = v.shape[0]
+        chunks = max(1, -(-rows // CHUNK))
+        pad = chunks * CHUNK - rows
+        if pad:
+            v = torch.cat([v, v.new_zeros(pad, lanes)])
+        reg = list(v.view(chunks, 8, 32, lanes).unbind(1))
+        for k in range(4):
+            reg[k] = reg[k] + reg[k + 4]
+        for k in range(2):
+            reg[k] = reg[k] + reg[k + 2]
+        lane_v = reg[0] + reg[1]
+        for h in (16, 8, 4, 2, 1):
+            src = torch.where(t + h < 32, t + h, t)
+            lane_v = lane_v + lane_v[:, src]
+        v = lane_v[:, 0]
+        if chunks == 1:
+            out = v[0]
+            return out if a.dim() > 1 else out.view(())
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -122,18 +195,41 @@ def _lib():
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.csr_spmm_sum.restype = i32
     lib.csr_spmm_sum.argtypes = [vp, vp, i32, vp, i32, vp, vp, i64, i32,
-                                 i32, i32, vp]
+                                 i32, i32, i64, vp]
     lib.lane_sum.restype = i32
-    lib.lane_sum.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, vp]
+    lib.lane_sum.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, i64, i32, i32,
+                             vp]
+    lib.segment_long_run.restype = i32
+    lib.segment_long_run.argtypes = []
     lib.segment_error_string.restype = ctypes.c_char_p
     lib.segment_error_string.argtypes = [i32]
     return lib
+
+
+def long_run() -> int:
+    """The longest run that csr_spmm_sum's short walk takes beside a long
+    role (kLong in csrc/segment.cu); builds the kernels."""
+    return _lib().segment_long_run()
 
 
 def _raise_on(rc: int, name: str):
     if rc != 0:
         msg = _lib().segment_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+#: (device index, stream) -> int32 ticket counters of lane_sum, zeroed once
+#: and left zeroed by every call on that stream
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int, n: int):
+    key = (device.index, stream)
+    held = _TICKETS.get(key)
+    if held is None or held.numel() < n:
+        held = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _TICKETS[key] = held
+    return held
 
 
 def _on_card(x, name: str) -> bool:
@@ -180,13 +276,17 @@ def _check_spmm(x, ptr, g, w, mul, precision):
 
 
 def csr_spmm_sum(x, ptr, g=None, w=None, *, mul: str = "times",
-                 precision: str = "f32"):
+                 precision: str = "f32", longest: int | None = None):
     """K1: the run sums of ``r(x[g[e]] ⊗ w[e])``, (n_seg,) for a 1-D x and
     (n_seg, B) for an (n_in, B) one, n_seg = len(ptr) - 1.  ``ptr`` holds
     non-decreasing offsets into the run elements (``g``'s, or x's rows
-    when g is None); the kernel trusts them and g's rows.  CUDA: one
-    launch.  CPU: the plain version."""
+    when g is None); the kernel trusts them and g's rows.  ``longest``:
+    the longest run, when the caller knows it (None: unknown); it picks
+    the launch shape and never the result.  CUDA: one launch.  CPU: the
+    plain version."""
     _check_spmm(x, ptr, g, w, mul, precision)
+    if longest is not None and longest < 0:
+        raise ValueError(f"longest is a run length, not {longest}")
     if not _on_card(x, "csr_spmm_sum"):
         return csr_spmm_sum_reference(x, ptr, g, w, mul=mul,
                                       precision=precision)
@@ -204,6 +304,7 @@ def csr_spmm_sum(x, ptr, g=None, w=None, *, mul: str = "times",
         int(g is not None and g.dtype == torch.int64),
         None if w is None else w.data_ptr(), y.data_ptr(), n_seg, lanes,
         _MULS[mul], int(precision == "bf16"),
+        -1 if longest is None else int(longest),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "csr_spmm_sum")
     csr_spmm_sum.launches += 1
@@ -216,8 +317,7 @@ csr_spmm_sum.launches = 0
 def lane_sum(a, b=None, m=None):
     """K2: per lane, Σ a (no b, no m), Σ a·m (m one value a row) or
     Σ |a − b|; a (n, B) -> (B,), a 1-D a -> a 0-d tensor.  CUDA: one
-    call (one launch a level of the tree, counted once).  CPU: the plain
-    version."""
+    launch for every level of the tree.  CPU: the plain version."""
     if a.dtype != torch.float32 or a.dim() not in (1, 2):
         raise TypeError("lane_sum reduces a float32 (n,) or (n, B) tensor, "
                         f"not {a.dtype} {tuple(a.shape)}")
@@ -238,14 +338,16 @@ def lane_sum(a, b=None, m=None):
     rows = a.shape[0]
     lanes = 1 if a.dim() == 1 else a.shape[1]
     out = torch.empty(lanes, dtype=torch.float32, device=a.device)
-    partials = max(1, -(-rows // CHUNK)) * lanes
-    scratch = torch.empty(2 * partials, dtype=torch.float32,
+    floats, n_tickets = lane_sum_scratch(rows, lanes)
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32,
                           device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    tickets = _tickets(a.device, stream, n_tickets)
     rc = _lib().lane_sum(
         a.data_ptr(), None if b is None else b.data_ptr(),
         None if m is None else m.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), scratch[partials:].data_ptr(), rows, lanes,
-        _FORMS[form], torch.cuda.current_stream(a.device).cuda_stream)
+        scratch.data_ptr(), floats, tickets.data_ptr(), tickets.numel(),
+        rows, lanes, _FORMS[form], stream)
     _raise_on(rc, "lane_sum")
     lane_sum.launches += 1
     return out if a.dim() > 1 else out.view(())

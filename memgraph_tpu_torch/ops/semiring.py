@@ -171,10 +171,11 @@ def _empty_value(kind: str, dtype):
     return info.max if kind == "min" else info.min
 
 
-def _float_sum(vals, ids, num_segments: int, sorted: bool, ptr):
+def _float_sum(vals, ids, num_segments: int, sorted: bool, ptr, longest):
     """A float32 segment sum through the deterministic run sum: runs from
-    ``ptr``, else from the sorted ids (stably sorted first when they are
-    not), so each segment adds in edge order from 0.0."""
+    ``ptr`` (``longest`` its longest run, when known), else from the
+    sorted ids (stably sorted first when they are not), so each segment
+    adds in edge order from 0.0."""
     if vals.dtype != torch.float32:
         raise TypeError(f"float segment sums run in float32, not "
                         f"{vals.dtype}")
@@ -182,22 +183,25 @@ def _float_sum(vals, ids, num_segments: int, sorted: bool, ptr):
         if not sorted:
             order = torch.sort(ids, stable=True).indices
             vals, ids = vals[order], ids[order]
-        ptr = SC.segment_runs(ids, num_segments)
-    return SC.csr_spmm_sum(vals, ptr, mul="first")
+        ptr, longest = SC.segment_runs(ids, num_segments), None
+    return SC.csr_spmm_sum(vals, ptr, mul="first", longest=longest)
 
 
 def edge_reduce(kind, vals, ids, num_segments: int, sorted: bool = False,
-                *, ptr=None):
+                *, ptr=None, longest=None):
     """⊕ segment reduction of per-edge ``vals`` ((e,) or (e, d)) by their
     segment ``ids``.  ``sorted``: the ids are non-decreasing.  ``ptr``
     (port only): the sum's run offsets when a graph has them at hand
-    (``col_ptr`` for CSC keys, ``row_ptr`` for CSR keys).  Empty segments
+    (``csc_runs()`` for CSC keys, ``row_ptr`` for CSR keys), and
+    ``longest`` their longest run (the graph's ``longest_csc_run`` /
+    ``longest_csr_run``), which shapes the sum's launch.  Empty segments
     get 0 (sum), the dtype's extreme (+inf / -inf for floats, the integer
     limits otherwise) for min / max, and False for or."""
     shape = (num_segments,) + tuple(vals.shape[1:])
     if kind == "sum":
         if vals.dtype.is_floating_point:
-            return _float_sum(vals, ids, num_segments, sorted, ptr)
+            return _float_sum(vals, ids, num_segments, sorted, ptr,
+                              longest)
         # integer sums are exact in any order
         out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
         return out.index_add_(0, ids, vals)
@@ -247,7 +251,7 @@ def combine_accumulators(sr, a, b):
 
 def spmv(sr, x, src, dst, w=None, *, n_out: int, sorted: bool = False,
          mask=None, mask_fill=None, precision: str = "f32", frontier=None,
-         ptr=None):
+         ptr=None, longest=None):
     """One semiring matvec ``y = A^T ⊕.⊗ x`` over COO edge arrays.
 
       sr         semiring name or Semiring
@@ -263,8 +267,8 @@ def spmv(sr, x, src, dst, w=None, *, n_out: int, sorted: bool = False,
                  reference dequantizes per edge)
       frontier   (n,) bool — push-mode source masking: only edges whose
                  src is in the frontier contribute
-      ptr        (port only) the run offsets of dst for a sum
-                 (``edge_reduce``)
+      ptr        (port only) the run offsets of dst for a sum, and
+      longest    its longest run (``edge_reduce``)
 
     An unmasked float32 plus-times or plus-first sum over sorted keys (or
     given runs) is one launch of the run sum with the gather fused in;
@@ -283,10 +287,11 @@ def spmv(sr, x, src, dst, w=None, *, n_out: int, sorted: bool = False,
             and x.dtype == torch.float32 and (sorted or ptr is not None)
             and (w is None or w.dtype == torch.float32)):
         if ptr is None:
-            ptr = SC.segment_runs(dst, n_out)
+            ptr, longest = SC.segment_runs(dst, n_out), None
         return SC.csr_spmm_sum(
             x, ptr, src, w if sr.mul == "times" else None, mul=sr.mul,
-            precision="bf16" if precision == "bf16" else "f32")
+            precision="bf16" if precision == "bf16" else "f32",
+            longest=longest)
     vals = edge_combine(sr, x[src], w)
     if precision == "bf16":
         vals = vals.to(torch.bfloat16).to(torch.float32)
@@ -297,7 +302,8 @@ def spmv(sr, x, src, dst, w=None, *, n_out: int, sorted: bool = False,
         if vals.dim() > 1:
             sel = sel.view((-1,) + (1,) * (vals.dim() - 1))
         vals = torch.where(sel, vals, fill)
-    return edge_reduce(sr.add, vals, dst, n_out, sorted=sorted, ptr=ptr)
+    return edge_reduce(sr.add, vals, dst, n_out, sorted=sorted, ptr=ptr,
+                       longest=longest)
 
 
 # ---------------------------------------------------------------------------
@@ -329,11 +335,12 @@ def _default_step(sr, A, env, x, P, *, n_out, sorted, sorted_backward,
                   direction, precision):
     w = env.get("w", A.get("w"))
     acc = spmv(sr, x, A["src"], A["dst"], w, n_out=n_out, sorted=sorted,
-               precision=precision, ptr=A.get("dst_ptr"))
+               precision=precision, ptr=A.get("dst_ptr"),
+               longest=A.get("dst_longest"))
     if direction == "both":
         acc_b = spmv(sr, x, A["dst"], A["src"], w, n_out=n_out,
                      sorted=sorted_backward, precision=precision,
-                     ptr=A.get("src_ptr"))
+                     ptr=A.get("src_ptr"), longest=A.get("src_longest"))
         acc = combine_accumulators(sr, acc, acc_b)
     return acc
 
@@ -356,8 +363,9 @@ def fixpoint(sr, *, arrays, params=None, x0=None, n_out: int, epilogue,
     ``direction="both"`` ⊕-combines the matvec over the reversed edges
     (``sorted_backward``: src is non-decreasing).  A ⊕ = sum default step
     walks the runs the arrays carry (``dst_ptr``, ``src_ptr``: a graph's
-    ``csc_runs()`` or ``row_ptr``), else finds them in the sorted keys
-    each iteration.
+    ``csc_runs()`` or ``row_ptr``, with their longest runs ``dst_longest``
+    and ``src_longest``), else finds them in the sorted keys each
+    iteration.
 
     Returns (x, metric as a float or bool, iterations).
     """
