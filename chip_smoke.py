@@ -55,9 +55,11 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    trip of the transpose after it; for big_matmul its FMAs over 256
    flop/clock on every SM).  One ``micro`` line per kernel and size.
 4. Main path at the north-star size: a skewed digraph of 1,000,000 nodes
-   and 10,000,000 edges from seed 7 (``dst = rand**2 * n``), ``from_coo``
-   (which must go through the native CSR builder) ->
-   ``to_device("cuda")`` -> ``ops.pagerank.pagerank`` with 50
+   and 10,000,000 edges from seed 7 (``dst = rand**2 * n``) held by a
+   versioned ``northstar.CooSource``, snapshot v0 from
+   ``ops.csr.GraphCache.get`` (one full export, whose ``from_coo`` must
+   go through the native CSR builder, placed on the card) ->
+   ``ops.pagerank.pagerank`` with 50
    iterations at damping 0.85 and tol 0, in f32 and in bf16 (one MXU
    plan serves both).  Launch counts are reset just before and read just
    after, and must equal what the plan's networks imply.  f32 ranks
@@ -69,13 +71,15 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    timed there (the stage kernels ``benes_mid`` and ``benes_outer``,
    which run only at placement, fed the same packed rows that were
    composed).
-5. Snapshot refresh: the main path's graph mutated from seed 11 (5,000
-   edges removed, 5,000 added on the graph's skew, 8 nodes emptied of
-   out-edges, 8 dangling nodes given one), ``from_coo`` of the successor
-   with the same node gids (native builder), placed on the card and
-   marked with ``_delta_ctx`` as ``GraphCache.get`` marks it; PageRank at
-   f32 and bf16, cold and warm, with launch counts reset just before and
-   read just after.  It fails if ``build_plan`` ran, if the runs did not
+5. Snapshot refresh: a commit to the source of the main path's mutation
+   from seed 11 (5,000 edges removed, 5,000 added on the graph's skew, 8
+   nodes emptied of out-edges, 8 dangling nodes given one), and its
+   snapshot v1 from ``GraphCache.get``: it must come by
+   ``export_csr_delta`` from v0 (native builder), equal a full export of
+   v1 array for array, and carry ``_delta_ctx = (v0, the commit's changed
+   gids)``.  PageRank at f32 and bf16, cold and warm, with launch counts
+   reset just before and read just after.  It fails if ``build_plan`` ran,
+   if the runs did not
    share the base plan's placed routes, if the launches are not base +
    delta per iteration plus the delta's placement, if f32 leaves the
    main path's bounds against float64 on the mutated graph, if bf16
@@ -148,7 +152,43 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    ``multi_source_sssp`` (8 sources) and ``khop_neighborhood`` (k = 2)
    exact; seconds a call.  No hand-written kernel is on this path (min
    is exact: ``scatter_reduce_``).
-11. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+11. (after the refresh, before the segment sums) The snapshot lineage
+   (``snapshot`` line): v2, a second commit (1,000 edges removed and
+   1,000 added, seed 13), must come by the delta export from v1, equal a
+   full export, and anchor on v0 with the gids changed since v0; its
+   PageRank (f32 and bf16, cold and warm, counts reset just before and
+   read just after) must refresh from v0's base plan with no
+   ``build_plan``, f32 within the main path's bounds of float64, bf16
+   within ``PRECISION_BOUNDS``.  Then every procedure counterpart
+   (``memgraph_tpu_torch/procedures/graph_algorithms.py``) once on v2
+   through the source, each returning host numpy (``procedures`` line,
+   seconds a call); ``pagerank.get`` held by gid to a converged float64
+   run (L1 within its stopping rule's bound), the WCC partition and the
+   BFS levels to scipy on v2's edges.  Then a wrapped change log (1,025 one-edge commits)
+   must give one full export, counted once in
+   ``delta.fallback_rebuild_total``, with no ``_delta_ctx``, and a
+   repeated ``get`` at one version the same object (``get_hit_us``).
+12. Label propagation (``labelprop`` line; undirected, 30 rounds at most,
+   counts reset just before and read just after): two north-star runs
+   bit-equal with equal rounds; the labels after round 3 and after the
+   last round equal to one numpy election (float64 run weights, the
+   reference's rules) of the card's labels a round earlier; on the
+   segment graph equal to a numpy run of every round, with equal rounds;
+   the directed mode once.  One K1 launch a round (its no-gather form);
+   the launches of the first and the last round are kept and held
+   bit-equal to the plain version on CPU copies of the same inputs.
+13. Betweenness (``betweenness`` line) on the north star: 8 sources from
+   seed 0, directed and undirected, and 64 directed sources, against a
+   float64 Brandes over the same sources (max error 1e-4 of the largest
+   score; top 100: the card's top 100 all within that error of the
+   reference's 100th score or above, the set overlap printed beside it;
+   each node scored above 1e-12 of the largest within 1e-3 relative);
+   the 64 sources twice, bit-equal.  K1 launches: two a level walked a
+   chunk.  The second 64-source run keeps its first chunk's widest
+   forward and backward launches (B = 46 real lanes, gathered, ⊗ =
+   first), held bit-equal to the plain version on CPU copies of the
+   same inputs and timed (``segment_kernels`` lines).
+14. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -941,26 +981,103 @@ def placement_guard():
         spmv_mxu._put_route = real_put
 
 
+@contextlib.contextmanager
+def snapshot_probe():
+    """Watch the snapshot layer (ops/csr.py) while a ``GraphCache.get``
+    runs: the seconds of each ``from_coo`` it calls, and the previous
+    snapshot of each delta export that succeeded.  Yields {"from_coo_s":
+    [...], "delta_from": [...]}."""
+    from memgraph_tpu_torch.ops import csr as CSR
+    real_from_coo, real_delta = CSR.from_coo, CSR.export_csr_delta
+    probe = {"from_coo_s": [], "delta_from": []}
+
+    def timed_from_coo(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_from_coo(*args, **kw)
+        probe["from_coo_s"].append(time.perf_counter() - t0)
+        return out
+
+    def seen_delta(prev, *args, **kw):
+        out = real_delta(prev, *args, **kw)
+        if out is not None:
+            probe["delta_from"].append(prev)
+        return out
+
+    CSR.from_coo, CSR.export_csr_delta = timed_from_coo, seen_delta
+    try:
+        yield probe
+    finally:
+        CSR.from_coo, CSR.export_csr_delta = real_from_coo, real_delta
+
+
+def timed_get(cache, source, **kw):
+    """(the snapshot GraphCache.get gives on the card, seconds to it on
+    the device, the snapshot probe)."""
+    import torch
+    with snapshot_probe() as probe:
+        t0 = time.perf_counter()
+        g = cache.get(source, device="cuda", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return g, secs, probe
+
+
+def check_same_arrays(got, want, what: str):
+    """A snapshot on the card equal, array for array, to a host one."""
+    from memgraph_tpu_torch.ops.csr import _ARRAYS
+    check(np.array_equal(got.node_gids, want.node_gids)
+          and (got.n_nodes, got.n_edges, got.n_pad, got.e_pad)
+          == (want.n_nodes, want.n_edges, want.n_pad, want.e_pad),
+          f"{what}: node gids or sizes differ from a full export")
+    for name in _ARRAYS:
+        check(np.array_equal(getattr(got, name).cpu().numpy(),
+                             getattr(want, name)),
+              f"{what}: {name} differs from a full export")
+
+
+@contextlib.contextmanager
+def counted_plan_builds():
+    """Count the ``spmv_mxu.build_plan`` calls made while the block runs;
+    yields the list of calls."""
+    from memgraph_tpu_torch.ops import spmv_mxu
+    real, calls = spmv_mxu.build_plan, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    spmv_mxu.build_plan = counted
+    try:
+        yield calls
+    finally:
+        spmv_mxu.build_plan = real
+
+
 def phase_main_path():
     import torch
-    from memgraph_tpu_torch.northstar import N_EDGES, N_NODES, generate_graph
+    from memgraph_tpu_torch.northstar import (N_EDGES, N_NODES, CooSource,
+                                              generate_graph)
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.csr import GraphCache
     from memgraph_tpu_torch.ops.native import build_csr_csc_native
     from memgraph_tpu_torch.ops.pagerank import pagerank
     from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
     src, dst = generate_graph()
-    served = build_csr_csc_native.served
     t0 = time.perf_counter()
-    host = from_coo(src, dst, n_nodes=N_NODES)
-    host_s = time.perf_counter() - t0
+    source = CooSource(src, dst, N_NODES)
+    source_s = time.perf_counter() - t0
+    cache = GraphCache()
+    served = build_csr_csc_native.served
+    # v0: the snapshot the main path runs on, a full export
+    graph, export_s, probe = timed_get(cache, source)
     check(build_csr_csc_native.served == served + 1,
           "the native CSR builder did not serve the north-star graph")
-    t0 = time.perf_counter()
-    graph = host.to_device("cuda")
-    torch.cuda.synchronize()
-    to_device_s = time.perf_counter() - t0
+    check(cache.counters["export.full"] == 1 and not probe["delta_from"]
+          and getattr(graph, "_delta_ctx", None) is None
+          and graph.n_nodes == N_NODES and graph.n_edges == N_EDGES,
+          f"v0 was not one full export of the north star: "
+          f"{cache.counters}")
 
     def drive(precision):
         t0 = time.perf_counter()
@@ -1024,8 +1141,8 @@ def phase_main_path():
 
     summary = {
         "n_nodes": N_NODES, "n_edges": N_EDGES, "iterations": ITERATIONS,
-        "from_coo_s": host_s, "from_coo_builder": "native",
-        "to_device_s": to_device_s,
+        "source_s": source_s, "export_s": export_s,
+        "from_coo_s": probe["from_coo_s"][0], "from_coo_builder": "native",
         "plan_build_s": state["plan_build_s"],
         "placement_s": {precisions[key[1]]: placed["placement_s"]
                         + state["runs"][key].placement_s
@@ -1057,73 +1174,61 @@ def phase_main_path():
              plan.node_masks_packed)):
         dtype = torch.bfloat16 if label == "edge_bf16" else torch.float32
         shapes[label] = route_kernels(label, route, packed, dtype)
-    base = {"src": src, "dst": dst, "host": host, "graph": graph,
+    base = {"src": src, "dst": dst, "source": source, "cache": cache,
+            "graph": graph, "v0_version": source.version,
             "ranks": {"f32": a32, "bf16": a16}, "summary": summary,
             "placed_keys": list(state["placed"])}
     return launches, shapes, base
 
 
 def phase_refresh(base: dict):
-    """A mutated successor of the main path's graph through the delta
-    path: no second plan build, the base routes shared, only the delta
-    net placed; f32 against float64 on the mutated graph, bf16 against
-    the f32 delta run."""
+    """A commit to the main path's source and its snapshot v1, which
+    GraphCache.get exports by the delta path and anchors on v0: equal to
+    a full export, no second plan build, the base routes shared, only
+    the delta net placed; f32 against float64 on the mutated graph, bf16
+    against the f32 delta run."""
     import torch
-    from memgraph_tpu_torch.northstar import N_NODES, mutate
+    from memgraph_tpu_torch.northstar import N_NODES, mutation
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    from memgraph_tpu_torch.ops import spmv_mxu
-    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.csr import export_csr
     from memgraph_tpu_torch.ops.native import build_csr_csc_native
     from memgraph_tpu_torch.ops.pagerank import pagerank
     from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
-    graph, host = base["graph"], base["host"]
+    graph, source, cache = base["graph"], base["source"], base["cache"]
     t0 = time.perf_counter()
-    src2, dst2, changed = mutate(base["src"], base["dst"], N_NODES)
+    drop, add_src, add_dst = mutation(base["src"], base["dst"], N_NODES)
     mutate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    changed = source.commit(add_src, add_dst, remove=np.flatnonzero(drop))
+    commit_s = time.perf_counter() - t0
     served = build_csr_csc_native.served
-    t0 = time.perf_counter()
-    succ_host = from_coo(src2, dst2, n_nodes=N_NODES,
-                         node_gids=host.node_gids)
-    from_coo_s = time.perf_counter() - t0
+    succ, export_delta_s, probe = timed_get(cache, source)
     check(build_csr_csc_native.served == served + 1,
-          "the native CSR builder did not serve the mutated graph")
+          "the native CSR builder did not serve the v1 snapshot")
+    check(cache.counters["export.delta"] == 1
+          and [g is graph for g in probe["delta_from"]] == [True],
+          f"v1 did not come by the delta export from v0: {cache.counters}")
+    ctx = getattr(succ, "_delta_ctx", None)
+    check(ctx is not None and ctx[0] is graph and ctx[1] == changed
+          == source.changes_between(base["v0_version"], source.version),
+          "v1's _delta_ctx is not (v0, the commit's changed gids)")
     t0 = time.perf_counter()
-    succ = succ_host.to_device("cuda")
-    torch.cuda.synchronize()
-    to_device_s = time.perf_counter() - t0
-    # as GraphCache.get marks a successor snapshot of a planned base
-    object.__setattr__(succ, "_delta_ctx", (graph, frozenset(
-        int(g) for g in host.node_gids[changed])))
+    full = export_csr(source, to_device=False)
+    export_full_s = time.perf_counter() - t0
+    check_same_arrays(succ, full, "v1 (delta export)")
+    src2, dst2, _ = full.host_coo
+    del full
 
-    real_build_plan, plan_builds = spmv_mxu.build_plan, []
-
-    def counted_build_plan(*args, **kw):
-        plan_builds.append(1)
-        return real_build_plan(*args, **kw)
-
-    def drive(precision):
-        t0 = time.perf_counter()
-        ranks, err, iters = pagerank(succ, damping=DAMPING,
-                                     max_iterations=ITERATIONS, tol=0.0,
-                                     precision=precision)
-        torch.cuda.synchronize()
-        check(iters == ITERATIONS, f"refresh {precision} ran {iters} "
-                                   f"iterations, not {ITERATIONS}")
-        return ranks, time.perf_counter() - t0
-
-    spmv_mxu.build_plan = counted_build_plan
-    try:
-        # the refresh path: counts set to 0 just before, read just after
-        with placement_guard() as placed_nets:
-            BC.reset_launch_counts()
-            r32, cold32 = drive("f32")
-            r16, cold16 = drive("bf16")
-            _, warm32 = drive("f32")
-            _, warm16 = drive("bf16")
-            launches = counts()
-    finally:
-        spmv_mxu.build_plan = real_build_plan
+    # the refresh path: counts set to 0 just before, read just after
+    with counted_plan_builds() as plan_builds, \
+            placement_guard() as placed_nets:
+        BC.reset_launch_counts()
+        r32, cold32 = drive_pagerank(succ, "f32")
+        r16, cold16 = drive_pagerank(succ, "bf16")
+        _, warm32 = drive_pagerank(succ, "f32")
+        _, warm16 = drive_pagerank(succ, "bf16")
+        launches = counts()
     check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) "
                            "for the successor snapshot")
 
@@ -1203,8 +1308,10 @@ def phase_refresh(base: dict):
         "n_delta": delta.n_delta, "changed_nodes": int(len(changed)),
         "delta": {"net_log2": delta.net_log2, "R_G": delta.R_G,
                   "C": delta.C},
-        "mutate_s": mutate_s, "from_coo_s": from_coo_s,
-        "from_coo_builder": "native", "to_device_s": to_device_s,
+        "mutate_s": mutate_s, "commit_s": commit_s,
+        "export_delta_s": export_delta_s,
+        "from_coo_s": probe["from_coo_s"][0], "from_coo_builder": "native",
+        "export_full_s": export_full_s,
         "diff_s": state["diff_s"], "delta_build_s": state["delta_build_s"],
         "placement_s": placement,
         "placement_split": {p: r.route_split for p, r in runs.items()},
@@ -1230,6 +1337,13 @@ def phase_refresh(base: dict):
                        "bf16_change_miss_l1": miss_l1,
                        "bf16_vs_base_f32_l1": to_base_l1}}
     print("refresh", json.dumps(summary), flush=True)
+    base["v1"] = succ
+    base["snapshot"] = {
+        "v1": {"changed": len(changed), "export_delta_s": export_delta_s,
+               "export_full_s": export_full_s,
+               "cold_iteration_ms": summary["cold_iteration_ms"],
+               "iteration_ms": summary["iteration_ms"],
+               "base_iteration_ms": summary["base_iteration_ms"]}}
 
     shapes = {}
     for p, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1320,36 +1434,26 @@ def phase_katz(base: dict):
     of two nets an iteration; f32 against float64, bf16 against f32."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
-    from memgraph_tpu_torch.ops import spmv_mxu
     from memgraph_tpu_torch.ops.katz import katz_centrality
     from memgraph_tpu_torch.ops.pagerank import pagerank
     from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
     graph = base["graph"]
     state = graph._mxu_state
-    real_build_plan, plan_builds = spmv_mxu.build_plan, []
-
-    def counted_build_plan(*args, **kw):
-        plan_builds.append(1)
-        return real_build_plan(*args, **kw)
-
     def katz(precision):
         return timed_run(lambda: katz_centrality(
             graph, alpha=KATZ_ALPHA, beta=KATZ_BETA,
             max_iterations=ITERATIONS, tol=-1.0, precision=precision))
 
-    spmv_mxu.build_plan = counted_build_plan
-    try:
-        # the katz path: counts set to 0 just before, read just after
-        with placement_guard() as placed_nets:
-            BC.reset_launch_counts()
-            (k32, _, it32), cold32 = katz("f32")
-            (k16, _, it16), cold16 = katz("bf16")
-            (_, _, it32w), warm32 = katz("f32")
-            (_, _, it16w), warm16 = katz("bf16")
-            launches = counts()
-    finally:
-        spmv_mxu.build_plan = real_build_plan
+    # the katz path: counts set to 0 just before, read just after
+    with counted_plan_builds() as plan_builds, \
+            placement_guard() as placed_nets:
+        BC.reset_launch_counts()
+        (k32, _, it32), cold32 = katz("f32")
+        (k16, _, it16), cold16 = katz("bf16")
+        (_, _, it32w), warm32 = katz("f32")
+        (_, _, it16w), warm16 = katz("bf16")
+        launches = counts()
     # PageRank in the same minute (not counted)
     pr_warm = {p: timed_run(lambda p=p: pagerank(
         graph, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0,
@@ -1548,6 +1652,61 @@ def all_counts() -> dict:
     return {**counts(), **seg_counts()}
 
 
+class K1Recorder:
+    """Stands in for ops/segment_cuda in one module's namespace while a
+    path runs: its ``csr_spmm_sum`` is the real one (which counts the
+    launch as the path's), and it keeps copies of the inputs, the keyword
+    arguments and the result of the calls that ``keep(x, ptr, g, w, kw)``
+    names (a key, or None); a call kept under a key replaces the one kept
+    there before."""
+
+    def __init__(self, sc, keep):
+        self._sc, self._keep, self.calls = sc, keep, {}
+
+    def __getattr__(self, name):
+        return getattr(self._sc, name)
+
+    def csr_spmm_sum(self, x, ptr, g=None, w=None, **kw):
+        y = self._sc.csr_spmm_sum(x, ptr, g, w, **kw)
+        key = self._keep(x, ptr, g, w, kw)
+        if key is not None:
+            self.calls[key] = {
+                "x": x.clone(), "ptr": ptr.clone(),
+                "g": None if g is None else g.clone(),
+                "w": None if w is None else w.clone(), "kw": dict(kw),
+                "y": y.clone()}
+        return y
+
+
+@contextlib.contextmanager
+def k1_recorded(module, keep):
+    """``module``'s K1 calls recorded (``K1Recorder``) while inside;
+    yields the calls kept, by key."""
+    rec = K1Recorder(module.SC, keep)
+    module.SC = rec
+    try:
+        yield rec.calls
+    finally:
+        module.SC = rec._sc
+
+
+def path_k1_lines(calls: dict, prefix: str, n_in=None) -> list:
+    """A ``segment_kernels`` line for each K1 call a path made (kept by
+    ``k1_recorded``): the path's launch held to its plain version on CPU
+    copies, and timed as ``segment_kernel_line`` times it."""
+    lines = []
+    for key, c in calls.items():
+        kw = c["kw"]
+        line = segment_kernel_line(
+            f"{prefix}_{key}", c["x"], c["ptr"], c["g"], c["w"],
+            kw.get("precision", "f32"),
+            c["x"].shape[0] if n_in is None else n_in, kw.get("longest"),
+            mul=kw.get("mul", "times"), launched=c["y"])
+        print("segment_kernels", json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
 # The previous designs' kernel times (a thread a run for K1, a launch a
 # level for K2; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W), printed beside
 # this run's at the shapes they were measured at: (runs, precision,
@@ -1572,18 +1731,22 @@ def spmm_bytes(n_edges: int, n_seg: int, lanes: int, x_rows: int,
 
 
 def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
-                        mul="times") -> dict:
+                        mul="times", launched=None) -> dict:
     """K1 on the card against its plain version on CPU copies, column by
     column against its 1-lane call, and against a second launch, given
     the longest run as the main path gives it (``longest``: a graph's
-    ``longest_csc_run`` / ``longest_csr_run``); timed, with the plain
-    version on the card and the library calls: a
-    ``torch.sparse_csr_tensor`` product (gathered, f32) and ``index_add_``
-    of the precomputed contributions.  Where no run is long, the launch
-    with the longest run unknown (the two-role kernel) is held to the
-    same bits and timed beside it (``two_role_ms``)."""
+    ``longest_csc_run`` / ``longest_csr_run``, or None where the path
+    does not give it); timed, with the plain version on the card and the
+    library calls: a ``torch.sparse_csr_tensor`` product (gathered, f32)
+    and ``index_add_`` of the precomputed contributions.  Where no run is
+    long, the launch with the longest run unknown (the two-role kernel)
+    is held to the same bits and timed beside it (``two_role_ms``).
+    ``launched``: the result of the path's own launch on these inputs,
+    held to the same bits.  A 1-D x is taken as one lane."""
     import torch
     from memgraph_tpu_torch.ops import segment_cuda as SC
+    if x.dim() == 1:
+        x = x.unsqueeze(1)
     lanes = x.shape[1]
 
     def k1(xx=x, longest=longest):
@@ -1601,12 +1764,14 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
     check(same_bits(got.cpu(), want),
           f"{what} is not its plain version's bits")
     check(same_bits(got, again), f"{what}: two launches differ")
+    check(launched is None or same_bits(launched.reshape(got.shape), got),
+          f"{what}: the path's own launch is not these bits")
     col = k1(x[:, lanes - 1].contiguous())
     check(same_bits(col, got[:, lanes - 1].contiguous()),
           f"{what}: a column alone is not its bits inside {lanes} lanes")
     n_seg = ptr.numel() - 1
     longest_run = int((ptr[1:] - ptr[:-1]).max()) if n_seg else 0
-    check(longest == longest_run,
+    check(longest is None or longest == longest_run,
           f"{what}: given longest run {longest}, has {longest_run}")
     lo, hi = int(ptr[0]), int(ptr[-1])
     n_edges = hi - lo
@@ -1625,6 +1790,7 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
         n_seg, lanes, device=x.device).index_add_(0, ids, vals), 5)
     line = {
         "runs": label, "mul": mul, "precision": precision, "lanes": lanes,
+        "longest_given": longest,
         "ptr": str(ptr.dtype).replace("torch.", ""),
         "g": None if g is None else str(g.dtype).replace("torch.", ""),
         "n_seg": n_seg, "n_edges": n_edges, "x_rows": x_rows,
@@ -1637,7 +1803,7 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
             x, ptr, g, w, mul=mul, precision=precision), 3),
         "bound_ms": t, "bound_by": by,
         "index_add_ms": index_add_ms}
-    if longest <= SC.long_run():
+    if longest is not None and longest <= SC.long_run():
         check(same_bits(k1(longest=None), got),
               f"{what}: the two-role launch is not the short one's bits")
         line["two_role_ms"] = device_ms(lambda: k1(longest=None), 10)
@@ -2072,6 +2238,636 @@ def phase_traversal(base: dict):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the snapshot lineage, the procedures on it, label
+# propagation and betweenness
+# ---------------------------------------------------------------------------
+
+# pagerank.get on v2 (stop_epsilon 1e-5: it stops once an iteration
+# moves the ranks by at most that in L1) against a converged float64 run:
+# the map contracts by the damping in L1, so the stopping iterate lies
+# within tol d / (1 - d) of the fixed point; f32 adds the main path's L1
+# bound, and 200 float64 iterations leave 2 d^200
+PR_PROC_TOL = 1e-5
+PR_PROC_REF_ITERATIONS = 200
+PR_PROC_L1 = (PR_PROC_TOL * DAMPING / (1 - DAMPING) + F32_L1_TOL
+              + 2 * DAMPING ** PR_PROC_REF_ITERATIONS)
+LP_ROUNDS = 30          # the community_detection.get default
+LP_CHECKED_ROUND = 3
+BC_SAMPLES = 8
+BC_SEED = 0
+# 64 sampled sources: two chunks of the autotuned B = 46 on the north
+# star, the first with every lane a real source.  The procedures phase
+# passes the same samples = 64: the registration's default, samples = 0,
+# is exact Brandes over all 1,000,000 sources
+BC_WIDE_SAMPLES = 64
+# f32 Brandes against float64: each score is a sum of per-source quotients
+# (1 + delta) / sigma over up to ~20 levels, each carrying a few f32
+# roundings (2^-24 relative); 1e-4 of the largest score is ~100x that
+BC_REL_TOL = 1e-4
+BC_TOPK = 100
+# each node's own score: every term of Brandes's sums is positive, so f32
+# errs by a relative amount at every node, with no cancellation.  A run
+# sum of m positive terms errs by at most (m - 1) 2^-24 relative and in
+# practice by ~sqrt(m) 2^-24; runs here reach ~10^4 (node 0's in-run)
+# over ~12 levels: ~1e-4 at worst in practice, and 1e-3 leaves 10x.  The
+# floor only keeps the quotient away from zero scores
+BC_NODE_REL_TOL = 1e-3
+BC_NODE_FLOOR = 1e-12
+REF_THREADS = 8         # threads of the float64 Brandes reference
+HIT_GETS = 20
+
+
+def drive_pagerank(graph, precision):
+    """(ranks, seconds to the end of the device work) of 50 fixed
+    iterations."""
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    (ranks, _, iters), secs = timed_run(lambda: pagerank(
+        graph, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0,
+        precision=precision))
+    check(iters == ITERATIONS, f"PageRank ran {iters} iterations, not "
+                               f"{ITERATIONS}")
+    return ranks, secs
+
+
+def phase_snapshot(base: dict):
+    """v2: a second commit (1,000 edges added, 1,000 removed, seed 13),
+    exported by the delta path from v1 and anchored on v0; its PageRank
+    plans from v0's base (no build_plan), f32 against float64 with the
+    main path's bounds, bf16 within PRECISION_BOUNDS of f32."""
+    import torch
+    from memgraph_tpu_torch.northstar import N_NODES, second_commit
+    from memgraph_tpu_torch.ops.csr import export_csr
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+
+    graph, v1 = base["graph"], base["v1"]
+    source, cache = base["source"], base["cache"]
+    removed, add_src, add_dst = second_commit(source.alive_ids(), N_NODES)
+    changed = source.commit(add_src, add_dst, remove=removed)
+    v2, export_delta_s, probe = timed_get(cache, source)
+    check(cache.counters["export.delta"] == 2
+          and [g is v1 for g in probe["delta_from"]] == [True],
+          f"v2 did not come by the delta export from v1: {cache.counters}")
+    ctx = getattr(v2, "_delta_ctx", None)
+    since_v0 = source.changes_between(base["v0_version"], source.version)
+    check(ctx is not None and ctx[0] is graph and ctx[1] == since_v0
+          and changed <= since_v0,
+          "v2's _delta_ctx is not (v0, the gids changed since v0)")
+    t0 = time.perf_counter()
+    full = export_csr(source, to_device=False)
+    export_full_s = time.perf_counter() - t0
+    check_same_arrays(v2, full, "v2 (delta export)")
+    src2, dst2, _ = full.host_coo
+    del full
+
+    # v2's refresh: counts set to 0 just before, read just after
+    with counted_plan_builds() as plan_builds:
+        reset_all_counts()
+        r32, cold32 = drive_pagerank(v2, "f32")
+        r16, cold16 = drive_pagerank(v2, "bf16")
+        _, warm32 = drive_pagerank(v2, "f32")
+        _, warm16 = drive_pagerank(v2, "bf16")
+        launches = all_counts()
+    check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) for "
+                           "v2")
+    state = v2._mxu_state
+    check(state.get("delta") is not None and state["base"] is
+          graph._mxu_state and state["plan"] is graph._mxu_state["plan"],
+          "v2 did not refresh from v0's base plan")
+    expected = dict.fromkeys(counts(), 0)
+    for run in state["runs"].values():
+        for k, v in expected_run_launches(run, 2, placed_base=False).items():
+            expected[k] += v
+    check({k: launches[k] for k in expected} == expected,
+          f"v2 launch counts {launches} != expected {expected}")
+    base_warm = {p: drive_pagerank(graph, p)[1] for p in ("f32", "bf16")}
+
+    ref = reference_pagerank(src2, dst2, N_NODES)
+    a32 = r32.double().cpu().numpy()
+    a16 = r16.double().cpu().numpy()
+    check(bool(np.isfinite(a32).all() and np.isfinite(a16).all())
+          and a32.shape == a16.shape == (N_NODES,),
+          "v2 ranks non-finite or misshaped")
+    rel = float((np.abs(a32 - ref) / ref).max())
+    l1 = float(np.abs(a32 - ref).sum())
+    top = len(set(np.argsort(-a32)[:100]) & set(np.argsort(-ref)[:100]))
+    check(rel <= F32_REL_TOL and l1 <= F32_L1_TOL and top == 100,
+          f"v2 f32 off the float64 reference: rel {rel} l1 {l1} top {top}")
+    bounds = PRECISION_BOUNDS["bf16"]
+    linf16 = float(np.abs(a16 - a32).max())
+    l1_16 = float(np.abs(a16 - a32).sum())
+    check(linf16 <= bounds["pagerank_linf"] and l1_16 <= bounds["pagerank_l1"],
+          f"v2 bf16 outside PRECISION_BOUNDS: linf {linf16} l1 {l1_16}")
+    first = state["diff_s"] + state["delta_build_s"]
+    precisions = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    placement = {precisions[dt]: r.placement_s
+                 for (_, dt), r in state["runs"].items()}
+    base["v2"], base["v2_coo"] = v2, (src2, dst2)
+    base["snapshot"]["v2"] = {
+        "changed": len(changed), "changed_since_v0": len(since_v0),
+        "n_delta": state["delta"].n_delta,
+        "export_delta_s": export_delta_s,
+        "from_coo_s": probe["from_coo_s"][0],
+        "export_full_s": export_full_s,
+        "diff_s": state["diff_s"], "delta_build_s": state["delta_build_s"],
+        "placement_s": placement,
+        "cold_iteration_ms": {
+            "f32": (cold32 - first - placement["f32"]) / ITERATIONS * 1e3,
+            "bf16": (cold16 - placement["bf16"]) / ITERATIONS * 1e3},
+        "iteration_ms": {"f32": warm32 / ITERATIONS * 1e3,
+                         "bf16": warm16 / ITERATIONS * 1e3},
+        "base_iteration_ms": {p: t / ITERATIONS * 1e3
+                              for p, t in base_warm.items()},
+        "f32_vs_f64": {"max_rel": rel, "l1": l1, "top100": top},
+        "bf16_vs_f32": {"linf": linf16, "l1": l1_16},
+        "launches": launches, "build_plan_calls": len(plan_builds)}
+    return launches
+
+
+def procedure_answers(outs: dict, v2, src2, dst2, start_idx: int) -> dict:
+    """``pagerank.get``, ``weakly_connected_components.get`` and
+    ``bfs.get`` (from ``start_idx``) on snapshot v2, by gid, against a
+    converged float64 PageRank and scipy's components and unweighted
+    shortest paths on v2's edges (dense ids, as v2 numbers them)."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    n = v2.n_nodes
+    gids = np.asarray(v2.node_gids)
+    by_gid = np.argsort(gids, kind="stable")
+
+    def dense(out):
+        return by_gid[np.searchsorted(gids[by_gid], out["node_gids"])]
+
+    t0 = time.perf_counter()
+    pr = outs["pagerank.get"]
+    ref = reference_pagerank(src2, dst2, n, iterations=PR_PROC_REF_ITERATIONS)
+    pr_l1 = float(np.abs(pr["rank"].astype(np.float64)
+                         - ref[dense(pr)]).sum())
+    check(pr_l1 <= PR_PROC_L1,
+          f"pagerank.get on v2 off float64 by L1 {pr_l1} > {PR_PROC_L1}")
+    adj = sp.csr_matrix((np.ones(len(src2), dtype=np.int8), (src2, dst2)),
+                        shape=(n, n))
+    _, weak = csgraph.connected_components(adj, directed=True,
+                                           connection="weak")
+    wcc = outs["weakly_connected_components.get"]
+    comp = np.empty(n, dtype=np.int64)
+    comp[dense(wcc)] = wcc["component_id"]
+    check(np.array_equal(min_index_labels(comp), min_index_labels(weak)),
+          "weakly_connected_components.get on v2 is not scipy's partition")
+    hops = csgraph.shortest_path(adj, unweighted=True, indices=start_idx)
+    bfs = outs["bfs.get"]
+    at = dense(bfs)
+    check(np.array_equal(np.sort(at), np.flatnonzero(np.isfinite(hops)))
+          and np.array_equal(bfs["level"].astype(np.float64), hops[at]),
+          "bfs.get on v2 is not the unweighted shortest paths")
+    checked = {"pagerank.get": {"l1": pr_l1, "limit": PR_PROC_L1},
+               "weakly_connected_components.get": {
+                   "components": int(weak.max()) + 1, "equal": True},
+               "bfs.get": {"reached": len(at), "equal": True},
+               "reference_s": time.perf_counter() - t0}
+    return checked
+
+
+def phase_procedures(base: dict):
+    """Each procedure counterpart (memgraph_tpu_torch/procedures/
+    graph_algorithms.py) called once on v2 through the CooSource on the
+    card: each returns host numpy arrays, a row a node it yields.
+    ``pagerank.get``, ``weakly_connected_components.get`` and ``bfs.get``
+    are held by gid against float64 / scipy on v2's edges."""
+    import torch
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+
+    source, cache, v2 = base["source"], base["cache"], base["v2"]
+    check(cache.get(source, device="cuda") is v2,
+          "the procedures would not run on v2")
+    n = v2.n_nodes
+    rng = np.random.default_rng(PPR_SEED)
+    seeds = [int(g) for g in v2.node_gids[rng.choice(n, 3, replace=False)]]
+    start_idx = int(np.argmax(np.diff(v2.row_ptr.cpu().numpy()[:n + 1])))
+    start = int(v2.node_gids[start_idx])
+    calls = [
+        ("pagerank.get", (), {}),
+        ("pagerank.personalized", (seeds,), {}),
+        # α of the katz phase: the procedure's default 0.2 is past 1/λ
+        # on this graph (the series diverges)
+        ("katz_centrality.get", (KATZ_ALPHA,), {}),
+        ("community_detection.get", (), {}),
+        ("weakly_connected_components.get", (), {}),
+        ("strongly_connected_components.get", (), {}),
+        ("degree_centrality.get", (), {}),
+        ("hits.get", (), {}),
+        ("betweenness_centrality.get", (),
+         {"samples": BC_WIDE_SAMPLES}),
+        ("bfs.get", (start,), {}),
+        ("sssp.get", (start,), {}),
+        ("graph_util.khop", (seeds, KHOP_K), {}),
+    ]
+    secs, rows, outs = {}, {}, {}
+    # the procedures' path: counts set to 0 just before, read just after
+    reset_all_counts()
+    for name, args, kw in calls:
+        out, secs[name] = timed_run(
+            lambda: P.PROCEDURES[name](source, *args, cache=cache,
+                                       device="cuda", **kw))
+        outs[name] = out
+        check(isinstance(out, dict) and out
+              and all(isinstance(v, np.ndarray) for v in out.values()),
+              f"{name} did not return host numpy columns")
+        gids = out["node_gids"]
+        check(gids.dtype == np.int64
+              and all(len(v) == len(gids) for v in out.values()),
+              f"{name}'s columns are not a row a node")
+        check(all(np.isfinite(v).all() for k, v in out.items()
+                  if k != "node_gids" and v.dtype.kind == "f"),
+              f"{name} returned values that are not finite")
+        rows[name] = len(gids)
+    launches = all_counts()
+    check(rows["pagerank.get"] == rows["hits.get"] == n
+          and 0 < rows["bfs.get"] <= n and 0 < rows["graph_util.khop"] <= n,
+          f"procedure rows {rows}")
+
+    checked = procedure_answers(outs, v2, *base.pop("v2_coo"), start_idx)
+    summary = {"version": base["source"].version, "n_nodes": n,
+               "n_edges": v2.n_edges, "seconds": secs, "rows": rows,
+               "vs_reference": checked,
+               "launches": launches, "cache": dict(cache.counters)}
+    print("procedures", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_snapshot_log(base: dict):
+    """A wrapped change log (one commit more than the log holds, an edge
+    each) gives a full export, counted once, with no _delta_ctx; a
+    repeated get at one version returns the same object.  Prints the
+    ``snapshot`` line."""
+    source, cache = base["source"], base["cache"]
+    before = dict(cache.counters)
+    v_before = source.version
+    n = base["graph"].n_nodes
+    for i in range(source.log_size + 1):
+        source.commit([i], [(7 * i + 1) % n])
+    check(not source.changes_between(v_before, source.version),
+          "the change log did not wrap")
+    wrapped, export_s, probe = timed_get(cache, source)
+    check(cache.counters["delta.fallback_rebuild_total"]
+          == before["delta.fallback_rebuild_total"] + 1
+          and cache.counters["export.full"] == before["export.full"] + 1
+          and not probe["delta_from"]
+          and getattr(wrapped, "_delta_ctx", None) is None,
+          f"a wrapped log did not give one counted full export without a "
+          f"_delta_ctx: {before} -> {cache.counters}")
+    hits_us = []
+    for _ in range(HIT_GETS):
+        t0 = time.perf_counter()
+        again = cache.get(source, device="cuda")
+        hits_us.append((time.perf_counter() - t0) * 1e6)
+        check(again is wrapped, "a repeated get returned another snapshot")
+    snap = base["snapshot"]
+    summary = {
+        "v0": {"export_s": base["summary"]["export_s"],
+               "from_coo_s": base["summary"]["from_coo_s"],
+               "iteration_ms": base["summary"]["iteration_ms"]},
+        **snap,
+        "wrapped": {"commits": source.log_size + 1, "export_s": export_s,
+                    "from_coo_s": probe["from_coo_s"][0],
+                    "n_edges": wrapped.n_edges},
+        "get_hit_us": {"median": float(np.median(hits_us)),
+                       "min": float(min(hits_us))},
+        "counters": dict(cache.counters)}
+    print("snapshot", json.dumps(summary), flush=True)
+    del base["v1"], base["v2"]
+
+
+def election64(src, dst, n, labels, self_weight=0.0):
+    """One label-propagation election in numpy (ops/labelprop.py's rules)
+    over the undirected view of the true edges, unit weights summed in
+    float64: the run weight of each (node, neighbor label), each node's
+    best weight, the least label of that weight, and the own label where
+    it weighs as much or there is no neighbor."""
+    s2 = np.concatenate([src, dst]).astype(np.int64)
+    d2 = np.concatenate([dst, src]).astype(np.int64)
+    lab = labels[s2].astype(np.int64)
+    order = np.argsort(d2 * n + lab, kind="stable")
+    d_s, l_s = d2[order], lab[order]
+    first = np.ones(len(d_s), dtype=bool)
+    first[1:] = (d_s[1:] != d_s[:-1]) | (l_s[1:] != l_s[:-1])
+    starts = np.flatnonzero(first)
+    run_w = np.add.reduceat(np.ones(len(d_s)), starts)
+    run_d, run_l = d_s[starts], l_s[starts]
+    nfirst = np.ones(len(run_d), dtype=bool)
+    nfirst[1:] = run_d[1:] != run_d[:-1]
+    nstarts = np.flatnonzero(nfirst)
+    best_w = np.full(n, -np.inf)
+    best_w[run_d[nstarts]] = np.maximum.reduceat(run_w, nstarts)
+    cand = np.where(run_w >= best_w[run_d] - 1e-12, run_l, n)
+    best_l = np.full(n, n, dtype=np.int64)
+    best_l[run_d[nstarts]] = np.minimum.reduceat(cand, nstarts)
+    own = ((best_l >= n) | (self_weight >= best_w)
+           | (np.isclose(self_weight, best_w) & (labels <= best_l)))
+    return np.where(own, labels, best_l).astype(np.int32)
+
+
+def labelprop64(src, dst, n, rounds):
+    """(labels, rounds run) of label propagation in numpy, round by
+    round: ``election64`` from every node its own label, until no label
+    changes or ``rounds``."""
+    labels = np.arange(n, dtype=np.int32)
+    for it in range(1, rounds + 1):
+        new = election64(src, dst, n, labels)
+        if np.array_equal(new, labels):
+            return new, it
+        labels = new
+    return labels, rounds
+
+
+def phase_labelprop(base: dict):
+    """Label propagation (undirected, 30 rounds at most) on the north
+    star: two runs bit-equal with equal rounds, the card's labels after
+    round k equal to one numpy election of its labels after round k - 1
+    (k = 3 and the last round); on the segment graph equal to a numpy
+    run of every round; the directed mode once.  One K1 launch a
+    round; the launches of the first and the last round held bit-equal to
+    the plain version on the same inputs (``segment_kernels`` lines
+    ``labelprop_round1`` / ``labelprop_last_round``)."""
+    import torch
+    from memgraph_tpu_torch.northstar import generate_graph
+    from memgraph_tpu_torch.ops import semiring
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.labelprop import label_propagation
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n = graph.n_nodes
+
+    def lp(g, rounds=LP_ROUNDS, directed=False):
+        return timed_run(lambda: label_propagation(
+            g, max_iterations=rounds, directed=directed))
+
+    def first_and_last(x, ptr, g, w, kw):
+        first_and_last.calls += 1
+        return "round1" if first_and_last.calls == 1 else "last_round"
+
+    first_and_last.calls = 0
+    # the labelprop path: counts set to 0 just before, read just after;
+    # the run-weight sums of its first and last rounds kept
+    reset_all_counts()
+    with k1_recorded(semiring, first_and_last) as k1_calls:
+        (labels, rounds), secs = lp(graph)
+    launches = all_counts()
+    check(launches["csr_spmm_sum"] == rounds
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"labelprop launches {launches} over {rounds} rounds")
+    check(set(k1_calls) == ({"round1", "last_round"} if rounds > 1
+                            else {"round1"}),
+          f"labelprop's run sums were not recorded: {sorted(k1_calls)}")
+    k1_lines = path_k1_lines(k1_calls, "labelprop")
+    del k1_calls
+    (again, rounds2), secs2 = lp(graph)
+    check(rounds2 == rounds and np.array_equal(again, labels),
+          "two labelprop runs are not bit-equal")
+    check(labels.dtype == np.int32 and labels.shape == (n,)
+          and 0 <= labels.min() and labels.max() < n,
+          "labelprop labels misshaped or out of range")
+    elections = {}
+    for k in sorted({LP_CHECKED_ROUND, rounds}):
+        before, _ = label_propagation(graph, max_iterations=k - 1)
+        after = labels if k == rounds else label_propagation(
+            graph, max_iterations=k)[0]
+        t0 = time.perf_counter()
+        want = election64(src, dst, n, before)
+        elections[k] = time.perf_counter() - t0
+        check(np.array_equal(after, want),
+              f"labelprop round {k} is not the float64 election of round "
+              f"{k - 1}: {int((after != want).sum())} labels differ")
+    (dlabels, drounds), dsecs = lp(graph, directed=True)
+    check(dlabels.shape == (n,) and 0 < drounds <= LP_ROUNDS,
+          "directed labelprop misshaped")
+
+    ssrc, sdst = generate_graph(n_nodes=SEGMENT_NODES,
+                                n_edges=SEGMENT_EDGES)
+    sg = from_coo(ssrc, sdst, n_nodes=SEGMENT_NODES).to_device("cuda")
+    (slabels, srounds), ssecs = lp(sg)
+    want, wrounds = labelprop64(ssrc, sdst, SEGMENT_NODES, LP_ROUNDS)
+    check(srounds == wrounds and np.array_equal(slabels, want),
+          f"segment-graph labelprop differs from numpy's every round: "
+          f"{srounds} / {wrounds} rounds, "
+          f"{int((slabels != want).sum())} labels")
+    summary = {
+        "north_star": {"rounds": rounds, "seconds": [secs, secs2],
+                       "ms_a_round": secs2 / rounds * 1e3,
+                       "communities": int(len(np.unique(labels))),
+                       "checked_rounds": sorted(elections),
+                       "election64_s": elections},
+        "directed": {"rounds": drounds, "seconds": dsecs,
+                     "ms_a_round": dsecs / drounds * 1e3,
+                     "communities": int(len(np.unique(dlabels)))},
+        "segment": {"n_nodes": SEGMENT_NODES, "n_edges": SEGMENT_EDGES,
+                    "rounds": srounds, "seconds": ssecs,
+                    "ms_a_round": ssecs / srounds * 1e3,
+                    "communities": int(len(np.unique(slabels))),
+                    "equal_to_numpy": True},
+        "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+            "n_seg", "n_edges", "longest_run", "ms", "bound_ms")}
+            for ln in k1_lines},
+        "launches": launches}
+    print("labelprop", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    del sg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dedup_pairs(src, dst, n, directed):
+    """The simple graph Brandes counts paths on: no self-loops, parallel
+    edges once (a scipy boolean matrix sums them away), undirected pairs
+    both ways."""
+    import scipy.sparse as sp
+    keep = src != dst
+    s, d = src[keep], dst[keep]
+    if not directed:
+        s, d = np.concatenate([s, d]), np.concatenate([d, s])
+    adj = sp.coo_matrix((np.ones(len(s), dtype=bool), (s, d)),
+                        shape=(n, n)).tocsr()
+    return adj.nonzero()
+
+
+def reference_brandes(src, dst, n, sources, directed):
+    """float64 Brandes over ``sources`` (scipy BFS distances, numpy path
+    counts and dependencies level by level, a source a task on
+    ``REF_THREADS`` threads, their dependencies added in source order),
+    scaled by n / k, halved when undirected and normalized as
+    ops/betweenness.py does."""
+    from concurrent.futures import ThreadPoolExecutor
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    s, d = dedup_pairs(src, dst, n, directed)
+    adj = sp.csr_matrix((np.ones(len(s), dtype=np.int8), (s, d)),
+                        shape=(n, n))
+
+    def dependencies(root):
+        dv = csgraph.shortest_path(adj, unweighted=True, indices=[root])[0]
+        du = dv[s]
+        dag = np.isfinite(du) & (dv[d] == du + 1)
+        es, ed, lv = s[dag], d[dag], du[dag].astype(np.int64)
+        order = np.argsort(lv, kind="stable")
+        es, ed, lv = es[order], ed[order], lv[order]
+        top = int(lv.max(initial=-1)) + 1
+        bounds = np.searchsorted(lv, np.arange(top + 1))
+        sigma = np.zeros(n)
+        sigma[root] = 1.0
+        for L in range(top):
+            sl = slice(bounds[L], bounds[L + 1])
+            sigma += np.bincount(ed[sl], weights=sigma[es[sl]], minlength=n)
+        delta = np.zeros(n)
+        for L in range(top - 1, -1, -1):
+            sl = slice(bounds[L], bounds[L + 1])
+            contrib = sigma[es[sl]] / sigma[ed[sl]] * (1.0 + delta[ed[sl]])
+            delta += np.bincount(es[sl], weights=contrib, minlength=n)
+        delta[root] = 0.0
+        return delta
+
+    bc = np.zeros(n)
+    with ThreadPoolExecutor(REF_THREADS) as pool:
+        for delta in pool.map(dependencies, sources):
+            bc += delta
+    bc *= n / len(sources)
+    if not directed:
+        bc /= 2.0
+    return bc / ((n - 1) * (n - 2) / (1.0 if directed else 2.0))
+
+
+def top_overlap(got, ref, k, tol):
+    """(the overlap of the top-k sets, the top k of ``got`` whose
+    reference score is within ``tol`` of the reference's k-th or above:
+    a tie at the k-th place within the tolerance orders either way)."""
+    g_top = np.argsort(-got, kind="stable")[:k]
+    r_top = np.argsort(-ref, kind="stable")[:k]
+    kth = ref[r_top[-1]]
+    return (len(set(g_top) & set(r_top)),
+            int((ref[g_top] >= kth - tol).sum()))
+
+
+def widest_first_chunk():
+    """A ``k1_recorded`` choice for one betweenness call: of its first
+    chunk, the forward call (the first ptr seen) and the backward call
+    whose x holds the most nonzero values (the widest level)."""
+    seen = {"forward_ptr": None, "backward": False, "nnz": {}}
+
+    def keep(x, ptr, g, w, kw):
+        if seen["forward_ptr"] is None:
+            seen["forward_ptr"] = ptr
+        forward = ptr is seen["forward_ptr"]
+        if not forward:
+            seen["backward"] = True
+        elif seen["backward"]:
+            return None             # the next chunk's forward sweep
+        key = "forward" if forward else "backward"
+        nnz = int(x.count_nonzero())
+        if nnz <= seen["nnz"].get(key, -1):
+            return None
+        seen["nnz"][key] = nnz
+        return key
+
+    return keep
+
+
+def vs_brandes(got, ref) -> dict:
+    """The card's scores against float64 Brandes: the largest error
+    against the largest score, the top 100, and the relative error of
+    every node scored above ``BC_NODE_FLOOR`` of the largest."""
+    top = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    overlap, within = top_overlap(got, ref, BC_TOPK, BC_REL_TOL * top)
+    scored = ref > BC_NODE_FLOOR * top
+    node_rel = float((np.abs(got[scored] - ref[scored])
+                      / ref[scored]).max(initial=0.0))
+    return {"max_abs_err": err, "largest": top, "rel_to_largest": err / top,
+            f"top{BC_TOPK}_sets": overlap, f"top{BC_TOPK}_within_tol": within,
+            "nodes_scored": int(scored.sum()), "node_max_rel": node_rel,
+            "ok": bool(np.isfinite(got).all() and err <= BC_REL_TOL * top
+                       and within == BC_TOPK
+                       and node_rel <= BC_NODE_REL_TOL)}
+
+
+def phase_betweenness(base: dict):
+    """Betweenness on the north star: 8 sampled sources (seed 0),
+    directed and undirected, and 64 directed (two chunks of B = 46, the
+    first all real sources) against float64 Brandes over the same
+    sources: max error 1e-4 of the largest score, the top 100, and each
+    node's relative error; the 64-source run twice, bit-equal.  K1
+    launches: two a level a chunk.  In the second 64-source run the
+    first chunk's widest forward and backward launches are kept and held
+    bit-equal to the plain version on the same inputs
+    (``segment_kernels`` lines ``betweenness_forward`` /
+    ``betweenness_backward``: B = 46, a last lane tile of 6)."""
+    import torch
+    from memgraph_tpu_torch.ops import betweenness as BT
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n = graph.n_nodes
+    stats, lines = [], {}
+
+    def bc(directed, samples):
+        st = {}
+        out, secs = timed_run(lambda: BT.betweenness_centrality(
+            graph, directed=directed, samples=samples, seed=BC_SEED,
+            stats=st))
+        stats.append(st)
+        return out, secs, st
+
+    # the betweenness path: counts set to 0 just before, read just after
+    reset_all_counts()
+    runs = {"directed_8": bc(True, BC_SAMPLES),
+            "undirected_8": bc(False, BC_SAMPLES),
+            "directed_64": bc(True, BC_WIDE_SAMPLES)}
+    with k1_recorded(BT, widest_first_chunk()) as k1_calls:
+        runs["directed_64_again"] = bc(True, BC_WIDE_SAMPLES)
+    launches = all_counts()
+    levels = sum(sum(st["levels"]) for st in stats)
+    check(launches["csr_spmm_sum"] == 2 * levels
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"betweenness launches {launches} against {levels} levels")
+    check(same_bits(runs["directed_64"][0], runs["directed_64_again"][0]),
+          "two betweenness runs of 64 sources are not bit-equal")
+    chunk = runs["directed_64"][2]["chunk"]
+    check(set(k1_calls) == {"forward", "backward"}
+          and all(c["x"].shape == (graph.n_pad, chunk)
+                  for c in k1_calls.values()),
+          f"betweenness's K1 launches were not recorded: {sorted(k1_calls)}")
+    k1_lines = path_k1_lines(k1_calls, "betweenness")
+    del k1_calls
+    for name, directed, samples in (
+            ("directed_8", True, BC_SAMPLES),
+            ("undirected_8", False, BC_SAMPLES),
+            ("directed_64", True, BC_WIDE_SAMPLES)):
+        sources = np.random.default_rng(BC_SEED).choice(n, samples,
+                                                         replace=False)
+        got = runs[name][0].double().cpu().numpy()
+        t0 = time.perf_counter()
+        line = vs_brandes(got, reference_brandes(src, dst, n, sources,
+                                                 directed))
+        line["reference_s"] = time.perf_counter() - t0
+        check(got.shape == (n,) and line.pop("ok"),
+              f"{name} betweenness off float64: {line}")
+        lines[name] = line
+    summary = {
+        "samples": {"checked": BC_SAMPLES, "wide": BC_WIDE_SAMPLES},
+        "chunk": {k: st["chunk"] for k, (_, _, st) in runs.items()},
+        "levels": {k: st["levels"] for k, (_, _, st) in runs.items()},
+        "seconds": {k: secs for k, (_, secs, _) in runs.items()},
+        "recorded": "directed_64_again",
+        "vs_float64": lines, "reruns_bit_equal": True,
+        "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+            "lanes", "n_seg", "n_edges", "longest_run", "ms", "bound_ms")}
+            for ln in k1_lines},
+        "launches": launches, "levels_walked": levels}
+    print("betweenness", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main():
     import torch
@@ -2109,13 +2905,21 @@ def main():
         return out
 
     launches, shapes, base = mxu_path("main_path", phase_main_path)
+    base["path_k1_lines"] = []
     katz_launches = mxu_path("katz", phase_katz, base)
     refresh_launches, refresh_shapes = mxu_path("refresh", phase_refresh,
                                                 base)
+    snapshot_launches = mxu_path("snapshot", phase_snapshot, base)
+    by_path = {"procedures": timed("procedures", phase_procedures, base)}
+    timed("snapshot_log", phase_snapshot_log, base)
     seg_lines = timed("segment_kernels", phase_segment_kernels, base)
-    by_path = {"segment": timed("segment", phase_segment, base),
-               "ppr": timed("ppr", phase_ppr, base),
-               "traversal": timed("traversal", phase_traversal, base)}
+    by_path.update({
+        "segment": timed("segment", phase_segment, base),
+        "ppr": timed("ppr", phase_ppr, base),
+        "traversal": timed("traversal", phase_traversal, base),
+        "labelprop": timed("labelprop", phase_labelprop, base),
+        "betweenness": timed("betweenness", phase_betweenness, base)})
+    seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 
     replaces = {"benes_mid_gather": "memgraph_tpu/ops/benes_pallas.py:225",
@@ -2148,6 +2952,7 @@ def main():
             "launches_by_path": {"main_path": launches[name],
                                  "katz": katz_launches[name],
                                  "refresh": refresh_launches[name],
+                                 "snapshot": snapshot_launches[name],
                                  **{p: c[name] for p, c in by_path.items()}},
             "max_abs_err": max(s[name]["max_abs_err"]
                                for s in shapes.values() if name in s),

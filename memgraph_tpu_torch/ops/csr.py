@@ -7,10 +7,50 @@ padding edges are zero-weight self loops on a sink row (index
 ``n_nodes``), so segment reductions ignore them.  ``from_coo`` takes the
 native counting-sort builder (native/csr_builder.cpp) first and the numpy
 lexsort path where that builder is unavailable; both give the same arrays.
+
+Storage snapshots (port of ``export_csr``, ``export_csr_delta`` and
+``GraphCache``, memgraph_tpu/ops/csr.py): the port reads a storage through
+a duck-typed **source**, so that it imports nothing of the storage that
+owns the graph.  A source gives
+
+  ``storage``            the object the cache keys on (weakly: snapshots
+                         die with it)
+  ``version``            the view's topology snapshot (a storage
+                         transaction's ``topology_snapshot``, else the
+                         storage's ``topology_version``)
+  ``changes_between(v_from, v_to)``
+                         the frozenset of vertex gids changed in versions
+                         (v_from, v_to], or a ``ChangeLogUnknowable``
+                         (falsy) when its change log cannot say
+  ``vertices(label_filter)``
+                         the visible vertex gids (at the view's
+                         ``View.OLD``), in the order the storage walks
+                         them: that order fixes the dense indices
+  ``edges(weight_property, edge_type_filter)``
+                         (src gids, dst gids, raw weights) of the visible
+                         edges of the wanted types, in the storage's edge
+                         order; raw weights are the property's values (a
+                         float array, or any values ``_coerce_weight``
+                         turns into floats), or None when the edges carry
+                         no such property
+  ``incident(gid, weight_property, edge_type_filter, label_filter)``
+                         None when the vertex is gone or is not in the
+                         view; else (out gids, out raw weights, in gids,
+                         in raw weights): the far ends of its visible out-
+                         and in-edges of the wanted types, from the
+                         storage's own state of the vertex (not a
+                         session's fine-grained filters: a cached
+                         snapshot is every session's)
+
+``memgraph_tpu_torch.northstar.CooSource`` is one (a versioned COO graph);
+the tests hold an adapter of the JAX package's storage against it.
 """
 
 from __future__ import annotations
 
+import logging
+import threading
+import weakref
 from dataclasses import dataclass, field, fields
 from typing import Optional
 
@@ -230,3 +270,289 @@ def _csr_csc_numpy(src, dst, weights, n_nodes, n_pad, e_pad):
         src, minlength=n_nodes).astype(np.float32)[:n_nodes]
     return (row_ptr, src_full, dst_full, w_full, csc_src, csc_dst, csc_w,
             out_degree, col_ptr)
+
+
+# ---------------------------------------------------------------------------
+# storage snapshots: export, delta export and the snapshot cache
+# ---------------------------------------------------------------------------
+
+log = logging.getLogger(__name__)
+
+
+class ChangeLogUnknowable:
+    """A source's verdict that its bounded change log cannot say what
+    changed in (v_from, v_to]: the log wrapped past v_from
+    (``reason="log_wrapped"``) or a bump in the range recorded no gids
+    (``reason="untracked_bump"``).  Falsy, so ``if changed:`` treats it as
+    an unusable delta; consumers branch on it and rebuild in full."""
+
+    __slots__ = ("reason", "oldest_logged_version")
+
+    def __init__(self, reason: str, oldest_logged_version: int) -> None:
+        self.reason = reason
+        self.oldest_logged_version = oldest_logged_version
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __repr__(self) -> str:
+        return (f"ChangeLogUnknowable({self.reason!r}, "
+                f"oldest_logged_version={self.oldest_logged_version})")
+
+
+def _coerce_weight(w) -> float:
+    """Edge-weight property -> float; non-numeric/missing -> 1.0."""
+    return (float(w) if isinstance(w, (int, float))
+            and not isinstance(w, bool) else 1.0)
+
+
+def _weights(raw) -> np.ndarray:
+    """float32 weights of raw property values: a numeric array as it is,
+    anything else value by value through ``_coerce_weight``."""
+    if isinstance(raw, np.ndarray) and raw.dtype.kind in "iuf":
+        return raw.astype(np.float32)
+    return np.asarray([_coerce_weight(w) for w in raw], dtype=np.float32)
+
+
+def _gid_index(node_gids):
+    """A lookup of dense indices by gid (``_dense_ids``): None when the
+    gids are 0..n-1 in order (each its own index), else the gids' sort
+    order and the sorted gids."""
+    n = len(node_gids)
+    if n == 0 or (node_gids[0] == 0 and node_gids[-1] == n - 1
+                  and bool((np.diff(node_gids) == 1).all())):
+        return None
+    order = np.argsort(node_gids, kind="stable")
+    return order, node_gids[order]
+
+
+def _dense_ids(gids, n: int, index) -> np.ndarray:
+    """The dense index of each gid among n node gids, -1 where it has
+    none (``index`` from ``_gid_index``)."""
+    gids = np.asarray(gids, dtype=np.int64).reshape(-1)
+    if n == 0 or len(gids) == 0:
+        return np.full(len(gids), -1, dtype=np.int64)
+    if index is None:
+        return np.where((gids >= 0) & (gids < n), gids, -1)
+    order, ranked = index
+    pos = np.minimum(np.searchsorted(ranked, gids), n - 1)
+    return np.where(ranked[pos] == gids, order[pos], -1)
+
+
+def export_csr(source, weight_property=None, label_filter=None,
+               edge_type_filter=None, pad: bool = True,
+               to_device: bool = True, device=None) -> DeviceGraph:
+    """The source's visible graph as a DeviceGraph: its vertices in the
+    source's order, its edges between them in the source's edge order
+    (an edge with an endpoint outside the view is left out), weights
+    coerced to float32 (1.0 where none).  Placed on ``device`` (default:
+    the card) unless ``to_device`` is False."""
+    node_gids = np.asarray(list(source.vertices(label_filter)),
+                           dtype=np.int64)
+    e_src, e_dst, raw = source.edges(weight_property, edge_type_filter)
+    index = _gid_index(node_gids)
+    si = _dense_ids(e_src, len(node_gids), index)
+    di = _dense_ids(e_dst, len(node_gids), index)
+    keep = (si >= 0) & (di >= 0)
+    weights = (None if weight_property is None or raw is None
+               else _weights(raw)[keep])
+    g = from_coo(si[keep], di[keep], weights, n_nodes=len(node_gids),
+                 node_gids=node_gids, pad=pad)
+    return g.to_device(device) if to_device else g
+
+
+def export_csr_delta(prev: DeviceGraph, source, changed_gids,
+                     weight_property=None, label_filter=None,
+                     edge_type_filter=None, pad: bool = True,
+                     to_device: bool = True, device=None):
+    """O(changed) re-export: splice the changed vertices' edges into the
+    previous snapshot's host COO instead of walking every edge, then one
+    ``from_coo``.  Valid only while the view's vertex set is unchanged:
+    returns None (the caller exports in full) when a changed vertex is
+    gone, joined or left the view, or has an edge to a vertex the
+    previous snapshot lacks.  The splice keeps the edges with neither
+    endpoint changed, appends each changed vertex's out-edges and its
+    in-edges from unchanged sources, so every edge comes once and the
+    arrays are ``export_csr``'s."""
+    if prev.host_coo is None:
+        return None
+    has_w = weight_property is not None
+    changed = list(changed_gids)
+    bitmap = np.zeros(prev.n_nodes, dtype=bool)
+    idxs, out_g, in_g, out_w, in_w = [], [], [], [], []
+    for gid in changed:
+        inc = source.incident(gid, weight_property, edge_type_filter,
+                              label_filter)
+        idx = prev.gid_to_idx.get(gid)
+        if inc is None or idx is None:
+            return None               # gone, joined or left the view
+        bitmap[idx] = True
+        idxs.append(idx)
+        out_g.append(np.asarray(inc[0], dtype=np.int64).reshape(-1))
+        in_g.append(np.asarray(inc[2], dtype=np.int64).reshape(-1))
+        if has_w:
+            out_w.append(_weights(_raw(inc[1], len(out_g[-1]))))
+            in_w.append(_weights(_raw(inc[3], len(in_g[-1]))))
+    index = _gid_index(prev.node_gids)
+    di = _dense_ids(_cat(out_g, np.int64), prev.n_nodes, index)
+    si = _dense_ids(_cat(in_g, np.int64), prev.n_nodes, index)
+    if (di < 0).any() or (si < 0).any():
+        return None                   # new endpoint: node set changed
+    # every out-edge of a changed vertex comes once; an edge into it comes
+    # with its in-edges only from an unchanged source.  Vertex by vertex:
+    # its out-edges, then those in-edges
+    idxs = np.asarray(idxs, dtype=np.int64)
+    rank = np.arange(len(idxs), dtype=np.int64)
+    n_out = [len(a) for a in out_g]
+    n_in = [len(a) for a in in_g]
+    kept = ~bitmap[si]
+    order = np.argsort(np.concatenate([
+        2 * np.repeat(rank, n_out), (2 * np.repeat(rank, n_in) + 1)[kept]]),
+        kind="stable")
+    fresh_src = np.concatenate([np.repeat(idxs, n_out), si[kept]])[order]
+    fresh_dst = np.concatenate([di, np.repeat(idxs, n_in)[kept]])[order]
+    fresh_w = (np.concatenate([_cat(out_w, np.float32),
+                               _cat(in_w, np.float32)[kept]])[order]
+               if has_w else None)
+    p_src, p_dst, p_w = prev.host_coo
+    keep = ~(bitmap[p_src] | bitmap[p_dst])
+    src = np.concatenate([p_src[keep].astype(np.int64), fresh_src])
+    dst = np.concatenate([p_dst[keep].astype(np.int64), fresh_dst])
+    weights = (np.concatenate([p_w[keep], fresh_w]).astype(np.float32)
+               if has_w else None)
+    g = from_coo(src, dst, weights, n_nodes=prev.n_nodes,
+                 node_gids=prev.node_gids, pad=pad)
+    return g.to_device(device) if to_device else g
+
+
+def _cat(arrays, dtype) -> np.ndarray:
+    """The arrays end to end (empty of ``dtype`` when there are none)."""
+    return np.concatenate([np.zeros(0, dtype), *arrays])
+
+
+def _raw(values, n):
+    """Raw weights as a source gave them; None (no such property) is 1.0
+    for each of the n edges."""
+    return [None] * n if values is None else values
+
+
+class GraphCache:
+    """Per-storage cache of CSR snapshots keyed by (topology version,
+    weight property, label filter, edge types, device).
+
+    A snapshot is valid while the view's version is unchanged.  A new
+    version is exported from the newest snapshot strictly older than the
+    view by ``export_csr_delta`` when the source's change log knows what
+    changed and the change is small (at most max(1024, n_nodes // 5)
+    vertices); an unknowable gap, a large change or any failure of the
+    delta export gives a full export.  A snapshot whose view has an
+    earlier snapshot with a full MXU plan (``_mxu_base_self``, set by
+    PageRank) is marked ``_delta_ctx = (that snapshot, changed gids)``,
+    which PageRank refreshes from in O(delta) (ops/pagerank.py).  The
+    device is part of the key, in ``resolve_device``'s form: "cuda" and
+    "cuda:0" share a snapshot, the CPU and the card do not.  Snapshots
+    die with their storage (a weak key).
+
+    ``counters``: "export.full", "export.delta" (snapshots made each way)
+    and "delta.fallback_rebuild_total" (full exports forced by an
+    unknowable change log)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._cache = weakref.WeakKeyDictionary()
+        self.counters = {"export.full": 0, "export.delta": 0,
+                         "delta.fallback_rebuild_total": 0}
+
+    def get(self, source, weight_property=None, label_filter=None,
+            edge_type_filter=None, device=None) -> DeviceGraph:
+        storage = source.storage
+        dev = resolve_device(device)
+        etf = (tuple(sorted(edge_type_filter))
+               if edge_type_filter is not None else None)
+        version = source.version
+        key = (version, weight_property, label_filter, etf, dev)
+        base_key = ("base", weight_property, label_filter, etf, dev)
+        newest = None
+        with self._lock:
+            per_storage = self._cache.get(storage)
+            hit = per_storage.get(key) if per_storage else None
+            base = per_storage.get(base_key) if per_storage else None
+            for k, v in (per_storage or {}).items():
+                if k[0] == "base" or k[1:] != key[1:]:
+                    continue
+                # base anchor: the newest snapshot with a full MXU plan
+                # (_mxu_base_self post-dates its get(), so scan live)
+                if getattr(v, "_mxu_base_self", False) \
+                        and (base is None or base[0] < k[0]):
+                    base = (k[0], v)
+                # delta-export base: the newest snapshot strictly older
+                # than this view (a newer one may hold commits it cannot
+                # see)
+                if k[0] < version and (newest is None
+                                       or k[0] > newest[0]):
+                    newest = (k[0], v)
+        if hit is not None:
+            return hit
+        g = None
+        if newest is not None:
+            changed = source.changes_between(newest[0], version)
+            if isinstance(changed, ChangeLogUnknowable):
+                # a silently partial delta would cache a wrong snapshot
+                with self._lock:
+                    self.counters["delta.fallback_rebuild_total"] += 1
+                log.info("change log unknowable (%s) for versions (%d, %d]; "
+                         "full CSR export", changed.reason, newest[0],
+                         version)
+                changed = None
+            if changed is not None and \
+                    len(changed) <= max(1024, newest[1].n_nodes // 5):
+                try:
+                    g = export_csr_delta(
+                        newest[1], source, changed,
+                        weight_property=weight_property,
+                        label_filter=label_filter,
+                        edge_type_filter=edge_type_filter, device=dev)
+                except Exception:  # noqa: BLE001 — any doubt: full export
+                    log.debug("delta CSR export failed; falling back to a "
+                              "full export", exc_info=True)
+                    g = None
+        path = "export.delta" if g is not None else "export.full"
+        if g is None:
+            g = export_csr(source, weight_property=weight_property,
+                           label_filter=label_filter,
+                           edge_type_filter=edge_type_filter, device=dev)
+        if base is not None:
+            base_version, base_g = base
+            changed = source.changes_between(base_version, version)
+            # an unknowable gap anchors nothing: the refresh would plan
+            # from an incomplete diff
+            if isinstance(changed, frozenset) \
+                    and getattr(base_g, "_mxu_state", None) is not None:
+                object.__setattr__(g, "_delta_ctx", (base_g, changed))
+        with self._lock:
+            self.counters[path] += 1
+            # keep base anchors, this version's variants and newer
+            # versions (an older view must not evict a newer snapshot);
+            # drop strictly older versions
+            per = self._cache.get(storage) or {}
+            kept = {k: v for k, v in per.items()
+                    if k[0] == "base" or k[0] >= version}
+            # an older snapshot becomes the base anchor once a full plan
+            # was built on it
+            for k, v in per.items():
+                if k[0] not in ("base", version) \
+                        and k[1:] == key[1:] \
+                        and getattr(v, "_mxu_base_self", False):
+                    cur_base = kept.get(base_key)
+                    if cur_base is None or cur_base[0] < k[0]:
+                        kept[base_key] = (k[0], v)
+            kept[key] = g
+            self._cache[storage] = kept
+        return g
+
+    def clear(self) -> None:
+        with self._lock:
+            self._cache = weakref.WeakKeyDictionary()
+
+
+GLOBAL_GRAPH_CACHE = GraphCache()

@@ -7,8 +7,11 @@ Builds the skewed north-star digraph (``northstar.generate_graph``, seed
 7; 1,000,000 nodes and 10,000,000 edges by default), runs ``pagerank``
 once per precision to build the plan and the kernels, then traces a warm
 run of ``--iterations`` iterations per precision with ``torch.profiler``.
-With ``--refresh`` it then does the same for a successor snapshot
-mutated by ``northstar.mutate`` (seed 11), served by the delta path.
+The snapshots come as a query gets them: ``GraphCache.get`` of a
+``northstar.CooSource``.  With ``--refresh`` the source then commits
+``northstar.mutation`` (seed 11) and the successor is the cache's delta
+export, refreshed from the base's plan (its ``_delta_ctx``); it is
+traced the same way.
 Prints one JSON line per snapshot and precision: wall ms per iteration,
 device-busy share of the window (the union of kernel intervals over the
 window's span), device time per kernel name, largest first, and the
@@ -29,11 +32,12 @@ import os
 import re
 import time
 
+import numpy as np
 import torch
 
-from .northstar import generate_graph, mutate
+from .northstar import CooSource, generate_graph, mutation
 from .ops import spmv_mxu
-from .ops.csr import _csr_csc_numpy, from_coo
+from .ops.csr import GraphCache, _csr_csc_numpy, from_coo
 from .ops.native import build_csr_csc_native
 from .ops.pagerank import pagerank
 
@@ -89,16 +93,21 @@ def main(argv=None):
         "csr": {"from_coo_s": from_coo_s,
                 "native": build_csr_csc_native.served == served + 1,
                 "numpy_path_s": time.perf_counter() - t0}}), flush=True)
-    graph = host.to_device("cuda")
+    del host
+    source = CooSource(src, dst, args.nodes)
+    cache = GraphCache()
+    graph = cache.get(source, device="cuda")
     os.makedirs(args.out, exist_ok=True)
     snapshots = [("base", graph)]
     if args.refresh:
-        src2, dst2, changed = mutate(src, dst, args.nodes)
-        succ = from_coo(src2, dst2, n_nodes=args.nodes,
-                        node_gids=graph.node_gids).to_device("cuda")
-        # as GraphCache.get marks a successor of a planned base
-        object.__setattr__(succ, "_delta_ctx", (graph, frozenset(
-            int(g) for g in graph.node_gids[changed])))
+        # the base's plan first: the successor's delta export anchors on it
+        pagerank(graph, max_iterations=2, tol=-1.0)
+        drop, add_src, add_dst = mutation(src, dst, args.nodes)
+        source.commit(add_src, add_dst, remove=np.flatnonzero(drop))
+        succ = cache.get(source, device="cuda")
+        ctx = getattr(succ, "_delta_ctx", None)
+        if ctx is None or ctx[0] is not graph:
+            raise SystemExit("the successor is not a delta of the base")
         snapshots.append(("refresh", succ))
     route_acc = spmv_mxu._route_acc
 
