@@ -188,7 +188,44 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    forward and backward launches (B = 46 real lanes, gathered, ⊗ =
    first), held bit-equal to the plain version on CPU copies of the
    same inputs and timed (``segment_kernels`` lines).
-14. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+14. (after the procedures, on v2) The dense paths' procedures
+   (``dense_procedures`` line; counts reset just before, read just
+   after): ``link_prediction.predict`` (1 pair) and ``recommend`` (1,000
+   candidates) on degree features, ``node_classification.predict`` on
+   the nodes' 128-wide embedding property (``northstar.vector_corpus``,
+   held by the CooSource), parameters from seed 0 carried in by
+   ``load_parameters``; ``vector_search.search``, ``knn.get``,
+   ``ppr_search`` and ``kmeans.get_clusters`` over that property's
+   index; seconds a call.  Held to the slot's embeddings (a fresh
+   forward, bit-equal); ``node_similarity.jaccard`` on v2 is refused.
+15. GraphSAGE inference (``gnn`` line) on the north star (v0) at the
+   procedures' defaults (hidden 64, out 32, 2 layers) on degree
+   features (16 wide) and on the embedding property (128 wide): K1's
+   launches, 16 / 128 and 64 lanes over the CSC and the CSR runs, kept
+   and held bit-equal to the plain version on CPU copies and timed
+   (``segment_kernels`` lines ``gnn_*``); the aggregation bit-equal to
+   its plain version on CPU copies; two forwards bit-equal; h against a
+   float64 scipy forward within ``GNN_REL_TOL`` of the largest |h|, the
+   bf16 rounding of the float64 result beside it.
+16. kNN (``knn`` line) on the 1M x 128 corpus (64 blobs, seed 19, 1% of
+   the rows freed in ``valid_mask``): l2sq and cosine, f32 and bf16, 1
+   and 100 queries, k = 10 and 100, ms a batch; f32 against a float64
+   top-k on 8 queries (a swap only between float64 near-ties, counted),
+   bf16 against the CPU copies; ties of a duplicated row to the lower
+   index; k above the live rows.
+17. k-means (``kmeans`` line): 64 clusters, 10 iterations from the first
+   row of each blob, equal to a float64 Lloyd run, twice bit-equal; K1
+   an iteration (the centroid sums), the first held to its plain version;
+   ``kmeans_fit`` from a generator, timed; the centroid means by K1 and
+   by the one-hot product, each route timed whole.  IVF (``ivf`` line): 1,024
+   cells, 100 queries at n_probe 8 against exact search, recall@10, and
+   the two routes of the centroid means at 1,024 cells.
+18. Node similarity (``similarity`` line) at 8,192 nodes and 81,920 edges
+   (the north star's generator): each mode's matrix bit-equal to numpy
+   float32 from exact counts, the all-pairs procedures' records its
+   positive pairs, ``pairwise`` on 1,000 pairs equal to it (cosine within
+   2 ulps).
+19. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -1056,7 +1093,8 @@ def counted_plan_builds():
 def phase_main_path():
     import torch
     from memgraph_tpu_torch.northstar import (N_EDGES, N_NODES, CooSource,
-                                              generate_graph)
+                                              generate_graph, node_labels,
+                                              vector_corpus)
     from memgraph_tpu_torch.ops import benes_cuda as BC
     from memgraph_tpu_torch.ops.csr import GraphCache
     from memgraph_tpu_torch.ops.native import build_csr_csc_native
@@ -1064,8 +1102,11 @@ def phase_main_path():
     from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
     src, dst = generate_graph()
+    # the nodes' embedding property (the dense paths' corpus) and classes
+    corpus = vector_corpus()
     t0 = time.perf_counter()
-    source = CooSource(src, dst, N_NODES)
+    source = CooSource(src, dst, N_NODES, properties={
+        EMBEDDING: corpus[0], "label": node_labels()})
     source_s = time.perf_counter() - t0
     cache = GraphCache()
     served = build_csr_csc_native.served
@@ -1177,7 +1218,7 @@ def phase_main_path():
     base = {"src": src, "dst": dst, "source": source, "cache": cache,
             "graph": graph, "v0_version": source.version,
             "ranks": {"f32": a32, "bf16": a16}, "summary": summary,
-            "placed_keys": list(state["placed"])}
+            "placed_keys": list(state["placed"]), "corpus": corpus}
     return launches, shapes, base
 
 
@@ -1737,8 +1778,9 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
     the longest run as the main path gives it (``longest``: a graph's
     ``longest_csc_run`` / ``longest_csr_run``, or None where the path
     does not give it); timed, with the plain version on the card and the
-    library calls: a ``torch.sparse_csr_tensor`` product (gathered, f32)
-    and ``index_add_`` of the precomputed contributions.  Where no run is
+    library calls: a ``torch.sparse_csr_tensor`` product (gathered, f32;
+    unit weights for ⊗ = first) and ``index_add_`` of the precomputed
+    contributions.  Where no run is
     long, the launch with the longest run unknown (the two-role kernel)
     is held to the same bits and timed beside it (``two_role_ms``).
     ``launched``: the result of the path's own launch on these inputs,
@@ -1807,14 +1849,18 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
         check(same_bits(k1(longest=None), got),
               f"{what}: the two-role launch is not the short one's bits")
         line["two_role_ms"] = device_ms(lambda: k1(longest=None), 10)
-    if g is not None and w is not None:
+    if g is not None:
+        # ⊗ = first is the product with unit weights
+        ww = torch.ones(n_edges, device=x.device) if w is None else w[lo:hi]
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")     # torch's beta-state notices
             mat = torch.sparse_csr_tensor(
                 (ptr - lo).contiguous(), g[lo:hi].contiguous(),
-                w[lo:hi].contiguous(), size=(n_seg, n_in))
+                ww.contiguous(), size=(n_seg, n_in))
         line["library_ms"] = cuda_ms(lambda: mat @ x, 5)
-        line["library"] = "torch.sparse_csr_tensor(ptr, g, w) @ x (f32)"
+        line["library"] = ("torch.sparse_csr_tensor(ptr, g, w) @ x (f32)"
+                           if w is not None else
+                           "torch.sparse_csr_tensor(ptr, g, 1) @ x (f32)")
     else:
         line["library_ms"] = index_add_ms
         line["library"] = "index_add_ of the contributions"
@@ -2869,6 +2915,664 @@ def phase_betweenness(base: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dense paths: GraphSAGE inference, kNN, k-means, IVF, node similarity
+# and their procedures
+# ---------------------------------------------------------------------------
+
+EMBEDDING = "embedding"     # the CooSource's vector property (northstar)
+GNN_SEED = 0
+GNN_HIDDEN, GNN_OUT, GNN_LAYERS = 64, 32, 2   # the procedures' defaults
+GNN_WIDTHS = (16, 128)      # degree features; the embedding property
+# h against a float64 forward with the same parameters, as a share of the
+# largest |h|: each layer rounds h, the aggregate and the weights to
+# bfloat16 (2^-9 relative) before its products and their sum after them;
+# a CPU run on a 1M-edge graph of the same family measured 0.0059-0.0075
+# (3-4 such roundings); budgeted 8
+GNN_REL_TOL = 8 * 2.0 ** -9
+KNN_SEED = 29
+KNN_FREED = 0.01            # the share of corpus rows freed in valid_mask
+KNN_BATCHES = (1, 100)
+KNN_KS = (10, 100)
+KNN_CHECKED = 8             # queries held to float64 / the CPU copies
+# bf16 scores on the card against the same function on CPU copies: the
+# same bf16-rounded operands, f32 sums in another order (128 products)
+KNN_BF16_TOL = 1e-5
+KMEANS_CLUSTERS = 64
+KMEANS_ITERS = 10
+IVF_CELLS = 1024
+IVF_PROBES = 8
+IVF_K = 10
+SIM_NODES, SIM_EDGES = 8192, 81920
+SIM_PAIRS = 1000
+RECOMMEND_CANDIDATES = 1000
+
+
+def gnn_reference(src, dst, n, feats, model):
+    """The float64 forward (scipy) of ``model`` on the n true nodes:
+    the undirected mean over parallel edges counted each, no rounding."""
+    import scipy.sparse as sp
+    ones = np.ones(len(src))
+    into = sp.csr_matrix((ones, (dst, src)), shape=(n, n))
+    out = sp.csr_matrix((ones, (src, dst)), shape=(n, n))
+    deg = np.maximum(np.asarray(into.sum(1)).ravel()
+                     + np.asarray(out.sum(1)).ravel(), 1.0)
+    h = feats.astype(np.float64)
+    layers = len(model.w_self)
+    for k in range(layers):
+        agg = (into @ h + out @ h) / deg[:, None]
+        h = (h @ model.w_self[k].double().cpu().numpy()
+             + agg @ model.w_neigh[k].double().cpu().numpy()
+             + model.b[k].double().cpu().numpy())
+        if k < layers - 1:
+            h = np.maximum(h, 0.0)
+    return h
+
+
+def phase_gnn(base: dict):
+    """GraphSAGE inference on the north star (v0) at the procedures'
+    defaults (hidden 64, out 32, 2 layers, Glorot parameters from seed 0)
+    on degree features (16 wide) and on the 128-wide embedding property.
+    Counts set to 0 just before the two forwards, read just after: K1
+    gathered, ⊗ = first, over the CSC and the CSR runs, at 16 / 128 and
+    64 lanes; each kept launch held bit-equal to its plain version on CPU
+    copies and timed (``segment_kernels`` lines ``gnn_*``); the whole
+    aggregation bit-equal to its plain version on CPU copies at each
+    width; the forward twice bit-equal; h against a float64 forward
+    within ``GNN_REL_TOL`` of the largest |h|."""
+    import torch
+    from memgraph_tpu_torch.ops import gnn as G
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n = graph.n_nodes
+    points = base["corpus"][0]
+    feats = {16: G.degree_features(graph)}
+    wide = torch.zeros(graph.n_pad, points.shape[1], device="cuda")
+    wide[:n] = torch.from_numpy(points).cuda()
+    feats[128] = wide
+    models = {w: G.init_sage_params(
+        w, GNN_HIDDEN, GNN_OUT, GNN_LAYERS,
+        generator=torch.Generator().manual_seed(GNN_SEED), device="cuda")
+        for w in feats}
+
+    def keep(x, ptr, g, w, kw):
+        runs = "csc" if g is graph.csc_src else "csr"
+        return f"{runs}_B{x.shape[1]}"
+
+    # the GNN path: counts set to 0 just before, read just after
+    h, cold = {}, {}
+    reset_all_counts()
+    with k1_recorded(G, keep) as calls:
+        for w in GNN_WIDTHS:
+            h[w], cold[w] = timed_run(
+                lambda: G.sage_forward(models[w], feats[w], graph))
+    launches = all_counts()
+    want = len(GNN_WIDTHS) * GNN_LAYERS * 2
+    check(launches["csr_spmm_sum"] == want
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"GNN launches {launches}, not {want} K1 launches")
+    check(set(calls) == {f"{r}_B{b}" for r in ("csc", "csr")
+                         for b in (16, 64, 128)},
+          f"the GNN path's K1 calls were not recorded: {sorted(calls)}")
+    warm, out = {}, {}
+    for w in GNN_WIDTHS:
+        again, warm[w] = timed_run(
+            lambda: G.sage_forward(models[w], feats[w], graph))
+        check(same_bits(again, h[w]), f"two {w}-wide forwards differ")
+    cpu_graph = graph.to_device("cpu")
+    for lanes in (16, 64, 128):
+        x = calls[f"csc_B{lanes}"]["x"]
+        check(same_bits(G._mean_aggregate(x, graph).cpu(),
+                        G._mean_aggregate(x.cpu(), cpu_graph)),
+              f"the {lanes}-wide aggregation is not its plain version's "
+              f"bits")
+    del cpu_graph
+    k1_lines = path_k1_lines(calls, "gnn", n_in=graph.n_pad)
+    del calls
+    for w in GNN_WIDTHS:
+        t0 = time.perf_counter()
+        ref = gnn_reference(src, dst, n, feats[w][:n].cpu().numpy(),
+                            models[w])
+        got = h[w][:n].double().cpu().numpy()
+        check(bool(np.isfinite(got).all())
+              and got.shape == (n, GNN_OUT), f"{w}-wide h non-finite")
+        top = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max()) / top
+        rounding = float(np.abs(torch.from_numpy(ref).to(
+            torch.bfloat16).double().numpy() - ref).max()) / top
+        check(err <= GNN_REL_TOL,
+              f"{w}-wide h off float64 by {err} of the largest |h|")
+        out[w] = {"cold_s": cold[w], "forward_ms": warm[w] * 1e3,
+                  "err_over_largest": err,
+                  "bf16_rounding_over_largest": rounding,
+                  "limit": GNN_REL_TOL, "largest": top,
+                  "reference_s": time.perf_counter() - t0}
+    summary = {"n_nodes": n, "n_edges": graph.n_edges,
+               "layers": GNN_LAYERS, "hidden": GNN_HIDDEN, "out": GNN_OUT,
+               "by_width": out,
+               "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+                   "lanes", "n_seg", "longest_run", "ms", "bound_ms",
+                   "plain_ms", "library_ms")} for ln in k1_lines},
+               "launches": launches}
+    print("gnn", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_procedures(base: dict):
+    """The dense paths' procedure counterparts once each on v2 through the
+    CooSource, counts set to 0 just before and read just after:
+    ``link_prediction.predict`` (1 pair) and ``recommend`` (1,000
+    candidates) on degree features, ``node_classification.predict`` on
+    the embedding property, parameters from seed 0 bound by
+    ``load_parameters``; ``vector_search.search``, ``knn.get``,
+    ``ppr_search`` and ``kmeans.get_clusters`` (64 clusters) over the
+    embedding index; seconds a call.  The answers are held to the slot's
+    embeddings (a fresh forward, bit-equal), the search's own row first,
+    ``knn.get`` equal to the search's next ten, and
+    ``node_similarity.jaccard`` on v2 (1M nodes) refused."""
+    import torch
+    from memgraph_tpu_torch.ops import gnn as G
+    from memgraph_tpu_torch.procedures import ProcedureError
+    from memgraph_tpu_torch.procedures import ml_modules as ML
+    from memgraph_tpu_torch.procedures import structure_modules as SM
+    from memgraph_tpu_torch.procedures import utility_modules as UM
+    from memgraph_tpu_torch.procedures import vector_search as VS
+
+    source, cache, v2 = base["source"], base["cache"], base["v2"]
+    check(cache.get(source, device="cuda") is v2,
+          "the dense procedures would not run on v2")
+    n = v2.n_nodes
+    gids = np.asarray(v2.node_gids)
+    points = base["corpus"][0]
+    rng = np.random.default_rng(KNN_SEED)
+    a, b = (int(i) for i in rng.choice(n, 2, replace=False))
+    cands = gids[rng.choice(n, RECOMMEND_CANDIDATES, replace=False)]
+    n_classes = int(np.max(source.vertex_property("label", gids))) + 1
+    models, index_cache = ML.ModelRegistry(), VS.IndexCache()
+
+    def params(width, out):
+        return G.init_sage_params(
+            width, GNN_HIDDEN, out, GNN_LAYERS,
+            generator=torch.Generator().manual_seed(GNN_SEED), device="cuda")
+
+    query = points[a].tolist()
+    kw = {"device": "cuda"}
+    calls = [
+        ("link_prediction.load_parameters", lambda: ML.load_parameters(
+            source, "link_prediction", params(16, GNN_OUT), models=models,
+            cache=cache, **kw)),
+        ("link_prediction.predict", lambda: ML.link_prediction_predict(
+            source, int(gids[a]), int(gids[b]), models=models, cache=cache,
+            **kw)),
+        ("link_prediction.recommend", lambda: ML.link_prediction_recommend(
+            source, int(gids[a]), cands.tolist(), 10, models=models,
+            cache=cache, **kw)),
+        ("node_classification.set_model_parameters",
+         lambda: ML.set_model_parameters(
+             source, "node_classification",
+             {"node_features_property": EMBEDDING}, models=models)),
+        ("node_classification.load_parameters", lambda: ML.load_parameters(
+            source, "node_classification", params(points.shape[1],
+                                                  n_classes),
+            models=models, cache=cache, **kw)),
+        ("node_classification.predict",
+         lambda: ML.node_classification_predict(
+             source, int(gids[a]), models=models, cache=cache, **kw)),
+        ("vector_search.search", lambda: VS.search(
+            source, EMBEDDING, query, 11, index_cache=index_cache, **kw)),
+        ("knn.get", lambda: VS.knn_get(
+            source, int(gids[a]), EMBEDDING, 10, index_cache=index_cache,
+            **kw)),
+        ("vector_search.ppr_search", lambda: VS.ppr_search(
+            source, EMBEDDING, query, 5, 10, cache=cache,
+            index_cache=index_cache, **kw)),
+        ("kmeans.get_clusters", lambda: UM.kmeans_get_clusters(
+            source, EMBEDDING, KMEANS_CLUSTERS, index_cache=index_cache,
+            **kw)),
+    ]
+    secs, outs = {}, {}
+    # the dense procedures' path: counts set to 0 just before, read just
+    # after
+    reset_all_counts()
+    for name, fn in calls:
+        outs[name], secs[name] = timed_run(fn)
+    launches = all_counts()
+
+    lp = models.slot(source, "link_prediction")
+    nc = models.slot(source, "node_classification")
+    for slot, what in ((lp, "link_prediction"), (nc, "node_classification")):
+        check(slot.graph is v2 and same_bits(
+            slot.emb, G.sage_forward(slot.params, slot.feats, v2)),
+            f"{what}'s embeddings are not a fresh forward's bits on v2")
+    emb = lp.emb.double().cpu().numpy()
+
+    def sigmoid_dot(i, j):
+        return 1.0 / (1.0 + np.exp(-float(emb[i] @ emb[j])))
+
+    score = outs["link_prediction.predict"]["score"]
+    check(score.shape == (1,) and 0.0 <= score[0] <= 1.0
+          and abs(score[0] - sigmoid_dot(a, b)) <= 1e-5,
+          f"link_prediction.predict {score} is not its embeddings' score")
+    rec = outs["link_prediction.recommend"]
+    idx = [v2.gid_to_idx[int(g)] for g in rec["node_gids"]]
+    best = np.sort([sigmoid_dot(a, v2.gid_to_idx[int(g)])
+                    for g in cands])[::-1][:10]
+    check(len(idx) == 10 and set(rec["node_gids"]) <= set(cands.tolist())
+          and bool((np.diff(rec["score"]) <= 0).all())
+          and np.abs(rec["score"] - best).max() <= 1e-5,
+          "link_prediction.recommend is not the best ten of its "
+          "candidates")
+    cls = outs["node_classification.predict"]["predicted_class"]
+    check(cls.tolist() == [int(torch.argmax(nc.emb[a]))]
+          and 0 <= cls[0] < n_classes,
+          f"node_classification.predict {cls} is not its logits' argmax")
+    found = outs["vector_search.search"]
+    near = outs["knn.get"]
+    check(len(found["node_gids"]) == 11 and found["node_gids"][0] == gids[a]
+          and near["node_gids"].tolist() == found["node_gids"][1:].tolist()
+          and np.array_equal(near["similarity"], found["similarity"][1:]),
+          "vector_search.search / knn.get: not the query's row, then "
+          "the same ten")
+    ppr = outs["vector_search.ppr_search"]
+    check(0 < len(ppr["node_gids"]) <= 10
+          and bool((ppr["score"] > 0).all())
+          and bool((np.diff(ppr["score"]) <= 0).all()),
+          "vector_search.ppr_search's ranks are not positive, descending")
+    clusters = outs["kmeans.get_clusters"]
+    check(len(clusters["node_gids"]) == n
+          and 0 <= clusters["cluster_id"].min()
+          and clusters["cluster_id"].max() < KMEANS_CLUSTERS,
+          "kmeans.get_clusters misshaped")
+    try:
+        SM.node_similarity_all(source, "jaccard", cache=cache, **kw)
+        refused = False
+    except ProcedureError:
+        refused = True
+    check(refused, "node_similarity.jaccard on v2 was not refused")
+    summary = {"version": source.version, "n_nodes": n,
+               "seconds": secs,
+               "rows": {k: len(v["node_gids"]) for k, v in outs.items()
+                        if isinstance(v, dict) and "node_gids" in v},
+               "index_builds": index_cache.counters["full_builds"],
+               "launches": launches}
+    print("dense_procedures", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def knn64(points64, valid, queries, k, metric):
+    """The float64 top k of each query (ties to the lower index) over the
+    valid rows: (indices (q, k), float64 scores of every row)."""
+    x, q = points64, queries.astype(np.float64)
+    if metric == "cosine":
+        x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    s = q @ x.T
+    if metric == "l2sq":
+        s = 2.0 * s - np.sum(points64 ** 2, axis=1)[None, :]
+    s[:, valid <= 0] = -np.inf
+    return np.argsort(-s, axis=1, kind="stable")[:, :k], s
+
+
+def vs_knn64(idx, ref, s64, tol) -> int:
+    """The positions where the card's top k is not float64's: each must
+    hold a near tie (float64 scores within ``tol``); their count."""
+    swaps = 0
+    for row in range(len(idx)):
+        for got, want in zip(idx[row], ref[row]):
+            if got != want:
+                swaps += 1
+                check(abs(s64[row, got] - s64[row, want]) <= tol,
+                      f"kNN row {row}: {got} in place of {want}, float64 "
+                      f"{s64[row, got]} vs {s64[row, want]}")
+    return swaps
+
+
+def phase_knn(base: dict):
+    """Brute-force kNN on the 1M x 128 corpus with 1% of its rows freed in
+    ``valid_mask``: l2sq and cosine, f32 and bf16, 1 and 100 queries, k =
+    10 and 100, ms a query batch.  f32: 8 queries against a float64
+    top-k, indices and order (a swap only between float64 near-ties);
+    bf16: 8 queries against the same function on CPU copies (scores
+    within ``KNN_BF16_TOL`` of the largest, recall stated); a query of a
+    duplicated row ties to the lower indices, and k above the live rows
+    fills with the lowest masked rows."""
+    import torch
+    from memgraph_tpu_torch.ops import knn as K
+
+    points = base["corpus"][0]
+    n, d = points.shape
+    corpus = torch.from_numpy(points).cuda()
+    rng = np.random.default_rng(KNN_SEED)
+    valid = (rng.random(n) >= KNN_FREED).astype(np.float32)
+    mask = torch.from_numpy(valid).cuda()
+    queries_np = (points[rng.choice(n, max(KNN_BATCHES), replace=False)]
+                  + rng.standard_normal((max(KNN_BATCHES), d),
+                                        dtype=np.float32) * 0.5)
+    queries = torch.from_numpy(queries_np).cuda()
+    reset_all_counts()
+    lines, results = [], {}
+    for metric in ("l2sq", "cosine"):
+        for use_bf16 in (False, True):
+            for q in KNN_BATCHES:
+                for k in KNN_KS:
+                    def fn():
+                        return K.knn(corpus, queries[:q], k, metric,
+                                     use_bf16, valid_mask=mask)
+                    out, cold = timed_run(fn)
+                    results[(metric, use_bf16, q, k)] = out
+                    ms = min(timed_run(fn)[1] for _ in range(3)) * 1e3
+                    lines.append({"metric": metric,
+                                  "precision": "bf16" if use_bf16 else "f32",
+                                  "queries": q, "k": k, "ms": ms,
+                                  "cold_ms": cold * 1e3})
+    launches = all_counts()
+    points64 = points.astype(np.float64)
+    checked = {}
+    k = max(KNN_KS)
+    for metric in ("l2sq", "cosine"):
+        s32, i32 = results[(metric, False, max(KNN_BATCHES), k)]
+        ref, s64 = knn64(points64, valid, queries_np[:KNN_CHECKED], k,
+                         metric)
+        idx = i32[:KNN_CHECKED].cpu().numpy()
+        check(bool(valid[idx].all()), f"{metric} kNN returned a freed row")
+        # f32's error in a score: a 128-term dot and |x|^2 at these
+        # magnitudes, 2^-24 relative a term; budgeted 64 ulps of the
+        # largest term
+        mag = (2 * np.linalg.norm(queries_np[:KNN_CHECKED], axis=1).max()
+               * np.linalg.norm(points, axis=1).max()
+               + (points ** 2).sum(1).max()) if metric == "l2sq" else 1.0
+        tol = 64 * 2.0 ** -24 * float(mag)
+        swaps = vs_knn64(idx, ref, s64, tol)
+        sb, ib = results[(metric, True, max(KNN_BATCHES), k)]
+        cs, ci = K.knn(corpus.cpu(), queries[:KNN_CHECKED].cpu(), k, metric,
+                       True, valid_mask=mask.cpu())
+        top = float(cs.abs().max())
+        berr = float((sb[:KNN_CHECKED].cpu() - cs).abs().max())
+        check(berr <= KNN_BF16_TOL * top,
+              f"{metric} bf16 scores off the CPU copies' by {berr}")
+        recall = float(np.mean([
+            len(set(a) & set(b)) / k for a, b in zip(
+                ib[:KNN_CHECKED].cpu().numpy(), ci.numpy())]))
+        recall64 = float(np.mean([
+            len(set(a) & set(b)) / k for a, b in zip(
+                ib[:KNN_CHECKED].cpu().numpy(), ref)]))
+        checked[metric] = {"f32_vs_f64_swaps": swaps, "f32_tol": tol,
+                           "bf16_vs_cpu_err": berr, "bf16_vs_cpu_limit":
+                           KNN_BF16_TOL * top, "bf16_recall_vs_cpu": recall,
+                           "bf16_recall_vs_f64": recall64}
+    # ties: a row copied to three later rows, queried; k above the live
+    # rows
+    rows = np.sort(rng.choice(n, 4, replace=False))
+    dup = corpus.clone()
+    dup[torch.from_numpy(rows[1:]).cuda()] = dup[int(rows[0])].clone()
+    for metric in ("l2sq", "cosine"):
+        for use_bf16 in (False, True):
+            s, i = K.knn(dup, dup[int(rows[2]):int(rows[2]) + 1], 8, metric,
+                         use_bf16)
+            check(i[0, :4].tolist() == rows.tolist()
+                  and len(set(s[0, :4].tolist())) == 1,
+                  f"a duplicated row's ties ({metric}, bf16={use_bf16}) are "
+                  f"not in index order: {i[0, :4].tolist()} vs "
+                  f"{rows.tolist()}")
+    del dup
+    few = torch.zeros(n, device="cuda")
+    few[torch.from_numpy(rows[:3]).cuda()] = 1.0
+    _, i = K.knn(corpus, queries[:2], 10, "l2sq", False, valid_mask=few)
+    masked = [j for j in range(10) if j not in rows[:3]][:7]
+    check(all(sorted(r[:3]) == rows[:3].tolist() and r[3:] == masked
+              for r in i.tolist()),
+          f"k above the live rows: {i.tolist()}")
+    summary = {"n": n, "dim": d, "freed": int((valid == 0).sum()),
+               "batches": lines, "checked": checked, "launches": launches}
+    print("knn", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lloyd64(points64, init_rows, iters):
+    """float64 Lloyd steps from the given rows: (centroids, the nearest
+    centroid of each point, the first on a tie)."""
+    import scipy.sparse as sp
+    n = len(points64)
+    psq = np.sum(points64 ** 2, axis=1)
+    cent = points64[init_rows]
+    for it in range(iters + 1):
+        dist = psq[:, None] - 2.0 * points64 @ cent.T \
+            + np.sum(cent ** 2, axis=1)[None, :]
+        assign = np.argmin(dist, axis=1)
+        if it == iters:
+            return cent, assign
+        counts = np.bincount(assign, minlength=len(cent))
+        sums = sp.csr_matrix((np.ones(n), (assign, np.arange(n))),
+                             shape=(len(cent), n)) @ points64
+        cent = np.where(counts[:, None] > 0,
+                        sums / np.maximum(counts, 1)[:, None], cent)
+
+
+def centroid_routes(points, cent0) -> dict:
+    """The two deterministic routes of a Lloyd step's centroid means, on
+    the first iteration's assignment, each timed whole on the card: the
+    port's (``knn._centroids``: the stable sort by cluster, the counts,
+    K1's run sums, the means) and the reference's one-hot product
+    (``one_hot.T @ points`` at full f32, then the means).  Their largest
+    difference, and whether two one-hot products are bit-equal."""
+    import torch
+    from memgraph_tpu_torch.ops import knn as K
+
+    psq = torch.sum(points ** 2, dim=1, keepdim=True)
+    assign = K._assign(points, psq, cent0)
+
+    def onehot():
+        hot = torch.nn.functional.one_hot(assign, cent0.shape[0]).to(
+            torch.float32)
+        counts = hot.sum(dim=0)[:, None]
+        return torch.where(counts > 0, (hot.T @ points)
+                           / torch.clamp(counts, min=1.0), cent0)
+
+    k1_means = K._centroids(points, assign, cent0)
+    first, second = onehot(), onehot()
+    out = {"k1_route_ms": cuda_ms(
+               lambda: K._centroids(points, assign, cent0), 20),
+           "onehot_route_ms": cuda_ms(onehot, 20),
+           "onehot_bit_equal_twice": same_bits(first, second),
+           "max_abs_diff": float((first - k1_means).abs().max())}
+    del first, second, k1_means
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kmeans(base: dict):
+    """k-means of the 1M x 128 corpus at 64 clusters, 10 iterations, from
+    the first row of each blob: the assignment equal to a float64 numpy
+    Lloyd run from the same rows, two runs bit-equal, ms an iteration;
+    counts set to 0 just before, read just after (K1 an iteration, the
+    centroid sums), the first iteration's launch kept and held to its
+    plain version on CPU copies.  Then ``kmeans_fit`` (rows from a
+    generator, seed 0), timed, and the centroid means' two routes side by
+    side (``centroid_routes``)."""
+    import torch
+    from memgraph_tpu_torch.ops import knn as K
+
+    points, blob = base["corpus"]
+    corpus = torch.from_numpy(points).cuda()
+    rows = np.unique(blob, return_index=True)[1]
+    check(len(rows) == KMEANS_CLUSTERS, "the corpus lacks a blob")
+    cent0 = corpus[torch.from_numpy(rows).cuda()]
+
+    def first(x, ptr, g, w, kw):
+        first.calls += 1
+        return "iteration1" if first.calls == 1 else None
+
+    first.calls = 0
+    reset_all_counts()
+    with k1_recorded(K, first) as calls:
+        (cent, assign), secs = timed_run(
+            lambda: K.kmeans_steps(corpus, cent0, KMEANS_ITERS))
+    launches = all_counts()
+    check(launches["csr_spmm_sum"] == KMEANS_ITERS
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"k-means launches {launches} over {KMEANS_ITERS} iterations")
+    (cent2, assign2), secs2 = timed_run(
+        lambda: K.kmeans_steps(corpus, cent0, KMEANS_ITERS))
+    check(torch.equal(assign, assign2) and same_bits(cent, cent2),
+          "two k-means runs differ")
+    k1_lines = path_k1_lines(calls, "kmeans", n_in=len(points))
+    del calls
+    t0 = time.perf_counter()
+    _, want = lloyd64(points.astype(np.float64), rows, KMEANS_ITERS)
+    ref_s = time.perf_counter() - t0
+    got = assign.cpu().numpy()
+    check(np.array_equal(got, want),
+          f"k-means differs from float64 Lloyd at "
+          f"{int((got != want).sum())} points")
+    (fcent, fassign), fit_s = timed_run(lambda: K.kmeans_fit(
+        corpus, KMEANS_CLUSTERS, KMEANS_ITERS,
+        generator=torch.Generator().manual_seed(0)))
+    sizes = np.bincount(fassign.cpu().numpy(), minlength=KMEANS_CLUSTERS)
+    routes = centroid_routes(corpus, cent0)
+    summary = {"n": len(points), "clusters": KMEANS_CLUSTERS,
+               "iterations": KMEANS_ITERS, "seconds": [secs, secs2],
+               "ms_an_iteration": secs2 / KMEANS_ITERS * 1e3,
+               "equal_to_float64": True, "float64_s": ref_s,
+               "fit_s": fit_s, "fit_cluster_sizes": [int(sizes.min()),
+                                                     int(sizes.max())],
+               "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+                   "n_seg", "longest_run", "ms", "bound_ms", "plain_ms",
+                   "library_ms")} for ln in k1_lines},
+               "centroid_routes": routes,
+               "launches": launches}
+    print("kmeans", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ivf(base: dict):
+    """An IVF index of the corpus at 1,024 cells (its k-means from a
+    generator, seed 0), 100 queries at n_probe 8, k = 10, l2sq, against
+    exact f32 search: recall@10 stated; each IVF score at most the exact
+    one at its rank (the probed cells are a subset); the centroid means'
+    two routes at the trained cells (``centroid_routes``)."""
+    import torch
+    from memgraph_tpu_torch.ops import knn as K
+
+    points = base["corpus"][0]
+    n, d = points.shape
+    corpus = torch.from_numpy(points).cuda()
+    rng = np.random.default_rng(KNN_SEED + 1)
+    queries = (points[rng.choice(n, max(KNN_BATCHES), replace=False)]
+               + rng.standard_normal((max(KNN_BATCHES), d),
+                                     dtype=np.float32) * 0.5)
+    reset_all_counts()
+    index, build_s = timed_run(lambda: K.IvfIndex(corpus,
+                                                  n_clusters=IVF_CELLS))
+    (scores, ids), search_s = timed_run(
+        lambda: index.search(queries, IVF_K, IVF_PROBES, "l2sq"))
+    launches = all_counts()
+    check(launches["csr_spmm_sum"] == KMEANS_ITERS,
+          f"IVF launches {launches}")
+    es, ei = K.knn(corpus, torch.from_numpy(queries).cuda(), IVF_K, "l2sq",
+                   use_bf16=False)
+    es, ei = es.cpu().numpy(), ei.cpu().numpy()
+    check(ids.shape == (len(queries), IVF_K) and (ids >= 0).all()
+          and bool((scores <= es + 1e-3 * np.abs(es)).all()),
+          "IVF scores above the exact search's")
+    recall = float(np.mean([len(set(a) & set(b)) / IVF_K
+                            for a, b in zip(ids, ei)]))
+    cells = np.diff(index.cell_start)
+    routes = centroid_routes(corpus, index.centroids)
+    summary = {"n": n, "cells": IVF_CELLS, "n_probe": IVF_PROBES,
+               "k": IVF_K, "queries": len(queries), "build_s": build_s,
+               "search_ms_a_query": search_s / len(queries) * 1e3,
+               "recall_at_10": recall,
+               "cell_sizes": [int(cells.min()), int(cells.max())],
+               "centroid_routes": routes,
+               "launches": launches}
+    print("ivf", json.dumps(summary), flush=True)
+    del index
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_similarity(base: dict):
+    """Node similarity at ``DENSE_LIMIT``: a graph of 8,192 nodes and
+    81,920 edges from the north star's generator, through a CooSource.
+    The dense matrix in each mode bit-equal to numpy float32 from exact
+    integer counts; each all-pairs procedure's records the positive
+    pairs i < j of that matrix; ``pairwise`` on 1,000 pairs equal to the
+    matrix (jaccard, overlap) or within 2 f32 ulps (cosine: the host
+    divides in float64)."""
+    import scipy.sparse as sp
+    import torch
+    from memgraph_tpu_torch.northstar import CooSource, generate_graph
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.ops.similarity import similarity_matrix
+    from memgraph_tpu_torch.procedures import structure_modules as SM
+
+    src, dst = generate_graph(SIM_NODES, SIM_EDGES)
+    source, cache = CooSource(src, dst, SIM_NODES), GraphCache()
+    graph = cache.get(source, device="cuda")
+    n = SIM_NODES
+    adj = sp.csr_matrix((np.ones(len(src), dtype=np.int32), (src, dst)),
+                        shape=(n, n))
+    adj.data[:] = 1
+    common = (adj @ adj.T).toarray().astype(np.float32)
+    deg = np.asarray(adj.sum(1)).ravel().astype(np.float32)
+    eps = np.float32(1e-9)
+    union = deg[:, None] + deg[None, :] - common
+    low = np.minimum(deg[:, None], deg[None, :])
+    root = np.sqrt(deg[:, None] * deg[None, :])
+    want = {"jaccard": np.where(union > 0, common / np.maximum(union, eps),
+                                np.float32(0)),
+            "overlap": np.where(low > 0, common / np.maximum(low, eps),
+                                np.float32(0)),
+            "cosine": np.where(root > 0, common / np.maximum(root, eps),
+                               np.float32(0))}
+    del common, union, low, root
+    rng = np.random.default_rng(KNN_SEED + 2)
+    pairs = rng.integers(0, n, (SIM_PAIRS, 2))
+    reset_all_counts()
+    out = {}
+    for mode in ("jaccard", "overlap", "cosine"):
+        mat, ms = timed_run(lambda: similarity_matrix(graph, mode))
+        got = mat.cpu().numpy()
+        check(got.dtype == np.float32
+              and np.array_equal(got.view(np.int32),
+                                 want[mode].view(np.int32)),
+              f"{mode} is not numpy float32's bits")
+        rec, proc_s = timed_run(lambda: SM.node_similarity_all(
+            source, mode, cache=cache, device="cuda"))
+        i, j = np.nonzero(np.triu(want[mode], k=1) > 0)
+        check(np.array_equal(rec["node1_gids"], i)
+              and np.array_equal(rec["node2_gids"], j)
+              and np.array_equal(rec["similarity"],
+                                 want[mode][i, j].astype(np.float64)),
+              f"node_similarity.{mode}'s records are not the matrix's")
+        pw, pw_s = timed_run(lambda: SM.node_similarity_pairwise(
+            source, pairs.tolist(), mode, cache=cache, device="cuda"))
+        at = want[mode][pw["node1_gids"], pw["node2_gids"]]
+        ulps = np.abs(pw["similarity"].astype(np.float32).view(np.int32)
+                      - at.view(np.int32))
+        check(len(pw["similarity"]) == SIM_PAIRS
+              and int(ulps.max()) <= (2 if mode == "cosine" else 0),
+              f"node_similarity.pairwise {mode} off the matrix by "
+              f"{int(ulps.max())} ulps")
+        out[mode] = {"matrix_ms": ms * 1e3, "procedure_s": proc_s,
+                     "records": len(i), "pairwise_s": pw_s,
+                     "pairwise_max_ulps": int(ulps.max())}
+    launches = all_counts()
+    summary = {"n_nodes": n, "n_edges": graph.n_edges, "modes": out,
+               "launches": launches}
+    print("similarity", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2910,7 +3614,9 @@ def main():
     refresh_launches, refresh_shapes = mxu_path("refresh", phase_refresh,
                                                 base)
     snapshot_launches = mxu_path("snapshot", phase_snapshot, base)
-    by_path = {"procedures": timed("procedures", phase_procedures, base)}
+    by_path = {"procedures": timed("procedures", phase_procedures, base),
+               "dense_procedures": timed("dense_procedures",
+                                         phase_dense_procedures, base)}
     timed("snapshot_log", phase_snapshot_log, base)
     seg_lines = timed("segment_kernels", phase_segment_kernels, base)
     by_path.update({
@@ -2918,7 +3624,12 @@ def main():
         "ppr": timed("ppr", phase_ppr, base),
         "traversal": timed("traversal", phase_traversal, base),
         "labelprop": timed("labelprop", phase_labelprop, base),
-        "betweenness": timed("betweenness", phase_betweenness, base)})
+        "betweenness": timed("betweenness", phase_betweenness, base),
+        "gnn": timed("gnn", phase_gnn, base),
+        "knn": timed("knn", phase_knn, base),
+        "kmeans": timed("kmeans", phase_kmeans, base),
+        "ivf": timed("ivf", phase_ivf, base),
+        "similarity": timed("similarity", phase_similarity, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

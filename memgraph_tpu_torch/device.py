@@ -1,4 +1,5 @@
-"""Device resolution: the card by default, the CPU only when asked."""
+"""Device resolution (the card by default, the CPU only when asked) and
+the port's one switch for full-f32 matrix products."""
 
 from __future__ import annotations
 
@@ -36,3 +37,14 @@ def resolve_device(device=None, like=None) -> torch.device:
     if dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def exact_f32_matmuls() -> None:
+    """Full-f32 matrix products from here on: TF32 off for cuBLAS, and
+    the "highest" float32 matmul precision.  Every entry point that runs
+    an f32 product it means exactly (the MXU plan's one-hot matmuls, kNN
+    scores, k-means distances, the similarity counts) calls it first,
+    so its answer does not depend on what ran before it in the process
+    or on the global defaults: TF32 keeps 10 bits of mantissa."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

@@ -5,7 +5,9 @@ through, made from seeds.
 squared sampling of destinations), 1,000,000 nodes and 10,000,000 edges
 from seed 7 (``GRAPH_SEED``), as ``bench.py`` builds it.  ``mutation``:
 the commit that a snapshot refresh serves (seed 11);
-``second_commit``: the one after it (seed 13).  ``CooSource``: a
+``second_commit``: the one after it (seed 13).  ``vector_corpus`` and
+``node_labels``: the nodes' seeded embedding vectors and classes (the
+dense paths' property data).  ``CooSource``: a
 versioned COO graph with a bounded change log, the source (ops/csr.py)
 that ``GraphCache`` snapshots.  Used by ``chip_smoke.py`` and
 ``trace_pagerank``.
@@ -75,6 +77,31 @@ def second_commit(alive_ids, n_nodes):
     return removed, add_src, add_dst
 
 
+VECTOR_DIM = 128             # ann-benchmarks' sift-128-euclidean width
+VECTOR_BLOBS = 64
+VECTOR_SEED = 19
+N_CLASSES = 8
+LABEL_SEED = 23
+
+
+def vector_corpus(n: int = N_NODES, dim: int = VECTOR_DIM,
+                  blobs: int = VECTOR_BLOBS):
+    """(points (n, dim) f32, the blob of each point), from
+    ``VECTOR_SEED``: well-separated Gaussian blobs, centers N(0, 4²) a
+    coordinate (about 64 apart), points their center + N(0, 1) (about
+    11 from it)."""
+    rng = np.random.default_rng(VECTOR_SEED)
+    centers = rng.standard_normal((blobs, dim), dtype=np.float32) * 4
+    blob = rng.integers(0, blobs, n)
+    points = centers[blob] + rng.standard_normal((n, dim), dtype=np.float32)
+    return points, blob
+
+
+def node_labels(n: int = N_NODES) -> np.ndarray:
+    """A class in [0, N_CLASSES) for each node, from ``LABEL_SEED``."""
+    return np.random.default_rng(LABEL_SEED).integers(0, N_CLASSES, n)
+
+
 class CooSource:
     """A versioned COO graph with a bounded change log: a source of
     ``ops.csr.GraphCache`` (see ops/csr.py) that keeps the storage's
@@ -86,7 +113,10 @@ class CooSource:
     type, so only ``label_filter=None`` and ``edge_type_filter=None`` are
     answered.  Each ``commit`` is one version whose change-log entry
     holds the gids of every vertex it touched (an edge's two endpoints, a
-    new vertex); ``untracked_bump`` is a version that records none.  The
+    new vertex); ``untracked_bump`` is a version that records none.
+    ``properties`` gives the initial vertices their vertex properties (a
+    name and an array with a value, or a row, for each), which
+    ``vertex_property`` reads; the vertices that commits add have none.  The
     log keeps the last ``log_size`` entries behind a monotone low-water
     mark, and ``changes_between`` answers as the storage's does: the
     union of the entries in (v_from, v_to], or ``ChangeLogUnknowable``
@@ -95,8 +125,13 @@ class CooSource:
     WEIGHT = "weight"
 
     def __init__(self, src, dst, n_nodes: int, weights=None,
-                 log_size: int = 1024) -> None:
+                 log_size: int = 1024, properties=None) -> None:
         self.storage = self
+        # vertex properties: name -> an array with a value (a row) for
+        # each initial vertex
+        self._props = {k: np.asarray(v) for k, v in (properties or {}).items()}
+        if any(len(v) != n_nodes for v in self._props.values()):
+            raise ValueError("a vertex property needs one value a vertex")
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if len(src) and (min(src.min(), dst.min()) < 0
@@ -179,6 +214,17 @@ class CooSource:
             ends = self.edge_arrays(self._incident_ids(gid, side))
             out += [ends[1 - side], ends[2] if weighted else None]
         return tuple(out)
+
+    def vertex_property(self, name, gids):
+        values = self._props.get(name)
+        if values is None:
+            return None
+        gids = np.asarray(gids, dtype=np.int64)
+        if len(gids) == 0 or (gids.min() >= 0 and gids.max() < len(values)):
+            return values[gids]
+        # vertices that commits added carry no property
+        return [values[g].tolist() if 0 <= g < len(values) else None
+                for g in gids.tolist()]
 
     # --- commits --------------------------------------------------------------
 

@@ -41,6 +41,16 @@ owns the graph.  A source gives
                          storage's own state of the vertex (not a
                          session's fine-grained filters: a cached
                          snapshot is every session's)
+  ``vertex_property(name, gids)``
+                         None when the storage knows no property ``name``;
+                         else its value on each vertex with a gid in
+                         ``gids`` (None where the vertex lacks it or is
+                         not visible), one a gid in order: a sequence of
+                         values, or a numpy array of them (a 2-D array
+                         when every value is a numeric list of one
+                         length); the dense paths' procedures (node
+                         features, vector indexes) read either form
+                         through ``property_rows``
 
 ``memgraph_tpu_torch.northstar.CooSource`` is one (a versioned COO graph);
 the tests hold an adapter of the JAX package's storage against it.
@@ -51,6 +61,7 @@ from __future__ import annotations
 import logging
 import threading
 import weakref
+from collections import Counter
 from dataclasses import dataclass, field, fields
 from typing import Optional
 
@@ -312,6 +323,38 @@ def _weights(raw) -> np.ndarray:
     if isinstance(raw, np.ndarray) and raw.dtype.kind in "iuf":
         return raw.astype(np.float32)
     return np.asarray([_coerce_weight(w) for w in raw], dtype=np.float32)
+
+
+def _numeric_list(value):
+    """A property value as a list of floats when it is a non-empty list
+    of numbers (bools are not numbers), else None."""
+    if isinstance(value, (list, tuple)) and value and \
+            all(isinstance(x, (int, float)) and not isinstance(x, bool)
+                for x in value):
+        return [float(x) for x in value]
+    return None
+
+
+def property_rows(values):
+    """(matrix, kept) of a ``vertex_property`` read, in either of its
+    forms: ``kept[i]`` is True where ``values[i]`` is a non-empty list of
+    numbers of the dominant length (the most frequent; the first seen on
+    a tie), and ``matrix`` holds those values as float32 rows in order,
+    or is None when no value is kept."""
+    if isinstance(values, np.ndarray) and values.ndim == 2 \
+            and values.dtype.kind in "iuf":
+        if values.shape[1] == 0:
+            return None, np.zeros(len(values), dtype=bool)
+        return values.astype(np.float32), np.ones(len(values), dtype=bool)
+    vectors = [_numeric_list(v) for v in values]
+    lengths = Counter(len(v) for v in vectors if v is not None)
+    if not lengths:
+        return None, np.zeros(len(vectors), dtype=bool)
+    dim = lengths.most_common(1)[0][0]
+    kept = np.asarray([v is not None and len(v) == dim for v in vectors],
+                      dtype=bool)
+    return np.asarray([v for v, k in zip(vectors, kept) if k],
+                      dtype=np.float32), kept
 
 
 def _gid_index(node_gids):

@@ -42,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import exact_f32_matmuls, resolve_device
 from .benes import route_packed
 from .benes_cuda import (K_BY_DTYPE, benes_apply, build_masks, compose_mid,
                          compose_outer)
@@ -469,13 +469,6 @@ def plan_from_arrays(fields: dict) -> MXUPlan:
     return MXUPlan(**kw)
 
 
-def _exact_f32_matmuls():
-    """Full-f32 products: the one-hot matmuls carry rank values, which
-    TF32's 10-bit mantissa would round."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
 def pagerank_mxu_epilogue(rank, acc, env, P):
     """The fused PageRank update + convergence partial, applied to the
     matvec's out-labeled accumulator (shared formula:
@@ -658,7 +651,6 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
     """
     dev = resolve_device(device)
     route_dtype = resolve_route_dtype(route_dtype)
-    _exact_f32_matmuls()
     t0 = time.perf_counter()
     route_split = {}
     G = plan.G
@@ -716,6 +708,8 @@ def make_semiring_kernel(plan: MXUPlan, epilogue, route_dtype=None,
         P = {k: torch.tensor(float(v), dtype=torch.float32, device=dev)
              for k, v in params.items()}
         tol = float(np.float32(tol))
+        # the one-hot matmuls carry rank values, which TF32 would round
+        exact_f32_matmuls()
         err, it = float("inf"), 0
         while err > tol and it < max_iterations:
             acc = matvec(x)

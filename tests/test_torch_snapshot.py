@@ -3,9 +3,10 @@
 
 The port reads the storage through a source (memgraph_tpu_torch/ops/
 csr.py); ``StorageSource`` below is the adapter of a JAX-package storage
-accessor, kept here because the port may not import that package.  The
-scenarios replay tests/test_csr_export.py, tests/test_csr_delta_export.py
-and tests/test_plan_delta_e2e.py.  Snapshots are compared exactly: node
+accessor (its graph and its vertex properties), kept here because the
+port may not import that package.  The scenarios replay
+tests/test_csr_export.py, tests/test_csr_delta_export.py and
+tests/test_plan_delta_e2e.py.  Snapshots are compared exactly: node
 gids, host COO, CSR and CSC arrays, the path taken (delta or full, as
 counted), the ``_delta_ctx`` anchor's version and changed set.  PageRank
 on a refreshed snapshot is held to the JAX package's within rtol 1e-5,
@@ -127,6 +128,20 @@ class StorageSource:
                 ws.append(ea.properties(View.OLD).get(wp))
             out += [gids, ws if wp is not None else None]
         return tuple(out)
+
+    def vertex_property(self, name, gids):
+        pid = self._prop(name)
+        if pid is None:
+            return None
+        out = []
+        for gid in gids:
+            vertex = self.storage._vertices.get(int(gid))
+            va = None if vertex is None else VertexAccessor(vertex,
+                                                            self.accessor)
+            out.append(va.get_property(pid, View.OLD)
+                       if va is not None and va.is_visible(View.OLD)
+                       else None)
+        return out
 
 
 def _host(a):
