@@ -198,6 +198,13 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    ``ppr_search`` and ``kmeans.get_clusters`` over that property's
    index; seconds a call.  Held to the slot's embeddings (a fresh
    forward, bit-equal); ``node_similarity.jaccard`` on v2 is refused.
+   Then the training paths' procedures (``training_procedures`` line) on
+   v2: ``link_prediction.train`` (degree features), its
+   ``get_training_results`` and ``predict``; ``node_classification.train``
+   on the embedding property and ``get_training_data``;
+   ``node2vec.random_walks`` from 100 nodes; ``node2vec.get_embeddings``
+   (1 epoch) on the segment graph's source; then a commit of 10 edges,
+   after which ``predict`` must retrain; seconds a call.
 15. GraphSAGE inference (``gnn`` line) on the north star (v0) at the
    procedures' defaults (hidden 64, out 32, 2 layers) on degree
    features (16 wide) and on the embedding property (128 wide): K1's
@@ -225,7 +232,38 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    float32 from exact counts, the all-pairs procedures' records its
    positive pairs, ``pairwise`` on 1,000 pairs equal to it (cosine within
    2 ulps).
-19. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+19. node2vec (``node2vec`` line): walks on the north star (v0), 4 from
+   each node (4,000,000), length 20, at p = q = 1 and at p = 0.5, q = 2,
+   ms a step; all 80M steps checked on the card to be edges or stalls at
+   a sink; at p = q = 1 one chi-square over the next nodes of the 20
+   nodes of the most out-edges against a uniform choice over their rows;
+   in the biased run the share of returns (next == prev) within 5
+   standard errors of the reference's single-retry rule (float64 from
+   the graph) on a seeded 10^6 of the steps where cur has an edge back
+   to prev, a sample that must tell the rule from the uniform walk.
+   ``Node2Vec.fit`` at the defaults (dim 128, length 20, 4 walks a
+   node, window 5, 5 negatives, batch 8192) for one epoch on the
+   segment graph (cut from the north star, whose 840M pairs an epoch do
+   not fit the run), twice bit-equal, three
+   K1 launches a batch (counts set to 0 just before, read just after),
+   one batch's kept and held to the plain version; the loss, ms a batch,
+   the mean cosine of an edge's ends above random pairs'.
+20. GraphSAGE training (``gnn_train`` line) on the north star (v0) at the
+   procedures' defaults (hidden 64, out 32, 2 layers, lr 0.01, 30
+   epochs): link prediction on degree features and node classification
+   on the embedding property (8 in-degree octile classes on a seeded 10%
+   of the nodes; the majority class's share printed beside the
+   accuracy), each twice bit-equal (histories and parameters), the loss
+   falling; K1 launches (counts set to 0 just before, read just after)
+   equal to two a layer a forward, two an aggregation whose input needs
+   a gradient and one a gathered index set a step, plus the evaluation's
+   forward; the aggregation's backward, its layer-2 forward and the
+   gathers' backward kept, held bit-equal to the plain version and timed
+   (``segment_kernels`` lines ``gnn_train_*``); one epoch's gradients
+   against a float64 CPU autograd of the same loss within
+   ``GNN_GRAD_TOL`` of each tensor's largest entry, the bf16 rounding
+   beside it; ms an epoch, and a link epoch's split.
+21. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -1855,7 +1893,7 @@ def segment_kernel_line(label, x, ptr, g, w, precision, n_in, longest,
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")     # torch's beta-state notices
             mat = torch.sparse_csr_tensor(
-                (ptr - lo).contiguous(), g[lo:hi].contiguous(),
+                (ptr - lo).to(g.dtype).contiguous(), g[lo:hi].contiguous(),
                 ww.contiguous(), size=(n_seg, n_in))
         line["library_ms"] = cuda_ms(lambda: mat @ x, 5)
         line["library"] = ("torch.sparse_csr_tensor(ptr, g, w) @ x (f32)"
@@ -3573,6 +3611,632 @@ def phase_similarity(base: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training paths: GraphSAGE training and node2vec, and their procedures
+# ---------------------------------------------------------------------------
+
+GNN_EPOCHS, GNN_LR = 30, 0.01       # the procedures' defaults
+GNN_CLASSES = 8                     # in-degree octiles
+GNN_LABELED = 0.1                   # the share of the nodes labeled
+GNN_LABEL_SEED = 37
+# one epoch's gradients against a float64 autograd of the same loss with
+# no rounding, as a share of each tensor's largest entry: the forward
+# rounds h, the aggregate and the weights to bfloat16 and the backward
+# rounds the gradients where JAX's autodiff does (2^-9 relative each, a
+# few chained); a CPU run on a 1M-edge graph of the same family measured
+# 0.0022-0.0035 (the bf16 rounding of the float64 gradients alone
+# 0.0016-0.0026); budgeted 8
+GNN_GRAD_TOL = 8 * 2.0 ** -9
+WALKS_PER_NODE, WALK_LENGTH = 4, 20
+WALK_BIAS = (0.5, 2.0)              # (p, q) of the biased run
+WALK_SEED = 31
+WALK_HUBS = 20                      # nodes of the most out-edges
+WALK_PVALUE = 1e-4                  # the uniform choice's chi-square floor
+WALK_SAMPLE = 1_000_000             # biased steps held to the rule
+RETURN_SIGMAS = 5.0
+N2V_TIMED_STEPS = 50
+PROC_WALK_STARTS = 100
+
+
+@contextlib.contextmanager
+def backward_tagged(gnn):
+    """While inside, ``tag["on"]`` is True during the backward of the
+    aggregation (``gnn._Aggregate``), so that a K1 recorder can tell its
+    launches from the forward's."""
+    tag = {"on": False}
+    held = gnn._Aggregate.__dict__["backward"]
+
+    def backward(ctx, grad):
+        tag["on"] = True
+        try:
+            return held.__func__(ctx, grad)
+        finally:
+            tag["on"] = False
+
+    gnn._Aggregate.backward = staticmethod(backward)
+    try:
+        yield tag
+    finally:
+        gnn._Aggregate.backward = held
+
+
+def train_k1_launches(layers: int, epochs: int, gathers: int) -> int:
+    """K1 launches of a trainer's run: two a layer a forward, two an
+    aggregation whose input needs a gradient (all but layer 1's), one a
+    gathered index set a step; then the evaluation's forward."""
+    return epochs * (2 * layers + 2 * (layers - 1) + gathers) + 2 * layers
+
+
+def link_loss64(model, feats, src, dst, neg_src, neg_dst, n):
+    """The link loss of ``model`` in float64 on the CPU, no rounding:
+    the undirected mean over parallel edges counted each (torch.sparse),
+    the true edges then the negatives scored, sigmoid cross-entropy
+    averaged.  Returns (loss, the parameters' float64 leaves by layer)."""
+    import torch
+    from torch.nn import functional as F
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    ones = torch.ones(len(src), dtype=torch.float64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # torch's sparse notices
+        into = torch.sparse_coo_tensor(torch.stack([d, s]), ones,
+                                       (n, n)).coalesce()
+        out = torch.sparse_coo_tensor(torch.stack([s, d]), ones,
+                                      (n, n)).coalesce()
+    deg = torch.clamp(torch.bincount(s, minlength=n)
+                      + torch.bincount(d, minlength=n), min=1).double()
+    leaves = [[p.detach().double().cpu().requires_grad_(True)
+               for p in (model.w_self[k], model.w_neigh[k], model.b[k])]
+              for k in range(len(model.w_self))]
+    h = feats[:n].double().cpu()
+    for k, (w_self, w_neigh, b) in enumerate(leaves):
+        agg = (torch.sparse.mm(into, h) + torch.sparse.mm(out, h)) \
+            / deg[:, None]
+        h = h @ w_self + agg @ w_neigh + b
+        if k < len(leaves) - 1:
+            h = torch.relu(h)
+    ns, nd = neg_src.long().cpu(), neg_dst.long().cpu()
+    scores = torch.cat([(h[s] * h[d]).sum(-1), (h[ns] * h[nd]).sum(-1)])
+    labels = torch.cat([torch.ones(len(src), dtype=torch.float64),
+                        torch.zeros(len(ns), dtype=torch.float64)])
+    loss = (-labels * F.logsigmoid(scores)
+            - (1.0 - labels) * F.logsigmoid(-scores)).mean()
+    return loss, leaves
+
+
+def octile_labels(dst, n):
+    """(dense indices, classes): a seeded 10% of the nodes, each labeled
+    by the octile of its in-degree (ties in one class)."""
+    indeg = np.bincount(dst, minlength=n)
+    cuts = np.quantile(indeg, np.arange(1, GNN_CLASSES) / GNN_CLASSES)
+    classes = np.searchsorted(cuts, indeg, side="right")
+    rng = np.random.default_rng(GNN_LABEL_SEED)
+    idx = np.sort(rng.choice(n, int(n * GNN_LABELED), replace=False))
+    return idx, classes[idx]
+
+
+def phase_training_procedures(base: dict):
+    """The training paths' procedure counterparts on v2 through the
+    CooSource (after the dense procedures), counts set to 0 just before
+    and read just after: ``link_prediction.train`` (degree features) and
+    ``get_training_results``, ``predict``; ``node_classification.train``
+    on the embedding property and ``get_training_data``;
+    ``node2vec.random_walks`` from 100 nodes; ``node2vec.get_embeddings``
+    (1 epoch) on the segment graph's own source; then a commit of 10
+    edges and ``link_prediction.predict``, which must retrain on the new
+    snapshot.  Seconds a call; the records held to the slots."""
+    import torch
+    from memgraph_tpu_torch.northstar import CooSource, generate_graph
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.procedures import ml_modules as ML
+    from memgraph_tpu_torch.procedures import node2vec_module as N2VP
+
+    source, cache, v2 = base["source"], base["cache"], base["v2"]
+    check(cache.get(source, device="cuda") is v2,
+          "the training procedures would not run on v2")
+    n = v2.n_nodes
+    models, kw = ML.ModelRegistry(), {"cache": cache, "device": "cuda"}
+    gids = np.asarray(v2.node_gids)
+    a, b = int(gids[0]), int(gids[1])
+    picked = gids[np.random.default_rng(WALK_SEED).choice(
+        n, PROC_WALK_STARTS, replace=False)]
+    src, dst = generate_graph(n_nodes=SEGMENT_NODES, n_edges=SEGMENT_EDGES)
+    seg_source, seg_cache = CooSource(src, dst, SEGMENT_NODES), GraphCache()
+    secs, outs = {}, {}
+    # the training procedures' path: counts set to 0 just before, read
+    # just after
+    reset_all_counts()
+    for name, fn in (
+            ("link_prediction.train", lambda: ML.link_prediction_train(
+                source, models=models, **kw)),
+            ("link_prediction.get_training_results",
+             lambda: ML.link_prediction_get_training_results(
+                 source, models=models)),
+            ("link_prediction.predict", lambda: ML.link_prediction_predict(
+                source, a, b, models=models, **kw)),
+            ("node_classification.set_model_parameters",
+             lambda: ML.set_model_parameters(
+                 source, "node_classification",
+                 {"node_features_property": EMBEDDING}, models=models)),
+            ("node_classification.train",
+             lambda: ML.node_classification_train(source, models=models,
+                                                  **kw)),
+            ("node_classification.get_training_data",
+             lambda: ML.node_classification_get_training_data(
+                 source, models=models)),
+            ("node2vec.random_walks", lambda: N2VP.random_walks(
+                source, picked.tolist() + [-1], 10, **kw)),
+            ("node2vec.get_embeddings", lambda: N2VP.get_embeddings(
+                seg_source, epochs=1, cache=seg_cache, device="cuda"))):
+        outs[name], secs[name] = timed_run(fn)
+    lp = models.slot(source, "link_prediction")
+    trained = lp.params
+    check(lp.graph is v2
+          and len(outs["link_prediction.train"]["training_results"][0])
+          == GNN_EPOCHS
+          and outs["link_prediction.get_training_results"][
+              "training_results"][0] == lp.history
+          and outs["node_classification.train"]["epoch"].tolist()
+          == list(range(1, GNN_EPOCHS + 1))
+          and 0.0 <= outs["link_prediction.predict"]["score"][0] <= 1.0,
+          "the training procedures' records are not the slots'")
+    walk = outs["node2vec.random_walks"]["walk"]
+    rows = outs["node2vec.get_embeddings"]
+    check(walk.shape == (PROC_WALK_STARTS, 11)
+          and walk[:, 0].tolist() == picked.tolist()
+          and rows["embedding"].shape == (SEGMENT_NODES, 128)
+          and rows["node_gids"].tolist() == list(range(SEGMENT_NODES)),
+          "the node2vec procedures' records are misshaped")
+    rng = np.random.default_rng(GNN_LABEL_SEED)
+    source.commit(add_src=rng.integers(0, n, 10),
+                  add_dst=rng.integers(0, n, 10))
+    name = "link_prediction.predict (after a commit: retrains)"
+    outs[name], secs[name] = timed_run(lambda: ML.link_prediction_predict(
+        source, a, b, models=models, **kw))
+    launches = all_counts()
+    link, forward = train_k1_launches(GNN_LAYERS, GNN_EPOCHS, 4), \
+        2 * GNN_LAYERS
+    pairs = 2 * 5 * SEGMENT_NODES * 4 * 21    # get_embeddings' defaults
+    want = 2 * (link + forward) + train_k1_launches(
+        GNN_LAYERS, GNN_EPOCHS, 1) + 3 * max(pairs // 8192, 1)
+    check(launches["csr_spmm_sum"] == want
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"training procedures' launches {launches}, not {want} K1: two "
+          f"trainings of each model, two link forwards, a node2vec epoch")
+    check(lp.params is not trained and lp.graph is not v2
+          and lp.version == source.version and len(lp.history) == GNN_EPOCHS
+          and lp.graph.n_edges == v2.n_edges + 10,
+          "predict after a commit did not retrain on the new snapshot")
+    summary = {"version": source.version, "n_nodes": n, "seconds": secs,
+               "link_auc": lp.history[-1]["auc"],
+               "class_acc": outs["node_classification.train"][
+                   "val_log"][-1]["acc"],
+               "launches": launches}
+    print("training_procedures", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gnn_train(base: dict):
+    """GraphSAGE training on the north star (v0) at the procedures'
+    defaults (hidden 64, out 32, 2 layers, lr 0.01, 30 epochs, seed 0):
+    link prediction on degree features (16 wide), node classification on
+    the 128-wide embedding property with 8 in-degree octile classes on a
+    seeded 10% of the nodes.  Counts set to 0 just before the four runs
+    (each trainer twice), read just after; the K1 launches equal what the
+    epochs imply (``train_k1_launches``).  Two runs bit-equal (histories
+    and parameters); the loss falls.  The first link run's K1 launches
+    are recorded: the aggregation's backward (CSC and CSR runs, 64 lanes)
+    and forward at layer 2, and the gathers' backward (the edges by dst,
+    no gather; by src, the CSR order; the negatives, sorted), each held
+    bit-equal to its plain version on CPU copies and timed
+    (``segment_kernels`` lines ``gnn_train_*``).  One epoch's gradients
+    against a float64 CPU autograd of the same loss, negatives and
+    parameters within ``GNN_GRAD_TOL`` of each tensor's largest entry.
+    ms an epoch from a 30- and a 1-epoch run, and a link epoch's split
+    (CUDA events)."""
+    import torch
+    from memgraph_tpu_torch.ops import gnn as G
+
+    graph, src, dst = base["graph"], base["src"], base["dst"]
+    n, m = graph.n_nodes, graph.n_edges
+    points = base["corpus"][0]
+    degree = G.degree_features(graph)
+    wide = torch.zeros(graph.n_pad, points.shape[1], device="cuda")
+    wide[:n] = torch.from_numpy(points).cuda()
+    label_idx, labels = octile_labels(dst, n)
+    majority = float(np.bincount(labels).max() / len(labels))
+    by_src, _ = G.edge_runs(graph)
+    shape = {"hidden_dim": GNN_HIDDEN, "n_layers": GNN_LAYERS,
+             "epochs": GNN_EPOCHS, "lr": GNN_LR, "seed": GNN_SEED}
+
+    def link(epochs=GNN_EPOCHS):
+        return G.train_link_prediction(graph, feats=degree, out_dim=GNN_OUT,
+                                       **{**shape, "epochs": epochs})
+
+    def classify(epochs=GNN_EPOCHS):
+        return G.train_node_classification(graph, label_idx, labels,
+                                           feats=wide,
+                                           **{**shape, "epochs": epochs})
+
+    recording = {"on": False}
+
+    def keep(x, ptr, g, w, kw):
+        if not recording["on"]:
+            return None
+        if g is graph.csc_src or g is graph.col_idx:
+            runs = "csc" if g is graph.csc_src else "csr"
+            way = "backward" if tag["on"] else "forward"
+            return f"{way}_{runs}_B{x.shape[1]}" if x.shape[1] == 64 \
+                else None
+        if g is None:
+            return "gather_by_dst"
+        return "gather_by_src" if g is by_src.order else "gather_negatives"
+
+    runs = {}
+    # the training path: counts set to 0 just before, read just after
+    reset_all_counts()
+    with backward_tagged(G) as tag, k1_recorded(G, keep) as calls:
+        recording["on"] = True
+        runs["link_a"], _ = timed_run(link)
+        recording["on"] = False
+        runs["link_b"], link_s = timed_run(link)
+        runs["classify_a"], _ = timed_run(classify)
+        runs["classify_b"], classify_s = timed_run(classify)
+    launches = all_counts()
+    want = 2 * (train_k1_launches(GNN_LAYERS, GNN_EPOCHS, 4)
+                + train_k1_launches(GNN_LAYERS, GNN_EPOCHS, 1))
+    check(launches["csr_spmm_sum"] == want
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"GNN training launches {launches}, not {want} K1 launches")
+    check(set(calls) == {"forward_csc_B64", "forward_csr_B64",
+                         "backward_csc_B64", "backward_csr_B64",
+                         "gather_by_dst", "gather_by_src",
+                         "gather_negatives"},
+          f"the training path's K1 calls were not recorded: {sorted(calls)}")
+    for name in ("link", "classify"):
+        a, b = runs[f"{name}_a"], runs[f"{name}_b"]
+        check(a[-1] == b[-1] and all(same_bits(p, q) for p, q in zip(
+            a[0].parameters(), b[0].parameters())),
+              f"two {name} trainings are not the same bits")
+        history = a[-1]
+        check(len(history) == GNN_EPOCHS
+              and np.isfinite([h["loss"] for h in history]).all()
+              and history[-1]["loss"] < history[0]["loss"],
+              f"the {name} loss did not fall: {history[0]['loss']} -> "
+              f"{history[-1]['loss']}")
+    model, _, lp_history = runs["link_a"]
+    _, _, n_classes, nc_history = runs["classify_a"]
+    check(n_classes == GNN_CLASSES and 0.5 < lp_history[-1]["auc"] <= 1.0,
+          f"link AUC {lp_history[-1]['auc']}, classes {n_classes}")
+    del runs
+    one = {"link": timed_run(lambda: link(1))[1],
+           "classify": timed_run(lambda: classify(1))[1]}
+    k1_lines = path_k1_lines(calls, "gnn_train")
+    del calls
+
+    # one epoch's gradients against float64 (the first epoch's draws)
+    t0 = time.perf_counter()
+    init = G.init_sage_params(degree.shape[1], GNN_HIDDEN, GNN_OUT,
+                              GNN_LAYERS, device="cuda",
+                              generator=torch.Generator().manual_seed(
+                                  GNN_SEED))
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    neg = [torch.randint(0, n, (m,), generator=gen, device="cuda",
+                         dtype=torch.int32) for _ in range(2)]
+    init.requires_grad_(True)
+    loss = G.link_loss(init, degree, graph, G.edge_runs(graph),
+                       tuple(G.row_runs(i, graph.n_pad) for i in neg))
+    loss.backward()
+    loss64, leaves = link_loss64(init, degree, src, dst, neg[0], neg[1], n)
+    loss64.backward()
+    grads = {}
+    for k in range(GNN_LAYERS):
+        for name, p, q in zip(("w_self", "w_neigh", "b"),
+                              (init.w_self[k], init.w_neigh[k], init.b[k]),
+                              leaves[k]):
+            want64 = q.grad
+            top = float(want64.abs().max())
+            err = float((p.grad.double().cpu() - want64).abs().max()) / top
+            rounding = float((want64.to(torch.bfloat16).double()
+                              - want64).abs().max()) / top
+            check(err <= GNN_GRAD_TOL,
+                  f"layer {k} {name}'s gradient off float64 by {err} of "
+                  f"its largest entry")
+            grads[f"{k}.{name}"] = {"err_over_largest": err,
+                                    "bf16_rounding_over_largest":
+                                        rounding}
+    loss64 = float(loss64.detach())
+    loss_err = abs(float(loss.detach()) - loss64) / loss64
+    grad_s = time.perf_counter() - t0
+    del loss, loss64, leaves
+
+    # where a link epoch's time goes (CUDA events, the same shapes)
+    pos = G.edge_runs(graph)
+    runs_neg = tuple(G.row_runs(i, graph.n_pad) for i in neg)
+    opt = G.adam(init.parameters(), GNN_LR)
+    split = {
+        "draw_and_sort_ms": cuda_ms(lambda: [G.row_runs(torch.randint(
+            0, n, (m,), generator=gen, device="cuda", dtype=torch.int32),
+            graph.n_pad) for _ in range(2)], 3),
+        "forward_ms": cuda_ms(lambda: G.link_loss(init, degree, graph, pos,
+                                                  runs_neg), 3),
+        "forward_backward_ms": cuda_ms(lambda: G.link_loss(
+            init, degree, graph, pos, runs_neg).backward(), 3),
+        "adam_ms": cuda_ms(opt.step, 3)}
+    del init, neg, runs_neg, opt
+
+    summary = {
+        "n_nodes": n, "n_edges": m, "layers": GNN_LAYERS,
+        "hidden": GNN_HIDDEN, "out": GNN_OUT, "epochs": GNN_EPOCHS,
+        "link": {"train_s": link_s, "one_epoch_run_s": one["link"],
+                 "ms_an_epoch": (link_s - one["link"]) * 1e3
+                 / (GNN_EPOCHS - 1),
+                 "loss_first": lp_history[0]["loss"],
+                 "loss_last": lp_history[-1]["loss"],
+                 "auc": lp_history[-1]["auc"]},
+        "classify": {"train_s": classify_s,
+                     "one_epoch_run_s": one["classify"],
+                     "ms_an_epoch": (classify_s - one["classify"]) * 1e3
+                     / (GNN_EPOCHS - 1),
+                     "loss_first": nc_history[0]["loss"],
+                     "loss_last": nc_history[-1]["loss"],
+                     "acc": nc_history[-1]["acc"],
+                     "majority_share": majority,
+                     "labeled": len(label_idx)},
+        "link_epoch_split": split,
+        "gradients_vs_float64": {"limit": GNN_GRAD_TOL,
+                                 "loss_rel": loss_err, "by_tensor": grads,
+                                 "seconds": grad_s},
+        "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+            "lanes", "n_seg", "n_edges", "longest_run", "ms", "bound_ms",
+            "plain_ms", "library_ms")} for ln in k1_lines},
+        "launches": launches}
+    print("gnn_train", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def steps_are_edges(walks, graph) -> int:
+    """Checks on the card that every step of ``walks`` is an edge of
+    ``graph`` (a search of the sorted CSR keys src·n + dst) or a stall at
+    a node with no out-edge; the steps checked."""
+    import torch
+    n = graph.n_nodes
+    keys = graph.src_idx[:graph.n_edges].long() * n \
+        + graph.col_idx[:graph.n_edges].long()
+    a = walks[:, :-1].reshape(-1).long()
+    b = walks[:, 1:].reshape(-1).long()
+    step = a * n + b
+    at = torch.clamp(torch.searchsorted(keys, step), max=keys.numel() - 1)
+    sink = (graph.row_ptr[1:] - graph.row_ptr[:-1])[:n] == 0
+    ok = (keys[at] == step) | ((a == b) & sink[a])
+    check(bool(ok.all()), f"{int((~ok).sum())} walk steps are neither an "
+                          f"edge nor a stall at a sink")
+    return int(step.numel())
+
+
+def hub_chi_square(walks, row_ptr, col_idx, out_deg) -> dict:
+    """The next-node counts after the ``WALK_HUBS`` nodes of the most
+    out-edges against a uniform choice over each one's CSR row (parallel
+    edges counted each): one chi-square over the hubs together."""
+    import scipy.stats
+    import torch
+    hubs = np.argsort(-out_deg, kind="stable")[:WALK_HUBS]
+    a = walks[:, :-1].reshape(-1)
+    b = walks[:, 1:].reshape(-1)
+    at = torch.isin(a, torch.from_numpy(hubs).to(a.device, a.dtype))
+    a, b = a[at].cpu().numpy(), b[at].cpu().numpy()
+    stat, dof, visits = 0.0, 0, 0
+    for h in hubs.tolist():
+        row = col_idx[row_ptr[h]:row_ptr[h + 1]]
+        values, mult = np.unique(row, return_counts=True)
+        nxt = b[a == h]
+        counts = np.array([(nxt == v).sum() for v in values])
+        check(counts.sum() == len(nxt), f"a walk left hub {h} off its row")
+        expected = len(nxt) * mult / len(row)
+        stat += float(((counts - expected) ** 2 / expected).sum())
+        dof += len(values) - 1
+        visits += len(nxt)
+    return {"hubs": WALK_HUBS, "visits": visits, "chi2": stat, "dof": dof,
+            "pvalue": float(scipy.stats.chi2.sf(stat, dof))}
+
+
+def return_share(walks, graph, row_ptr, col_idx, p, q) -> dict:
+    """The share of returns (next == prev) among the biased run's steps
+    where a return can happen (cur has an out-edge to prev; a seeded
+    ``WALK_SAMPLE`` of them), against the share the reference's
+    single-retry rule gives those steps (float64 from the graph: P = c /
+    deg · (α_back / M + R), c the count of prev in cur's row, R the first
+    candidate's rejection probability, M = max(1, 1/p, 1/q)) and its
+    standard error; the uniform walk's share c / deg beside it, which the
+    sample must tell apart from the rule's."""
+    import torch
+    n, m = graph.n_nodes, graph.n_edges
+    keys = graph.src_idx[:m].long() * n + graph.col_idx[:m].long()
+    prev = walks[:, :-2].reshape(-1).long()
+    cur = walks[:, 1:-1].reshape(-1).long()
+    back = cur * n + prev
+    at = torch.clamp(torch.searchsorted(keys, back), max=m - 1)
+    possible = (keys[at] == back).nonzero().squeeze(1)
+    del back, at
+    gen = torch.Generator(device=walks.device).manual_seed(WALK_SEED)
+    pick = possible[torch.randperm(possible.numel(), generator=gen,
+                                   device=walks.device)[:WALK_SAMPLE]]
+    count = int(pick.numel())
+    nxt = walks[:, 2:].reshape(-1)[pick].long().cpu().numpy()
+    prev, cur = prev[pick].cpu().numpy(), cur[pick].cpu().numpy()
+    host_keys = keys.cpu().numpy()
+    limit = max(1.0, 1.0 / p, 1.0 / q)
+    deg = (row_ptr[cur + 1] - row_ptr[cur]).astype(np.int64)
+    owner = np.repeat(np.arange(count), deg)
+    first = np.cumsum(deg) - deg
+    x = col_idx[row_ptr[cur][owner] + np.arange(deg.sum()) - first[owner]]
+    pv = prev[owner]
+    query = pv * n + x
+    found = host_keys[np.minimum(np.searchsorted(host_keys, query),
+                                 m - 1)] == query
+    alpha = np.where(x == pv, 1.0 / p, np.where(found, 1.0, 1.0 / q))
+    accepted = np.bincount(owner, weights=alpha / limit,
+                           minlength=count) / deg
+    uniform = np.bincount(owner, weights=(x == pv).astype(np.float64),
+                          minlength=count) / deg
+    prob = uniform * (1.0 / p / limit + 1.0 - accepted)
+    want = float(prob.mean())
+    se = float(np.sqrt((prob * (1.0 - prob)).sum())) / count
+    got = float((nxt == prev).mean())
+    check(abs(got - want) <= RETURN_SIGMAS * se,
+          f"returns {got} of {count} biased steps, the rule gives {want} "
+          f"(standard error {se})")
+    # the sample tells the biased rule from the uniform choice
+    check(abs(want - float(uniform.mean())) > RETURN_SIGMAS * se,
+          f"{count} steps cannot tell the rule's returns {want} from the "
+          f"uniform walk's {float(uniform.mean())} (standard error {se})")
+    return {"steps_where_possible": int(possible.numel()), "steps": count,
+            "returns": got, "rule": want, "standard_error": se,
+            "uniform_rule": float(uniform.mean())}
+
+
+def phase_node2vec(base: dict):
+    """node2vec.  Walks on the north star (v0): 4 from each node (4M
+    walks), length 20, at p = q = 1 and at p = 0.5, q = 2, ms a step;
+    every step an edge or a stall at a sink (all 80M checked on the
+    card); at p = q = 1 the next nodes after the 20 nodes of the most
+    out-edges uniform over their rows (chi-square); in the biased run the
+    share of returns within 5 standard errors of the single-retry rule's
+    (float64) on a seeded 10^6 of the steps that can return.
+    Training: ``Node2Vec.fit`` at the defaults for one epoch on the
+    segment graph (100,000 nodes, 450,000 edges; the north star's 840M
+    pairs an epoch do not fit the run),
+    counts set to 0 just before two fits, read just after: three K1
+    launches a batch (the gathers' backward), one batch's kept and held
+    bit-equal to the plain version (``segment_kernels`` lines
+    ``node2vec_*``); the fits bit-equal; the loss; ms a batch
+    (``train_step``, CUDA events); the mean cosine of an edge's ends
+    above random pairs'."""
+    import torch
+    from memgraph_tpu_torch.models import node2vec as N2V
+    from memgraph_tpu_torch.northstar import generate_graph
+    from memgraph_tpu_torch.ops import gnn as G
+    from memgraph_tpu_torch.ops import walks as W
+    from memgraph_tpu_torch.ops.csr import from_coo
+
+    graph = base["graph"]
+    n = graph.n_nodes
+    row_ptr = graph.row_ptr.cpu().numpy().astype(np.int64)
+    col_idx = graph.col_idx.cpu().numpy().astype(np.int64)
+    out_deg = np.diff(row_ptr)[:n]
+    starts = torch.arange(n, device="cuda").repeat(WALKS_PER_NODE)
+    walks = {}
+    reset_all_counts()
+    for label, (p, q) in (("uniform", (1.0, 1.0)), ("biased", WALK_BIAS)):
+        W.random_walks(graph, starts[:1024], 2, p=p, q=q)     # warm-up
+        gen = torch.Generator(device="cuda").manual_seed(WALK_SEED)
+        w, secs = timed_run(lambda: W.random_walks(
+            graph, starts, WALK_LENGTH, gen, p=p, q=q))
+        check(w.shape == (n * WALKS_PER_NODE, WALK_LENGTH + 1)
+              and bool((w[:, 0] == starts).all()),
+              f"the {label} walks are misshaped")
+        walks[label] = {"p": p, "q": q, "s": secs,
+                        "ms_a_step": secs * 1e3 / WALK_LENGTH,
+                        "steps_checked": steps_are_edges(w, graph)}
+        if label == "uniform":
+            walks[label]["chi_square"] = chi = hub_chi_square(
+                w, row_ptr, col_idx, out_deg)
+            check(chi["pvalue"] > WALK_PVALUE,
+                  f"the hubs' next nodes are not uniform: {chi}")
+        else:
+            walks[label]["return_share"] = return_share(
+                w, graph, row_ptr, col_idx, p, q)
+        del w
+    walk_launches = all_counts()
+    check(all(v == 0 for v in walk_launches.values()),
+          f"the walks launched a kernel: {walk_launches}")
+
+    src, dst = generate_graph(n_nodes=SEGMENT_NODES, n_edges=SEGMENT_EDGES)
+    seg = from_coo(src, dst, n_nodes=SEGMENT_NODES).to_device("cuda")
+    cfg = N2V.Node2VecConfig(epochs=1)
+    pairs = 2 * cfg.window * SEGMENT_NODES * cfg.walks_per_node \
+        * (cfg.walk_length + 1)
+    batches = max(pairs // cfg.batch_size, 1)
+    recording = {"on": False}
+
+    def keep(x, ptr, g, w, kw):
+        return f"B{x.shape[0]}" if recording["on"] else None
+
+    fits, fit_s, losses = [], [], []
+    # the node2vec path: counts set to 0 just before, read just after
+    reset_all_counts()
+    with k1_recorded(G, keep) as calls:
+        for k in range(2):
+            recording["on"] = k == 0
+            model = N2V.Node2Vec(cfg)
+            emb, secs = timed_run(lambda: model.fit(seg))
+            fits.append(emb)
+            fit_s.append(secs)
+            losses.append(model.epoch_losses)
+    launches = all_counts()
+    check(launches["csr_spmm_sum"] == 2 * 3 * batches
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"node2vec launches {launches}, not {2 * 3 * batches} K1")
+    check(same_bits(fits[0], fits[1]) and losses[0] == losses[1],
+          "two node2vec fits are not the same bits")
+    emb = fits[0]
+    check(emb.shape == (SEGMENT_NODES, cfg.embedding_dim)
+          and bool(torch.isfinite(emb).all())
+          and np.isfinite(losses[0]).all(), "node2vec's fit misshaped")
+    unit = emb / torch.clamp(emb.norm(dim=1, keepdim=True), min=1e-12)
+    s, d = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    rng = np.random.default_rng(WALK_SEED)
+    r1, r2 = (torch.from_numpy(rng.integers(0, SEGMENT_NODES, len(src)))
+              .cuda() for _ in range(2))
+    edge_cos = float((unit[s] * unit[d]).sum(-1).double().mean())
+    random_cos = float((unit[r1] * unit[r2]).sum(-1).double().mean())
+    check(edge_cos > random_cos,
+          f"an edge's ends (cosine {edge_cos}) are no nearer than random "
+          f"pairs ({random_cos})")
+    k1_lines = path_k1_lines(calls, "node2vec")
+    del calls, fits
+
+    # ms a batch: train_step alone on the fit's shapes
+    gen = torch.Generator(device="cuda").manual_seed(WALK_SEED)
+    tables = N2V.init_params(seg.n_pad, cfg.embedding_dim, gen)
+    for t in tables.values():
+        t.requires_grad_(True)
+    opt = G.adam(list(tables.values()), cfg.learning_rate)
+    batch = W.walks_to_skipgram_pairs(W.random_walks(
+        seg, torch.arange(SEGMENT_NODES, device="cuda"), cfg.walk_length,
+        gen), cfg.window)
+    batch = batch[torch.randperm(batch.shape[0], generator=gen,
+                                 device="cuda")[:cfg.batch_size]]
+    negs = torch.randint(0, SEGMENT_NODES, (cfg.batch_size, cfg.negatives),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    batch_ms = cuda_ms(lambda: N2V.train_step(
+        tables, opt, batch[:, 0], batch[:, 1], negs), N2V_TIMED_STEPS)
+    del tables, opt
+
+    summary = {
+        "walks": {"n_walks": n * WALKS_PER_NODE, "length": WALK_LENGTH,
+                  **walks},
+        "fit": {"n_nodes": SEGMENT_NODES, "n_edges": SEGMENT_EDGES,
+                "cut": "segment graph, one epoch: the north star's 840M "
+                       "pairs an epoch do not fit the run",
+                "pairs": pairs, "batches": batches, "fit_s": fit_s,
+                "loss": losses[0], "ms_a_batch": batch_ms,
+                "edge_cosine": edge_cos, "random_cosine": random_cos},
+        "k1_at_the_path": {ln["runs"]: {k: ln[k] for k in (
+            "lanes", "n_seg", "n_edges", "ms", "bound_ms", "plain_ms",
+            "library_ms")} for ln in k1_lines},
+        "launches": launches}
+    print("node2vec", json.dumps(summary), flush=True)
+    base["path_k1_lines"] += k1_lines
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3616,7 +4280,10 @@ def main():
     snapshot_launches = mxu_path("snapshot", phase_snapshot, base)
     by_path = {"procedures": timed("procedures", phase_procedures, base),
                "dense_procedures": timed("dense_procedures",
-                                         phase_dense_procedures, base)}
+                                         phase_dense_procedures, base),
+               "training_procedures": timed("training_procedures",
+                                            phase_training_procedures,
+                                            base)}
     timed("snapshot_log", phase_snapshot_log, base)
     seg_lines = timed("segment_kernels", phase_segment_kernels, base)
     by_path.update({
@@ -3629,7 +4296,9 @@ def main():
         "knn": timed("knn", phase_knn, base),
         "kmeans": timed("kmeans", phase_kmeans, base),
         "ivf": timed("ivf", phase_ivf, base),
-        "similarity": timed("similarity", phase_similarity, base)})
+        "similarity": timed("similarity", phase_similarity, base),
+        "node2vec": timed("node2vec", phase_node2vec, base),
+        "gnn_train": timed("gnn_train", phase_gnn_train, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

@@ -10,10 +10,11 @@ and multiplied in full f32, since a bfloat16 ``torch.matmul`` returns
 bfloat16.  Every f32 product runs at full f32 (``exact_f32_matmuls``).
 
 ``top_k`` keeps ``lax.top_k``'s order: descending, ties to the lower
-index, masked (-inf) rows included.  ``kmeans_steps`` is the Lloyd
-loop; its centroid sums are the deterministic run sum
-(ops/segment_cuda.py ``csr_spmm_sum``, K1) over the points grouped by
-cluster in index order, where the reference multiplies a one-hot matrix.
+index, masked (-inf) rows included, NaN above every number.
+``kmeans_steps`` is the Lloyd loop; its centroid sums are the
+deterministic run sum (ops/segment_cuda.py ``csr_spmm_sum``, K1) over
+the points grouped by cluster in index order, where the reference
+multiplies a one-hot matrix.
 ``kmeans_fit`` draws its initial rows without replacement from a
 ``torch.Generator`` (the reference's ``jax.random.choice`` stream is its
 own).  ``IvfIndex`` probes the nearest cells and searches their members
@@ -37,15 +38,18 @@ def _row_normalized(x):
 def top_k(scores, k: int):
     """(values, indices) of the k largest entries of each row of
     ``scores`` (q, n), descending, ties to the lower index (``lax.top_k``'s
-    order): every entry above the k-th value, then the lowest-indexed
-    entries equal to it, then a stable sort of those k by value."""
+    order, NaN above every number): every entry above the k-th value,
+    then the lowest-indexed entries equal to it, then a stable sort of
+    those k by value."""
     q = scores.shape[0]
     if k == 0:
         return (scores.new_zeros(q, 0),
                 torch.zeros(q, 0, dtype=torch.int64, device=scores.device))
     kth = torch.topk(scores, k, dim=1).values[:, k - 1:k]
-    above = scores > kth
-    tied = scores == kth
+    # a NaN compares False with everything: rank it by hand
+    nan, kth_nan = torch.isnan(scores), torch.isnan(kth)
+    above = (scores > kth) | (nan & ~kth_nan)
+    tied = (scores == kth) | (nan & kth_nan)
     need = k - above.sum(dim=1, keepdim=True)
     take = above | (tied & (torch.cumsum(tied, dim=1, dtype=torch.int32)
                             <= need))

@@ -1,7 +1,7 @@
 """The compute half of the procedures, on storage snapshots: the graph
-algorithms (``procedures.graph_algorithms``) and the dense paths
+algorithms (``procedures.graph_algorithms``), the dense paths
 (``ml_modules``, ``vector_search``, ``utility_modules``,
-``structure_modules``)."""
+``structure_modules``) and node2vec (``node2vec_module``)."""
 
 
 class ProcedureError(Exception):

@@ -1,23 +1,28 @@
-"""Host results of the GNN procedures' serving compute, from a storage
-snapshot.
+"""Host results of the GNN procedures, from a storage snapshot.
 
 Port of the compute half of memgraph_tpu/procedures/ml_modules.py:
-``link_prediction.predict``, ``link_prediction.recommend`` and
-``node_classification.predict`` over a model slot, with
-``set_model_parameters`` and ``reset_parameters``.  A slot holds the
-configuration (the reference's ``_DEFAULTS``), the parameters (a SAGE
-model, ops/gnn.py), the features, the snapshot they were bound to and
+``link_prediction.train``, ``predict``, ``recommend`` and
+``get_training_results``; ``node_classification.train``, ``predict``
+and ``get_training_data``; ``set_model_parameters`` and
+``reset_parameters`` of both.  A slot holds the configuration (the
+reference's ``_DEFAULTS``), the parameters (a SAGE model, ops/gnn.py),
+the features, the snapshot they were bound to, the training history and
 the cached forward pass (``emb``), whose lifetime is the parameters'.
 
-Training is not ported: parameters come in through ``load_parameters``
-(a SAGE model, or the reference's ``[(W_self, W_neigh, b)]``), which
-binds them to the source's current snapshot and computes the features
-(the configured vertex property, else ``degree_features``).  Where the
-reference would train (no parameters yet, or a snapshot other than the
-bound one, unless the change log records no change since the binding)
-the port raises ``TrainingNotPorted``, and never serves an ``emb`` of
-another graph.  ``ModelRegistry`` keeps the slots of each
-storage (weakly); functions take it as ``models=``.
+``train`` trains on the source's current snapshot (ops/gnn.py's
+trainers, seed 0, the slot's configuration) on the configured vertex
+property's features, else ``degree_features``; node classification's
+labels are the integer values of the target property (default
+``label``) and the nodes that carry one.  ``predict`` / ``recommend``
+train where the reference trains: when the slot has no parameters, or
+its snapshot is not the current one, unless the change log records no
+changed vertex since the binding (a storage's abort and every commit
+bump the version with an empty change set), where the slot moves to the
+new snapshot and keeps its ``emb``.  ``load_parameters`` binds given
+parameters (a SAGE model, or the reference's ``[(W_self, W_neigh, b)]``)
+to the current snapshot instead.  ``ModelRegistry`` keeps the slots of
+each storage (weakly); functions take it as ``models=``.  A list-valued
+field (``training_results``, ``train_log``) is an object column.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ..ops.csr import GLOBAL_GRAPH_CACHE, property_rows
 from ..ops.gnn import SAGE, _edge_scores, degree_features, \
-    sage_params_from_jax
+    sage_params_from_jax, train_link_prediction, train_node_classification
 from . import ProcedureError
 
 _DEFAULTS = {
@@ -47,11 +52,6 @@ _INT_PARAMS = {"hidden_features_size", "out_features_size", "num_epochs",
                "num_layers"}
 
 
-class TrainingNotPorted(ProcedureError):
-    """The call needs a model trained on the current snapshot, which the
-    reference would train here; training is not yet ported."""
-
-
 class ModelSlot:
     def __init__(self):
         self.lock = threading.Lock()
@@ -61,10 +61,13 @@ class ModelSlot:
         self.graph = None
         self.version = None       # the source's version when bound
         self.emb = None           # the cached forward; the params' lifetime
+        self.n_classes = None
+        self.history = []
 
     def invalidate(self):
         self.params = None
         self.emb = None
+        self.history = []
 
 
 class ModelRegistry:
@@ -179,36 +182,165 @@ def load_parameters(source, name, params, *, models=GLOBAL_MODELS,
             raise ProcedureError(
                 f"the parameters take {model.dims[0]} input features, the "
                 f"snapshot gives {feats.shape[1]}")
-        slot.params, slot.feats, slot.graph = model, feats, graph
-        slot.version = source.version
-        slot.emb = None
+        _bind(slot, graph, source.version, model, feats)
+        slot.history = []       # no training made these parameters
     return slot
 
 
-def _embeddings(source, slot, cache, device):
-    """The snapshot and the slot's forward pass on it (cached); the
-    caller holds the slot's lock.  A later version whose change log
-    records no changed vertex since the binding holds the same graph and
-    features: the slot moves to its snapshot and keeps its ``emb``."""
+def _bind(slot, graph, version, params, feats):
+    slot.params, slot.feats, slot.graph = params, feats, graph
+    slot.version = version
+    slot.emb = None
+
+
+def _train_lp(source, slot, cache, device) -> list:
+    """Train the link-prediction slot on the current snapshot; its
+    history.  The caller holds the slot's lock."""
     graph = cache.get(source, device=device)
-    if slot.params is None:
-        raise TrainingNotPorted(
-            "the model has no parameters: training is not yet ported; "
-            "load trained parameters with load_parameters")
-    if slot.graph is not graph:
+    if graph.n_edges == 0:
+        raise ProcedureError("link_prediction.train needs at least one edge")
+    cfg = slot.config
+    feats = _features(source, graph, cfg["node_features_property"])
+    model, feats, history = train_link_prediction(
+        graph, feats=feats, hidden_dim=int(cfg["hidden_features_size"]),
+        out_dim=int(cfg["out_features_size"]),
+        n_layers=int(cfg["num_layers"]), epochs=int(cfg["num_epochs"]),
+        lr=float(cfg["learning_rate"]))
+    _bind(slot, graph, source.version, model, feats)
+    slot.history = history
+    return history
+
+
+def _labels(source, graph, target):
+    """(dense indices, labels) of the snapshot's nodes whose ``target``
+    property is an integer (not a bool)."""
+    values = source.vertex_property(target, graph.node_gids)
+    if values is None:
+        raise ProcedureError(
+            f"no node carries the target property {target!r}")
+    if isinstance(values, np.ndarray) and values.dtype.kind in "iu":
+        idx = np.arange(len(values))
+        labels = values.astype(np.int64)
+    else:
+        idx = [i for i, v in enumerate(values)
+               if isinstance(v, (int, np.integer))
+               and not isinstance(v, (bool, np.bool_))]
+        labels = np.asarray([int(values[i]) for i in idx], dtype=np.int64)
+        idx = np.asarray(idx, dtype=np.int64)
+    if len(labels) == 0:
+        raise ProcedureError(
+            f"no node carries an integer {target!r} property")
+    return idx, labels
+
+
+def _train_nc(source, slot, cache, device) -> list:
+    """Train the node-classification slot on the current snapshot; its
+    history.  The caller holds the slot's lock."""
+    graph = cache.get(source, device=device)
+    cfg = slot.config
+    label_idx, labels = _labels(source, graph,
+                                cfg["target_property"] or "label")
+    feats = _features(source, graph, cfg["node_features_property"])
+    model, feats, n_classes, history = train_node_classification(
+        graph, label_idx, labels, feats=feats,
+        hidden_dim=int(cfg["hidden_features_size"]),
+        n_layers=int(cfg["num_layers"]), epochs=int(cfg["num_epochs"]),
+        lr=float(cfg["learning_rate"]))
+    _bind(slot, graph, source.version, model, feats)
+    slot.n_classes = n_classes
+    slot.history = history
+    return history
+
+
+_TRAIN = {"link_prediction": _train_lp, "node_classification": _train_nc}
+
+
+def _embeddings(source, slot, name, cache, device):
+    """The snapshot and the slot's forward pass on it (cached), trained
+    first where the reference trains (no parameters, or another
+    snapshot); the caller holds the slot's lock.  A later version whose
+    change log records no changed vertex since the binding holds the
+    same graph and features: the slot moves to its snapshot and keeps its
+    ``emb``."""
+    graph = cache.get(source, device=device)
+    if slot.params is not None and slot.graph is not graph:
         version = source.version
         changed = source.changes_between(slot.version, version)
-        if not (isinstance(changed, frozenset) and not changed
+        if (isinstance(changed, frozenset) and not changed
                 and version >= slot.version
                 and graph.device == slot.graph.device):
-            slot.emb = None
-            raise TrainingNotPorted(
-                "the graph changed since the parameters were loaded: the "
-                "reference retrains here, and training is not yet ported")
-        slot.graph, slot.version = graph, version
+            slot.graph, slot.version = graph, version
+    if slot.params is None or slot.graph is not graph:
+        _TRAIN[name](source, slot, cache, device)
+        graph = slot.graph
     if slot.emb is None:
         slot.emb = slot.params(slot.feats, graph)
     return graph
+
+
+def _objects(*values) -> np.ndarray:
+    """An object column of ``values`` (lists and dicts kept whole)."""
+    col = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        col[i] = v
+    return col
+
+
+def _history_rows(history) -> dict:
+    """node_classification's records: a row an epoch."""
+    return {"epoch": np.asarray([h["epoch"] for h in history],
+                                dtype=np.int64),
+            "loss": np.asarray([h["loss"] for h in history]),
+            "val_loss": np.asarray([h["loss"] for h in history]),
+            "train_log": _objects(*history), "val_log": _objects(*history)}
+
+
+def _trained_history(slot) -> list:
+    if not slot.history:
+        raise ProcedureError("model is not trained yet")
+    return list(slot.history)
+
+
+def link_prediction_train(source, *, models=GLOBAL_MODELS,
+                          cache=GLOBAL_GRAPH_CACHE, device=None) -> dict:
+    """``link_prediction.train``: training_results (the history, a dict
+    an epoch), validation_results (the last epoch's) — one record."""
+    slot = models.slot(source, "link_prediction")
+    with slot.lock:
+        history = _train_lp(source, slot, cache, device)
+    return {"training_results": _objects(history),
+            "validation_results": _objects([history[-1]])}
+
+
+def link_prediction_get_training_results(source, *, models=GLOBAL_MODELS
+                                         ) -> dict:
+    """``link_prediction.get_training_results``: the last training's
+    record, as ``train`` gave it."""
+    slot = models.slot(source, "link_prediction")
+    with slot.lock:
+        history = _trained_history(slot)
+    return {"training_results": _objects(history),
+            "validation_results": _objects([history[-1]])}
+
+
+def node_classification_train(source, *, models=GLOBAL_MODELS,
+                              cache=GLOBAL_GRAPH_CACHE, device=None) -> dict:
+    """``node_classification.train``: epoch, loss, val_loss, train_log,
+    val_log — a record an epoch."""
+    slot = models.slot(source, "node_classification")
+    with slot.lock:
+        history = _train_nc(source, slot, cache, device)
+    return _history_rows(history)
+
+
+def node_classification_get_training_data(source, *, models=GLOBAL_MODELS
+                                          ) -> dict:
+    """``node_classification.get_training_data``: the last training's
+    records, as ``train`` gave them."""
+    slot = models.slot(source, "node_classification")
+    with slot.lock:
+        history = _trained_history(slot)
+    return _history_rows(history)
 
 
 def _index(graph, gid) -> int:
@@ -226,7 +358,7 @@ def link_prediction_predict(source, src_vertex, dest_vertex, *,
     ``dest_vertex``."""
     slot = models.slot(source, "link_prediction")
     with slot.lock:
-        graph = _embeddings(source, slot, cache, device)
+        graph = _embeddings(source, slot, "link_prediction", cache, device)
         src, dst = _index(graph, src_vertex), _index(graph, dest_vertex)
         score = torch.sigmoid(_edge_scores(slot.emb, [src], [dst]))[0]
     return {"score": np.asarray([float(score)])}
@@ -240,7 +372,7 @@ def link_prediction_recommend(source, src_vertex, dest_vertexes, k, *,
     snapshot dropped) for the vertex with gid ``src_vertex``."""
     slot = models.slot(source, "link_prediction")
     with slot.lock:
-        graph = _embeddings(source, slot, cache, device)
+        graph = _embeddings(source, slot, "link_prediction", cache, device)
         src = _index(graph, src_vertex)
         keep = [g for g in dest_vertexes
                 if g is not None and g in graph.gid_to_idx]
@@ -263,7 +395,8 @@ def node_classification_predict(source, vertex, *, models=GLOBAL_MODELS,
     ``vertex``."""
     slot = models.slot(source, "node_classification")
     with slot.lock:
-        graph = _embeddings(source, slot, cache, device)
+        graph = _embeddings(source, slot, "node_classification", cache,
+                            device)
         cls = int(torch.argmax(slot.emb[_index(graph, vertex)]))
     return {"node_gids": np.asarray([vertex], dtype=np.int64),
             "predicted_class": np.asarray([cls], dtype=np.int64),

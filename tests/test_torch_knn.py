@@ -117,6 +117,38 @@ def test_top_k_with_ties_across_the_kth(k):
     assert np.array_equal(got_v.numpy(), np.asarray(want_v))
 
 
+@pytest.mark.parametrize("metric", ["cosine", "l2sq", "dot"])
+def test_a_nan_row_comes_first_as_the_references(metric):
+    """A NaN in one corpus row makes that row's score NaN for every query
+    (all three metrics); ``lax.top_k`` ranks it above every number."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((50, 8)).astype(np.float32)
+    x[7, 3] = np.nan
+    queries = rng.standard_normal((2, 8)).astype(np.float32)
+    js, ji, ts, ti = _both(x, queries, 5, metric=metric, use_bf16=False)
+    assert np.array_equal(ti, ji)
+    assert (ti[:, 0] == 7).all() and np.isnan(ts[:, 0]).all()
+    _close(ts[:, 1:], js[:, 1:])
+
+
+@pytest.mark.parametrize("k", [1, 3, 6, 20])
+def test_top_k_ranks_nan_above_every_number(k):
+    """NaNs (several in a row, one across the k-th) and ties around them:
+    ``lax.top_k``'s indices and values, NaN first, ties to the lower
+    index."""
+    rng = np.random.default_rng(k + 40)
+    scores = rng.integers(0, 4, (6, 32)).astype(np.float32)
+    scores[0, [2, 9, 30]] = np.nan
+    scores[1, :] = np.nan
+    scores[2, 5] = np.nan
+    scores[3, ::2] = np.inf
+    scores[3, 1] = np.nan
+    want_v, want_i = jax.lax.top_k(jnp.asarray(scores), k)
+    got_v, got_i = K.top_k(torch.from_numpy(scores), k)
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
+    assert np.array_equal(got_v.numpy(), np.asarray(want_v), equal_nan=True)
+
+
 def _coinciding_blobs(seed, blobs=8, per=300, d=16):
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((blobs, d)).astype(np.float32) * 5

@@ -18,6 +18,14 @@ embeddings; recommend's order equal wherever the reference's scores
 differ by more than twice that; a predicted class equal wherever the
 reference's two largest logits differ by more than 2ε.
 
+GNN training: the port's ``train`` and its records have the reference's
+fields and epoch counts; on a planted-community graph each package trains
+with its own draws, so the link AUC is held within 0.1 and the class
+accuracy within 0.15 of the reference's ``CALL``s (measured 0.860 against
+0.849, and 1.0 against 1.0); ``predict`` retrains after a commit and keeps
+its embeddings across a version whose change log is empty.  node2vec's
+procedures: the reference's shapes, gids and ``nodes_updated``.
+
 Vector search (bf16 scores, as the reference's): the same gids in the same
 order, similarities within 1e-6; PPR search within 1e-6 of the largest
 rank (tests/test_torch_procedures.py's PPR bound); k-means from the
@@ -39,11 +47,14 @@ from memgraph_tpu.storage.common import View
 from memgraph_tpu_torch.ops import gnn as G
 from memgraph_tpu_torch.ops import knn as K
 from memgraph_tpu_torch.ops import similarity as SIM
+from memgraph_tpu_torch.ops import walks as W
 from memgraph_tpu_torch.ops.csr import GraphCache, export_csr, from_coo, \
     property_rows
+from memgraph_tpu_torch.models import node2vec as N2V_MODEL
 from memgraph_tpu_torch.northstar import CooSource
 from memgraph_tpu_torch.procedures import ProcedureError
 from memgraph_tpu_torch.procedures import ml_modules as ML
+from memgraph_tpu_torch.procedures import node2vec_module as N2V
 from memgraph_tpu_torch.procedures import structure_modules as SM
 from memgraph_tpu_torch.procedures import utility_modules as UM
 from memgraph_tpu_torch.procedures import vector_search as VS
@@ -219,25 +230,33 @@ def test_node_classification_predict(trained):
 
 
 def test_no_parameters_and_a_changed_snapshot_raise(trained):
+    """Where the port once refused (no parameters; a snapshot other than
+    the bound one), it now trains on the current snapshot, as the
+    reference does."""
     storage, _, gids = trained
-    with pytest.raises(ML.TrainingNotPorted, match="not yet ported"):
-        port(storage, ML.link_prediction_predict, gids[0], gids[1],
-             models=ML.ModelRegistry(), cache=GraphCache())
+    fresh = ML.ModelRegistry()
+    port(storage, ML.link_prediction_predict, gids[0], gids[1],
+         models=fresh, cache=GraphCache())
+    slot = fresh.slot(SimpleNamespace(storage=storage), "link_prediction")
+    assert len(slot.history) == 30 and slot.emb is not None
     models, cache = _loaded(storage, "link_prediction")
     port(storage, ML.link_prediction_predict, gids[0], gids[1],
          models=models, cache=cache)
     slot = models.slot(SimpleNamespace(storage=storage), "link_prediction")
-    assert slot.emb is not None
+    loaded, bound = slot.params, slot.graph
+    assert slot.emb is not None and slot.history == []
     acc = storage.access()
     et = storage.edge_type_mapper.name_to_id("E")
     acc.create_edge(acc.find_vertex(gids[2], View.OLD),
                     acc.find_vertex(gids[9], View.OLD), et)
     acc.commit()
     try:
-        with pytest.raises(ML.TrainingNotPorted, match="graph changed"):
-            port(storage, ML.link_prediction_predict, gids[0], gids[1],
-                 models=models, cache=cache)
-        assert slot.emb is None
+        got = port(storage, ML.link_prediction_predict, gids[0], gids[1],
+                   models=models, cache=cache)
+        assert 0.0 <= got["score"][0] <= 1.0
+        assert slot.params is not loaded and slot.graph is not bound
+        assert slot.graph.n_edges == bound.n_edges + 1
+        assert len(slot.history) == 30 and slot.emb is not None
     finally:
         acc = storage.access()
         for e in list(acc.find_vertex(gids[2], View.OLD).out_edges(
@@ -246,6 +265,193 @@ def test_no_parameters_and_a_changed_snapshot_raise(trained):
                 acc.delete_edge(e)
                 break
         acc.commit()
+
+
+def _set(ictx, name, params):
+    rows(ictx, f"CALL {name}.set_model_parameters($p) YIELD status "
+               "RETURN status", {"p": params})
+
+
+def test_training_procedures_have_the_references_fields(db):
+    storage, ictx, gids = db
+    config = {"num_epochs": 6, "hidden_features_size": 16}
+    models = ML.ModelRegistry()
+    for name in ("link_prediction", "node_classification"):
+        _set(ictx, name, config)
+        acc = storage.access()
+        try:
+            ML.set_model_parameters(StorageSource(acc), name, config,
+                                    models=models)
+        finally:
+            acc.abort()
+    with pytest.raises(Exception) as want:
+        rows(ictx, "CALL link_prediction.get_training_results() "
+                   "YIELD training_results RETURN training_results")
+    with pytest.raises(ProcedureError) as got:
+        port(storage, lambda s, device: (
+            ML.link_prediction_get_training_results(s, models=models)))
+    assert str(got.value) in str(want.value)
+
+    want = rows(ictx, "CALL link_prediction.train() YIELD training_results, "
+                      "validation_results RETURN training_results, "
+                      "validation_results")
+    got = port(storage, ML.link_prediction_train, models=models,
+               cache=GraphCache())
+    assert len(want) == 1 and set(got) == {"training_results",
+                                           "validation_results"}
+    (w_train, w_val), g_train = want[0], got["training_results"][0]
+    assert len(g_train) == len(w_train) == 6
+    assert [h["epoch"] for h in g_train] == [h["epoch"] for h in w_train]
+    assert [set(h) for h in g_train] == [set(h) for h in w_train]
+    assert got["validation_results"][0] == [g_train[-1]]
+    assert set(w_val[0]) == set(got["validation_results"][0][0])
+    again = port(storage, lambda s, device: (
+        ML.link_prediction_get_training_results(s, models=models)))
+    assert again["training_results"][0] == g_train
+
+    fields = "epoch, loss, val_loss, train_log, val_log"
+    want = rows(ictx, f"CALL node_classification.train() YIELD {fields} "
+                      f"RETURN {fields}")
+    got = port(storage, ML.node_classification_train, models=models,
+               cache=GraphCache())
+    assert set(got) == {"epoch", "loss", "val_loss", "train_log",
+                        "val_log"}
+    assert got["epoch"].tolist() == [r[0] for r in want] == list(range(1, 7))
+    assert np.array_equal(got["loss"], got["val_loss"])
+    assert [set(h) for h in got["train_log"]] == [set(r[3]) for r in want]
+    assert "acc" in got["val_log"][-1]
+    again = port(storage, lambda s, device: (
+        ML.node_classification_get_training_data(s, models=models)))
+    assert again["epoch"].tolist() == got["epoch"].tolist()
+    assert list(again["train_log"]) == list(got["train_log"])
+
+
+def _planted(seed=5, blocks=4, per=40):
+    """Four planted communities (edges inside at 0.15, across at 0.005,
+    nodes in a shuffled order), each vertex with ``community`` (its
+    block) and ``feat`` (its block's one-hot plus N(0, 0.8²) noise)."""
+    storage = InMemoryStorage()
+    rng = np.random.default_rng(seed)
+    n = blocks * per
+    block = rng.permutation(np.repeat(np.arange(blocks), per))
+    acc = storage.access()
+    et = storage.edge_type_mapper.name_to_id("E")
+    pm = storage.property_mapper
+    comm, feat = pm.name_to_id("community"), pm.name_to_id("feat")
+    vs = [acc.create_vertex() for _ in range(n)]
+    for i, v in enumerate(vs):
+        v.set_property(comm, int(block[i]))
+        v.set_property(feat, [float(x) for x in np.eye(blocks)[block[i]]
+                              + rng.normal(0, 0.8, blocks)])
+    same = block[:, None] == block[None, :]
+    linked = rng.random((n, n)) < np.where(same, 0.15, 0.005)
+    np.fill_diagonal(linked, False)
+    for s, d in zip(*np.nonzero(linked)):
+        acc.create_edge(vs[s], vs[d], et)
+    acc.commit()
+    return storage, InterpreterContext(storage)
+
+
+def test_planted_communities_auc_and_accuracy_near_the_references():
+    """Each package trains with its own draws (the reference's
+    ``jax.random``, the port's generators): the link AUC within 0.1 and
+    the class accuracy within 0.15 of the reference's ``CALL``s, both
+    well above chance."""
+    storage, ictx = _planted()
+    config = {"node_features_property": "feat", "target_property":
+              "community", "num_epochs": 30}
+    _set(ictx, "link_prediction", config)
+    _set(ictx, "node_classification", config)
+    want_auc = rows(ictx, "CALL link_prediction.train() YIELD "
+                          "validation_results RETURN validation_results"
+                    )[0][0][0]["auc"]
+    want_acc = rows(ictx, "CALL node_classification.train() YIELD val_log "
+                          "RETURN val_log")[-1][0]["acc"]
+    models = ML.ModelRegistry()
+    acc = storage.access()
+    try:
+        source = StorageSource(acc)
+        for name in ("link_prediction", "node_classification"):
+            ML.set_model_parameters(source, name, config, models=models)
+    finally:
+        acc.abort()
+    got_auc = port(storage, ML.link_prediction_train, models=models,
+                   cache=GraphCache())["validation_results"][0][0]["auc"]
+    got_acc = port(storage, ML.node_classification_train, models=models,
+                   cache=GraphCache())["val_log"][-1]["acc"]
+    assert want_auc > 0.75 and want_acc > 0.6
+    assert abs(got_auc - want_auc) <= 0.1
+    assert abs(got_acc - want_acc) <= 0.15
+
+
+def test_predict_retrains_after_a_commit_and_keeps_across_an_empty_log(db):
+    storage, ictx, gids = db
+    models, cache = ML.ModelRegistry(), GraphCache()
+    acc = storage.access()
+    try:
+        for name in ("link_prediction", "node_classification"):
+            ML.set_model_parameters(StorageSource(acc), name,
+                                    {"num_epochs": 4}, models=models)
+    finally:
+        acc.abort()
+    lp = models.slot(SimpleNamespace(storage=storage), "link_prediction")
+    nc = models.slot(SimpleNamespace(storage=storage),
+                     "node_classification")
+    port(storage, ML.link_prediction_predict, gids[0], gids[1],
+         models=models, cache=cache)
+    cls = port(storage, ML.node_classification_predict, gids[3],
+               models=models, cache=cache)["predicted_class"][0]
+    assert 0 <= cls < 3 and nc.n_classes == 3
+    held = [(s.params, s.emb, s.graph, s.version) for s in (lp, nc)]
+    storage.access().abort()        # a version with an empty change set
+    port(storage, ML.link_prediction_predict, gids[0], gids[1],
+         models=models, cache=cache)
+    port(storage, ML.node_classification_predict, gids[3], models=models,
+         cache=cache)
+    for slot, (params, emb, graph, version) in zip((lp, nc), held):
+        assert slot.params is params and slot.emb is emb
+    acc = storage.access()
+    acc.find_vertex(gids[5], View.OLD).set_property(
+        storage.property_mapper.name_to_id("label"), 0)
+    acc.create_edge(acc.find_vertex(gids[2], View.OLD),
+                    acc.find_vertex(gids[9], View.OLD),
+                    storage.edge_type_mapper.name_to_id("E"))
+    acc.commit()
+    port(storage, ML.link_prediction_predict, gids[0], gids[1],
+         models=models, cache=cache)
+    port(storage, ML.node_classification_predict, gids[3], models=models,
+         cache=cache)
+    for slot, (params, emb, graph, version) in zip((lp, nc), held):
+        assert slot.params is not params and slot.emb is not emb
+        assert slot.graph is not graph and slot.version > version
+        assert len(slot.history) == 4
+
+
+def test_labels_are_the_integer_values_of_the_target(db):
+    storage, ictx, gids = db
+    acc = storage.access()
+    label = storage.property_mapper.name_to_id("label")
+    acc.find_vertex(gids[0], View.OLD).set_property(label, True)
+    acc.find_vertex(gids[1], View.OLD).set_property(label, 1.5)
+    acc.find_vertex(gids[2], View.OLD).set_property(label, None)
+    acc.commit()
+    acc = storage.access()
+    try:
+        source = StorageSource(acc)
+        graph = export_csr(source, device="cpu")
+        idx, labels = ML._labels(source, graph, "label")
+        assert idx.tolist() == list(range(3, N))
+        assert labels.tolist() == [i % 3 for i in range(3, N)]
+        for target, msg in (("nope", "no node carries the target"),
+                            ("emb", "no node carries an integer")):
+            with pytest.raises(ProcedureError, match=msg):
+                ML._labels(source, graph, target)
+    finally:
+        acc.abort()
+    coo = CooSource([0, 1], [1, 2], 3,
+                    properties={"c": np.array([2, 0, 1])})
+    graph = export_csr(coo, device="cpu")
+    assert ML._labels(coo, graph, "c")[1].tolist() == [2, 0, 1]
 
 
 @pytest.mark.parametrize("prop,value", [("nope", None), ("label", None),
@@ -548,9 +754,70 @@ def _host_graph():
         "v": np.ones((2, 3))}), "v", 1),
     lambda: ML.load_parameters(CooSource([0], [1], 2), "link_prediction",
                                []),
+    lambda: G.train_link_prediction(_host_graph(), epochs=1),
+    lambda: G.train_node_classification(_host_graph(), [0], [1], epochs=1),
+    lambda: ML.link_prediction_train(CooSource([0], [1], 2)),
+    lambda: W.random_walks(_host_graph(), [0], 3),
+    lambda: N2V_MODEL.Node2Vec().fit(_host_graph()),
+    lambda: N2V_MODEL.init_params(4, 2),
+    lambda: N2V.random_walks(CooSource([0], [1], 2), [0]),
+    lambda: N2V.get_embeddings(CooSource([0], [1], 2)),
 ])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch,
                                                            call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_node2vec_procedures_give_the_references_shapes_and_gids(db):
+    storage, ictx, gids = db
+    want = rows(ictx, "CALL node2vec.get_embeddings(8, 5, 2, 1.0, 1.0, 2, "
+                      "1) YIELD node, embedding RETURN id(node), embedding")
+    got = port(storage, N2V.get_embeddings, 8, 5, 2, 1.0, 1.0, 2, 1,
+               cache=GraphCache())
+    assert got["node_gids"].tolist() == [int(r[0]) for r in want]
+    assert got["embedding"].shape == (len(want), 8) == (N, 8)
+    assert got["embedding"].dtype == np.float32
+    assert np.isfinite(got["embedding"]).all()
+
+    want = rows(ictx, "CALL node2vec.set_embeddings('n2v', 4, 5, 1, 1) "
+                      "YIELD nodes_updated RETURN nodes_updated")
+    got = port(storage, N2V.set_embeddings, "n2v", 4, 5, 1, 1,
+               cache=GraphCache())
+    assert got["nodes_updated"].tolist() == [want[0][0]] == [N]
+    assert got["property"] == "n2v" and got["embedding"].shape == (N, 4)
+    acc = storage.access()
+    try:
+        pid = storage.property_mapper.name_to_id("n2v")
+        written = [acc.find_vertex(g, View.OLD).get_property(pid, View.OLD)
+                   for g in got["node_gids"].tolist()]
+    finally:
+        acc.abort()
+    assert all(len(w) == 4 for w in written)
+
+    starts = [gids[0], gids[7], gids[50], -3]
+    want = rows(ictx, "MATCH (n) WHERE id(n) IN $s WITH collect(n) AS ns "
+                      "CALL node2vec.random_walks(ns, 6, 0.5, 2.0, 3) "
+                      "YIELD walk RETURN [v IN walk | id(v)]",
+                {"s": starts})
+    got = port(storage, N2V.random_walks, starts, 6, 0.5, 2.0, 3,
+               cache=GraphCache())
+    assert got["walk"].shape == (3, 7) and len(want) == 3
+    assert got["walk"].dtype == np.int64
+    assert sorted(got["walk"][:, 0].tolist()) == \
+        sorted(r[0][0] for r in want) == sorted(starts[:3])
+    assert all(len(r[0]) == 7 for r in want)
+    acc = storage.access()
+    try:
+        edges = {(e.from_vertex().gid, e.to_vertex().gid)
+                 for g in gids for e in acc.find_vertex(g, View.OLD)
+                 .out_edges(View.OLD)}
+    finally:
+        acc.abort()
+    outs = {a for a, _ in edges}
+    for walk in got["walk"].tolist():
+        for a, b in zip(walk, walk[1:]):
+            assert (a, b) in edges or (a == b and a not in outs)
+    none = port(storage, N2V.random_walks, [-3], cache=GraphCache())
+    assert none["walk"].shape == (0, 11)
