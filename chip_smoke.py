@@ -263,7 +263,44 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    against a float64 CPU autograd of the same loss within
    ``GNN_GRAD_TOL`` of each tensor's largest entry, the bf16 rounding
    beside it; ms an epoch, and a link epoch's split.
-21. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+21. (on v2, after the dense procedures) The RAG procedures
+   (``rag_procedures`` line): ``graphrag.retrieve`` (10 seeds, 2 hops,
+   10 records) over the 1M x 128 index against a float64 PPR from the
+   same seeds masked by a scipy 2-hop set (the top 10 equal up to
+   near-ties, scores within 1e-4 of the largest); ``igraphalg.pagerank``
+   directed on v2 (v2's plan) and undirected on the segment graph, each
+   within ``pagerank.get``'s L1 bound of float64;
+   ``igraphalg.shortest_path_length`` on 8 pairs of the segment graph
+   with seeded weights against Dijkstra (1e-5 relative, inf where it
+   has inf); ``union_find.connected`` on 1,000 pairs of v2 and of the
+   segment graph against scipy's components, and with ``update=False``
+   from its stored labels.
+22. (after the training procedures' commit) Commit-then-CALL through a
+   warm pool (``warm_pool`` line): ``pagerank.get``, ``wcc.get`` and
+   ``community_detection.get`` cold, a hit (the cold call's bytes,
+   read-only, us), an
+   adds-only commit of 1,000 edges (seed 17) and the three warm
+   (PageRank's iterations fewer than cold's and within the L1 bound of
+   a converged float64 run, WCC equal to scipy, the labels a fixpoint of
+   one more round), a commit removing 1,000 edges (seed 19): WCC and
+   labelprop cold (``cold_start_total`` + 2), PageRank warm; no plan
+   built.  ``katz_centrality.get`` cold, a hit and warm on the segment
+   graph within the katz line's bounds.
+23. The index's delta refresh (``vector_delta`` line) on the 1M x 128
+   corpus: a full build, a commit clearing 50 vectors, then one setting
+   900 vectors, 50 on the cleared vertices, 50 of length 64, and
+   clearing 100: a delta (the counters), each live row bit-equal to a
+   full build of the same state, ``valid`` exactly the live rows, 100
+   queries' top 10 equal to the full build's; a wrapped log gives a full
+   build.
+24. (last) Communities (``communities`` line):
+   ``community_detection.louvain`` on the segment graph and
+   ``leiden_community_detection.get`` on a 20,000-node, 90,000-edge graph
+   of the generator, twice each (equal), Louvain's modularity equal to a
+   float64 numpy one of its partition within 1e-9 and its ids compact
+   from 1, Leiden's float64 modularity at least its Louvain's; no K1 or
+   Benes launch.
+25. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -2468,11 +2505,14 @@ def phase_snapshot(base: dict):
     return launches
 
 
-def procedure_answers(outs: dict, v2, src2, dst2, start_idx: int) -> dict:
+def procedure_answers(outs: dict, v2, src2, dst2, start_idx: int,
+                      kept: dict) -> dict:
     """``pagerank.get``, ``weakly_connected_components.get`` and
     ``bfs.get`` (from ``start_idx``) on snapshot v2, by gid, against a
     converged float64 PageRank and scipy's components and unweighted
-    shortest paths on v2's edges (dense ids, as v2 numbers them)."""
+    shortest paths on v2's edges (dense ids, as v2 numbers them).  The
+    float64 PageRank is kept in ``kept["v2_pagerank64"]`` for a later
+    phase."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
     n = v2.n_nodes
@@ -2485,6 +2525,7 @@ def procedure_answers(outs: dict, v2, src2, dst2, start_idx: int) -> dict:
     t0 = time.perf_counter()
     pr = outs["pagerank.get"]
     ref = reference_pagerank(src2, dst2, n, iterations=PR_PROC_REF_ITERATIONS)
+    kept["v2_pagerank64"] = ref
     pr_l1 = float(np.abs(pr["rank"].astype(np.float64)
                          - ref[dense(pr)]).sum())
     check(pr_l1 <= PR_PROC_L1,
@@ -2570,7 +2611,8 @@ def phase_procedures(base: dict):
           and 0 < rows["bfs.get"] <= n and 0 < rows["graph_util.khop"] <= n,
           f"procedure rows {rows}")
 
-    checked = procedure_answers(outs, v2, *base.pop("v2_coo"), start_idx)
+    checked = procedure_answers(outs, v2, *base.pop("v2_coo"), start_idx,
+                                base)
     summary = {"version": base["source"].version, "n_nodes": n,
                "n_edges": v2.n_edges, "seconds": secs, "rows": rows,
                "vs_reference": checked,
@@ -4237,6 +4279,616 @@ def phase_node2vec(base: dict):
     return launches
 
 
+# --- commit-then-CALL: the warm pool, communities, the RAG procedures and
+# the vector index's delta refresh ------------------------------------------
+
+WARM_MOVES = 1_000          # edges added (seed 17), then removed (seed 19)
+WARM_ADD_SEED, WARM_REMOVE_SEED = 17, 19
+KATZ_PROC_EPS = 1e-5        # katz.get's L-inf stop: 1e-5 of x >= beta = 1
+LEIDEN_NODES, LEIDEN_EDGES = 20_000, 90_000
+MODULARITY_TOL = 1e-9
+RAG_SEED = 41
+RAG_K_SEEDS, RAG_HOPS, RAG_LIMIT = 10, 2, 10
+RAG_TOL = 1e-4              # of the largest score: PPR_REL_TOL's bound
+SPL_PAIRS = 8
+SPL_REL_TOL = 1e-5          # SSSP_REL_TOL
+UF_PAIRS = 1_000
+VD_SEED = 43
+VD_SETS, VD_UNSET, VD_OFFDIM, VD_CLEARS = 900, 50, 50, 100
+VD_OFF_DIM = 64
+VD_QUERIES = 100
+VD_SCORE_RTOL = 1e-6        # a row's score in another matrix's product
+
+
+def modularity64(src, dst, w, comm) -> float:
+    """float64 modularity of a partition of the graph taken undirected
+    (each edge both ways), from numpy sums alone."""
+    w = np.ones(len(src)) if w is None else np.asarray(w, np.float64)
+    m2 = 2.0 * w.sum()
+    if m2 <= 0:
+        return 0.0
+    internal = 2.0 * w[comm[src] == comm[dst]].sum()
+    k = np.bincount(src, w, minlength=len(comm)) \
+        + np.bincount(dst, w, minlength=len(comm))
+    tot = np.bincount(comm, k)
+    return float(internal / m2 - (tot ** 2).sum() / m2 ** 2)
+
+
+def segment_source(weighted: bool = False):
+    """A CooSource over the segment graph (cut from the north star's
+    generator), with seeded weights in [0.5, 2) when asked."""
+    from memgraph_tpu_torch.northstar import CooSource, generate_graph
+    src, dst = generate_graph(n_nodes=SEGMENT_NODES, n_edges=SEGMENT_EDGES)
+    w = (np.random.default_rng(SSSP_SEED).uniform(0.5, 2.0, len(src))
+         .astype(np.float32) if weighted else None)
+    return CooSource(src, dst, SEGMENT_NODES, weights=w), src, dst, w
+
+
+def by_dense(graph, out) -> np.ndarray:
+    """The dense index of each record's gid."""
+    return np.asarray([graph.gid_to_idx[int(g)] for g in out["node_gids"]])
+
+
+def phase_rag_procedures(base: dict):
+    """On v2 (after the dense procedures): ``graphrag.retrieve`` over the
+    1M x 128 embedding index against a float64 PPR from the same seeds
+    masked by a scipy 2-hop set; ``igraphalg.pagerank`` directed on v2
+    (its plan) and undirected on the segment graph, each within the
+    ``pagerank.get`` bound of a converged float64 run;
+    ``igraphalg.shortest_path_length`` on 8 pairs of the weighted segment
+    graph against Dijkstra; ``union_find.connected`` on 1,000 pairs of v2
+    against scipy's components, then again with ``update=False`` from its
+    stored labels (WCC not run), and on 1,000 pairs of the segment graph,
+    half of them to a node without an edge.  Counts set to 0 just before the calls
+    and read just after; seconds a call."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.procedures import combinatorial_modules as CM
+    from memgraph_tpu_torch.procedures import graphrag as GR
+    from memgraph_tpu_torch.procedures import igraph_module as IG
+    from memgraph_tpu_torch.procedures import vector_search as VS
+
+    source, cache, v2 = base["source"], base["cache"], base["v2"]
+    check(cache.get(source, device="cuda") is v2,
+          "the RAG procedures would not run on v2")
+    n = v2.n_nodes
+    points = base["corpus"][0]
+    rng = np.random.default_rng(RAG_SEED)
+    query = points[int(rng.integers(0, n))].tolist()
+    seg, ssrc, sdst, sw = segment_source(weighted=True)
+    seg_cache = GraphCache()
+    seg_pairs = rng.integers(0, SEGMENT_NODES, (SPL_PAIRS, 2))
+    uf_pairs = rng.integers(0, n, (2, UF_PAIRS))
+    # the north star is one weak component: on the segment graph half the
+    # right-hand ends are nodes without an edge
+    alone = np.setdiff1d(np.arange(SEGMENT_NODES),
+                         np.concatenate([ssrc, sdst]))
+    seg_uf = np.stack([rng.integers(0, SEGMENT_NODES, UF_PAIRS),
+                       np.concatenate([
+                           rng.integers(0, SEGMENT_NODES, UF_PAIRS // 2),
+                           rng.choice(alone, UF_PAIRS - UF_PAIRS // 2)])])
+    index_cache = VS.IndexCache()
+    kw = {"device": "cuda"}
+    index, index_s = timed_run(lambda: index_cache.get(source, EMBEDDING,
+                                                       "cuda"))
+    wcc_runs = []
+    real_wcc = CM.weakly_connected_components
+
+    def counted_wcc(*args, **kwargs):
+        wcc_runs.append(1)
+        return real_wcc(*args, **kwargs)
+
+    calls = [
+        ("graphrag.retrieve", lambda: GR.retrieve(
+            source, EMBEDDING, query, RAG_K_SEEDS, RAG_HOPS, RAG_LIMIT,
+            cache=cache, index_cache=index_cache, **kw)),
+        ("igraphalg.pagerank", lambda: IG.pagerank_get(
+            source, cache=cache, **kw)),
+        ("igraphalg.pagerank undirected (segment)", lambda: IG.pagerank_get(
+            seg, directed=False, cache=seg_cache, **kw)),
+        *((f"igraphalg.shortest_path_length {i}",
+           lambda a=int(a), b=int(b): IG.shortest_path_length(
+               seg, a, b, "weight", cache=seg_cache, **kw))
+          for i, (a, b) in enumerate(seg_pairs)),
+        ("union_find.connected", lambda: CM.union_find_connected(
+            source, uf_pairs[0].tolist(), uf_pairs[1].tolist(),
+            cache=cache, **kw)),
+        ("union_find.connected update=False",
+         lambda: CM.union_find_connected(
+             source, uf_pairs[0].tolist(), uf_pairs[1].tolist(),
+             update=False, cache=cache, **kw)),
+        ("union_find.connected (segment)", lambda: CM.union_find_connected(
+            seg, seg_uf[0].tolist(), seg_uf[1].tolist(), cache=seg_cache,
+            **kw))]
+    secs, outs = {}, {}
+    # the RAG procedures' path: counts set to 0 just before, read just
+    # after
+    CM.weakly_connected_components = counted_wcc
+    try:
+        reset_all_counts()
+        for name, fn in calls:
+            if name.endswith("update=False"):
+                wcc_before = len(wcc_runs)
+            outs[name], secs[name] = timed_run(fn)
+        launches = all_counts()
+    finally:
+        CM.weakly_connected_components = real_wcc
+    check(launches["csr_spmm_sum"] > 0 and launches["lane_sum"] > 0
+          and launches["benes_mid_gather"] > 0
+          and launches["benes_outer_gather"] > 0,
+          f"the RAG procedures did not launch K1, K2 and the Benes "
+          f"gathers: {launches}")
+
+    # graphrag.retrieve: the same seeds (the index's own top 10), a
+    # float64 PPR masked by the scipy 2-hop set
+    t0 = time.perf_counter()
+    sims, idx = VS._search_entry(index, VS._query(index, query),
+                                 RAG_K_SEEDS, "cosine")
+    seeds = [v2.gid_to_idx[index.row_gids[int(i)]] for i in idx[0]]
+    src2, dst2 = (a.astype(np.int64) for a in v2.host_coo[:2])
+    ppr = reference_ppr(src2, dst2, n, seeds, iterations=PPR_MAX_ITERATIONS)
+    sym = sp.csr_matrix((np.ones(2 * len(src2), dtype=np.float32),
+                         (np.concatenate([src2, dst2]),
+                          np.concatenate([dst2, src2]))), shape=(n, n))
+    reach = np.zeros(n, dtype=np.float32)
+    reach[seeds] = 1.0
+    for _ in range(RAG_HOPS):
+        reach = np.maximum(reach, (sym @ reach > 0).astype(np.float32))
+    want = np.where(reach > 0, ppr, 0.0)
+    order = np.argsort(-want)[:RAG_LIMIT]
+    rag = outs["graphrag.retrieve"]
+    got_idx = by_dense(v2, rag)
+    top = float(want[order[0]])
+    floor = float(want[order[-1]]) - RAG_TOL * top
+    check(len(got_idx) == RAG_LIMIT
+          and np.abs(rag["score"] - want[order]).max() <= RAG_TOL * top
+          and bool((want[got_idx] >= floor).all())
+          and np.abs(rag["score"] - want[got_idx]).max() <= RAG_TOL * top,
+          "graphrag.retrieve's top 10 is not the float64 masked PPR's up "
+          "to near-ties")
+    seed_sim = {s: float(v) for s, v in zip(seeds, sims[0])}
+    check(np.allclose(rag["seed_similarity"],
+                      [seed_sim.get(int(i), 0.0) for i in got_idx]),
+          "graphrag.retrieve's seed similarities are not the seeds'")
+    rag_check = {"top_score": top, "max_abs_vs_f64": float(
+        np.abs(rag["score"] - want[order]).max()),
+        "same_order": got_idx.tolist() == order.tolist(),
+        "seeds_in_top": int(sum(int(i) in seed_sim for i in got_idx)),
+        "reach": int((reach > 0).sum())}
+
+    # igraphalg.pagerank: directed on v2, undirected on the segment graph
+    pr = outs["igraphalg.pagerank"]
+    ref = base.pop("v2_pagerank64", None)
+    if ref is None:
+        ref = reference_pagerank(src2, dst2, n,
+                                 iterations=PR_PROC_REF_ITERATIONS)
+    pr_l1 = float(np.abs(pr["rank"].astype(np.float64)
+                         - ref[by_dense(v2, pr)]).sum())
+    check(pr_l1 <= PR_PROC_L1,
+          f"igraphalg.pagerank on v2 off float64 by L1 {pr_l1}")
+    upr = outs["igraphalg.pagerank undirected (segment)"]
+    sg = seg_cache.get(seg, device="cuda")
+    uref = reference_pagerank(np.concatenate([ssrc, sdst]),
+                              np.concatenate([sdst, ssrc]), SEGMENT_NODES,
+                              iterations=PR_PROC_REF_ITERATIONS)
+    upr_l1 = float(np.abs(upr["rank"].astype(np.float64)
+                          - uref[by_dense(sg, upr)]).sum())
+    check(upr_l1 <= PR_PROC_L1,
+          f"igraphalg.pagerank undirected off float64 by L1 {upr_l1}")
+
+    # shortest_path_length against Dijkstra on the weighted segment graph
+    s_, d_, w_ = dedup_min(ssrc, sdst, sw.astype(np.float64))
+    adj = sp.csr_matrix((w_, (s_, d_)), shape=(SEGMENT_NODES,) * 2)
+    dist = csgraph.dijkstra(adj, directed=True, indices=seg_pairs[:, 0])
+    lengths, worst = [], 0.0
+    for i, (a, b) in enumerate(seg_pairs):
+        got = outs[f"igraphalg.shortest_path_length {i}"]["length"][0]
+        want_l = dist[i, b]
+        if np.isinf(want_l):
+            check(np.isinf(got), f"shortest_path_length {a}->{b} is {got}, "
+                                 f"Dijkstra's inf")
+        else:
+            rel = abs(got - want_l) / max(want_l, 1e-30)
+            worst = max(worst, rel)
+            check(rel <= SPL_REL_TOL, f"shortest_path_length {a}->{b} "
+                                      f"{got} vs Dijkstra {want_l}")
+        lengths.append(float(got))
+
+    # union_find.connected against scipy's weak components of v2
+    adj2 = sp.csr_matrix((np.ones(len(src2), dtype=np.int8), (src2, dst2)),
+                         shape=(n, n))
+    _, weak = csgraph.connected_components(adj2, directed=True,
+                                           connection="weak")
+    uf = outs["union_find.connected"]
+    want_uf = weak[uf_pairs[0]] == weak[uf_pairs[1]]
+    check(np.array_equal(uf["connected"], want_uf)
+          and uf["node1_gids"].tolist() == uf_pairs[0].tolist(),
+          "union_find.connected is not scipy's components")
+    again = outs["union_find.connected update=False"]
+    check(wcc_before == 1 and len(wcc_runs) == 2
+          and np.array_equal(again["connected"], want_uf),
+          "union_find.connected update=False did not serve the stored "
+          "labels")
+    s_adj = sp.csr_matrix((np.ones(len(ssrc), dtype=np.int8), (ssrc, sdst)),
+                          shape=(SEGMENT_NODES,) * 2)
+    _, s_weak = csgraph.connected_components(s_adj, directed=True,
+                                             connection="weak")
+    s_want = s_weak[seg_uf[0]] == s_weak[seg_uf[1]]
+    check(np.array_equal(outs["union_find.connected (segment)"][
+        "connected"], s_want) and 0 < s_want.sum() < UF_PAIRS,
+          "union_find.connected on the segment graph is not scipy's "
+          "components, or not both answers")
+    summary = {"version": source.version, "n_nodes": n,
+               "index_full_build_s": index_s, "seconds": secs,
+               "graphrag.retrieve": rag_check,
+               "igraphalg.pagerank": {"l1": pr_l1, "limit": PR_PROC_L1},
+               "igraphalg.pagerank undirected": {
+                   "n_nodes": SEGMENT_NODES, "l1": upr_l1},
+               "shortest_path_length": {
+                   "lengths": lengths, "max_rel": worst,
+                   "unreached": int(np.isinf(lengths).sum())},
+               "union_find.connected": {
+                   "pairs": UF_PAIRS, "connected": int(want_uf.sum()),
+                   "components": int(weak.max()) + 1,
+                   "segment_connected": int(s_want.sum()),
+                   "segment_components": int(s_weak.max()) + 1},
+               "reference_s": time.perf_counter() - t0,
+               "launches": launches}
+    print("rag_procedures", json.dumps(summary), flush=True)
+    del index, index_cache, sym, adj2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_warm_pool(base: dict):
+    """Commit-then-CALL through a warm pool of its own (the procedures
+    phase filled the global one), on the north star's CooSource and
+    GraphCache after the training procedures' commit: ``pagerank.get``,
+    ``wcc.get`` and ``community_detection.get`` cold; ``pagerank.get``
+    again (a hit: the cold call's bytes, read-only, µs); an adds-only
+    commit of 1,000 edges
+    (seed 17), then the three warm (PageRank's iterations fewer than
+    cold's, within the ``pagerank.get`` bound of a converged float64
+    run; WCC equal to scipy; the labels a fixpoint: one more round seeded
+    with them changes none); a commit removing 1,000 edges (seed 19), then
+    WCC and labelprop cold (``cold_start_total`` + 2, WCC equal to scipy)
+    and PageRank warm.  No plan is built: every snapshot refreshes from
+    v0's.  Then ``katz_centrality.get`` cold, as a hit and warm after
+    an adds-only commit on the segment graph's own source (katz would
+    build a plan of its own on a new north-star version), against float64
+    with the katz line's bounds.  Counts set to 0 just before and read
+    just after."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph
+    from memgraph_tpu_torch.northstar import N_NODES
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.ops.delta import LocalWarmPool
+    from memgraph_tpu_torch.ops.labelprop import label_propagation
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+
+    source, cache = base["source"], base["cache"]
+    pool = LocalWarmPool()
+    kw = {"cache": cache, "pool": pool, "device": "cuda"}
+    seg, ssrc, sdst, _ = segment_source()
+    seg_kw = {"cache": GraphCache(), "pool": pool, "device": "cuda"}
+    calls = {"pagerank": P.pagerank_get, "wcc": P.weakly_connected_components_get,
+             "labelprop": P.community_detection_get}
+    secs, outs, iters, kept = {}, {}, {}, {}
+
+    def run(tag, algo):
+        outs[tag], secs[tag] = timed_run(lambda: calls[algo](source, **kw))
+        sol = pool.solution(source.storage, algo)
+        iters[tag], kept[tag] = sol.iters, sol.x
+
+    def katz(tag):
+        outs[tag], secs[tag] = timed_run(lambda: P.katz_centrality_get(
+            seg, KATZ_ALPHA, KATZ_PROC_EPS, **seg_kw))
+        iters[tag] = pool.solution(seg.storage, "katz").iters
+
+    def graph_now():
+        return cache.get(source, device="cuda")
+
+    # the warm pool's path: counts set to 0 just before, read just after
+    with counted_plan_builds() as plan_builds:
+        reset_all_counts()
+        for algo in calls:
+            run(f"{algo} cold", algo)
+        cold_copy = {k: v.copy() for k, v in outs["pagerank cold"].items()}
+        t0 = time.perf_counter()
+        hit = P.pagerank_get(source, **kw)
+        hit_us = (time.perf_counter() - t0) * 1e6
+        g_cold = graph_now()
+        rng = np.random.default_rng(WARM_ADD_SEED)
+        source.commit(rng.integers(0, N_NODES, WARM_MOVES),
+                      (rng.random(WARM_MOVES) ** 2 * N_NODES).astype(np.int64))
+        for algo in calls:
+            run(f"{algo} warm", algo)
+        g_add = graph_now()
+        warm_total = pool.counters["warm_start_total"]
+        cold_total = pool.counters["cold_start_total"]
+        rng = np.random.default_rng(WARM_REMOVE_SEED)
+        source.commit(remove=rng.choice(source.alive_ids(), WARM_MOVES,
+                                        replace=False))
+        for algo in ("wcc", "labelprop", "pagerank"):
+            run(f"{algo} after removal", algo)
+        g_rem = graph_now()
+        katz("katz cold")
+        katz_copy = {k: v.copy() for k, v in outs["katz cold"].items()}
+        t0 = time.perf_counter()
+        katz_hit = P.katz_centrality_get(seg, KATZ_ALPHA, KATZ_PROC_EPS,
+                                         **seg_kw)
+        katz_hit_us = (time.perf_counter() - t0) * 1e6
+        rng = np.random.default_rng(WARM_ADD_SEED)
+        seg.commit(rng.integers(0, SEGMENT_NODES, WARM_MOVES),
+                   (rng.random(WARM_MOVES) ** 2
+                    * SEGMENT_NODES).astype(np.int64))
+        katz("katz warm")
+        launches = all_counts()
+    check(not plan_builds, f"build_plan ran {len(plan_builds)} time(s) on "
+                           "the warm pool's snapshots")
+    check(launches["benes_mid_gather"] > 0
+          and launches["benes_outer_gather"] > 0
+          and launches["csr_spmm_sum"] > 0,
+          f"the warm pool's path launched no Benes gather or K1: {launches}")
+    check(all(hit[k].tobytes() == v.tobytes() for k, v in cold_copy.items())
+          and all(katz_hit[k].tobytes() == v.tobytes()
+                  for k, v in katz_copy.items()),
+          "a repeated call on an unchanged graph did not return the cold "
+          "call's bytes")
+    check(not hit["rank"].flags.writeable
+          and not katz_hit["rank"].flags.writeable,
+          "a hit returned a stored solution that its caller can change")
+    check(warm_total == 3 and cold_total == 0
+          and pool.counters["cold_start_total"] == 2
+          and pool.counters["warm_start_total"] == 5,
+          f"warm/cold starts {pool.counters}: expected 3 warm after the "
+          f"adds, then 2 cold (wcc, labelprop) and 1 warm (pagerank) after "
+          f"the removal, then katz warm")
+    check(iters["pagerank warm"] < iters["pagerank cold"]
+          and iters["katz warm"] < iters["katz cold"],
+          f"warm runs not shorter than cold: {iters}")
+
+    def coo(g):
+        return tuple(a.astype(np.int64) for a in g.host_coo[:2])
+
+    def wcc_equal(g, out):
+        s, d = coo(g)
+        adj = sp.csr_matrix((np.ones(len(s), dtype=np.int8), (s, d)),
+                            shape=(g.n_nodes, g.n_nodes))
+        _, weak = csgraph.connected_components(adj, directed=True,
+                                               connection="weak")
+        comp = np.empty(g.n_nodes, dtype=np.int64)
+        comp[by_dense(g, out)] = out["component_id"]
+        return np.array_equal(min_index_labels(comp),
+                              min_index_labels(weak))
+
+    t0 = time.perf_counter()
+    s3, d3 = coo(g_add)
+    ref = reference_pagerank(s3, d3, g_add.n_nodes,
+                             iterations=PR_PROC_REF_ITERATIONS)
+    warm = outs["pagerank warm"]
+    pr_l1 = float(np.abs(warm["rank"].astype(np.float64)
+                         - ref[by_dense(g_add, warm)]).sum())
+    check(pr_l1 <= PR_PROC_L1,
+          f"warm pagerank.get off float64 by L1 {pr_l1} > {PR_PROC_L1}")
+    check(wcc_equal(g_add, outs["wcc warm"]),
+          "warm wcc.get is not scipy's partition")
+    check(wcc_equal(g_rem, outs["wcc after removal"]),
+          "wcc.get after the removal is not scipy's partition")
+    warm_labels = kept["labelprop warm"]
+    again, _ = label_propagation(g_add, max_iterations=1,
+                                 labels0=warm_labels)
+    check(np.array_equal(again, warm_labels),
+          "the warm labels are not a fixpoint: one more round moves "
+          f"{int((again != warm_labels).sum())}")
+    seg_graph = seg_kw["cache"].get(seg, device="cuda")
+    a_t = transposed_adjacency(*coo(seg_graph), SEGMENT_NODES)
+    lam = spectral_radius(a_t)
+    check(KATZ_ALPHA * lam <= 0.5, f"α λ = {KATZ_ALPHA * lam} > 1/2 on the "
+                                   f"segment graph")
+    kx = outs["katz warm"]["rank"].astype(np.float64)
+    kref = reference_katz(a_t, KATZ_ALPHA)[by_dense(seg_graph,
+                                                    outs["katz warm"])]
+    k_rel = float((np.abs(kx - kref) / kref).max())
+    k_top = len(set(np.argsort(-kx)[:100]) & set(np.argsort(-kref)[:100]))
+    check(k_rel <= F32_REL_TOL and k_top == 100,
+          f"warm katz_centrality.get off float64: rel {k_rel} top {k_top}")
+    summary = {"n_edges": [g_cold.n_edges, g_add.n_edges, g_rem.n_edges],
+               "seconds": secs, "iterations": iters, "hit_us": hit_us,
+               "katz_hit_us": katz_hit_us, "counters": pool.counters,
+               "pagerank_warm_l1": {"l1": pr_l1, "limit": PR_PROC_L1},
+               "katz_warm": {"max_rel": k_rel, "top100": k_top,
+                             "alpha_lambda": KATZ_ALPHA * lam},
+               "reference_s": time.perf_counter() - t0,
+               "launches": launches}
+    print("warm_pool", json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_communities(base: dict):
+    """``community_detection.louvain`` on the segment graph and
+    ``leiden_community_detection.get`` on a 20,000-node, 90,000-edge graph
+    of the north star's generator (Louvain's move loop is a host loop
+    over the edges: cut from the north star), twice each through a
+    CooSource and a GraphCache on the card.  The two runs equal; the
+    Louvain ids compact from 1 and its modularity equal to an independent
+    float64 numpy one of the returned partition within 1e-9; Leiden's
+    refined ids within [0, n) and its partition's float64 modularity at
+    least the Louvain partition's on the same graph.  No K1 or Benes
+    launch: counts set to 0 just before, read just after."""
+    from memgraph_tpu_torch.northstar import CooSource, generate_graph
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.ops.louvain import louvain
+    from memgraph_tpu_torch.procedures import combinatorial_modules as CM
+    from memgraph_tpu_torch.procedures import structure_modules as SM
+
+    seg, ssrc, sdst, _ = segment_source()
+    lsrc, ldst = generate_graph(n_nodes=LEIDEN_NODES, n_edges=LEIDEN_EDGES)
+    small = CooSource(lsrc, ldst, LEIDEN_NODES)
+    kw = {"cache": GraphCache(), "device": "cuda"}
+    secs, outs = {}, {}
+    # the communities' path: counts set to 0 just before, read just after
+    reset_all_counts()
+    for tag, fn in (
+            ("louvain", lambda: SM.community_detection_louvain(seg, **kw)),
+            ("louvain again",
+             lambda: SM.community_detection_louvain(seg, **kw)),
+            ("leiden", lambda: CM.leiden_get(small, **kw)),
+            ("leiden again", lambda: CM.leiden_get(small, **kw))):
+        outs[tag], secs[tag] = timed_run(fn)
+    launches = all_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"the communities' path launched a kernel: {launches}")
+    for tag in ("louvain", "leiden"):
+        a, b = outs[tag], outs[f"{tag} again"]
+        check(a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                           for k in a),
+              f"two {tag} runs differ")
+    lv = outs["louvain"]
+    check(lv["node_gids"].tolist() == list(range(SEGMENT_NODES)),
+          "community_detection.louvain's records are not the nodes'")
+    ids = np.unique(lv["community_id"])
+    check(ids.tolist() == list(range(1, len(ids) + 1)),
+          "Louvain's community ids are not compact from 1")
+    q = float(lv["modularity"][0])
+    q64 = modularity64(ssrc, sdst, None, lv["community_id"])
+    check(bool((lv["modularity"] == q).all()) and abs(q - q64)
+          <= MODULARITY_TOL,
+          f"Louvain's modularity {q} is not the partition's float64 {q64}")
+    ld = outs["leiden"]
+    comm = ld["community_id"]
+    check(ld["node_gids"].tolist() == list(range(LEIDEN_NODES))
+          and 0 <= comm.min() and comm.max() < LEIDEN_NODES
+          and np.array_equal(ld["communities"][:, 0], comm),
+          "leiden_community_detection.get's records are misshaped")
+    q_leiden = modularity64(lsrc, ldst, None, comm)
+    g_small = kw["cache"].get(small, device="cuda")
+    t0 = time.perf_counter()
+    lv_small, q_small = louvain(g_small)
+    louvain_small_s = time.perf_counter() - t0
+    check(abs(modularity64(lsrc, ldst, None, lv_small) - q_small)
+          <= MODULARITY_TOL, "Louvain's modularity on the 20k graph is not "
+                             "its partition's")
+    # every move of the refinement has a positive modularity gain
+    check(q_leiden >= q_small - MODULARITY_TOL,
+          f"Leiden's refined partition has modularity {q_leiden}, below "
+          f"its Louvain partition's {q_small}")
+    summary = {
+        "louvain": {"n_nodes": SEGMENT_NODES, "n_edges": SEGMENT_EDGES,
+                    "communities": len(ids), "modularity": q,
+                    "modularity64": q64},
+        "leiden": {"n_nodes": LEIDEN_NODES, "n_edges": LEIDEN_EDGES,
+                   "communities": int(len(np.unique(comm))),
+                   "modularity64": q_leiden,
+                   "louvain_modularity": q_small,
+                   "louvain_s": louvain_small_s},
+        "seconds": secs, "launches": launches}
+    print("communities", json.dumps(summary), flush=True)
+    return launches
+
+
+def phase_vector_delta(base: dict):
+    """The embedding index's delta refresh on the north star's 1M x 128
+    corpus: one full build; a commit that clears 50 vectors (refreshed);
+    then the measured commit: 900 new values, 50 on the vertices that
+    had none, 50 of another length (64) and 100 clears.  The refresh must
+    be a delta (the counters), each live gid's row bit-equal to a full
+    build of the same state and ``valid`` exactly the live rows, 100
+    queries' top 10 the full build's as (gid, score) pairs; then a
+    wrapped change log gives a full build.  Seconds of the full builds,
+    ms of the measured refresh.  Counts set to 0 just before, read just
+    after (the index launches none of the listed kernels)."""
+    import torch
+    from memgraph_tpu_torch.northstar import N_NODES
+    from memgraph_tpu_torch.procedures import vector_search as VS
+
+    source = base["source"]
+    points = base["corpus"][0]
+    dim = points.shape[1]
+    rng = np.random.default_rng(VD_SEED)
+    picked = rng.choice(N_NODES, VD_SETS + VD_UNSET + VD_OFFDIM + VD_CLEARS,
+                        replace=False)
+    sets, unset, off, clears = np.split(picked, np.cumsum(
+        [VD_SETS, VD_UNSET, VD_OFFDIM]))
+    index_cache = VS.IndexCache()
+    secs = {}
+    reset_all_counts()
+    full0, secs["full_build"] = timed_run(
+        lambda: index_cache.get(source, EMBEDDING, "cuda"))
+    source.commit(set_properties={EMBEDDING: (unset, [None] * len(unset))})
+    _, secs["clear_refresh"] = timed_run(
+        lambda: index_cache.get(source, EMBEDDING, "cuda"))
+    values = (list(rng.standard_normal((VD_SETS, dim), dtype=np.float32))
+              + list(rng.standard_normal((VD_UNSET, dim), dtype=np.float32))
+              + list(rng.standard_normal((VD_OFFDIM, VD_OFF_DIM),
+                                         dtype=np.float32))
+              + [None] * VD_CLEARS)
+    source.commit(set_properties={EMBEDDING: (
+        np.concatenate([sets, unset, off, clears]), values)})
+    before = dict(index_cache.counters)
+    entry, secs["delta_refresh"] = timed_run(
+        lambda: index_cache.get(source, EMBEDDING, "cuda"))
+    check(index_cache.counters == {
+        "full_builds": before["full_builds"],
+        "delta_refreshes": before["delta_refreshes"] + 1},
+        f"the commit's refresh was not a delta: {before} -> "
+        f"{index_cache.counters}")
+    full, secs["full_build_same_state"] = timed_run(
+        lambda: VS.full_build(source, EMBEDDING, "cuda"))
+    launches = all_counts()
+    live = N_NODES - VD_UNSET - VD_OFFDIM - VD_CLEARS + VD_UNSET
+    check(entry.size == full.size == live
+          and set(entry.gid_to_row) == set(full.gid_to_row)
+          and entry.dim_counts == full.dim_counts
+          and entry.offdim == full.offdim,
+          "the delta entry's rows, counts or off-dimension set differ from "
+          "a full build's")
+    gids = np.fromiter(full.gid_to_row, dtype=np.int64, count=full.size)
+    rows_d = torch.as_tensor([entry.gid_to_row[int(g)] for g in gids],
+                             device=entry.matrix.device)
+    rows_f = torch.as_tensor([full.gid_to_row[int(g)] for g in gids],
+                             device=full.matrix.device)
+    check(same_bits(entry.matrix[rows_d], full.matrix[rows_f]),
+          "a live row of the delta entry is not the full build's bits")
+    valid = torch.zeros_like(entry.valid)
+    valid[rows_d] = 1.0
+    check(torch.equal(entry.valid, valid),
+          "the delta entry's valid is not exactly its live rows")
+    queries = torch.from_numpy(points[rng.choice(N_NODES, VD_QUERIES,
+                                                 replace=False)]).cuda()
+    (s_d, i_d), (s_f, i_f) = (VS._search_entry(e, queries, 10, "cosine")
+                              for e in (entry, full))
+    g_d = np.asarray(entry.row_gids, dtype=object)[i_d]
+    g_f = np.asarray(full.row_gids, dtype=object)[i_f]
+    check(np.array_equal(g_d, g_f)
+          and np.allclose(s_d, s_f, rtol=VD_SCORE_RTOL, atol=0.0),
+          f"the delta entry's top 10 differ from the full build's: "
+          f"{int((g_d != g_f).sum())} gids, max score diff "
+          f"{float(np.abs(s_d - s_f).max())}")
+    for i in range(source.log_size + 1):
+        source.commit(set_properties={EMBEDDING: (
+            [int(sets[i % len(sets)])], [points[int(sets[i % len(sets)])]])})
+    before = dict(index_cache.counters)
+    _, secs["wrapped_full_build"] = timed_run(
+        lambda: index_cache.get(source, EMBEDDING, "cuda"))
+    check(index_cache.counters["full_builds"] == before["full_builds"] + 1,
+          f"a wrapped log did not give a full build: {index_cache.counters}")
+    summary = {"n_rows": live, "dim": dim, "seconds": secs,
+               "delta_refresh_ms": secs["delta_refresh"] * 1e3,
+               "capacity": int(entry.matrix.shape[0]),
+               "free_rows": len(entry.free_rows),
+               "score_max_abs_diff": float(np.abs(s_d - s_f).max()),
+               "counters": index_cache.counters, "launches": launches}
+    print("vector_delta", json.dumps(summary), flush=True)
+    del entry, full, full0, index_cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4281,9 +4933,14 @@ def main():
     by_path = {"procedures": timed("procedures", phase_procedures, base),
                "dense_procedures": timed("dense_procedures",
                                          phase_dense_procedures, base),
+               "rag_procedures": timed("rag_procedures",
+                                       phase_rag_procedures, base),
                "training_procedures": timed("training_procedures",
                                             phase_training_procedures,
-                                            base)}
+                                            base),
+               "warm_pool": timed("warm_pool", phase_warm_pool, base),
+               "vector_delta": timed("vector_delta", phase_vector_delta,
+                                     base)}
     timed("snapshot_log", phase_snapshot_log, base)
     seg_lines = timed("segment_kernels", phase_segment_kernels, base)
     by_path.update({
@@ -4298,7 +4955,8 @@ def main():
         "ivf": timed("ivf", phase_ivf, base),
         "similarity": timed("similarity", phase_similarity, base),
         "node2vec": timed("node2vec", phase_node2vec, base),
-        "gnn_train": timed("gnn_train", phase_gnn_train, base)})
+        "gnn_train": timed("gnn_train", phase_gnn_train, base),
+        "communities": timed("communities", phase_communities, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

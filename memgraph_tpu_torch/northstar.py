@@ -102,6 +102,18 @@ def node_labels(n: int = N_NODES) -> np.ndarray:
     return np.random.default_rng(LABEL_SEED).integers(0, N_CLASSES, n)
 
 
+def _fits(rows: np.ndarray, value) -> bool:
+    """Whether ``value`` is a numeric value of the kind and shape of a row
+    of ``rows`` that the cast keeps exactly."""
+    try:
+        v = np.asarray(value)
+    except ValueError:           # a ragged value
+        return False
+    return (v.dtype.kind in "iuf" and v.dtype.kind == rows.dtype.kind
+            and v.shape == rows.shape[1:]
+            and bool(np.array_equal(v.astype(rows.dtype), v)))
+
+
 class CooSource:
     """A versioned COO graph with a bounded change log: a source of
     ``ops.csr.GraphCache`` (see ops/csr.py) that keeps the storage's
@@ -116,7 +128,15 @@ class CooSource:
     new vertex); ``untracked_bump`` is a version that records none.
     ``properties`` gives the initial vertices their vertex properties (a
     name and an array with a value, or a row, for each), which
-    ``vertex_property`` reads; the vertices that commits add have none.  The
+    ``vertex_property`` reads; the vertices that commits add have none
+    until a commit sets one (``set_properties``, logged as a change of
+    each vertex it sets, as the storage logs a property write).  A value
+    a commit sets goes into the property's array (this source's own
+    copy) where it fits there exactly: a numeric value of the same kind
+    and shape as the array's rows, equal after the cast; any other value
+    is kept as it was given.  A read is the array's rows when every
+    vertex read holds one, else a list: a row as a list, a scalar as
+    itself, a kept value as given, None where the vertex has none.  The
     log keeps the last ``log_size`` entries behind a monotone low-water
     mark, and ``changes_between`` answers as the storage's does: the
     union of the entries in (v_from, v_to], or ``ChangeLogUnknowable``
@@ -130,6 +150,11 @@ class CooSource:
         # vertex properties: name -> an array with a value (a row) for
         # each initial vertex
         self._props = {k: np.asarray(v) for k, v in (properties or {}).items()}
+        # from a property's first write: whether each vertex holds a row
+        # (the array is then this source's copy, grown to every vertex)
+        self._prop_held: dict = {}
+        # values set by commits that do not fit the array: {gid: value}
+        self._prop_odd: dict = {}
         if any(len(v) != n_nodes for v in self._props.values()):
             raise ValueError("a vertex property needs one value a vertex")
         src = np.asarray(src, dtype=np.int64)
@@ -216,15 +241,49 @@ class CooSource:
         return tuple(out)
 
     def vertex_property(self, name, gids):
-        values = self._props.get(name)
-        if values is None:
+        rows = self._props.get(name)
+        odd = self._prop_odd.get(name, {})
+        if rows is None and not odd:
             return None
         gids = np.asarray(gids, dtype=np.int64)
-        if len(gids) == 0 or (gids.min() >= 0 and gids.max() < len(values)):
-            return values[gids]
-        # vertices that commits added carry no property
-        return [values[g].tolist() if 0 <= g < len(values) else None
-                for g in gids.tolist()]
+        dense = np.zeros(len(gids), dtype=bool)
+        if rows is not None:
+            dense = (gids >= 0) & (gids < len(rows))
+            held = self._prop_held.get(name)
+            if held is not None:
+                dense[dense] = held[gids[dense]]
+            if dense.all():
+                return rows[gids]
+        out = [None] * len(gids)
+        for i, row in zip(np.flatnonzero(dense).tolist(),
+                          rows[gids[dense]].tolist() if dense.any() else ()):
+            out[i] = row
+        for i, g in enumerate(gids.tolist()):
+            if g in odd:
+                out[i] = odd[g]
+        return out
+
+    def _set_property(self, name, gid: int, value) -> None:
+        """``name`` of vertex ``gid`` set to ``value`` (None: cleared)."""
+        odd = self._prop_odd.setdefault(name, {})
+        odd.pop(gid, None)
+        rows = self._props.get(name)
+        if rows is not None:
+            held = self._prop_held.get(name)
+            if held is None or len(held) < self._n:
+                grown = np.zeros((self._n, *rows.shape[1:]), rows.dtype)
+                grown[:len(rows)] = rows
+                now = np.zeros(self._n, dtype=bool)
+                now[:len(rows)] = True if held is None else held
+                self._props[name] = rows = grown
+                self._prop_held[name] = held = now
+            held[gid] = False
+            if value is not None and _fits(rows, value):
+                rows[gid] = value
+                held[gid] = True
+                return
+        if value is not None:
+            odd[gid] = value
 
     # --- commits --------------------------------------------------------------
 
@@ -243,11 +302,14 @@ class CooSource:
                      for b, a in zip(self._base, self._app))
 
     def commit(self, add_src=(), add_dst=(), add_weights=None,
-               remove=(), set_weights=None, add_vertices: int = 0):
+               remove=(), set_weights=None, add_vertices: int = 0,
+               set_properties=None):
         """One version: remove the edges with ids ``remove``, set the
         weights of ``set_weights = (ids, values)``, add ``add_vertices``
         vertices, then the edges (add_src, add_dst) with ``add_weights``
-        (1.0 when None).  Returns the gids it logged as changed."""
+        (1.0 when None), then the vertex properties of ``set_properties =
+        {name: (gids, values)}`` (a value of None clears the property).
+        Returns the gids it logged as changed."""
         remove = np.asarray(remove, dtype=np.int64)
         add_src = np.asarray(add_src, dtype=np.int64)
         add_dst = np.asarray(add_dst, dtype=np.int64)
@@ -280,9 +342,21 @@ class CooSource:
                               zip(self._app, (add_src, add_dst, w)))
             self._app_alive = np.concatenate(
                 [self._app_alive, np.ones(len(add_src), dtype=bool)])
+        set_gids = []
+        for name, (gids, values) in (set_properties or {}).items():
+            gids = np.asarray(gids, dtype=np.int64).reshape(-1)
+            if len(gids) != len(values):
+                raise ValueError("set_properties needs a value a gid")
+            if len(gids) and (gids.min() < 0 or gids.max() >= self._n):
+                raise ValueError("commit sets a property of a vertex that "
+                                 "is not there")
+            for gid, value in zip(gids.tolist(), values):
+                self._set_property(name, gid, value)
+            set_gids.append(gids)
         ends = self.edge_arrays(np.concatenate(touched))
         changed = frozenset(np.concatenate(
-            [ends[0], ends[1], add_src, add_dst, new_gids]).tolist())
+            [ends[0], ends[1], add_src, add_dst, new_gids,
+             *set_gids]).tolist())
         self._bump(changed)
         return changed
 

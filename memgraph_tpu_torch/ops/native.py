@@ -6,6 +6,9 @@
                       build near half a minute.
   csr_builder.cpp  -> ``build_csr_csc_native``: the O(E + N) counting-sort
                       CSR + CSC builder that ``csr.from_coo`` takes first.
+  louvain.cpp      -> ``louvain_move_native``: Louvain's local-move loop
+                      (ops/louvain.py), the same double operations in the
+                      same order as its python loop.
 
 Each library is built with ``g++`` into the port's build directory at
 first use.  Without a compiler the callers take their numpy paths.
@@ -33,6 +36,7 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64 = ctypes.c_int64
+_F64P = ctypes.POINTER(ctypes.c_double)
 
 # source -> {function: (restype, argtypes)}
 _SIGNATURES = {
@@ -43,7 +47,14 @@ _SIGNATURES = {
             _I64P, _I64P, _F32P, _I64, _I64, _I64, _I64,
             _I32P, _I32P, _F32P, _I32P, _I32P, _F32P, _I32P, _F32P,
             _I32P])},
+    "louvain.cpp": {
+        "louvain_move": (ctypes.c_int, [
+            _I64, _I64P, _I64P, _F64P, _F64P, _I64P, ctypes.c_double,
+            ctypes.c_double, _I64P, _F64P])},
 }
+
+# source -> compiler flags beyond the common ones
+_EXTRA_FLAGS = {"louvain.cpp": ["-ffp-contract=off"]}
 
 
 def _load(source: str):
@@ -61,7 +72,8 @@ def _load(source: str):
                 return None
             try:
                 compile_all([(["g++", "-O3", "-std=c++17", "-shared",
-                               "-fPIC", "-Wall", src], out)])
+                               "-fPIC", "-Wall",
+                               *_EXTRA_FLAGS.get(source, ()), src], out)])
             except (OSError, RuntimeError) as e:
                 log.warning("%s did not build (%s)", source, e)
                 return None
@@ -81,6 +93,35 @@ def get_router():
 def get_csr_builder():
     """The CSR builder library, or None when it cannot be built here."""
     return _load("csr_builder.cpp")
+
+
+def get_louvain():
+    """The Louvain move library, or None when it cannot be built here."""
+    return _load("louvain.cpp")
+
+
+def louvain_move_native(indptr, nbr, nbr_w, k, order, m2: float,
+                        min_gain: float):
+    """(community of each node, total gain) of Louvain's local-move loop
+    (native/louvain.cpp), or None when the library cannot be built
+    here."""
+    lib = get_louvain()
+    if lib is None:
+        return None
+    n = len(k)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    nbr = np.ascontiguousarray(nbr, dtype=np.int64)
+    nbr_w = np.ascontiguousarray(nbr_w, dtype=np.float64)
+    k = np.ascontiguousarray(k, dtype=np.float64)
+    order = np.ascontiguousarray(order, dtype=np.int64)
+    comm = np.empty(n, dtype=np.int64)
+    gain = np.zeros(1, dtype=np.float64)
+    lib.louvain_move(n, indptr.ctypes.data_as(_I64P),
+                     nbr.ctypes.data_as(_I64P), nbr_w.ctypes.data_as(_F64P),
+                     k.ctypes.data_as(_F64P), order.ctypes.data_as(_I64P),
+                     float(m2), float(min_gain), comm.ctypes.data_as(_I64P),
+                     gain.ctypes.data_as(_F64P))
+    return comm, float(gain[0])
 
 
 def benes_route_native(perm: np.ndarray):

@@ -16,10 +16,20 @@ arrays: ``node_gids`` (int64) and one numpy column per result field, a
 row per yielded record.  An empty graph yields no row.  Vertices are
 named by gid where the procedure takes nodes.
 
-Left out: the mgp registration and the Cypher surface, the kernel-server
-route and the warm pool (ops/delta.py), which seeds a call from an
-earlier solution; every call here starts cold, as the first call on a
-storage does.
+``pagerank.get``, ``katz_centrality.get``, ``community_detection.get``
+and ``weakly_connected_components.get`` consult a warm pool
+(``pool=``, ops/delta.py's ``GLOBAL_WARM_POOL`` by default) as the
+reference's ``_warm_prepare`` does, with its parameter keys: a repeated
+call on an unchanged graph returns the stored host array (the same
+bytes, read-only), and a call after a commit seeds the fixpoint (``x0``,
+``labels0``, ``comp0``) from the previous answer under the warm-start
+contract (WCC and label propagation only over adds-only deltas, else a
+counted cold start).  The reference demotes a hit to a warm seed under
+PROFILE (its stage accounting); the port has no such accounting, so a
+hit is always served as it is.
+
+Left out: the mgp registration and the Cypher surface, and the
+kernel-server route.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from ..ops.betweenness import betweenness_centrality
 from ..ops.components import (strongly_connected_components,
                               weakly_connected_components)
 from ..ops.csr import GLOBAL_GRAPH_CACHE
+from ..ops.delta import GLOBAL_WARM_POOL
 from ..ops.katz import degree_centrality, hits, katz_centrality
 from ..ops.labelprop import label_propagation
 from ..ops.pagerank import pagerank, personalized_pagerank
@@ -63,16 +74,41 @@ def _indices(graph, gids) -> list:
             if g is not None and g in graph.gid_to_idx]
 
 
+def _warm(pool, source, graph, algo: str, params_key: tuple, compute):
+    """The answer of ``algo`` on ``graph`` through the warm pool: the
+    stored host array on a hit (read-only), else ``compute(seed)`` (seed
+    None: cold) as a host array, of which the pool stores a copy for the
+    next call.  ``compute`` returns (answer, iterations)."""
+    version = source.version
+    cached, seed = pool.prepare(source, graph, version, algo, params_key)
+    if cached is not None:
+        return cached
+    x, iters = compute(seed)
+    x = _host(x)
+    pool.store(source, graph, version, algo, params_key, x, iters)
+    if seed is not None:
+        pool.record_warm_start(algo, iters)
+    return x
+
+
 def pagerank_get(source, max_iterations=100, damping_factor=0.85,
                  stop_epsilon=1e-5, weight_property=None, *,
-                 cache=GLOBAL_GRAPH_CACHE, device=None) -> dict:
+                 cache=GLOBAL_GRAPH_CACHE, pool=GLOBAL_WARM_POOL,
+                 device=None) -> dict:
     """``pagerank.get``: node, rank."""
     graph = cache.get(source, weight_property=weight_property, device=device)
     if graph.n_nodes == 0:
         return _none("rank")
-    ranks, _, _ = pagerank(graph, damping=float(damping_factor),
-                           max_iterations=int(max_iterations),
-                           tol=float(stop_epsilon))
+
+    def compute(x0):
+        ranks, _, iters = pagerank(graph, damping=float(damping_factor),
+                                   max_iterations=int(max_iterations),
+                                   tol=float(stop_epsilon), x0=x0)
+        return ranks, iters
+
+    ranks = _warm(pool, source, graph, "pagerank",
+                  ("pagerank", float(damping_factor), float(stop_epsilon),
+                   int(max_iterations), weight_property), compute)
     return _rows(graph, rank=ranks)
 
 
@@ -93,37 +129,57 @@ def pagerank_personalized(source, source_nodes, max_iterations=100,
 
 
 def katz_centrality_get(source, alpha=0.2, epsilon=1e-2, *,
-                        cache=GLOBAL_GRAPH_CACHE, device=None) -> dict:
+                        cache=GLOBAL_GRAPH_CACHE, pool=GLOBAL_WARM_POOL,
+                        device=None) -> dict:
     """``katz_centrality.get``: node, rank (500 iterations at most)."""
     graph = cache.get(source, device=device)
     if graph.n_nodes == 0:
         return _none("rank")
-    xs, _, _ = katz_centrality(graph, alpha=float(alpha),
-                               tol=float(epsilon), max_iterations=500)
+
+    def compute(x0):
+        xs, _, iters = katz_centrality(graph, alpha=float(alpha),
+                                       tol=float(epsilon),
+                                       max_iterations=500, x0=x0)
+        return xs, iters
+
+    xs = _warm(pool, source, graph, "katz",
+               ("katz", float(alpha), float(epsilon)), compute)
     return _rows(graph, rank=xs)
 
 
 def community_detection_get(source, max_iterations=30, weight_property=None,
                             *, cache=GLOBAL_GRAPH_CACHE,
-                            device=None) -> dict:
+                            pool=GLOBAL_WARM_POOL, device=None) -> dict:
     """``community_detection.get``: node, community_id, the labels
     compacted to 1..k in label order."""
     graph = cache.get(source, weight_property=weight_property, device=device)
     if graph.n_nodes == 0:
         return _none("community_id")
-    labels, _ = label_propagation(graph, max_iterations=int(max_iterations))
+
+    def compute(labels0):
+        return label_propagation(graph, max_iterations=int(max_iterations),
+                                 labels0=labels0)
+
+    labels = _warm(pool, source, graph, "labelprop",
+                   ("labelprop", int(max_iterations), weight_property),
+                   compute)
     uniq = np.unique(labels)
     return _rows(graph, community_id=np.searchsorted(uniq, labels) + 1)
 
 
 def weakly_connected_components_get(source, *, cache=GLOBAL_GRAPH_CACHE,
+                                    pool=GLOBAL_WARM_POOL,
                                     device=None) -> dict:
     """``weakly_connected_components.get`` (``wcc.get``): node,
     component_id."""
     graph = cache.get(source, device=device)
     if graph.n_nodes == 0:
         return _none("component_id")
-    comp, _ = weakly_connected_components(graph)
+
+    def compute(comp0):
+        return weakly_connected_components(graph, comp0=comp0)
+
+    comp = _warm(pool, source, graph, "wcc", ("wcc",), compute)
     return _rows(graph, component_id=comp)
 
 

@@ -1,9 +1,12 @@
-"""Host results of the node-similarity procedures, from a storage
-snapshot.
+"""Host results of the Louvain and node-similarity procedures, from a
+storage snapshot.
 
 Port of the compute half of memgraph_tpu/procedures/structure_modules.py
-(``node_similarity.jaccard``, ``.overlap``, ``.cosine`` and
-``.pairwise``).  The all-pairs procedures take the dense path
+(``community_detection.louvain``, ``node_similarity.jaccard``,
+``.overlap``, ``.cosine`` and ``.pairwise``).  ``louvain`` runs the
+host Louvain (ops/louvain.py) on the snapshot's edges; its records are
+``node_gids``, ``community_id`` (the community + 1) and ``modularity``
+(the partition's, on every record).  The all-pairs procedures take the dense path
 (ops/similarity.py) and refuse a graph of more than ``DENSE_LIMIT``
 nodes as the reference does; their records are the pairs i < j with a
 positive similarity, row by row.  ``pairwise`` takes gid pairs (a pair
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import GLOBAL_GRAPH_CACHE
+from ..ops.louvain import louvain
 from ..ops.similarity import (DENSE_LIMIT, pairwise_similarity,
                               similarity_matrix)
 from . import ProcedureError
@@ -27,6 +31,21 @@ def _records(graph, i, j, sim) -> dict:
     return {"node1_gids": gids[np.asarray(i, dtype=np.int64)],
             "node2_gids": gids[np.asarray(j, dtype=np.int64)],
             "similarity": np.asarray(sim, dtype=np.float64)}
+
+
+def community_detection_louvain(source, weight_property=None, *,
+                                cache=GLOBAL_GRAPH_CACHE,
+                                device=None) -> dict:
+    """``community_detection.louvain``: node, community_id (from 1),
+    modularity."""
+    graph = cache.get(source, weight_property=weight_property, device=device)
+    gids = np.asarray(graph.node_gids, dtype=np.int64)
+    if graph.n_nodes == 0:
+        return {"node_gids": gids, "community_id": np.zeros(0, np.int64),
+                "modularity": np.zeros(0)}
+    comm, modularity = louvain(graph)
+    return {"node_gids": gids, "community_id": comm + 1,
+            "modularity": np.full(graph.n_nodes, modularity)}
 
 
 def node_similarity_all(source, mode, *, cache=GLOBAL_GRAPH_CACHE,
