@@ -300,7 +300,33 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    float64 numpy one of its partition within 1e-9 and its ids compact
    from 1, Leiden's float64 modularity at least its Louvain's; no K1 or
    Benes launch.
-25. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+25. (after katz, before the refresh) The resident kernel server
+   (``kernel_server`` line, ``memgraph_tpu_torch/server/
+   kernel_server.py``): each resident algorithm's device peak
+   (``max_memory_allocated`` over one cold run on a freshly placed
+   graph, the MXU route's placed routes included) at the segment graph
+   and the north star against its admission estimate, within [1x, 2x];
+   the allocator's cached blocks handed back and ``mem_get_info``
+   printed; the daemon spawned on the card (this process built the
+   kernels first) and timed; ``pagerank.get`` and
+   ``pagerank.personalized`` with ``kernel=`` on v0 equal to the
+   in-process answers, routed with no fallback; the ``pagerank`` op at
+   the main path's 50 iterations within its bounds of float64 (whether
+   it is bit-equal to this process's run is printed) and a key-only
+   repeat a hit with the same bytes; 256 single-source PPR requests
+   (top 10) from 16 threads, 32 of them repeated for their full vectors
+   (hits) and bit-equal to in-process runs; an out-of-range member
+   ``invalid`` beside completed batchmates, an oversized request
+   ``shed``; a commit of 1,000 added edges (the warm pool's seed 17)
+   shipped as the delta payload: one ``DeltaPlan`` and no plan build in
+   the daemon, the warm PageRank in fewer iterations than cold and
+   within ``pagerank.get``'s L1 bound of float64, exactly the cached
+   sources whose neighbourhood the commit touched warm (two held to
+   float64 within ``PPR_REL_TOL``), the rest hits; a one-edge commit in
+   one source's neighbourhood warms it alone; the daemon's K1, K2 and
+   Benes launches (its health reply) moved.  Its launches join the
+   kernels' ``launches_by_path`` as ``kernel_server``.
+26. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -1292,7 +1318,8 @@ def phase_main_path():
         shapes[label] = route_kernels(label, route, packed, dtype)
     base = {"src": src, "dst": dst, "source": source, "cache": cache,
             "graph": graph, "v0_version": source.version,
-            "ranks": {"f32": a32, "bf16": a16}, "summary": summary,
+            "ranks": {"f32": a32, "bf16": a16}, "ref": ref,
+            "summary": summary,
             "placed_keys": list(state["placed"]), "corpus": corpus}
     return launches, shapes, base
 
@@ -2627,8 +2654,11 @@ def phase_snapshot_log(base: dict):
     each) gives a full export, counted once, with no _delta_ctx; a
     repeated get at one version returns the same object.  Prints the
     ``snapshot`` line."""
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
     source, cache = base["source"], base["cache"]
     before = dict(cache.counters)
+    fallbacks = global_metrics.value("delta.fallback_rebuild_total")
     v_before = source.version
     n = base["graph"].n_nodes
     for i in range(source.log_size + 1):
@@ -2636,13 +2666,15 @@ def phase_snapshot_log(base: dict):
     check(not source.changes_between(v_before, source.version),
           "the change log did not wrap")
     wrapped, export_s, probe = timed_get(cache, source)
-    check(cache.counters["delta.fallback_rebuild_total"]
-          == before["delta.fallback_rebuild_total"] + 1
+    fallbacks = global_metrics.value("delta.fallback_rebuild_total") \
+        - fallbacks
+    check(fallbacks == 1
           and cache.counters["export.full"] == before["export.full"] + 1
           and not probe["delta_from"]
           and getattr(wrapped, "_delta_ctx", None) is None,
           f"a wrapped log did not give one counted full export without a "
-          f"_delta_ctx: {before} -> {cache.counters}")
+          f"_delta_ctx: {before} -> {cache.counters}, {fallbacks} "
+          f"fallback rebuilds")
     hits_us = []
     for _ in range(HIT_GETS):
         t0 = time.perf_counter()
@@ -2660,7 +2692,8 @@ def phase_snapshot_log(base: dict):
                     "n_edges": wrapped.n_edges},
         "get_hit_us": {"median": float(np.median(hits_us)),
                        "min": float(min(hits_us))},
-        "counters": dict(cache.counters)}
+        "counters": {**cache.counters,
+                     "delta.fallback_rebuild_total": fallbacks}}
     print("snapshot", json.dumps(summary), flush=True)
     del base["v1"], base["v2"]
 
@@ -4568,6 +4601,7 @@ def phase_warm_pool(base: dict):
     from memgraph_tpu_torch.ops.delta import LocalWarmPool
     from memgraph_tpu_torch.ops.labelprop import label_propagation
     from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.utils.metrics import global_metrics
 
     source, cache = base["source"], base["cache"]
     pool = LocalWarmPool()
@@ -4591,6 +4625,13 @@ def phase_warm_pool(base: dict):
     def graph_now():
         return cache.get(source, device="cuda")
 
+    def starts():
+        """The warm and cold starts counted since the phase began."""
+        return {k: global_metrics.value(f"delta.{k}_start_total") - v
+                for k, v in starts0.items()}
+
+    starts0 = {k: global_metrics.value(f"delta.{k}_start_total")
+               for k in ("warm", "cold")}
     # the warm pool's path: counts set to 0 just before, read just after
     with counted_plan_builds() as plan_builds:
         reset_all_counts()
@@ -4607,8 +4648,7 @@ def phase_warm_pool(base: dict):
         for algo in calls:
             run(f"{algo} warm", algo)
         g_add = graph_now()
-        warm_total = pool.counters["warm_start_total"]
-        cold_total = pool.counters["cold_start_total"]
+        after_adds = starts()
         rng = np.random.default_rng(WARM_REMOVE_SEED)
         source.commit(remove=rng.choice(source.alive_ids(), WARM_MOVES,
                                         replace=False))
@@ -4641,12 +4681,11 @@ def phase_warm_pool(base: dict):
     check(not hit["rank"].flags.writeable
           and not katz_hit["rank"].flags.writeable,
           "a hit returned a stored solution that its caller can change")
-    check(warm_total == 3 and cold_total == 0
-          and pool.counters["cold_start_total"] == 2
-          and pool.counters["warm_start_total"] == 5,
-          f"warm/cold starts {pool.counters}: expected 3 warm after the "
-          f"adds, then 2 cold (wcc, labelprop) and 1 warm (pagerank) after "
-          f"the removal, then katz warm")
+    check(after_adds == {"warm": 3, "cold": 0}
+          and starts() == {"warm": 5, "cold": 2},
+          f"warm/cold starts {after_adds}, {starts()}: expected 3 warm "
+          f"after the adds, then 2 cold (wcc, labelprop) and 1 warm "
+          f"(pagerank) after the removal, then katz warm")
     check(iters["pagerank warm"] < iters["pagerank cold"]
           and iters["katz warm"] < iters["katz cold"],
           f"warm runs not shorter than cold: {iters}")
@@ -4698,7 +4737,7 @@ def phase_warm_pool(base: dict):
           f"warm katz_centrality.get off float64: rel {k_rel} top {k_top}")
     summary = {"n_edges": [g_cold.n_edges, g_add.n_edges, g_rem.n_edges],
                "seconds": secs, "iterations": iters, "hit_us": hit_us,
-               "katz_hit_us": katz_hit_us, "counters": pool.counters,
+               "katz_hit_us": katz_hit_us, "starts": starts(),
                "pagerank_warm_l1": {"l1": pr_l1, "limit": PR_PROC_L1},
                "katz_warm": {"max_rel": k_rel, "top100": k_top,
                              "alpha_lambda": KATZ_ALPHA * lam},
@@ -4889,6 +4928,533 @@ def phase_vector_delta(base: dict):
     return launches
 
 
+KS_REQUESTS = 256           # single-source PPR requests of the burst
+KS_THREADS = 16             # client threads sending them
+KS_SAMPLED = 32             # cold replies held bit-equal to in-process
+KS_SEED = 47                # the burst's sources and the sample
+KS_TOPK = 10                # the burst's replies: the top 10
+KS_PR_TOL = 1e-6            # the pagerank op's L1 stop, cold and warm
+KS_HELD_WARM = 2            # warm PPR replies held to float64
+KS_HELD_HITS = 16           # post-commit PPR hits measured against float64
+KS_TIMEOUT = 300.0          # a client's socket timeout, seconds
+KS_FOOTPRINT_RANGE = (1.0, 2.0)   # admission estimate over measured peak
+KS_PPR_LANES = (1, 32)      # PPR batches whose peak is measured
+# the warm op's float64 reference: a truncation error of 2 x 0.85^100 =
+# 1.7e-7 in L1, far inside PR_PROC_L1
+KS_REF_ITERATIONS = 100
+
+
+def device_peak(run) -> int:
+    """Bytes the caching allocator held at most while ``run()`` ran,
+    above what it held before (``torch.cuda.max_memory_allocated``)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a0 = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - a0
+
+
+def footprint_lines(base: dict) -> list:
+    """Each resident algorithm's device peak, one cold run on a freshly
+    placed graph (its arrays, the MXU route's placed routes, the run's
+    temporaries), at the segment graph and the north star, beside the
+    kernel server's admission estimate.  The north star's fresh graph
+    gets v0's host plan with nothing placed: no second plan build, the
+    same bytes on the card."""
+    import torch
+    from memgraph_tpu_torch.northstar import N_NODES, generate_graph
+    from memgraph_tpu_torch.ops import pagerank as PR
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.server import kernel_server as ks
+
+    sizes = {"segment": (from_coo(*generate_graph(SEGMENT_NODES,
+                                                  SEGMENT_EDGES),
+                                  n_nodes=SEGMENT_NODES), None),
+             "north_star": (from_coo(base["src"], base["dst"],
+                                     n_nodes=N_NODES),
+                            base["graph"]._mxu_state)}
+    lines = []
+    for label, (host, state) in sizes.items():
+        n, e = host.n_nodes, host.n_edges
+        runs = {a: {"algorithm": a} for a in ("pagerank", "katz", "wcc",
+                                              "labelprop", "bfs")}
+        runs["katz"]["alpha"] = KATZ_ALPHA
+        runs.update({f"ppr_{b}": {"lanes": b} for b in KS_PPR_LANES})
+        for name, header in runs.items():
+
+            def run():
+                g = host.to_device("cuda")
+                if state is not None:
+                    object.__setattr__(g, "_mxu_state", {
+                        "plan": state["plan"], "plan_build_s": 0.0,
+                        "runs": {}, "placed": {},
+                        "semiring": PR._semiring_cache(),
+                        "lock": PR._build_lock(g)})
+                if "lanes" in header:
+                    PR.personalized_pagerank_batch(
+                        g, [[i] for i in range(header["lanes"])], raw=True)
+                else:
+                    ks.run_algorithm(g, header["algorithm"], header,
+                                     device="cuda")
+
+            peak = device_peak(run)
+            if "lanes" in header:
+                est = (ks._graph_footprint_bytes("ppr", n, e)
+                       + ks._lane_state_bytes(n, e, header["lanes"]))
+            else:
+                est = ks._graph_footprint_bytes(name, n, e,
+                                                torch.device("cuda"))
+            n_pad, e_pad = ks._padded_graph_dims(n, e)
+            lines.append({"graph": label, "algorithm": name, "n_pad": n_pad,
+                          "e_pad": e_pad, "peak_bytes": peak,
+                          "estimate_bytes": est,
+                          "estimate_over_peak": est / max(peak, 1)})
+    torch.cuda.empty_cache()
+    return lines
+
+
+def ppr_reference64(src, dst, n_nodes, sources_list, iterations=ITERATIONS,
+                    damping=DAMPING, device="cuda") -> np.ndarray:
+    """``reference_ppr`` of each source set at once, in float64 on
+    ``device`` (a sparse CSR product a step: scipy's arithmetic in
+    seconds for 18 sets on the north star): (n, sets) float64 on the
+    host."""
+    import torch
+    dev = torch.device(device)
+    src_t = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
+    dst_t = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
+    deg = torch.bincount(src_t, minlength=n_nodes).to(torch.float64)
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                          torch.zeros_like(deg))
+    mat = torch.sparse_coo_tensor(torch.stack([dst_t, src_t]),
+                                  inv_deg[src_t], (n_nodes, n_nodes))
+    mat = mat.coalesce().to_sparse_csr()
+    dangling = deg == 0
+    p = torch.zeros(n_nodes, len(sources_list), dtype=torch.float64,
+                    device=dev)
+    for j, sources in enumerate(sources_list):
+        p[torch.as_tensor(np.asarray(sources, dtype=np.int64),
+                          device=dev), j] = 1.0
+    p /= p.sum(dim=0)
+    x = p.clone()
+    for _ in range(iterations):
+        x = (1 - damping) * p + damping * (mat @ x + x[dangling].sum(dim=0)
+                                           * p)
+    return x.cpu().numpy()
+
+
+def phase_kernel_server(base: dict):
+    """The resident kernel server on the card (``kernel_server`` line):
+    each algorithm's device peak against its admission estimate (in this
+    process, before the spawn); then the daemon, spawned on the card
+    once this process has built the kernels, serves the north star v0 by
+    the procedures' key: ``pagerank.get`` and ``pagerank.personalized``
+    through ``kernel=`` equal to the in-process answers; the ``pagerank``
+    op at 50 iterations, tol 0, within the main path's bounds of float64
+    (bit-equality to this process's run printed) and a key-only repeat a
+    hit with the same bytes; 256 single-source PPR requests from 16
+    threads (top 10), 32 of them, cold, repeated for their full vectors:
+    hits, bit-equal to in-process runs; an out-of-range member answered
+    invalid beside completed batchmates, an oversized request shed; a
+    commit of 1,000 added edges (seed 17) shipped as the delta payload:
+    the generation moves O(delta), its snapshot through a DeltaPlan (no
+    full plan build in the daemon), the warm PageRank in fewer
+    iterations than cold and within ``pagerank.get``'s bound of float64,
+    exactly the cached sources whose neighbourhood the commit touched
+    warm (two held to float64), the others hits (16 of them measured
+    against float64 on the new graph, not checked: the reference's
+    invalidation looks one hop out); a one-edge commit inside one
+    source's neighbourhood, shipped on a request the cache answers,
+    moves the generation and warms that source only.  The
+    daemon's launches come home on its health reply."""
+    import tempfile
+    import torch
+    from memgraph_tpu_torch.server import kernel_server as ks
+
+    check(base["source"].version == base["v0_version"],
+          "the source moved before the phase")
+    t0 = time.perf_counter()
+    footprints = footprint_lines(base)
+    footprint_s = time.perf_counter() - t0
+    # the daemon shares the card: hand back the allocator's cached blocks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"kernel_server_memory free_bytes {free} total_bytes {total} "
+          f"allocated_bytes {torch.cuda.memory_allocated()}", flush=True)
+
+    sock = os.path.join(tempfile.mkdtemp(prefix="mgks"), "ks.sock")
+    t0 = time.perf_counter()
+    try:
+        client = ks.ensure_server(sock, spawn_timeout_s=KS_TIMEOUT,
+                                  idle_timeout_s=KS_TIMEOUT, device="cuda")
+    except RuntimeError as e:
+        fail(f"the kernel server did not start: {e}")
+    if client is None:
+        print(ks.log_tail(sock), file=sys.stderr, flush=True)
+        fail("the kernel server did not answer within its spawn timeout")
+    spawn_s = time.perf_counter() - t0
+    check(client.process is not None, "a daemon of another process "
+                                      "answered on the phase's socket")
+    client.settimeout(KS_TIMEOUT)
+    try:
+        summary = drive_kernel_server(base, client, sock)
+    finally:
+        client.shutdown()
+        client.close()
+        try:
+            client.process.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            client.process.kill()
+            client.process.wait()
+    summary.update(spawn_s=spawn_s, footprint_s=footprint_s,
+                   footprints=footprints)
+    print("kernel_server", json.dumps(summary), flush=True)
+    for ln in footprints:
+        lo, hi = KS_FOOTPRINT_RANGE
+        check(lo <= ln["estimate_over_peak"] <= hi,
+              f"admission estimate of {ln['algorithm']} on the "
+              f"{ln['graph']} graph is {ln['estimate_over_peak']:.3f} x "
+              f"its measured peak, outside [{lo}, {hi}]")
+    torch.cuda.empty_cache()
+    return summary["launches"]
+
+
+def drive_kernel_server(base, client, sock) -> dict:
+    """The daemon's checks of ``phase_kernel_server``; its summary."""
+    import threading
+    from memgraph_tpu_torch.ops.delta import LocalWarmPool, incident_edges
+    from memgraph_tpu_torch.ops.pagerank import personalized_pagerank
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.server import kernel_server as ks
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
+    source, cache, graph = base["source"], base["cache"], base["graph"]
+    n = graph.n_nodes
+    v0 = source.version
+    src0, dst0, w0 = (np.asarray(a) for a in graph.host_coo)
+    key = P._graph_key(source, "analytics")
+    h0 = client.health()
+    kw = {"cache": cache, "device": "cuda"}
+    routed = global_metrics.value("analytics.kernel_routed_total")
+    fallbacks = global_metrics.value("analytics.kernel_route_fallback_total")
+
+    # the procedures' route at v0: the first call ships the edges
+    def timed_call(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    got_pr, first_s = timed_call(
+        lambda: P.pagerank_get(source, kernel=sock, **kw))
+    want_pr = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    ppr_gids = [int(g) for g in graph.node_gids[[3, n // 3, n - 7]]]
+    got_ppr, ppr_first_s = timed_call(
+        lambda: P.pagerank_personalized(source, ppr_gids, kernel=sock, **kw))
+    want_ppr = P.pagerank_personalized(source, ppr_gids, **kw)
+    check(global_metrics.value("analytics.kernel_routed_total")
+          == routed + 2 and global_metrics.value(
+              "analytics.kernel_route_fallback_total") == fallbacks,
+          "the procedures' calls did not both take the kernel route")
+    proc_equal = {"pagerank.get": got_pr["rank"].tobytes()
+                  == want_pr["rank"].tobytes(),
+                  "pagerank.personalized": got_ppr["rank"].tobytes()
+                  == want_ppr["rank"].tobytes()}
+    check(all(proc_equal.values()),
+          f"routed procedures differ from in-process: {proc_equal}")
+
+    # the pagerank op on v0: the main path's run, then a key-only repeat
+    op = {"graph_key": key, "graph_version": v0, "n_nodes": n}
+    (h, out), cold_s = timed_call(lambda: client.call_pagerank(
+        **op, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0))
+    ranks = out["ranks"]
+    check(ranks.shape == (n,) and bool(np.isfinite(ranks).all())
+          and h["iters"] == ITERATIONS and h["tier"] == "resident",
+          f"pagerank op reply {h}")
+    ref = base["ref"]
+    a = ranks.astype(np.float64)
+    vs64 = {"max_rel": float((np.abs(a - ref) / ref).max()),
+            "l1": float(np.abs(a - ref).sum()),
+            "top100": len(set(np.argsort(-a)[:100])
+                          & set(np.argsort(-ref)[:100]))}
+    check(vs64["max_rel"] <= F32_REL_TOL and vs64["l1"] <= F32_L1_TOL
+          and vs64["top100"] == 100,
+          f"the pagerank op's ranks off float64: {vs64}")
+    bit_equal = ranks.tobytes() == base["ranks"]["f32"].astype(
+        np.float32).tobytes()
+    (h2, out2), hit_s = timed_call(lambda: client.call_pagerank(
+        **op, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0))
+    check(h2.get("cache") == "hit"
+          and out2["ranks"].tobytes() == ranks.tobytes(),
+          "a key-only repeat was not a hit with the same bytes")
+    (hc, _), cold_tol_s = timed_call(lambda: client.call_pagerank(
+        **op, tol=KS_PR_TOL))
+
+    # the PPR burst: 256 single-source requests from 16 threads, top 10
+    rng = np.random.default_rng(KS_SEED)
+    sources = rng.choice(n, KS_REQUESTS, replace=False)
+    replies, latencies, errors = {}, {}, []
+    ppr_kw = {"graph_key": key, "n_nodes": n, "tol": PPR_TOL,
+              "max_iterations": PPR_MAX_ITERATIONS}
+
+    def burst(version, top_k):
+        out, lat = {}, {}
+        barrier = threading.Barrier(KS_THREADS)
+
+        def worker(t):
+            c = ks.KernelClient(sock, timeout=KS_TIMEOUT)
+            try:
+                barrier.wait(timeout=KS_TIMEOUT)
+                for s in sources[t::KS_THREADS]:
+                    t0 = time.perf_counter()
+                    out[int(s)] = c.ppr([int(s)], graph_version=version,
+                                        top_k=top_k, **ppr_kw)
+                    lat[int(s)] = time.perf_counter() - t0
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(KS_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=KS_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(not errors and len(out) == KS_REQUESTS,
+              f"the PPR burst failed: {errors[:3]}")
+        ms = np.asarray(list(lat.values())) * 1e3
+        stats = {"requests_per_s": KS_REQUESTS / wall, "wall_s": wall,
+                 "p50_ms": float(np.percentile(ms, 50)),
+                 "p99_ms": float(np.percentile(ms, 99)),
+                 "cache": {k: sum(1 for h, _ in out.values()
+                                  if h["cache"] == k)
+                           for k in ("miss", "warm", "hit")}}
+        return out, stats
+
+    health_before_burst = client.health()["counters"]
+    replies, burst_stats = burst(v0, KS_TOPK)
+    health_after_burst = client.health()["counters"]
+
+    def counter_delta(name, after, before):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    batches = counter_delta("ppr.batch_size.count", health_after_burst,
+                            health_before_burst)
+    members = counter_delta("ppr.batch_size.sum", health_after_burst,
+                            health_before_burst)
+    drain_s = counter_delta("ppr.drain_s.sum", health_after_burst,
+                            health_before_burst)
+    neigh_s = counter_delta("ppr.neighborhood_s.sum", health_after_burst,
+                            health_before_burst)
+    burst_stats.update(mean_batch=members / max(batches, 1),
+                       batches=batches, drain_s=drain_s,
+                       neighborhood_s=neigh_s,
+                       neighborhood_share=neigh_s / max(drain_s, 1e-12))
+    check(burst_stats["cache"]["miss"] == KS_REQUESTS,
+          f"first burst not all cold: {burst_stats['cache']}")
+    sample = rng.choice(sources, KS_SAMPLED, replace=False)
+    sampled_equal = 0
+    for s in sample:
+        h, out = client.ppr([int(s)], graph_version=v0, **ppr_kw)
+        check(h["cache"] == "hit", f"the repeat of source {s} was no hit")
+        want, _, iters = personalized_pagerank(
+            graph, [int(s)], tol=PPR_TOL, max_iterations=PPR_MAX_ITERATIONS)
+        want = want.cpu().numpy()
+        equal = out["ranks"].tobytes() == want.tobytes() \
+            and h["iters"] == int(iters)
+        top = replies[int(s)][1]
+        equal = equal and np.array_equal(
+            top["topk_idx"], np.argsort(-want, kind="stable")[:KS_TOPK])
+        sampled_equal += int(equal)
+    check(sampled_equal == KS_SAMPLED,
+          f"{KS_SAMPLED - sampled_equal} of {KS_SAMPLED} sampled cold PPR "
+          f"replies differ from in-process runs")
+
+    # typed answers: one out-of-range member among batchmates; a shed
+    good = [int(s) for s in sources[:3]]
+    mixed, errs = {}, []
+    barrier = threading.Barrier(4)
+
+    def member(s):
+        c = ks.KernelClient(sock, timeout=KS_TIMEOUT)
+        try:
+            barrier.wait(timeout=KS_TIMEOUT)
+            mixed[s] = ("ok", c.ppr([s], graph_version=v0, **{
+                **ppr_kw, "tol": PPR_TOL / 2}))
+        except ks.KernelServerError as e:
+            mixed[s] = ("typed", e)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(repr(e))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=member, args=(s,))
+               for s in good + [n + 5]]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=KS_TIMEOUT)
+    check(not errs and mixed.get(n + 5, ("",))[0] == "typed"
+          and mixed[n + 5][1].outcome == "invalid"
+          and all(mixed.get(s, ("",))[0] == "ok"
+                  and mixed[s][1][0]["outcome"] == "completed"
+                  for s in good),
+          f"an invalid member disturbed its batch: {mixed} {errs}")
+    try:
+        client.ppr([1], graph_key="oversized", n_nodes=1 << 40)
+        shed = None
+    except ks.KernelServerError as e:
+        shed = e.outcome
+    check(shed == "shed", f"an oversized request was answered {shed}")
+
+    # a commit of 1,000 added edges (the warm_pool phase's seed 17),
+    # shipped as the delta payload
+    from memgraph_tpu_torch.northstar import N_NODES
+    rng = np.random.default_rng(WARM_ADD_SEED)
+    add_src = rng.integers(0, N_NODES, WARM_MOVES)
+    add_dst = (rng.random(WARM_MOVES) ** 2 * N_NODES).astype(np.int64)
+    src1 = np.concatenate([src0.astype(np.int64), add_src])
+    dst1 = np.concatenate([dst0.astype(np.int64), add_dst])
+    w1 = np.concatenate([w0, np.ones(WARM_MOVES, np.float32)])
+    changed = np.unique(np.concatenate([add_src, add_dst]))
+    bitmap = np.zeros(n, dtype=bool)
+    bitmap[changed] = True
+    inc = incident_edges(src1, dst1, w1, bitmap)
+    payload = {"changed": changed, "inc_src": inc[0], "inc_dst": inc[1],
+               "inc_w": inc[2]}
+    v1 = v0 + 1
+    plans = client.health()["plans"]
+    (hw, outw), warm_s = timed_call(lambda: client.call_pagerank(
+        graph_key=key, graph_version=v1, base_version=v0, n_nodes=n,
+        tol=KS_PR_TOL, **payload))
+    after = client.health()
+    check(after["plans"]["build_plan"] == plans["build_plan"]
+          and after["plans"]["build_delta_plan"]
+          == plans["build_delta_plan"] + 1,
+          f"the commit's snapshot was not refreshed by one DeltaPlan: "
+          f"plans {plans} -> {after['plans']}")
+    check(hw["warm_started"] and hw["graph_version"] == v1
+          and hw["iters"] < hc["iters"],
+          f"warm pagerank op {hw} not shorter than cold {hc}")
+    ref1 = reference_pagerank(src1, dst1, n, iterations=KS_REF_ITERATIONS)
+    warm_l1 = float(np.abs(outw["ranks"].astype(np.float64) - ref1).sum())
+    check(warm_l1 <= PR_PROC_L1,
+          f"warm pagerank op off float64 by L1 {warm_l1} > {PR_PROC_L1}")
+    counters = after["counters"]
+
+    def neighbourhoods(s_arr, d_arr):
+        """Each burst source and its out-neighbours."""
+        sel = np.isin(s_arr, sources)
+        out = {int(s): {int(s)} for s in sources}
+        for a, b in zip(s_arr[sel].tolist(), d_arr[sel].tolist()):
+            out[a].add(b)
+        return out
+
+    def ship(hot, version, base_version, delta):
+        """The commit's delta payload, on one request of a burst source
+        the commit leaves cached (a client ships it once; later requests
+        are key-only): a hit, which moves the generation before it is
+        answered."""
+        h, _ = client.ppr([hot], graph_version=version,
+                          base_version=base_version, top_k=KS_TOPK,
+                          **ppr_kw, **delta)
+        check(h["outcome"] == "completed" and h["cache"] == "hit",
+              f"the delta's request for source {hot}: {h}")
+
+    neigh0 = neighbourhoods(src0, dst0)
+    expect_warm = {s for s, nb in neigh0.items() if nb & set(
+        changed.tolist())}
+    ship(min(set(neigh0) - expect_warm), v1, v0, payload)
+    replies1, burst1 = burst(v1, KS_TOPK)
+    got_warm = {s for s, (h, _) in replies1.items() if h["cache"] == "warm"}
+    got_hit = {s for s, (h, _) in replies1.items() if h["cache"] == "hit"}
+    check(got_warm == expect_warm and got_hit == set(neigh0) - expect_warm,
+          f"after the commit: {len(got_warm)} warm, expected "
+          f"{len(expect_warm)}; {len(got_hit)} hits")
+    # the warm replies held to float64 on v1; the hits (v0's vectors,
+    # kept because the commit missed their neighbourhoods) measured
+    held = sorted(expect_warm)[:KS_HELD_WARM]
+    held_hits = sorted(int(s) for s in rng.choice(
+        sorted(got_hit), KS_HELD_HITS, replace=False))
+    refs = ppr_reference64(src1, dst1, n, [[s] for s in held + held_hits],
+                           iterations=PPR_MAX_ITERATIONS)
+    rel = {}
+    for s, r64 in zip(held + held_hits, refs.T):
+        h, out = client.ppr([s], graph_version=v1, **ppr_kw)
+        check(h["cache"] == "hit", f"source {s} repeat at v1 no hit")
+        rel[s] = float(np.abs(out["ranks"] - r64).max() / r64.max())
+    warm_err = [rel[s] for s in held]
+    check(all(e <= PPR_REL_TOL for e in warm_err),
+          f"warm PPR replies off float64: {warm_err}")
+    hit_err = [rel[s] for s in held_hits]
+
+    # a one-edge commit inside one source's neighbourhood: that source
+    # warm, every other hit
+    neigh1 = neighbourhoods(src1, dst1)
+    covered = set().union(*neigh1.values())
+    s0 = next(s for s in (int(x) for x in sources)
+              if all(s not in nb for t, nb in neigh1.items() if t != s))
+    t_node = next(int(x) for x in rng.permutation(n) if int(x) not in covered)
+    src2 = np.concatenate([src1, [s0]])
+    dst2 = np.concatenate([dst1, [t_node]])
+    w2 = np.concatenate([w1, np.ones(1, np.float32)])
+    bitmap[:] = False
+    bitmap[[s0, t_node]] = True
+    inc2 = incident_edges(src2, dst2, w2, bitmap)
+    ship(min(set(neigh1) - {s0}), v1 + 1, v1,
+         {"changed": np.asarray([s0, t_node]), "inc_src": inc2[0],
+          "inc_dst": inc2[1], "inc_w": inc2[2]})
+    replies2, burst2 = burst(v1 + 1, KS_TOPK)
+    got_warm2 = [s for s, (h, _) in replies2.items() if h["cache"] == "warm"]
+    check(got_warm2 == [s0] and burst2["cache"]["hit"] == KS_REQUESTS - 1,
+          f"a commit in source {s0}'s neighbourhood warmed {got_warm2}")
+
+    health = client.health()
+    launches = {k: v - h0["launches"][k]
+                for k, v in health["launches"].items()}
+    check(all(launches[k] > 0 for k in ("benes_mid_gather",
+                                         "benes_outer_gather",
+                                         "csr_spmm_sum", "lane_sum")),
+          f"the daemon's launches did not move: {launches}")
+    hc_ = health["counters"]
+
+    def mean(name):
+        return hc_.get(f"{name}.sum", 0.0) / max(hc_.get(f"{name}.count", 0.0),
+                                                 1.0)
+
+    return {
+        "n_nodes": n, "n_edges": int(graph.n_edges),
+        "procedures": {"pagerank_get_first_s": first_s,
+                       "pagerank_personalized_first_s": ppr_first_s,
+                       "equal": proc_equal},
+        "pagerank_op": {"cold_ms": cold_s * 1e3, "hit_ms": hit_s * 1e3,
+                        "cold_tol_ms": cold_tol_s * 1e3,
+                        "cold_tol_iters": hc["iters"],
+                        "warm_ms": warm_s * 1e3, "warm_iters": hw["iters"],
+                        "bit_equal_in_process": bit_equal,
+                        "vs_float64": vs64, "warm_l1": warm_l1},
+        "delta": {"apply_ms": mean("delta.apply_s") * 1e3,
+                  "snapshot_ms": mean("delta.snapshot_s") * 1e3,
+                  "changed": int(len(changed)),
+                  "plans_before": plans, "plans_after": after["plans"]},
+        "ppr": {"burst": burst_stats, "after_commit": burst1,
+                "after_one_edge": burst2, "sampled_bit_equal": sampled_equal,
+                "warm_vs_float64": warm_err, "warm_expected":
+                len(expect_warm), "hits_vs_float64": hit_err,
+                "hits_over_bound": sum(e > PPR_REL_TOL for e in hit_err),
+                "one_edge_source": s0},
+        "budget_bytes": health["hbm_budget_bytes"],
+        "daemon_memory": health["memory"],
+        "launches": launches, "counters": {
+            k: v for k, v in hc_.items()
+            if k.startswith(("kernel_server.dispatch.", "delta.", "ppr."))}}
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4927,6 +5493,7 @@ def main():
     launches, shapes, base = mxu_path("main_path", phase_main_path)
     base["path_k1_lines"] = []
     katz_launches = mxu_path("katz", phase_katz, base)
+    server_launches = timed("kernel_server", phase_kernel_server, base)
     refresh_launches, refresh_shapes = mxu_path("refresh", phase_refresh,
                                                 base)
     snapshot_launches = mxu_path("snapshot", phase_snapshot, base)
@@ -4938,6 +5505,7 @@ def main():
                "training_procedures": timed("training_procedures",
                                             phase_training_procedures,
                                             base),
+               "kernel_server": server_launches,
                "warm_pool": timed("warm_pool", phase_warm_pool, base),
                "vector_delta": timed("vector_delta", phase_vector_delta,
                                      base)}

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.metrics import global_metrics
 
 _ARRAYS = ("row_ptr", "col_idx", "src_idx", "weights", "csc_src", "csc_dst",
            "csc_weights", "out_degree", "col_ptr")
@@ -496,15 +497,14 @@ class GraphCache:
     "cuda:0" share a snapshot, the CPU and the card do not.  Snapshots
     die with their storage (a weak key).
 
-    ``counters``: "export.full", "export.delta" (snapshots made each way)
-    and "delta.fallback_rebuild_total" (full exports forced by an
-    unknowable change log)."""
+    ``counters``: "export.full" and "export.delta" (snapshots made each
+    way); a full export forced by an unknowable change log also counts
+    ``delta.fallback_rebuild_total`` in ``utils.metrics.global_metrics``."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._cache = weakref.WeakKeyDictionary()
-        self.counters = {"export.full": 0, "export.delta": 0,
-                         "delta.fallback_rebuild_total": 0}
+        self.counters = {"export.full": 0, "export.delta": 0}
 
     def get(self, source, weight_property=None, label_filter=None,
             edge_type_filter=None, device=None) -> DeviceGraph:
@@ -541,8 +541,7 @@ class GraphCache:
             changed = source.changes_between(newest[0], version)
             if isinstance(changed, ChangeLogUnknowable):
                 # a silently partial delta would cache a wrong snapshot
-                with self._lock:
-                    self.counters["delta.fallback_rebuild_total"] += 1
+                global_metrics.increment("delta.fallback_rebuild_total")
                 log.info("change log unknowable (%s) for versions (%d, %d]; "
                          "full CSR export", changed.reason, newest[0],
                          version)

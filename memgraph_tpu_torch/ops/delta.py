@@ -23,29 +23,66 @@ Port of the in-process half of memgraph_tpu/ops/delta.py:
     computed on.  A repeated CALL on an unchanged graph returns the
     stored bytes; a CALL after a commit seeds its fixpoint from them
     under the contract.  It reads a source (ops/csr.py): ``storage``,
-    ``version`` and ``changes_between``.  The reference's metrics
-    (``delta.warm_start_total``, ``delta.cold_start_total``, the
-    ``delta.warm_start_iterations`` histogram) are the pool's two
-    ``counters`` here, and each stored solution keeps the iterations
-    that computed it (``solution(...).iters``).
+    ``version`` and ``changes_between``.  Each stored solution keeps the
+    iterations that computed it (``solution(...).iters``).
 
-The kernel server's parts of the reference module (``compile_edge_delta``
-and ``incident_from_storage``, ``apply_edge_delta`` over a sharded CSR,
-``ResidentGraph`` / ``ResidentRegistry``) are not ported.
+The kernel server's half (server/kernel_server.py):
+
+  * ``incident_from_storage``: the current edges incident to the changed
+    vertices, read from a source as ``export_csr_delta`` reads them (the
+    payload a client ships instead of the whole edge list), and
+    ``compile_edge_delta``: the delta between two snapshots of one node
+    set, or the source's ``ChangeLogUnknowable`` (falsy) when its log
+    wrapped, or None when the node set moved.
+  * :class:`ResidentGraph`: one resident generation of a graph key, its
+    host COO spliced O(delta) by ``apply`` (an oversized delta, or deltas
+    accumulated past ``DELTA_COMPACT_FRACTION`` of the edges, compact:
+    counted, the COO is exact either way), its snapshot rebuilt lazily,
+    and the last solution of each algorithm (``note_solution``; a hit on
+    an unmoved generation is ``cached_result``, a seed under the contract
+    ``warm_x0``).  A lazy snapshot carries the lineage that
+    ``GraphCache`` gives (``_delta_ctx = (anchor, changed gids)``, the
+    anchor the newest snapshot of the generation with a full MXU plan),
+    so PageRank refreshes it through a ``DeltaPlan`` instead of a plan
+    build (ops/pagerank.py ``_try_delta_plan``).
+  * :class:`ResidentRegistry`: the bounded LRU of generations by key.
+
+The reference's metrics (``delta.applied_total``,
+``delta.compacted_total``, ``delta.fallback_rebuild_total``,
+``delta.warm_start_total``, ``delta.cold_start_total``, the
+``delta.edge_count`` and ``delta.warm_start_iterations`` summaries and
+the ``delta.resident_generations`` gauge) count the work of the warm
+pool, the resident layer and ``GraphCache`` in
+``utils.metrics.global_metrics``, which the server's health reply
+ships.  Not ported: ``apply_edge_delta`` over a sharded CSR and
+the resident generation's sharded variants (``ensure_sharded``, which
+wait for the mesh) and its streamed paging plans (``ensure_tier``,
+which wait for ``ops/tier.py``).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 
-from .csr import ChangeLogUnknowable, DeviceGraph, from_coo
+from ..utils.metrics import global_metrics
+from .csr import (ChangeLogUnknowable, DeviceGraph, _raw, _weights,
+                  from_coo)
 
 log = logging.getLogger(__name__)
+
+#: once the edges applied since the last compaction pass this fraction of
+#: the edge count, the next delta compacts the generation
+DELTA_COMPACT_FRACTION = 0.25
+
+#: a single delta larger than this fraction of the edges compacts outright
+DELTA_MAX_FRACTION = 0.25
 
 #: per-algorithm warm-start contracts:
 #:   "always"     a contraction with one fixpoint: any seed converges to
@@ -280,6 +317,79 @@ def refresh_device_graph(prev: DeviceGraph, delta: EdgeDelta, device=None):
     return g.to_device(device)
 
 
+# --- the server's deltas -----------------------------------------------------
+
+
+def incident_from_storage(source, gid_to_idx, changed_gids,
+                          weight_property=None):
+    """Dense (src, dst, w) arrays of the current edges incident to the
+    changed vertices, read through the source's ``incident`` (ops/csr.py)
+    as ``export_csr_delta`` reads them: each changed vertex's out-edges,
+    then its in-edges from unchanged vertices (an edge between two changed
+    vertices comes once, with its source).  Weights are the property's
+    (1.0 without one).  None when the node set moved: a changed vertex is
+    gone, outside the view or has no dense index, or an edge reaches a
+    vertex without one."""
+    changed = list(changed_gids)
+    changed_set = set(changed)
+    has_w = weight_property is not None
+    out_s: list = []
+    out_d: list = []
+    out_w: list = []
+    for gid in changed:
+        idx = gid_to_idx.get(gid)
+        inc = source.incident(gid, weight_property)
+        if idx is None or inc is None:
+            return None
+        out_far, out_raw, in_far, in_raw = inc
+        out_far = np.asarray(out_far, dtype=np.int64).reshape(-1)
+        in_far = np.asarray(in_far, dtype=np.int64).reshape(-1)
+        di = [gid_to_idx.get(g) for g in out_far.tolist()]
+        keep = [g not in changed_set for g in in_far.tolist()]
+        si = [gid_to_idx.get(g) for g, k in zip(in_far.tolist(), keep) if k]
+        if None in di or None in si:
+            return None
+        out_s += [idx] * len(di)
+        out_d += di
+        out_s += si
+        out_d += [idx] * len(si)
+        if has_w:
+            out_w.append(_weights(_raw(out_raw, len(out_far))))
+            out_w.append(_weights(_raw(in_raw, len(in_far)))[
+                np.asarray(keep, dtype=bool)])
+    w = (np.concatenate([np.zeros(0, np.float32), *out_w])
+         if has_w else np.ones(len(out_s), dtype=np.float32))
+    return (np.asarray(out_s, dtype=np.int64),
+            np.asarray(out_d, dtype=np.int64), w.astype(np.float32))
+
+
+def compile_edge_delta(source, prev_graph: DeviceGraph,
+                       cur_graph: DeviceGraph, base_version: int,
+                       version: int):
+    """The EdgeDelta between two snapshots of a source covering versions
+    (base_version, version], from its change log: an empty delta for one
+    version; the log's ``ChangeLogUnknowable`` (falsy: the caller
+    rebuilds, loudly) when it cannot say what changed; None when a
+    snapshot has no host COO or the node set changed (dense ids moved)."""
+    if base_version == version:
+        return empty_delta(base_version, version)
+    changed = source.changes_between(base_version, version)
+    if isinstance(changed, ChangeLogUnknowable):
+        return changed
+    if prev_graph.host_coo is None or cur_graph.host_coo is None:
+        return None
+    if prev_graph.n_nodes != cur_graph.n_nodes or \
+            not np.array_equal(prev_graph.node_gids, cur_graph.node_gids):
+        return None
+    changed_idx = [cur_graph.gid_to_idx[g] for g in changed
+                   if g in cur_graph.gid_to_idx]
+    if len(changed_idx) != len(changed):
+        return None               # a changed vertex left or joined the view
+    return diff_changed_coo(prev_graph.host_coo, cur_graph.host_coo,
+                            changed_idx, cur_graph.n_nodes, base_version,
+                            version)
+
+
 # --- the warm-start contract -------------------------------------------------
 
 
@@ -297,6 +407,23 @@ def warm_start_decision(algo: str, monotone_ok: bool):
     return False, "no_policy"
 
 
+def record_warm_start(algo: str, iters: int) -> None:
+    """Count a warm-started fixpoint (the warm pool's or the resident
+    layer's)."""
+    global_metrics.increment("delta.warm_start_total")
+    global_metrics.observe("delta.warm_start_iterations", float(iters))
+    log.debug("delta: warm-started %s converged in %d iterations",
+              algo, iters)
+
+
+def record_cold_start(algo: str, reason: str) -> None:
+    """The loud cold start of the contract: a seed the contract refuses
+    is counted and logged, never used quietly."""
+    global_metrics.increment("delta.cold_start_total")
+    log.warning("delta: COLD start for %s (%s): the previous solution "
+                "cannot seed this fixpoint", algo, reason)
+
+
 @dataclass
 class _Solution:
     x: np.ndarray
@@ -304,6 +431,8 @@ class _Solution:
     params_key: tuple
     monotone_ok: bool = True
     iters: int | None = None
+    err: float | None = None
+    max_iterations: int | None = None
 
 
 class LocalWarmPool:
@@ -311,17 +440,14 @@ class LocalWarmPool:
     previous solution of each algorithm and the COO snapshot it was
     computed on, so that the next CALL returns it (same graph) or seeds
     its fixpoint from it (a moved graph, under the contract), the
-    adds-only gate checked against the real edge diff.
-
-    ``counters``: "warm_start_total" and "cold_start_total" (the loud
-    cold starts of the contract).  A stored solution is read-only: a hit
-    returns it, and no caller can change what later hits return or what
-    later calls are seeded from."""
+    adds-only gate checked against the real edge diff (warm and cold
+    starts counted by ``record_warm_start`` / ``record_cold_start``).  A
+    stored solution is read-only: a hit returns it, and no caller can
+    change what later hits return or what later calls are seeded from."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._pool = weakref.WeakKeyDictionary()
-        self.counters = {"warm_start_total": 0, "cold_start_total": 0}
 
     def _monotone_step(self, source, entry, graph: DeviceGraph,
                        version: int) -> bool:
@@ -363,10 +489,7 @@ class LocalWarmPool:
                     source, entry, graph, version)
             warm, reason = warm_start_decision(algo, monotone_ok)
             if not warm:
-                self.counters["cold_start_total"] += 1
-                log.warning("delta: COLD start for %s (%s): the previous "
-                            "solution cannot seed this fixpoint", algo,
-                            reason)
+                record_cold_start(algo, reason)
                 entry["solutions"].pop(algo, None)
                 return None, None
             return None, sol.x
@@ -399,12 +522,6 @@ class LocalWarmPool:
                 iters=None if iters is None else int(iters))
             self._pool[source.storage] = entry
 
-    def record_warm_start(self, algo: str, iters: int) -> None:
-        with self._lock:
-            self.counters["warm_start_total"] += 1
-        log.debug("delta: warm-started %s converged in %d iterations",
-                  algo, iters)
-
     def solution(self, storage, algo: str):
         """``algo``'s stored solution on ``storage`` (its ``x``,
         ``version`` and ``iters``, the iterations that computed it), or
@@ -419,3 +536,233 @@ class LocalWarmPool:
 
 
 GLOBAL_WARM_POOL = LocalWarmPool()
+
+
+# --- resident generations (the kernel server's) ------------------------------
+
+
+class ResidentGraph:
+    """One resident generation of a graph key.
+
+    Owned by one dispatcher at a time (the kernel server's dispatch
+    lock): no locking of its own.  The canonical state is the host COO,
+    spliced O(delta) per commit; the snapshot (a DeviceGraph on the
+    device the first snapshot was placed on) is rebuilt from it on its
+    first read after a delta, carrying ``_delta_ctx = (anchor, changed
+    gids since the anchor)``: the anchor is the newest snapshot of this
+    generation whose MXU plan was a full build (``_mxu_base_self``), so
+    PageRank derives the new snapshot's plan from it by a ``DeltaPlan``
+    while the change is small, and builds a full plan (the next anchor)
+    past ``ops.pagerank.DELTA_RECOMPACT_FRACTION``."""
+
+    __slots__ = ("graph_key", "version", "solutions", "delta_edges",
+                 "base_edges", "_graph", "_coo", "_n_nodes", "_node_gids",
+                 "_device", "_anchor", "_anchor_changed")
+
+    def __init__(self, graph_key, version: int,
+                 graph: DeviceGraph) -> None:
+        if graph.host_coo is None:
+            raise ValueError("ResidentGraph needs a snapshot with host "
+                             "COO arrays (from_coo keeps them)")
+        self.graph_key = graph_key
+        self.version = int(version)
+        self._graph = graph
+        self._coo = graph.host_coo
+        self._n_nodes = int(graph.n_nodes)
+        self._node_gids = graph.node_gids
+        self._device = graph.device
+        self._anchor = None
+        self._anchor_changed: set = set()
+        #: algo -> _Solution (the hits and the warm-start seeds)
+        self.solutions: dict = {}
+        self.delta_edges = 0
+        self.base_edges = int(graph.n_edges)
+
+    @property
+    def coo(self):
+        """The host (src, dst, w) COO of the current generation."""
+        return self._coo
+
+    @property
+    def n_nodes(self) -> int:
+        return self._n_nodes
+
+    @property
+    def n_edges(self) -> int:
+        return len(self._coo[0])
+
+    @property
+    def graph(self) -> DeviceGraph:
+        """The snapshot, rebuilt from the COO on its first read after a
+        delta (``from_coo``, then placed as the first one was), with the
+        refresh lineage; a rebuild's seconds are the ``delta.snapshot_s``
+        summary."""
+        if self._graph is None:
+            t0 = time.perf_counter()
+            src, dst, w = self._coo
+            g = from_coo(src.astype(np.int64), dst.astype(np.int64),
+                         np.asarray(w, dtype=np.float32),
+                         n_nodes=self._n_nodes, node_gids=self._node_gids)
+            if self._device is not None:
+                g = g.to_device(self._device)
+            if self._anchor is not None:
+                # DeviceGraph is frozen; bypass its setattr guard
+                object.__setattr__(g, "_delta_ctx", (
+                    self._anchor, frozenset(self._anchor_changed)))
+            self._graph = g
+            global_metrics.observe("delta.snapshot_s",
+                                   time.perf_counter() - t0)
+        return self._graph
+
+    # --- delta application -------------------------------------------------
+
+    def apply(self, delta: EdgeDelta) -> bool:
+        """Advance the generation by one EdgeDelta: splice the COO and
+        drop the snapshot (rebuilt lazily).  An oversized delta, or deltas
+        accumulated past ``DELTA_COMPACT_FRACTION`` of the edges, compact
+        (``delta.compacted_total``).  False when a removal matches no edge
+        (``delta.fallback_rebuild_total``): the caller re-imports.  The
+        seconds of each call are the ``delta.apply_s`` summary."""
+        t0 = time.perf_counter()
+        try:
+            return self._apply(delta)
+        finally:
+            global_metrics.observe("delta.apply_s", time.perf_counter() - t0)
+
+    def _apply(self, delta: EdgeDelta) -> bool:
+        if delta.n_delta == 0:
+            # a property-only bump: the edges stand, every seed stays
+            # valid
+            self._note_moved(delta)
+            global_metrics.increment("delta.applied_total")
+            global_metrics.observe("delta.edge_count", 0.0)
+            return True
+        if delta.n_delta > max(DELTA_MAX_FRACTION * max(self.base_edges, 1),
+                               1024):
+            return self._compact(delta, why="oversized delta")
+        if not self._splice(delta):
+            return False
+        self.delta_edges += delta.n_delta
+        self._note_moved(delta)
+        if self.delta_edges > DELTA_COMPACT_FRACTION * max(self.base_edges,
+                                                           1):
+            return self._compact(None, why="accumulated deltas")
+        global_metrics.increment("delta.applied_total")
+        global_metrics.observe("delta.edge_count", float(delta.n_delta))
+        return True
+
+    def _splice(self, delta: EdgeDelta) -> bool:
+        new_coo = splice_coo(self._coo, delta, self._n_nodes)
+        if new_coo is None:
+            global_metrics.increment("delta.fallback_rebuild_total")
+            log.warning("delta: splice failed for %s (a removal matches no "
+                        "edge): the generation must be re-imported",
+                        self.graph_key)
+            return False
+        g = self._graph
+        if g is not None and getattr(g, "_mxu_base_self", False):
+            self._anchor, self._anchor_changed = g, set()
+        if self._anchor is not None:
+            self._anchor_changed.update(
+                self._node_gids[delta.touched_nodes()].tolist())
+        self._coo = (new_coo[0].astype(np.int32),
+                     new_coo[1].astype(np.int32),
+                     new_coo[2].astype(np.float32))
+        self._graph = None
+        return True
+
+    def _compact(self, delta, why: str) -> bool:
+        """Splice ``delta`` (when given) and restart the accumulation
+        count: the COO is exact either way, the next snapshot is built
+        from it and its plan follows the DeltaPlan rule."""
+        if delta is not None:
+            if not self._splice(delta):
+                return False
+            self._note_moved(delta)
+        self.delta_edges = 0
+        self.base_edges = self.n_edges
+        global_metrics.increment("delta.compacted_total")
+        log.info("delta: compacted generation %s (%s)", self.graph_key, why)
+        return True
+
+    def _note_moved(self, delta: EdgeDelta) -> None:
+        self.version = int(delta.version)
+        for sol in self.solutions.values():
+            sol.monotone_ok = sol.monotone_ok and delta.adds_only
+
+    # --- solutions ---------------------------------------------------------
+
+    def note_solution(self, algo: str, params_key: tuple, x: np.ndarray,
+                      err: float | None = None, iters: int | None = None,
+                      max_iterations: int | None = None) -> None:
+        self.solutions[algo] = _Solution(
+            x=np.asarray(x), version=self.version,
+            params_key=tuple(params_key), monotone_ok=True, iters=iters,
+            err=err, max_iterations=max_iterations)
+
+    def cached_result(self, algo: str, params_key: tuple,
+                      max_iterations=None):
+        """The stored solution itself when the generation has not moved
+        since it was computed and the parameters match: a repeated
+        request gets the same bytes."""
+        sol = self.solutions.get(algo)
+        if sol is None or sol.params_key != tuple(params_key) \
+                or sol.version != self.version:
+            return None
+        if max_iterations is not None and sol.max_iterations is not None \
+                and int(max_iterations) != int(sol.max_iterations):
+            return None
+        return sol
+
+    def warm_x0(self, algo: str, params_key: tuple):
+        """(x0, reason): x0 None is a cold start; a seed the contract
+        refuses is dropped, counted and logged here."""
+        sol = self.solutions.get(algo)
+        if sol is None or sol.params_key != tuple(params_key):
+            return None, "no_seed"
+        warm, reason = warm_start_decision(algo, sol.monotone_ok)
+        if not warm:
+            record_cold_start(algo, reason)
+            self.solutions.pop(algo, None)
+            return None, reason
+        return sol.x, reason
+
+
+class ResidentRegistry:
+    """The bounded LRU of ResidentGraphs by graph key.  Callers
+    serialize through one dispatcher; ``peek`` (no LRU move) is the one
+    read made outside it, an estimate's."""
+
+    def __init__(self, capacity: int = 8) -> None:
+        self.capacity = capacity
+        self._gens: "OrderedDict[object, ResidentGraph]" = OrderedDict()
+
+    def get(self, graph_key) -> ResidentGraph | None:
+        gen = self._gens.get(graph_key)
+        if gen is not None:
+            self._gens.move_to_end(graph_key)
+        return gen
+
+    def peek(self, graph_key) -> ResidentGraph | None:
+        return self._gens.get(graph_key)
+
+    def put(self, gen: ResidentGraph) -> None:
+        self._gens[gen.graph_key] = gen
+        self._gens.move_to_end(gen.graph_key)
+        while len(self._gens) > self.capacity:
+            self._gens.popitem(last=False)
+        self._gauge()
+
+    def pop(self, graph_key) -> None:
+        self._gens.pop(graph_key, None)
+        self._gauge()
+
+    def items(self) -> list:
+        return list(self._gens.items())
+
+    def __len__(self) -> int:
+        return len(self._gens)
+
+    def _gauge(self) -> None:
+        global_metrics.set_gauge("delta.resident_generations",
+                                 float(len(self._gens)))

@@ -508,17 +508,24 @@ def personalized_pagerank(graph: DeviceGraph, source_nodes,
     """PPR with restart mass on ``source_nodes`` (dense indices).  Returns
     (ranks[:n_nodes] as a tensor on the device, error, iterations).
 
-    ``kernel`` (the reference's route through the resident kernel
-    server) is not ported: a value other than None raises
-    NotImplementedError.  ``device``: explicit, else the graph's, else
-    the card."""
-    if kernel is not None:
-        raise NotImplementedError(
-            "kernel=: the resident kernel server's coalescing PPR route is "
-            "not ported (ROADMAP.md Queue 1 item 3); call without kernel= "
-            "to run in-process")
+    ``kernel`` routes the call through a resident kernel server's
+    coalescing plane (server/kernel_server.py): a socket path (True, "1"
+    or "default": the port's default socket) or a client; ``kernel_meta``
+    carries the request's serving fields (``graph_key``,
+    ``graph_version``, the delta payload, ``send_graph``).
+    A failure of the plane falls back to the in-process run, on the same
+    device, loudly (``_ppr_via_kernel``).  A routed answer may be the
+    plane's cache hit of an older version when the commits since touched
+    nothing within one hop of the sources (the reference's invalidation;
+    ROADMAP Queue 3 item 6).  ``device``: explicit, else the graph's,
+    else the card."""
     S._check_precision(precision)
     dev = graph_device(graph, device)
+    if kernel is not None:
+        got = _ppr_via_kernel(graph, source_nodes, damping, max_iterations,
+                              tol, precision, kernel, kernel_meta, dev)
+        if got is not None:
+            return got
     g = on_device(graph, dev)
     p = torch.zeros(g.n_pad, 1, dtype=torch.float32, device=dev)
     p[torch.as_tensor(np.asarray(source_nodes, dtype=np.int64),
@@ -529,6 +536,49 @@ def personalized_pagerank(graph: DeviceGraph, source_nodes,
         setup=_ppr_setup, epilogue=_ppr_epilogue,
         max_iterations=max_iterations, sorted=True, precision=precision)
     return rank[:g.n_nodes, 0], err, iters
+
+
+def _ppr_via_kernel(graph, source_nodes, damping, max_iterations, tol,
+                    precision, kernel, kernel_meta, dev):
+    """One PPR through the resident server's coalescing plane: (ranks as
+    a tensor on ``dev``, err, iters), counted in
+    ``analytics.kernel_routed_total``; None when the plane fails (a typed
+    failure, a lost or absent daemon), logged and counted in
+    ``analytics.kernel_route_fallback_total``, and the caller runs in
+    process.  The graph's edges ride along unless ``send_graph`` is
+    False; the graph key defaults to one of this snapshot object."""
+    import logging
+    from ..server import kernel_server as ks
+    from ..utils.metrics import global_metrics
+    meta = dict(kernel_meta or {})
+    try:
+        _, client = ks.route_client(kernel)
+        send_graph = meta.pop("send_graph", True)
+        meta.pop("top_k", None)    # this entry point returns full ranks
+        kwargs = {}
+        if send_graph:
+            src, dst, w = graph.host_coo if graph.host_coo is not None \
+                else graph.host_edges()
+            kwargs.update(src=np.asarray(src, dtype=np.int64),
+                          dst=np.asarray(dst, dtype=np.int64),
+                          weights=np.asarray(w, dtype=np.float32))
+        meta.setdefault("graph_key",
+                        f"ppr:{id(graph)}:{graph.n_nodes}:{graph.n_edges}")
+        h, out = client.ppr(
+            sources=np.asarray(source_nodes, dtype=np.int32),
+            n_nodes=graph.n_nodes, damping=float(damping),
+            max_iterations=int(max_iterations), tol=float(tol),
+            precision=precision, **meta, **kwargs)
+        global_metrics.increment("analytics.kernel_routed_total")
+        ranks = np.array(out["ranks"][:graph.n_nodes], dtype=np.float32)
+        return (torch.from_numpy(ranks).to(dev), float(h.get("err", 0.0)),
+                int(h.get("iters", 0)))
+    except (ks.KernelServerError, ConnectionError, OSError) as e:
+        global_metrics.increment("analytics.kernel_route_fallback_total")
+        logging.getLogger(__name__).warning(
+            "kernel-server PPR route failed (%s: %s); falling back to the "
+            "in-process path", type(e).__name__, e)
+        return None
 
 
 def personalized_pagerank_batch(graph: DeviceGraph, source_sets,

@@ -53,6 +53,11 @@ SG_ROWS = 128          # rank rows per supergroup (=> 16384 nodes)
 R_C = 256              # scatter rows per extract chunk
 K_C = 256              # dst-rows per aligned output window
 
+#: plans built in this process: "build_plan" (a full build) and
+#: "build_delta_plan" (a snapshot refresh's side-net); the kernel server's
+#: health reply ships them, so a client sees how a generation was planned
+plan_counts = {"build_plan": 0, "build_delta_plan": 0}
+
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -276,6 +281,7 @@ def build_plan(src: np.ndarray, dst: np.ndarray,
     normalize=True bakes w / out-weight-sum multipliers (the column-
     stochastic matrix PageRank iterates); normalize=False bakes plain w
     (the raw A^T other plus-times algorithms — katz — iterate)."""
+    plan_counts["build_plan"] += 1
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     E = len(src)
@@ -383,6 +389,7 @@ def build_delta_plan(base: MXUPlan,
     every dst row of the base's whole 256-row windows at least one row."""
     if base.wsum is None:
         raise ValueError("base plan predates delta support (no wsum)")
+    plan_counts["build_delta_plan"] += 1
     n = base.n_nodes
     add_src = np.asarray(add_src, dtype=np.int64)
     add_dst = np.asarray(add_dst, dtype=np.int64)

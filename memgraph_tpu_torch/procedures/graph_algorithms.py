@@ -28,11 +28,29 @@ counted cold start).  The reference demotes a hit to a warm seed under
 PROFILE (its stage accounting); the port has no such accounting, so a
 hit is always served as it is.
 
-Left out: the mgp registration and the Cypher surface, and the
-kernel-server route.
+``pagerank.get`` and ``pagerank.personalized`` take the reference's
+kernel-server route first (``_kernel_server_pagerank``,
+``_kernel_server_ppr``) when ``kernel=`` names a daemon (a socket path,
+True / "1" / "default" for the port's default socket, or a client), or
+else ``MEMGRAPH_TPU_ANALYTICS_KERNEL_SERVER`` does (the port has no
+interpreter config to read it from).  The graph key is stable per
+storage (and weight property); the first call ships the edges, later
+ones at a newer version ship the change log's delta payload (the
+changed dense ids and those vertices' current incident edges, from the
+snapshot), so the daemon moves its resident generation O(delta) and
+warm-starts; an unknowable log re-ships the edges.  A failure of the
+plane falls back to the in-process path, logged and counted
+(``analytics.kernel_route_fallback_total``; ``kernel_routed_total``
+counts the routed calls).
+
+Left out: the mgp registration and the Cypher surface.
 """
 
 from __future__ import annotations
+
+import logging
+import os
+import threading
 
 import numpy as np
 import torch
@@ -41,11 +59,20 @@ from ..ops.betweenness import betweenness_centrality
 from ..ops.components import (strongly_connected_components,
                               weakly_connected_components)
 from ..ops.csr import GLOBAL_GRAPH_CACHE
-from ..ops.delta import GLOBAL_WARM_POOL
+from ..ops.delta import (GLOBAL_WARM_POOL, incident_edges,
+                         record_warm_start)
 from ..ops.katz import degree_centrality, hits, katz_centrality
 from ..ops.labelprop import label_propagation
 from ..ops.pagerank import pagerank, personalized_pagerank
 from ..ops.traversal import bfs_levels, khop_neighborhood, sssp
+from ..utils.metrics import global_metrics
+
+log = logging.getLogger(__name__)
+
+#: per (socket, graph_key): the (version, node_gids) this process last
+#: pushed to the daemon, so the next request ships the delta of the gap
+_PUSHED: dict = {}
+_PUSHED_LOCK = threading.Lock()
 
 
 def _host(x) -> np.ndarray:
@@ -87,18 +114,152 @@ def _warm(pool, source, graph, algo: str, params_key: tuple, compute):
     x = _host(x)
     pool.store(source, graph, version, algo, params_key, x, iters)
     if seed is not None:
-        pool.record_warm_start(algo, iters)
+        record_warm_start(algo, iters)
     return x
+
+
+# --- the kernel-server route -------------------------------------------------
+
+
+def _kernel_route(kernel):
+    """(socket, client) a call routes through, or None for the in-process
+    path: ``kernel`` (a socket path; True, "1" or "default" the port's
+    default socket; or a client with a ``socket_path``), else
+    ``MEMGRAPH_TPU_ANALYTICS_KERNEL_SERVER``."""
+    if kernel is None:
+        kernel = os.environ.get("MEMGRAPH_TPU_ANALYTICS_KERNEL_SERVER")
+    if not kernel:
+        return None
+    from ..server.kernel_server import route_client
+    return route_client(kernel)
+
+
+def _graph_key(source, kind: str, weight_property=None) -> str:
+    """The daemon's key of a storage's graph: ``kind`` "analytics" or
+    "ppr", as the reference names them, and the weight property (a
+    weighted graph is another generation)."""
+    key = f"{kind}:{hex(id(source.storage))}"
+    return key if weight_property is None else f"{key}:{weight_property}"
+
+
+def _graph_coo(graph):
+    """Host COO arrays of the snapshot's true edges."""
+    src, dst, w = graph.host_coo if graph.host_coo is not None \
+        else graph.host_edges()
+    return (np.asarray(src, dtype=np.int64), np.asarray(dst, dtype=np.int64),
+            np.asarray(w, dtype=np.float32))
+
+
+def _serving_delta_meta(source, graph, sock: str, graph_key: str) -> dict:
+    """The request's serving fields: the key, the source's version and,
+    when this process pushed an earlier version of the key, the change
+    log's delta payload covering the gap (dense changed ids and those
+    vertices' current incident edges, from the snapshot).  ``send_graph``
+    says whether the edges must ride along: never pushed, the dense ids
+    moved, or the log cannot say what changed."""
+    version = source.version
+    meta = {"graph_key": graph_key, "graph_version": version,
+            "base_version": None, "ids_stable": True, "send_graph": True}
+    with _PUSHED_LOCK:
+        prev = _PUSHED.get((sock, graph_key))
+    if prev is None:
+        return meta
+    prev_version, prev_gids = prev
+    ids_stable = prev_gids is graph.node_gids or \
+        np.array_equal(prev_gids, graph.node_gids)
+    meta["ids_stable"] = ids_stable
+    if not ids_stable:
+        return meta
+    if prev_version == version:
+        meta.update(send_graph=False, base_version=version)
+        return meta
+    if prev_version < version and graph.host_coo is not None:
+        gids = source.changes_between(prev_version, version)
+        # an unknowable gap re-ships the edges: a partial delta would
+        # corrupt the resident generation
+        if isinstance(gids, frozenset):
+            changed = [graph.gid_to_idx[g] for g in gids
+                       if g in graph.gid_to_idx]
+            bitmap = np.zeros(graph.n_nodes, dtype=bool)
+            bitmap[np.asarray(changed, dtype=np.int64)] = True
+            inc_src, inc_dst, inc_w = incident_edges(*graph.host_coo, bitmap)
+            meta.update(base_version=prev_version, changed=changed,
+                        inc_src=inc_src, inc_dst=inc_dst, inc_w=inc_w,
+                        send_graph=False)
+    return meta
+
+
+def _routed(route, graph, graph_key, meta, call, what: str):
+    """``call(client, **meta, **edges)`` on the daemon, the push noted
+    and counted; None after a failure of the plane (the push forgotten,
+    so the next call re-ships the edges; logged and counted)."""
+    from ..server.kernel_server import KernelServerError
+    sock, client = route
+    kwargs = {}
+    if meta.pop("send_graph"):
+        src, dst, w = _graph_coo(graph)
+        kwargs.update(src=src, dst=dst, weights=w)
+    try:
+        out = call(client, **meta, **kwargs)
+    except (KernelServerError, ConnectionError, OSError) as e:
+        with _PUSHED_LOCK:
+            _PUSHED.pop((sock, graph_key), None)
+        global_metrics.increment("analytics.kernel_route_fallback_total")
+        log.warning("kernel-server %s route failed (%s: %s); falling back "
+                    "to the in-process path", what, type(e).__name__, e)
+        return None
+    with _PUSHED_LOCK:
+        _PUSHED[(sock, graph_key)] = (meta["graph_version"], graph.node_gids)
+    global_metrics.increment("analytics.kernel_routed_total")
+    return out
+
+
+def _kernel_server_pagerank(source, graph, damping, max_iterations, tol,
+                            kernel=None, weight_property=None):
+    """PageRank on the daemon (host ranks), or None: no route, or the
+    plane failed (the caller runs in process)."""
+    route = _kernel_route(kernel)
+    if route is None:
+        return None
+    key = _graph_key(source, "analytics", weight_property)
+    meta = _serving_delta_meta(source, graph, route[0], key)
+    out = _routed(route, graph, key, meta, lambda c, **kw: c.pagerank(
+        n_nodes=graph.n_nodes, damping=float(damping),
+        max_iterations=int(max_iterations), tol=float(tol), **kw),
+        "pagerank")
+    return None if out is None else np.asarray(out[0])[:graph.n_nodes]
+
+
+def _kernel_server_ppr(source, graph, sources, damping, max_iterations,
+                       tol, kernel=None, top_k=0):
+    """One PPR through the daemon's coalescing plane: its (reply header,
+    arrays), the arrays ``ranks`` (top_k 0) or ``topk_val`` /
+    ``topk_idx``; or None: no route, or the plane failed."""
+    route = _kernel_route(kernel)
+    if route is None:
+        return None
+    key = _graph_key(source, "ppr")
+    meta = _serving_delta_meta(source, graph, route[0], key)
+    return _routed(route, graph, key, meta, lambda c, **kw: c.ppr(
+        sources=np.asarray(sources, dtype=np.int32), n_nodes=graph.n_nodes,
+        damping=float(damping), max_iterations=int(max_iterations),
+        tol=float(tol), top_k=int(top_k), **kw), "PPR")
 
 
 def pagerank_get(source, max_iterations=100, damping_factor=0.85,
                  stop_epsilon=1e-5, weight_property=None, *,
                  cache=GLOBAL_GRAPH_CACHE, pool=GLOBAL_WARM_POOL,
-                 device=None) -> dict:
-    """``pagerank.get``: node, rank."""
+                 device=None, kernel=None) -> dict:
+    """``pagerank.get``: node, rank; the kernel-server route first, then
+    the warm pool."""
     graph = cache.get(source, weight_property=weight_property, device=device)
     if graph.n_nodes == 0:
         return _none("rank")
+    ranks = _kernel_server_pagerank(source, graph, damping_factor,
+                                    max_iterations, stop_epsilon, kernel,
+                                    weight_property)
+    if ranks is not None:
+        return _rows(graph, rank=ranks)
 
     def compute(x0):
         ranks, _, iters = pagerank(graph, damping=float(damping_factor),
@@ -114,14 +275,26 @@ def pagerank_get(source, max_iterations=100, damping_factor=0.85,
 
 def pagerank_personalized(source, source_nodes, max_iterations=100,
                           damping_factor=0.85, *, cache=GLOBAL_GRAPH_CACHE,
-                          device=None) -> dict:
+                          device=None, kernel=None) -> dict:
     """``pagerank.personalized``: node, rank, restarting on the vertices
     with gids ``source_nodes`` (those outside the snapshot are dropped;
-    none left: no record)."""
+    none left: no record); the kernel server's coalescing plane first.
+    Routed, the answer may be the plane's cache hit of an earlier version
+    when the commits since touched nothing within one hop of the sources:
+    the reference's invalidation, which misses changes further out, so
+    such an answer can be off the new graph's by more than 1e-4 of its
+    largest entry (``chip_smoke.py``'s ``kernel_server`` phase measures
+    it; ROADMAP Queue 3 item 6)."""
     graph = cache.get(source, device=device)
     sources = _indices(graph, source_nodes) if graph.n_nodes else []
     if not sources:
         return _none("rank")
+    served = _kernel_server_ppr(source, graph, sources,
+                                float(damping_factor), int(max_iterations),
+                                1e-6, kernel)
+    if served is not None:
+        return _rows(graph, rank=np.asarray(served[1]["ranks"])[
+            :graph.n_nodes])
     ranks, _, _ = personalized_pagerank(
         graph, sources, damping=float(damping_factor),
         max_iterations=int(max_iterations))

@@ -28,7 +28,13 @@ arguments with its defaults, the caches and the ``device``, and returns
 what the procedure yields as host numpy columns by gid (``node_gids``),
 a row a record.
 
-Left out: the kernel-server leg of ``ppr_search``, and the private entry
+``ppr_search`` takes the kernel server's coalescing plane for its PPR
+leg when ``kernel=`` (or ``MEMGRAPH_TPU_ANALYTICS_KERNEL_SERVER``) names
+a daemon (procedures/graph_algorithms.py ``_kernel_server_ppr``): one
+round trip, the top ``limit`` extracted on the card; a failure falls
+back to the in-process leg, loudly.
+
+Left out: the private entry
 the reference serves a transaction with writes of its own (the port's
 source has no transaction; that waits for the Cypher layer).  The
 reference's delta refresh reads a property that was unknown at its
@@ -51,6 +57,7 @@ from ..ops.csr import (GLOBAL_GRAPH_CACHE, ChangeLogUnknowable,
                        _numeric_list, property_rows)
 from ..ops.knn import knn
 from ..ops.pagerank import personalized_pagerank
+from .graph_algorithms import _kernel_server_ppr
 
 _KEEP_VERSIONS = 4          # concurrent readers at older snapshots
 _DELTA_MAX_FRACTION = 0.5   # larger deltas rebuild outright
@@ -330,7 +337,8 @@ def knn_get(source, node, property, k, metric="cosine", *,
 
 def ppr_search(source, property, query, k_seeds, limit, damping=0.85,
                metric="cosine", *, cache=GLOBAL_GRAPH_CACHE,
-               index_cache=GLOBAL_INDEX_CACHE, device=None) -> dict:
+               index_cache=GLOBAL_INDEX_CACHE, device=None,
+               kernel=None) -> dict:
     """``vector_search.ppr_search``: node, score, seed_similarity — the
     ``k_seeds`` rows nearest ``query`` seed a personalized PageRank (100
     iterations at most) on the graph's snapshot, whose ``limit``
@@ -356,13 +364,29 @@ def ppr_search(source, property, query, k_seeds, limit, damping=0.85,
             seed_sim[di] = float(sim)
     if not seeds:
         return _none(*fields)
-    ranks, _, _ = personalized_pagerank(graph, seeds, damping=float(damping),
-                                        max_iterations=100)
-    ranks = ranks.cpu().numpy()
-    order = np.argsort(-ranks)[:int(limit)]
-    order = order[ranks[order] > 0]
+    served = _kernel_server_ppr(source, graph, seeds, float(damping), 100,
+                                1e-6, kernel, top_k=int(limit))
+    if served is not None:
+        order, scores = served_topk(served[1])
+    else:
+        ranks, _, _ = personalized_pagerank(graph, seeds,
+                                            damping=float(damping),
+                                            max_iterations=100)
+        ranks = ranks.cpu().numpy()
+        order = np.argsort(-ranks)[:int(limit)]
+        order = order[ranks[order] > 0]
+        scores = ranks[order]
     return {"node_gids": np.asarray(graph.node_gids, dtype=np.int64)[order],
-            "score": ranks[order],
+            "score": scores,
             "seed_similarity": np.asarray([seed_sim.get(int(i), 0.0)
                                            for i in order])}
+
+
+def served_topk(out):
+    """(dense ids, scores) of a PPR reply's top-k, up to its first score
+    that is not positive."""
+    vals = np.asarray(out["topk_val"])
+    stop = np.flatnonzero(vals <= 0)
+    n = int(stop[0]) if len(stop) else len(vals)
+    return np.asarray(out["topk_idx"][:n], dtype=np.int64), vals[:n]
 

@@ -1,0 +1,550 @@
+"""The port's resident kernel server (memgraph_tpu_torch/server/
+kernel_server.py) as a daemon on the CPU, against the JAX package's
+in-process functions on the same numpy-seeded graphs.
+
+Models: tests/test_kernel_server.py (ping, remote PageRank against
+scipy, graph_key caching across clients, an unknown key, a garbage
+header), tests/test_delta.py:521-610 (the delta refresh and the warm
+start, the WCC monotone gate, a stale generation never served) and
+tests/test_device_resilience.py (typed outcomes through
+``MEMGRAPH_TPU_FAULTS``, ``SupervisedKernelClient``'s retry and restart).
+The JAX package's own ``KernelClient`` drives the daemon once (the
+wire is the reference's).  The reference's resumable route fails on jax
+0.9.0; one test pins that, beside the port's answer.
+
+One daemon serves the file (``--device cpu``; the MXU route forced for
+graphs of 5,000 edges or more, ``MEMGRAPH_TPU_FORCE_MXU`` and
+``MEMGRAPH_TPU_MXU_MIN_EDGES`` in its environment); the fault tests
+spawn their own.  Every client has a timeout and every daemon is shut
+down.  Tolerances: PageRank within rtol 3e-4 of scipy and of the JAX
+package (tests/test_kernel_server.py's bound); katz within rtol 1e-5 of
+JAX's; WCC, label propagation and BFS exact; a warm start within 10 tol
+of a cold in-process run (tests/test_delta.py's bound).
+"""
+
+import os
+import socket
+import struct
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from memgraph_tpu.ops import components as jcomp
+from memgraph_tpu.ops import csr as jcsr
+from memgraph_tpu.ops import katz as jkatz
+from memgraph_tpu.ops import labelprop as jlp
+from memgraph_tpu.ops import pagerank as jpr
+from memgraph_tpu.ops import traversal as jtr
+from memgraph_tpu_torch.northstar import CooSource
+from memgraph_tpu_torch.ops.csr import GraphCache
+from memgraph_tpu_torch.ops.delta import LocalWarmPool
+from memgraph_tpu_torch.procedures import graph_algorithms as P
+from memgraph_tpu_torch.server import kernel_server as ks
+from memgraph_tpu_torch.utils.metrics import global_metrics
+from memgraph_tpu_torch.utils.retry import RetryPolicy
+
+TOL = 1e-6
+RTOL = 3e-4
+TIMEOUT = 60.0
+MXU_MIN_EDGES = 5000
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env.pop("MEMGRAPH_TPU_FAULTS", None)
+    env.update({"MEMGRAPH_TPU_FORCE_MXU": "1",
+                "MEMGRAPH_TPU_MXU_MIN_EDGES": str(MXU_MIN_EDGES)})
+    env.update(extra)
+    return env
+
+
+def _spawn(path, **extra):
+    client = ks.ensure_server(path, spawn_timeout_s=TIMEOUT,
+                              idle_timeout_s=120, device="cpu",
+                              env=_env(**extra))
+    assert client is not None, ks.log_tail(path)
+    return client
+
+
+@pytest.fixture(scope="module")
+def daemon(tmp_path_factory):
+    sock = str(tmp_path_factory.mktemp("ks") / "ks.sock")
+    client = _spawn(sock)
+    yield client, sock
+    client.shutdown()
+    client.close()
+    client.process.wait(timeout=TIMEOUT)
+
+
+def _graph(seed, n, e):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n, e), rng.integers(0, n, e)
+
+
+def _scipy_pagerank(src, dst, n, iters=100, damping=0.85, tol=TOL):
+    import scipy.sparse as sp
+    w = np.ones(len(src))
+    wsum = np.bincount(src, weights=w, minlength=n)
+    inv = np.where(wsum > 0, 1.0 / np.maximum(wsum, 1e-300), 0.0)
+    m = sp.csr_matrix((w * inv[src], (dst, src)), shape=(n, n))
+    dang = wsum <= 0
+    rank = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        new = (1 - damping) / n + damping * (m @ rank + rank[dang].sum() / n)
+        if np.abs(new - rank).sum() <= tol:
+            return new
+        rank = new
+    return rank
+
+
+def _jax_pagerank(src, dst, n, **kw):
+    ranks, _, iters = jpr.pagerank(jcsr.from_coo(src, dst, n_nodes=n), **kw)
+    return np.asarray(ranks), int(iters)
+
+
+def _incident_payload(src, dst, changed, n):
+    bitmap = np.zeros(n, dtype=bool)
+    bitmap[np.asarray(changed, dtype=np.int64)] = True
+    sel = bitmap[src] | bitmap[dst]
+    return (src[sel].astype(np.int64), dst[sel].astype(np.int64),
+            np.ones(int(sel.sum()), dtype=np.float32))
+
+
+def test_ping_is_another_process(daemon):
+    client, _ = daemon
+    assert client.ping()
+    h, _ = client.call({"op": "ping"})
+    assert h["pid"] != os.getpid()
+    probe = client.probe()
+    assert probe["outcome"] == "completed" and probe["platform"] == "cpu"
+    assert probe["sum"] == 128.0 ** 3
+
+
+def test_remote_pagerank_matches_scipy_and_jax(daemon):
+    client, _ = daemon
+    n, e = 2000, 12000
+    src, dst = _graph(0, n, e)
+    h, out = client.call_pagerank(src=src, dst=dst, n_nodes=n)
+    assert h["outcome"] == "completed" and h["tier"] == "resident"
+    np.testing.assert_allclose(out["ranks"], _scipy_pagerank(src, dst, n),
+                               rtol=RTOL, atol=1e-8)
+    want, _ = _jax_pagerank(src, dst, n)
+    np.testing.assert_allclose(out["ranks"], want, rtol=RTOL, atol=1e-8)
+
+
+def test_graph_key_caching_across_clients(daemon):
+    """A key-only repeat is a hit with the same bytes, from another
+    client too."""
+    client, sock = daemon
+    n, e = 1000, 6000
+    src, dst = _graph(1, n, e)
+    r1, _, _ = client.pagerank(src=src, dst=dst, n_nodes=n, graph_key="g1")
+    h, out = client.call_pagerank(graph_key="g1")
+    assert h["cache"] == "hit"
+    assert out["ranks"].tobytes() == r1.tobytes()
+    c2 = ks.KernelClient(sock, timeout=TIMEOUT)
+    try:
+        r3, _, _ = c2.pagerank(graph_key="g1")
+    finally:
+        c2.close()
+    assert r3.tobytes() == r1.tobytes()
+
+
+def test_unknown_key_without_arrays_is_invalid(daemon):
+    client, _ = daemon
+    with pytest.raises(ks.KernelServerError) as ei:
+        client.pagerank(graph_key="never-seen")
+    assert ei.value.outcome == "invalid" and not ei.value.retryable
+    assert client.ping()
+
+
+def test_garbage_header_drops_the_connection_not_the_server(daemon):
+    client, sock = daemon
+    raw = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    raw.settimeout(TIMEOUT)
+    try:
+        raw.connect(sock)
+        raw.sendall(struct.pack("<I", 8) + b"\xff" * 8)
+        assert raw.recv(4096) == b""           # dropped, nothing shipped
+    finally:
+        raw.close()
+    assert client.ping()
+
+
+def test_semiring_algorithms_match_jax(daemon):
+    client, _ = daemon
+    n, e = 2000, 12000
+    src, dst = _graph(2, n, e)
+    jg = jcsr.from_coo(src, dst, n_nodes=n)
+    client.semiring("pagerank", src=src, dst=dst, n_nodes=n,
+                    graph_key="alg", graph_version=1)
+    kw = {"graph_key": "alg", "graph_version": 1}
+    h, out = client.semiring("katz", alpha=0.05, tol=1e-8, **kw)
+    want, _, iters = jkatz.katz_centrality(jg, alpha=0.05, tol=1e-8)
+    np.testing.assert_allclose(out["ranks"], np.asarray(want), rtol=1e-5)
+    h, out = client.semiring("wcc", **kw)
+    want, _ = jcomp.weakly_connected_components(jg, max_iterations=100)
+    assert np.array_equal(out["components"], np.asarray(want))
+    h, out = client.semiring("labelprop", **kw)
+    want, _ = jlp.label_propagation(jg, max_iterations=100)
+    assert np.array_equal(out["labels"], np.asarray(want))
+    h, out = client.semiring("bfs", source=7, **kw)
+    want, _ = jtr.bfs_levels(jg, 7, max_iterations=100)
+    assert np.array_equal(out["levels"], np.asarray(want))
+    with pytest.raises(ks.KernelServerError, match="unknown semiring"):
+        client.semiring("nope", **kw)
+    with pytest.raises(ks.KernelServerError, match="pipeline"):
+        h, _ = client.call({"op": "lane"})
+        ks._raise_for_reply(h)
+
+
+def test_delta_refresh_and_warm_start(daemon):
+    """Full import at v1 (the MXU route: a full plan); the commit ships
+    only the delta payload at v2: the generation moves O(delta), its
+    snapshot's plan is a DeltaPlan (no plan build), and the warm reply
+    matches a cold in-process run on the new graph, in no more
+    iterations."""
+    client, _ = daemon
+    n, e = 1000, 8000
+    src, dst = _graph(30, n, e)
+    h1, _ = client.call_pagerank(src=src, dst=dst, n_nodes=n,
+                                 graph_key="dg1", graph_version=1, tol=TOL)
+    plans = client.health()["plans"]
+    rng = np.random.default_rng(31)
+    add_src, add_dst = rng.integers(0, n, 20), rng.integers(0, n, 20)
+    src2, dst2 = np.concatenate([src, add_src]), np.concatenate([dst, add_dst])
+    changed = np.unique(np.concatenate([add_src, add_dst])).astype(np.int32)
+    inc = _incident_payload(src2, dst2, changed, n)
+    h2, out2 = client.call_pagerank(
+        n_nodes=n, graph_key="dg1", graph_version=2, base_version=1,
+        changed=changed, inc_src=inc[0], inc_dst=inc[1], inc_w=inc[2],
+        tol=TOL)
+    assert h2["warm_started"] and h2["graph_version"] == 2
+    assert h2["err"] <= TOL and h2["iters"] <= h1["iters"]
+    after = client.health()
+    assert after["plans"]["build_plan"] == plans["build_plan"]
+    assert after["plans"]["build_delta_plan"] == \
+        plans["build_delta_plan"] + 1
+    assert after["counters"]["delta.applied_total"] >= 1
+    want, it_ref = _jax_pagerank(src2, dst2, n, tol=TOL)
+    assert np.abs(want - out2["ranks"]).max() < 10 * TOL
+    assert h2["iters"] <= it_ref
+
+
+def test_wcc_monotone_gate(daemon):
+    client, _ = daemon
+    n, e = 300, 1600
+    src, dst = _graph(31, n, e)
+    h1, out1 = client.semiring("wcc", src=src, dst=dst, n_nodes=n,
+                               graph_key="dg2", graph_version=1)
+    assert h1["warm_started"] is False
+    h2, out2 = client.semiring("wcc", graph_key="dg2", graph_version=1)
+    assert h2["warm_started"] is True and h2["cache"] == "hit"
+    assert out1["components"].tobytes() == out2["components"].tobytes()
+    src3, dst3 = np.delete(src, [0, 1]), np.delete(dst, [0, 1])
+    changed = np.unique(np.concatenate([src[:2], dst[:2]])).astype(np.int32)
+    inc = _incident_payload(src3, dst3, changed, n)
+    before = client.health()["counters"].get("delta.cold_start_total", 0)
+    h3, out3 = client.semiring(
+        "wcc", graph_key="dg2", graph_version=2, base_version=1,
+        changed=changed, inc_src=inc[0], inc_dst=inc[1], inc_w=inc[2])
+    assert h3["warm_started"] is False
+    assert client.health()["counters"]["delta.cold_start_total"] \
+        == before + 1
+    want, _ = jcomp.weakly_connected_components(
+        jcsr.from_coo(src3, dst3, n_nodes=n))
+    assert np.array_equal(out3["components"], np.asarray(want))
+
+
+def test_stale_generation_is_never_served(daemon):
+    client, _ = daemon
+    n, e = 100, 500
+    src, dst = _graph(32, n, e)
+    client.pagerank(src=src, dst=dst, n_nodes=n, graph_key="dg3",
+                    graph_version=1, tol=TOL)
+    with pytest.raises(ks.KernelServerError):
+        client.pagerank(n_nodes=n, graph_key="dg3", graph_version=2,
+                        tol=TOL)
+
+
+def test_typed_outcomes_through_fault_env(tmp_path):
+    """``MEMGRAPH_TPU_FAULTS`` armed at the daemon's start: each point
+    counts its own hits, and hit 1 of every point is the start-up probe.
+    Dispatch 2 completes (the import), 3 raises device_error, 4 oom,
+    5 stalls past its deadline (the health op reports it in flight),
+    then the daemon serves again."""
+    sock = str(tmp_path / "ks.sock")
+    client = _spawn(sock, MEMGRAPH_TPU_FAULTS=(
+        "device.call=raise@3,device.oom=raise@4,device.hang=delay:1.5@5"))
+    try:
+        n, e = 200, 1200
+        src, dst = _graph(3, n, e)
+        ref, _, _ = client.pagerank(src=src, dst=dst, n_nodes=n,
+                                    graph_key="f", tol=1e-9)
+        with pytest.raises(ks.KernelDeviceError) as ei:
+            client.pagerank(graph_key="f", tol=1e-8)
+        assert ei.value.outcome == "device_error" and ei.value.retryable
+        with pytest.raises(ks.KernelOom) as ei:
+            client.pagerank(graph_key="f", tol=1e-8)
+        assert ei.value.outcome == "oom" and not ei.value.retryable
+        t0 = time.monotonic()
+        with pytest.raises(ks.KernelDeadlineExceeded):
+            client.pagerank(graph_key="f", tol=1e-8, deadline_s=0.2)
+        assert time.monotonic() - t0 < 1.2
+        h = client.health()
+        assert h["in_flight"] >= 1
+        counters = h["counters"]
+        for outcome in ("device_error", "oom", "deadline_exceeded"):
+            assert counters[f"kernel_server.dispatch.{outcome}_total"] >= 1
+        time.sleep(1.5)
+        again, _, _ = client.pagerank(graph_key="f", tol=1e-9)
+        assert again.tobytes() == ref.tobytes()    # the stored solution
+    finally:
+        client.shutdown()
+        client.close()
+        client.process.wait(timeout=TIMEOUT)
+
+
+def test_supervised_client_retries_and_restarts(tmp_path):
+    sock = str(tmp_path / "ks.sock")
+    first = _spawn(sock, MEMGRAPH_TPU_FAULTS="device.call=raise@2")
+    first.close()
+    sup = ks.SupervisedKernelClient(
+        sock, spawn=True, device="cpu", spawn_timeout_s=TIMEOUT,
+        idle_timeout_s=120,
+        retry=RetryPolicy(base_delay=0.05, max_retries=3,
+                          attempt_timeout=TIMEOUT))
+    n, e = 200, 1200
+    src, dst = _graph(4, n, e)
+    try:
+        retries = global_metrics.value("kernel_server.client.retries_total")
+        ranks, _, _ = sup.pagerank(src=src, dst=dst, n_nodes=n,
+                                   graph_key="s")
+        assert global_metrics.value("kernel_server.client.retries_total") \
+            == retries + 1                       # dispatch 2 failed once
+        want, _ = _jax_pagerank(src, dst, n)
+        np.testing.assert_allclose(ranks, want, rtol=RTOL, atol=1e-8)
+        # shed is not retried
+        t0 = time.monotonic()
+        with pytest.raises(ks.AdmissionRejected):
+            sup.pagerank(src=src, dst=dst, n_nodes=1 << 31)
+        assert time.monotonic() - t0 < 1.0
+        old_pid = sup.health()["pid"]
+        assert sup.check_once() == "ok"
+        sup.restart_server(reason="test")        # SIGKILL; the next call
+        again, _, _ = sup.pagerank(src=src, dst=dst, n_nodes=n)  # respawns
+        assert sup.health()["pid"] != old_pid
+        np.testing.assert_allclose(again, want, rtol=RTOL, atol=1e-8)
+    finally:
+        c = ks.KernelClient(sock, timeout=TIMEOUT)
+        c.shutdown()
+        c.close()
+        sup.close()
+
+
+def test_jax_client_drives_the_port_daemon(daemon):
+    """The JAX package's own KernelClient on the port's daemon: ping,
+    ``pagerank``, ``ppr`` (full ranks and top-k) and ``semiring``."""
+    from memgraph_tpu.server.kernel_server import KernelClient as JClient
+    _, sock = daemon
+    n, e = 2000, 12000
+    src, dst = _graph(5, n, e)
+    jg = jcsr.from_coo(src, dst, n_nodes=n)
+    jc = JClient(sock, timeout=TIMEOUT)
+    try:
+        assert jc.ping()
+        ranks, err, iters = jc.pagerank(src=src, dst=dst, n_nodes=n,
+                                        graph_key="jax", graph_version=1)
+        want, _ = _jax_pagerank(src, dst, n)
+        np.testing.assert_allclose(ranks, want, rtol=RTOL, atol=1e-8)
+        h, out = jc.ppr([3, 9], graph_key="jax", graph_version=1,
+                        n_nodes=n, tol=1e-8)
+        pw, _, _ = jpr.personalized_pagerank_batch(jg, [[3, 9]], tol=1e-8)
+        np.testing.assert_allclose(out["ranks"], pw[0],
+                                   atol=1e-6 * float(pw[0].max()))
+        h, out = jc.ppr([3, 9], graph_key="jax", graph_version=1,
+                        n_nodes=n, tol=1e-8, top_k=10)
+        assert h["cache"] == "hit"
+        vals, idx = jpr.ppr_topk(pw, n, 10)
+        np.testing.assert_allclose(out["topk_val"], vals[0],
+                                   atol=1e-6 * float(pw[0].max()))
+        assert len(set(out["topk_idx"].tolist())
+                   & set(np.asarray(idx[0]).tolist())) >= 9
+        h, out = jc.semiring(algorithm="wcc", graph_key="jax",
+                             graph_version=1)
+        want, _ = jcomp.weakly_connected_components(jg, max_iterations=100)
+        assert np.array_equal(out["components"], np.asarray(want))
+        h, out = jc.semiring(algorithm="bfs", graph_key="jax",
+                             graph_version=1, source=11)
+        want, _ = jtr.bfs_levels(jg, 11, max_iterations=100)
+        assert np.array_equal(out["levels"], np.asarray(want))
+    finally:
+        jc.close()
+
+
+def test_jax_resumable_route_fails_and_the_port_serves(tmp_path):
+    """Pins a reference-side defect on jax 0.9.0: the JAX
+    package's in-process KernelServer with ``checkpoint_every`` fails its
+    ``pagerank`` op (the partition-centric loop's while_loop carries
+    differ in varying manual axes).  The port's server, in process too,
+    answers the same request."""
+    from memgraph_tpu.server import kernel_server as jks
+    n, e = 300, 1800
+    src, dst = _graph(6, n, e)
+    servers = (jks.KernelServer(str(tmp_path / "j.sock"),
+                                checkpoint_every=4),
+               ks.KernelServer(str(tmp_path / "t.sock"), device="cpu"))
+    outcomes = []
+    for srv, client_cls in zip(servers, (jks.KernelClient, ks.KernelClient)):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        deadline = time.monotonic() + TIMEOUT
+        while True:
+            try:
+                c = client_cls(srv.socket_path, timeout=TIMEOUT)
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+        try:
+            outcomes.append(c.pagerank(src=src, dst=dst, n_nodes=n))
+        except RuntimeError as e:
+            outcomes.append(e)
+        finally:
+            c.shutdown()
+            c.close()
+    assert isinstance(outcomes[0], jks.KernelServerError)
+    assert "varying manual axes" in str(outcomes[0])
+    ranks, _, _ = outcomes[1]
+    np.testing.assert_allclose(ranks, _scipy_pagerank(src, dst, n),
+                               rtol=RTOL, atol=1e-8)
+
+
+def test_procedures_route_gives_the_in_process_answers(daemon):
+    """``pagerank.get`` and ``pagerank.personalized`` with ``kernel=``:
+    the first call ships the edges, a call after a commit ships the delta
+    payload only; the answers are the in-process ones (bit for bit when
+    cold; a warm PageRank within 10 stop_epsilon in L1), the routed
+    calls counted and no fallback."""
+    _, sock = daemon
+    n, e = 500, 3000
+    src, dst = _graph(7, n, e)
+    source = CooSource(src, dst, n)
+    cache = GraphCache()
+    kw = {"cache": cache, "device": "cpu"}
+    routed = global_metrics.value("analytics.kernel_routed_total")
+    fallbacks = global_metrics.value("analytics.kernel_route_fallback_total")
+    got = P.pagerank_get(source, kernel=sock, **kw)
+    want = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    assert got["rank"].tobytes() == want["rank"].tobytes()
+    got = P.pagerank_personalized(source, [3, 4], kernel=sock, **kw)
+    want = P.pagerank_personalized(source, [3, 4], **kw)
+    assert got["rank"].tobytes() == want["rank"].tobytes()
+    rng = np.random.default_rng(8)
+    source.commit(rng.integers(0, n, 30), rng.integers(0, n, 30))
+    graph = cache.get(source, device="cpu")
+    meta = P._serving_delta_meta(source, graph, sock,
+                                 P._graph_key(source, "analytics"))
+    assert meta["send_graph"] is False and len(meta["changed"]) > 0
+    got = P.pagerank_get(source, kernel=sock, **kw)
+    want = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    assert np.abs(got["rank"] - want["rank"]).sum() < 10 * 1e-5
+    got = P.pagerank_personalized(source, [3, 4], kernel=sock, **kw)
+    want = P.pagerank_personalized(source, [3, 4], **kw)
+    np.testing.assert_allclose(got["rank"], want["rank"], atol=1e-6)
+    assert global_metrics.value("analytics.kernel_routed_total") \
+        == routed + 4
+    assert global_metrics.value(
+        "analytics.kernel_route_fallback_total") == fallbacks
+
+
+def test_supervisor_restarts_a_wedged_or_unreachable_daemon(monkeypatch):
+    """``check_once`` restarts an unreachable or wedged daemon and leaves
+    a healthy one; the health loop runs it in the background."""
+    sup = ks.SupervisedKernelClient("/nonexistent.sock", spawn=False)
+    restarts = []
+    monkeypatch.setattr(sup, "restart_server",
+                        lambda reason, pid=None: restarts.append(reason))
+    monkeypatch.setattr(sup, "health", lambda timeout=5.0: None)
+    assert sup.check_once() == "restarted"
+    monkeypatch.setattr(sup, "health",
+                        lambda timeout=5.0: {"wedged": True, "pid": 4242})
+    assert sup.check_once() == "restarted"
+    monkeypatch.setattr(sup, "health",
+                        lambda timeout=5.0: {"wedged": False, "pid": 7})
+    assert sup.check_once() == "ok"
+    assert restarts == ["unreachable", "wedged"]
+    checks = []
+    monkeypatch.setattr(sup, "check_once", lambda: checks.append(1))
+    sup.start_health_loop(interval_s=0.01)
+    deadline = time.monotonic() + TIMEOUT
+    while len(checks) < 3:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    sup.close()
+
+
+def test_daemon_without_a_card_exits_naming_the_cause(tmp_path):
+    """Without a card and without ``--device cpu`` the daemon exits
+    non-zero, and ``ensure_server`` raises with the log's tail."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the daemon would serve on it")
+    sock = str(tmp_path / "ks.sock")
+    with pytest.raises(RuntimeError) as ei:
+        ks.ensure_server(sock, spawn_timeout_s=TIMEOUT, device="cuda",
+                         env=_env())
+    assert "rc=2" in str(ei.value)
+    assert "no CUDA device is available" in str(ei.value)
+    assert "--device cpu" in ks.log_tail(sock)
+    assert not os.path.exists(sock)
+
+
+def test_retry_attempts_budget_and_deadline():
+    p = RetryPolicy(base_delay=0.01, jitter=0.0, max_retries=3)
+    assert list(p.attempts()) == [0, 1, 2, 3]
+    p = RetryPolicy(base_delay=10.0, jitter=0.0, max_retries=5,
+                    deadline=0.05)
+    t0 = time.monotonic()
+    assert list(p.attempts()) == [0]          # the next backoff would cross
+    assert time.monotonic() - t0 < 1.0
+
+
+@pytest.mark.parametrize("exc,kind", [
+    ("oom", "oom"), ("lost", "device_lost"), ("call", "device_error"),
+    (RuntimeError("CUDA out of memory. Tried to allocate 2.00 GiB"), "oom"),
+    (RuntimeError("CUDA error: an illegal memory access was encountered"),
+     "device_error"),
+    (RuntimeError("CUDA error: device-side assert triggered"),
+     "device_error"),
+    (RuntimeError("benes_mid launch failed: CUDA error 719 (unspecified "
+                  "launch failure)"), "device_error"),
+    (RuntimeError("Found no NVIDIA driver on your system"), "device_lost"),
+    (RuntimeError("CUDA error: no CUDA-capable device is detected"),
+     "device_lost"),
+    (ValueError("bad header"), None),
+    (RuntimeError("shape mismatch"), None)])
+def test_classify_device_error_taxonomy(exc, kind):
+    """Injected faults (``device_fault_point``) and what torch raises on
+    the card map to the typed outcomes; anything else is no device
+    failure."""
+    from memgraph_tpu_torch.utils import faultinject as FI
+    from memgraph_tpu_torch.utils.devicefault import (classify_device_error,
+                                                      device_fault_point)
+    if isinstance(exc, str):
+        FI.reset()
+        FI.arm(f"device.{exc}", "raise", at=1)
+        try:
+            with pytest.raises(Exception) as ei:
+                device_fault_point()
+        finally:
+            FI.reset()
+        exc = ei.value
+    assert classify_device_error(exc) == kind
+
+
+def test_classify_torch_oom_type():
+    import torch
+    from memgraph_tpu_torch.utils.devicefault import classify_device_error
+    assert classify_device_error(torch.cuda.OutOfMemoryError("x")) == "oom"

@@ -248,10 +248,19 @@ def test_topk_raw_stays_a_tensor():
     assert idx.dtype == torch.int32
 
 
-def test_kernel_route_is_not_ported():
+def test_kernel_route_is_not_ported(tmp_path):
+    """The kernel route exists now (server/kernel_server.py): with no
+    daemon on the socket the call falls back to the in-process run,
+    loudly (counted), with the in-process bits."""
+    from memgraph_tpu_torch.utils.metrics import global_metrics
     _, tg = _graphs("skewed")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tpr.personalized_pagerank(tg, [3], kernel=True)
+    before = global_metrics.value("analytics.kernel_route_fallback_total")
+    got, _, iters = tpr.personalized_pagerank(
+        tg, [3], tol=STOP, kernel=str(tmp_path / "nothing.sock"))
+    want, _, want_iters = tpr.personalized_pagerank(tg, [3], tol=STOP)
+    assert torch.equal(got, want) and iters == want_iters
+    assert global_metrics.value("analytics.kernel_route_fallback_total") \
+        == before + 1
 
 
 def test_no_quiet_cpu_path_without_a_card(monkeypatch):

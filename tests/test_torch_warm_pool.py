@@ -23,6 +23,7 @@ from memgraph_tpu.ops import delta as JD
 from memgraph_tpu_torch.ops import csr as tcsr
 from memgraph_tpu_torch.ops import delta as TD
 from memgraph_tpu_torch.procedures import graph_algorithms as P
+from memgraph_tpu_torch.utils.metrics import global_metrics as tmetrics
 from memgraph_tpu.storage.storage import EdgeAccessor
 
 from test_torch_procedures import compare, cypher, db  # noqa: F401
@@ -176,14 +177,14 @@ class Twin:
         an abort bumps the storage's version."""
         acc, src, jg, tg, v = self.exports()
         cold = (_metric("delta.cold_start_total"),
-                self.tpool.counters["cold_start_total"])
+                tmetrics.value("delta.cold_start_total"))
         try:
             want = self.jpool.prepare(self.storage, jg, v, algo, key)
             got = self.tpool.prepare(src, tg, v, algo, key)
         finally:
             acc.commit()
         return want, got, (_metric("delta.cold_start_total") - cold[0],
-                           self.tpool.counters["cold_start_total"] - cold[1])
+                           tmetrics.value("delta.cold_start_total") - cold[1])
 
     def store(self, algo, x, key=("k",)):
         acc, src, jg, tg, v = self.exports()
@@ -334,6 +335,8 @@ def test_procedures_over_commits_follow_the_reference(db, algo,
     monkeypatch.setattr(JD, "record_warm_start", lambda a, i: (
         jax_warm.append((a, int(i))), real(a, i)))
     et = storage.edge_type_mapper.name_to_id("E")
+    warm0 = tmetrics.value("delta.warm_start_total")
+    cold0 = tmetrics.value("delta.cold_start_total")
 
     def step():
         want = cypher(ictx, query)
@@ -346,7 +349,7 @@ def test_procedures_over_commits_follow_the_reference(db, algo,
     # a repeat on an unchanged graph: the stored bytes, kept read-only
     for k in first:
         assert first[k].tobytes() == again[k].tobytes()
-    assert pool.counters["warm_start_total"] == 0
+    assert tmetrics.value("delta.warm_start_total") == warm0
     assert not pool.solution(storage, algo).x.flags.writeable
     col = [k for k in first if k != "node_gids"][0]
     first[col][:] = 0           # the cold answer is its caller's own copy
@@ -358,7 +361,7 @@ def test_procedures_over_commits_follow_the_reference(db, algo,
                         et)
     acc.commit()
     step()
-    assert pool.counters["warm_start_total"] == 1
+    assert tmetrics.value("delta.warm_start_total") == warm0 + 1
     assert len(jax_warm) == 1
     assert abs(pool.solution(storage, algo).iters - jax_warm[-1][1]) <= 1
 
@@ -373,9 +376,10 @@ def test_procedures_over_commits_follow_the_reference(db, algo,
     cold = _metric("delta.cold_start_total")
     step()
     monotone = TD.WARM_START_POLICY[algo] == "adds_only"
-    assert pool.counters["cold_start_total"] == int(monotone)
+    assert tmetrics.value("delta.cold_start_total") == cold0 + int(monotone)
     assert _metric("delta.cold_start_total") - cold == int(monotone)
-    assert pool.counters["warm_start_total"] == 2 - int(monotone)
+    assert tmetrics.value("delta.warm_start_total") \
+        == warm0 + 2 - int(monotone)
     assert len(jax_warm) == 2 - int(monotone)
     if not monotone:
         assert abs(pool.solution(storage, algo).iters
