@@ -293,7 +293,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    full build of the same state, ``valid`` exactly the live rows, 100
    queries' top 10 equal to the full build's; a wrapped log gives a full
    build.
-24. (last) Communities (``communities`` line):
+24. Communities (``communities`` line):
    ``community_detection.louvain`` on the segment graph and
    ``leiden_community_detection.get`` on a 20,000-node, 90,000-edge graph
    of the generator, twice each (equal), Louvain's modularity equal to a
@@ -326,10 +326,41 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    one source's neighbourhood warms it alone; the daemon's K1, K2 and
    Benes launches (its health reply) moved.  Its launches join the
    kernels' ``launches_by_path`` as ``kernel_server``.
-26. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+26. The read lane (``lane`` line, ``ops/columnar.py``,
+   ``ops/pipeline.py``) on v0's edges, 1,000 self-loops planted, and a
+   CooSource of them with seeded vertex properties (an int ``age``, an
+   int32-range ``score`` about 10% absent, a 50-value string, a bool),
+   exported by ``columnar.export_columns``: masked aggregates (count,
+   sum, min, max under two predicates) equal to numpy int64, a sum past
+   the 2^30 mass refused ``precision_overflow``; hop counts at 1 and 2
+   hops (``include_lower``, ``edge_unique``, ``need_distinct``),
+   unstaged and staged, equal to a scipy int64 count, a staged repeat
+   three K1 launches and no torch sort; top-k ASC / DESC with null keys
+   equal to a numpy stable sort; the ``lane`` op of an in-process kernel
+   server over its socket equal to the in-process totals, a refusal
+   typed.  ms a query per program after a warm call.
+27. (last) The out-of-core tier (``tier`` line, ``ops/tier.py``,
+   ``parallel/streamed.py``) on v0: the paging plan (16 blocks, the
+   generation's row slack), f32 / bf16 / int8; streamed PageRank at 50
+   iterations with exactly 16 + 50 x 16 K1 and 100 K2 launches,
+   bit-equal to its ``resident=True`` comparator at each precision and
+   within the main path's bounds of float64 (bf16, int8 within
+   ``PRECISION_BOUNDS`` of f32); katz bit-equal to its comparator and
+   within 1e-4 of float64; WCC equal to its comparator and to scipy.  An
+   in-process kernel server with a 256 MiB budget answers a pagerank
+   request ``streamed`` with the in-process bytes, a key-only repeat as
+   a hit; after a 1,000-edge commit (seed 17) as the delta payload the
+   generation's plan re-packs exactly the blocks the adds' sources own,
+   each block's edges equal a fresh ``plan_tier``'s, and the run warm
+   starts (fewer iterations than cold, within 1e-4 of float64); a
+   10-edge commit out of block 0 re-packs that block alone; under 32 MiB
+   the request is shed.  Each algorithm's streamed device peak against
+   ``streamed_request_bytes`` within [1x, 2x].  Wire and raw bytes a
+   sweep, H2D GB/s, the transfer's hidden share, ms an iteration.
+28. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
-   launches by path), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   launches by path, ``lane`` and ``tier`` among them), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -5455,6 +5486,567 @@ def drive_kernel_server(base, client, sock) -> dict:
             k: v for k, v in hc_.items()
             if k.startswith(("kernel_server.dispatch.", "delta.", "ppr."))}}
 
+LANE_SEED = 53              # the lane's vertex properties and masks
+LANE_LOOPS = 1_000          # self-loops planted in the lane's edge table
+LANE_REPS = 5               # staged hop queries timed
+LANE_CITIES = 50            # values of the string column
+TIER_BUDGET = 256 << 20     # the tier phase's admission budget
+TIER_SHED_BUDGET = 32 << 20
+TIER_FOOTPRINT_RANGE = (1.0, 2.0)   # streamed estimate over measured peak
+TIER_LOCAL_SEED = 59        # a commit of edges out of block 0's sources
+TIER_LOCAL_MOVES = 10
+
+
+@contextlib.contextmanager
+def served(**kw):
+    """A port KernelServer on the card in this process, serving a socket
+    of its own from a thread; yields (server, client).  The client shuts
+    it down on the way out."""
+    import tempfile
+    import threading
+    from memgraph_tpu_torch.server import kernel_server as ks
+    sock = os.path.join(tempfile.mkdtemp(prefix="mgks"), "ks.sock")
+    srv = ks.KernelServer(sock, device="cuda", **kw)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client, deadline = None, time.monotonic() + 60
+    while client is None and time.monotonic() < deadline:
+        try:
+            client = ks.KernelClient(sock, timeout=KS_TIMEOUT)
+        except OSError:
+            time.sleep(0.05)
+    check(client is not None and client.ping(),
+          "the in-process kernel server did not answer")
+    try:
+        yield srv, client
+    finally:
+        client.shutdown()
+        client.close()
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the kernel server did not stop")
+
+
+def lane_hops64(src, dst, emask, smask, midmask, tmask, n, hops,
+                include_lower, edge_unique) -> dict:
+    """The lane's path counts in int64 by scipy."""
+    import scipy.sparse as sp
+    s, d = src[emask], dst[emask]
+    a = sp.csr_matrix((np.ones(len(s), np.int64), (d, s)), shape=(n, n))
+    x0 = smask.astype(np.int64)
+    mid, tm = midmask.astype(np.int64), tmask.astype(np.int64)
+    x1 = a @ x0
+    p = np.zeros(n, np.int64)
+    if hops == 2:
+        p2 = (a @ (x1 * mid)) * tm
+        if edge_unique:
+            lp = s == d
+            sl = np.zeros(n, np.int64)
+            np.add.at(sl, d[lp], (x0 * mid)[s[lp]])
+            p2 -= sl * tm
+        p += p2
+    if hops == 1 or include_lower:
+        p += x1 * tm
+    return {"rows": int(p.sum()), "distinct": int((p > 0).sum())}
+
+
+@contextlib.contextmanager
+def counted_sorts():
+    """torch.sort and torch.argsort counted while inside."""
+    import torch
+    seen = {"sort": 0, "argsort": 0}
+    real = {k: getattr(torch, k) for k in seen}
+
+    def counting(name):
+        def run(*a, **k):
+            seen[name] += 1
+            return real[name](*a, **k)
+        return run
+
+    for k in seen:
+        setattr(torch, k, counting(k))
+    try:
+        yield seen
+    finally:
+        for k, fn in real.items():
+            setattr(torch, k, fn)
+
+
+def phase_lane(base: dict):
+    """The read lane (``lane`` line, ops/columnar.py and ops/
+    pipeline.py) on the north star v0's edges: a CooSource of them with
+    seeded vertex properties (``age`` in [0, 100), ``score`` over the
+    int32 range with about 10% absent, ``city`` of 50 strings, ``flag``
+    a bool), exported by ``columnar.export_columns`` (timed).  With the
+    counts set to 0 just before and read just after: two masked
+    aggregates (count, sum, min, max under two predicates) equal to
+    numpy int64, and a sum whose absolute mass passes 2^30 refused
+    ``precision_overflow``; hop counts at 1 and 2 hops (``include_lower``
+    and not, ``edge_unique`` with 1,000 planted self-loops,
+    ``need_distinct``) equal to a scipy int64 count, unstaged and on
+    staged edges (a repeat query on staged edges calls no torch sort);
+    top-k ASC and DESC with null keys equal to a numpy stable sort of the
+    same f32 keys; the ``lane`` op of an in-process port kernel server,
+    over its socket, equal to the in-process totals, and a refusal
+    answered typed.  K1 must have launched.  Prints ms a query per
+    program, staged and unstaged."""
+    import torch
+    from memgraph_tpu_torch.northstar import N_NODES, CooSource
+    from memgraph_tpu_torch.ops import columnar as C
+    from memgraph_tpu_torch.ops import pipeline as PL
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+
+    n = N_NODES
+    rng = np.random.default_rng(LANE_SEED)
+    age = rng.integers(0, 100, n)
+    score = rng.integers(-(2**31) + 1, 2**31 - 1, n).astype(object)
+    score[rng.random(n) < 0.1] = None
+    cities = np.array([f"city{k}" for k in range(LANE_CITIES)],
+                      dtype=object)
+    city = cities[rng.integers(0, LANE_CITIES, n)]
+    flag = rng.random(n) < 0.5
+    props = {"age": age, "score": score, "city": city, "flag": flag}
+    source = CooSource(base["src"], base["dst"], n, properties=props)
+    names = ("age", "score", "city", "flag")
+    t0 = time.perf_counter()
+    snap = C.export_columns(source, None, names)
+    export_s = time.perf_counter() - t0
+    kinds = {p: snap.columns[p].kind for p in names}
+    check(kinds == {"age": "int", "score": "int", "city": "str",
+                    "flag": "bool"}, f"the lane's column kinds: {kinds}")
+    cols = [snap.columns[p] for p in names]
+    vals = np.stack([PL.i32_column(c) for c in cols])
+    present = np.stack([c.present for c in cols])
+    check(int((~present[1]).sum()) == sum(v is None for v in score),
+          "the score column's absent rows are not the source's")
+    base_mask = np.ones(n, bool)
+    code7 = snap.columns["city"].vocab["city7"]
+
+    loops = rng.choice(n, LANE_LOOPS, replace=False).astype(np.int32)
+    src = np.concatenate([base["src"].astype(np.int32), loops])
+    dst = np.concatenate([base["dst"].astype(np.int32), loops])
+    emask = rng.random(len(src)) < 0.9
+    smask = age >= 90
+    midmask = flag.astype(np.float32)
+    tmask = present[1].astype(np.float32)
+    hop_cases = [(1, False, True), (2, False, True), (2, True, True),
+                 (2, False, False)]
+    agg_cases = [
+        (((0, ">="), (3, "=")), [30, 1],
+         (("count", None), ("sum", 0), ("min", 1), ("max", 1),
+          ("count", 1))),
+        (((2, "="), (0, "<")), [code7, 50],
+         (("count", None), ("sum", 0), ("min", 0), ("max", 0)))]
+    ms, got = {}, {}
+
+    def timed_ms(tag, fn, reps=LANE_REPS):
+        """fn's answer, and its ms a call over ``reps`` more calls."""
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - t0) / reps * 1e3
+        return out
+
+    # the lane's path: counts set to 0 just before, read just after
+    reset_all_counts()
+    for i, (preds, rhs, aggs) in enumerate(agg_cases):
+        got[f"agg{i}"] = timed_ms(f"aggregate_{i}", lambda: PL.masked_aggregate(
+            preds, aggs, vals, present, base_mask, rhs, device="cuda"))
+    try:
+        PL.masked_aggregate(((0, ">="),), (("sum", 1),), vals, present,
+                            base_mask, [0], device="cuda")
+        refused = None
+    except PL.LaneRefused as e:
+        refused = e.reason
+    check(refused == "precision_overflow",
+          f"a sum of mass past 2^30 was answered ({refused})")
+    masks = (smask, midmask, tmask)
+    for hops, low, uniq in hop_cases:
+        kw = dict(hops=hops, include_lower=low, edge_unique=uniq,
+                  need_rows=True, need_distinct=True)
+        got[("raw", hops, low, uniq)] = timed_ms(
+            f"hops{hops}_lower{int(low)}_unique{int(uniq)}_unstaged",
+            lambda: PL.hop_counts(src, dst, emask, *masks, n,
+                                  device="cuda", **kw))
+    staged = timed_ms("stage_edges", lambda: PL.stage_edges(
+        src, dst, emask, device="cuda"), reps=1)
+    for hops, low, uniq in hop_cases:
+        kw = dict(hops=hops, include_lower=low, edge_unique=uniq,
+                  need_rows=True, need_distinct=True)
+        got[("staged", hops, low, uniq)] = PL.hop_counts(
+            staged, None, None, *masks, n, **kw)
+    rep_kw = dict(hops=2, include_lower=False, edge_unique=True,
+                  need_rows=True, need_distinct=True)
+    k1_before = SC.csr_spmm_sum.launches
+    with counted_sorts() as sorts:
+        repeat = timed_ms("hops2_staged", lambda: PL.hop_counts(
+            staged, None, None, *masks, n, **rep_kw))
+    k1_repeat = (SC.csr_spmm_sum.launches - k1_before) / (LANE_REPS + 1)
+    keyv, keyp = vals[1], present[1]
+    for asc in (True, False):
+        got[("topk", asc)] = timed_ms(
+            f"topk_{'asc' if asc else 'desc'}", lambda: PL.masked_topk(
+                ((0, "<"),), asc, vals, present, keyv, keyp, [50],
+                device="cuda"))
+    with served() as (_srv, client):
+        remote = timed_ms("lane_op", lambda: client.lane_hops(
+            src, dst, emask, *masks, n_nodes=n, **rep_kw), reps=2)
+        over = (np.repeat(np.array([0, 1], np.int32), 5000),
+                np.repeat(np.array([1, 2], np.int32), 5000),
+                np.ones(10_000, bool), np.array([True, False, False]),
+                np.ones(3, np.float32), np.ones(3, np.float32))
+        try:
+            client.lane_hops(*over, n_nodes=3, hops=2)
+            remote_refused = None
+        except PL.LaneRefused as e:
+            remote_refused = e.reason
+    launches = all_counts()
+    check(launches["csr_spmm_sum"] > 0,
+          f"the lane's path launched no K1: {launches}")
+    check(k1_repeat == 3 and sorts == {"sort": 0, "argsort": 0},
+          f"a staged repeat query launched {k1_repeat} K1 a query (3 "
+          f"expected) and sorted {sorts}")
+    check(remote_refused == "precision_overflow",
+          f"the lane op's refusal came back as {remote_refused}")
+
+    # the answers
+    for i, (preds, rhs, aggs) in enumerate(agg_cases):
+        sel = base_mask.copy()
+        for (ci, op), r in zip(preds, rhs):
+            cmp = {">=": np.greater_equal, "=": np.equal,
+                   "<": np.less}[op]
+            sel &= cmp(vals[ci].astype(np.int64), r) & present[ci]
+        want = []
+        for kind, ci in aggs:
+            if ci is None:
+                want.append(int(sel.sum()))
+                continue
+            s = sel & present[ci]
+            v = vals[ci][s].astype(np.int64)
+            want.append({"count": int(s.sum()), "sum": int(v.sum()),
+                         "min": int(v.min()) if len(v) else None,
+                         "max": int(v.max()) if len(v) else None}[kind])
+        check(got[f"agg{i}"] == want,
+              f"aggregate {i}: {got[f'agg{i}']} != numpy {want}")
+    hop64 = {}
+    for hops, low, uniq in hop_cases:
+        want = lane_hops64(src, dst, emask, *masks, n, hops, low, uniq)
+        hop64[f"{hops}/{int(low)}/{int(uniq)}"] = want
+        for how in ("raw", "staged"):
+            check(got[(how, hops, low, uniq)] == want,
+                  f"{how} hop counts {hops}/{low}/{uniq}: "
+                  f"{got[(how, hops, low, uniq)]} != scipy {want}")
+    check(repeat == got[("staged", 2, False, True)] and remote == repeat,
+          f"the lane op's totals {remote} differ from in-process {repeat}")
+    for asc in (True, False):
+        order, count = got[("topk", asc)]
+        mask = (vals[0] < 50) & present[0]
+        kf = keyv.astype(np.float32) * np.float32(1 if asc else -1)
+        kf = np.where(keyp, kf, np.float32(3.0e38 if asc else -3.0e38))
+        kf = np.where(mask, kf, np.float32(np.inf))
+        check(count == int(mask.sum()) and np.array_equal(
+            order, np.argsort(kf, kind="stable")),
+              f"top-k {'ASC' if asc else 'DESC'} differs from numpy's "
+              f"stable sort")
+    summary = {"n_nodes": n, "n_edges": len(src), "export_s": export_s,
+               "ms": ms, "k1_per_staged_query": k1_repeat,
+               "aggregates": [got["agg0"], got["agg1"]],
+               "hops": hop64, "remote": remote, "launches": launches}
+    print("lane", json.dumps(summary), flush=True)
+    return launches
+
+
+def streamed_peak(run) -> int:
+    """``device_peak`` of a streamed run (its blocks' host copies pinned
+    before the measurement)."""
+    run()
+    return device_peak(run)
+
+
+def phase_tier(base: dict):
+    """The out-of-core tier (``tier`` line, ops/tier.py, parallel/
+    streamed.py) on the north star v0: its paging plan at f32 (16 blocks
+    of the uint16 codec), bf16 and int8 (the f32 plan's layout
+    re-packed).  With the counts set to 0 just before and read just
+    after: streamed f32 PageRank, 50 iterations, tol 0 (exactly 16 + 50 x
+    16 K1 launches and 100 K2), bit-equal to its ``resident=True``
+    comparator and within the main path's bounds of float64; katz (α =
+    0.05, 50 iterations) bit-equal to its comparator and within 1e-4 of
+    the largest float64 entry; WCC equal to its comparator and to
+    scipy's partition; bf16 and int8 PageRank bit-equal to their
+    comparators and within ``PRECISION_BOUNDS`` of f32.  Then, under an
+    in-process kernel server with a 256 MiB budget, over its socket: a
+    pagerank request (50 iterations, tol 0) answered ``streamed`` with
+    the in-process bytes, a key-only repeat a hit; a cold run at tol
+    1e-6; a commit of 1,000 added edges (seed 17) shipped as the delta
+    payload: the generation's plan re-packs exactly the blocks the adds'
+    sources own and reuses the rest, each block's edges equal a fresh
+    ``plan_tier`` of the spliced COO, and the warm run starts from the
+    previous ranks (fewer iterations than cold, within 1e-4 of float64's
+    largest entry); the same request under a 32 MiB budget is shed.
+    Each algorithm's streamed device peak against
+    ``streamed_request_bytes`` within [1x, 2x].  Prints wire and raw
+    bytes a sweep, H2D GB/s, the transfer's hidden share and ms an
+    iteration streamed against the comparator."""
+    import torch
+    from scipy.sparse import csgraph
+    from memgraph_tpu_torch.northstar import N_NODES
+    from memgraph_tpu_torch.ops import tier as T
+    from memgraph_tpu_torch.ops.delta import TIER_ROW_SLACK, incident_edges
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+    from memgraph_tpu_torch.parallel import streamed as ST
+    from memgraph_tpu_torch.server import kernel_server as ks
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
+    n = N_NODES
+    src0, dst0 = base["src"], base["dst"]
+    e = len(src0)
+    t0 = time.perf_counter()
+    # the plan a generation of the kernel server keeps (room for commits)
+    tiers = {"f32": T.plan_tier(src0, dst0, None, n, slack=TIER_ROW_SLACK)}
+    plan_s = time.perf_counter() - t0
+    for p in ("bf16", "int8"):
+        tiers[p] = T.tier_from_scsr(tiers["f32"].scsr, p)
+    t32 = tiers["f32"]
+    check(t32.u16 and t32.n_blocks == T.plan_blocks(n, e),
+          f"the f32 plan has {t32.n_blocks} blocks")
+    kw = dict(max_iterations=ITERATIONS, tol=0.0, device="cuda")
+    stats, runs, secs = {}, {}, {}
+
+    def timed(tag, fn):
+        runs[tag], secs[tag] = timed_run(fn)
+        return runs[tag]
+
+    # the tier's path: counts set to 0 just before, read just after
+    reset_all_counts()
+    stats["f32"] = {}
+    timed("pagerank f32", lambda: ST.pagerank_streamed(
+        t32, stats=stats["f32"], **kw))
+    first = all_counts()
+    per_run = {"csr_spmm_sum": t32.n_blocks * (1 + ITERATIONS),
+               "lane_sum": 2 * ITERATIONS}
+    check(all(first[k] == v for k, v in per_run.items()),
+          f"streamed PageRank launched {first}, expected {per_run}")
+    timed("pagerank f32 resident", lambda: ST.pagerank_streamed(
+        t32, resident=True, **kw))
+    for p in ("bf16", "int8"):
+        stats[p] = {}
+        timed(f"pagerank {p}", lambda: ST.pagerank_streamed(
+            tiers[p], stats=stats[p], **kw))
+        timed(f"pagerank {p} resident", lambda: ST.pagerank_streamed(
+            tiers[p], resident=True, **kw))
+    stats["katz"] = {}
+    timed("katz", lambda: ST.katz_streamed(
+        t32, alpha=KATZ_ALPHA, beta=KATZ_BETA, stats=stats["katz"], **kw))
+    timed("katz resident", lambda: ST.katz_streamed(
+        t32, alpha=KATZ_ALPHA, beta=KATZ_BETA, resident=True, **kw))
+    stats["wcc"] = {}
+    timed("wcc", lambda: ST.wcc_streamed(t32, stats=stats["wcc"],
+                                         device="cuda"))
+    timed("wcc resident", lambda: ST.wcc_streamed(t32, resident=True,
+                                                  device="cuda"))
+
+    # over the server: streamed, a hit, a commit's warm start, shed
+    arrays = {"src": np.asarray(src0, np.int64),
+              "dst": np.asarray(dst0, np.int64)}
+    key = "tier-north-star"
+    op = {"graph_key": key, "n_nodes": n}
+    repacked0 = global_metrics.value("tier.blocks_repacked_total")
+    reused0 = global_metrics.value("tier.blocks_reused_total")
+    streamed0 = global_metrics.value("tier.admission_streamed_total")
+    with served(hbm_budget_bytes=TIER_BUDGET) as (srv, client):
+        (h_s, out_s), secs["server pagerank"] = timed_run(
+            lambda: client.call_pagerank(
+                src=arrays["src"], dst=arrays["dst"], graph_version=1,
+                damping=DAMPING, max_iterations=ITERATIONS, tol=0.0, **op))
+        h_hit, out_hit = client.call_pagerank(
+            graph_version=1, damping=DAMPING, max_iterations=ITERATIONS,
+            tol=0.0, **op)
+        (h_c, _), secs["server cold"] = timed_run(
+            lambda: client.call_pagerank(graph_version=1, tol=KS_PR_TOL,
+                                         **op))
+        gen = srv._graphs.peek(key)
+        plan0 = gen.tiers[("f32", None)]
+        rng = np.random.default_rng(WARM_ADD_SEED)
+        add_src = rng.integers(0, n, WARM_MOVES)
+        add_dst = (rng.random(WARM_MOVES) ** 2 * n).astype(np.int64)
+        src1 = np.concatenate([arrays["src"], add_src])
+        dst1 = np.concatenate([arrays["dst"], add_dst])
+        w1 = np.ones(len(src1), np.float32)
+        changed = np.unique(np.concatenate([add_src, add_dst]))
+        bitmap = np.zeros(n, dtype=bool)
+        bitmap[changed] = True
+        inc = incident_edges(src1, dst1, w1, bitmap)
+        (h_w, out_w), secs["server warm"] = timed_run(
+            lambda: client.call_pagerank(
+                graph_version=2, base_version=1, tol=KS_PR_TOL,
+                changed=changed, inc_src=inc[0], inc_dst=inc[1],
+                inc_w=inc[2], **op))
+        plan1 = gen.tiers[("f32", None)]
+        moved1 = {k: global_metrics.value(f"tier.blocks_{k}_total")
+                  for k in ("repacked", "reused")}
+        # a commit of edges out of block 0's sources: one block re-packed
+        rl = np.random.default_rng(TIER_LOCAL_SEED)
+        loc_src = rl.integers(0, plan1.block, TIER_LOCAL_MOVES)
+        loc_dst = rl.integers(0, n, TIER_LOCAL_MOVES)
+        src2 = np.concatenate([src1, loc_src])
+        dst2 = np.concatenate([dst1, loc_dst])
+        changed2 = np.unique(np.concatenate([loc_src, loc_dst]))
+        bitmap = np.zeros(n, dtype=bool)
+        bitmap[changed2] = True
+        inc2 = incident_edges(src2, dst2, np.ones(len(src2), np.float32),
+                              bitmap)
+        h_l, _ = client.call_pagerank(
+            graph_version=3, base_version=2, tol=KS_PR_TOL,
+            changed=changed2, inc_src=inc2[0], inc_dst=inc2[1],
+            inc_w=inc2[2], **op)
+        plan2 = gen.tiers[("f32", None)]
+        local = {k: global_metrics.value(f"tier.blocks_{k}_total")
+                 - moved1[k] for k in ("repacked", "reused")}
+        local["kept"] = [p for p in range(plan1.n_blocks)
+                         if plan2.blocks[p] is plan1.blocks[p]]
+    launches = all_counts()
+    streamed_replies = global_metrics.value(
+        "tier.admission_streamed_total") - streamed0
+    with served(hbm_budget_bytes=TIER_SHED_BUDGET) as (_srv, client):
+        try:
+            client.call_pagerank(src=arrays["src"], dst=arrays["dst"],
+                                 graph_version=1, max_iterations=ITERATIONS,
+                                 tol=0.0, **op)
+            shed = None
+        except ks.KernelServerError as exc:
+            shed = exc.outcome
+    check(launches["csr_spmm_sum"] > 0 and launches["lane_sum"] > 0,
+          f"the tier's path launched {launches}")
+
+    # the answers
+    ranks, _, it32 = runs["pagerank f32"]
+    check(it32 == ITERATIONS and ranks.shape == (n,)
+          and bool(np.isfinite(ranks).all()),
+          f"streamed PageRank ran {it32} iterations")
+    ref = base["ref"]
+    a = ranks.astype(np.float64)
+    vs64 = {"max_rel": float((np.abs(a - ref) / ref).max()),
+            "l1": float(np.abs(a - ref).sum())}
+    check(vs64["max_rel"] <= F32_REL_TOL and vs64["l1"] <= F32_L1_TOL,
+          f"streamed PageRank off float64: {vs64}")
+    bit_equal = {}
+    for tag in ("pagerank f32", "pagerank bf16", "pagerank int8", "katz",
+                "wcc"):
+        s, r = runs[tag], runs[f"{tag} resident"]
+        bit_equal[tag] = s[0].tobytes() == r[0].tobytes() and s[2] == r[2]
+    check(all(bit_equal.values()),
+          f"streamed differs from its resident comparator: {bit_equal}")
+    reduced = {}
+    for p in ("bf16", "int8"):
+        d = np.abs(runs[f"pagerank {p}"][0] - ranks)
+        reduced[p] = {"linf": float(d.max()), "l1": float(d.sum())}
+        b = PRECISION_BOUNDS[p]
+        check(reduced[p]["linf"] <= b["pagerank_linf"]
+              and reduced[p]["l1"] <= b["pagerank_l1"],
+              f"{p} streamed PageRank outside its bounds: {reduced[p]}")
+    a_t = transposed_adjacency(src0, dst0, n)
+    kref = reference_katz(a_t, KATZ_ALPHA)
+    kref = kref / np.linalg.norm(kref)
+    katz_err = float(np.abs(runs["katz"][0] - kref).max()
+                     / np.abs(kref).max())
+    check(runs["katz"][2] <= ITERATIONS and katz_err <= F32_REL_TOL,
+          f"streamed katz off float64: {katz_err}")
+    _, labels = csgraph.connected_components(a_t, directed=True,
+                                             connection="weak")
+    check(np.array_equal(min_index_labels(runs["wcc"][0]),
+                         min_index_labels(labels)),
+          "streamed WCC's partition differs from scipy's")
+
+    check(h_s.get("tier") == "streamed" and streamed_replies >= 1
+          and out_s["ranks"].tobytes() == ranks.tobytes(),
+          f"the server's pagerank reply {h_s} is not the streamed bytes")
+    check(h_hit.get("cache") == "hit"
+          and out_hit["ranks"].tobytes() == ranks.tobytes(),
+          "a key-only repeat was not a hit with the same bytes")
+    check(shed == "shed", f"under {TIER_SHED_BUDGET} bytes the request "
+                          f"was answered {shed}")
+    touched = np.unique(add_src // plan0.block)
+    kept = [p for p in range(plan0.n_blocks)
+            if plan1.blocks[p] is plan0.blocks[p]]
+    check(sorted(set(range(plan0.n_blocks)) - set(kept))
+          == touched.tolist(),
+          f"the commit re-packed blocks other than {touched.tolist()}")
+    check(moved1["repacked"] - repacked0 == len(touched)
+          and moved1["reused"] - reused0 == plan0.n_blocks - len(touched),
+          f"the re-pack counters ({moved1}, from {repacked0} and "
+          f"{reused0}) do not match the {len(touched)} touched blocks")
+    check(h_l.get("tier") == "streamed" and h_l["warm_started"]
+          and local == {"repacked": 1, "reused": plan1.n_blocks - 1,
+                        "kept": list(range(1, plan1.n_blocks))},
+          f"a commit out of block 0 re-packed {local} ({h_l})")
+    fresh = T.plan_tier(src1, dst1, None, n, n_blocks=plan1.n_blocks)
+    for p in range(plan1.n_blocks):
+        rows = []
+        for t in (plan1, fresh):
+            rc = int(t.blocks[p].payload["rc"])
+            rows.append((t.scsr.src[p][:rc], t.scsr.dst[p][:rc],
+                         t.scsr.weights[p][:rc]))
+        check(all(np.array_equal(x, y) for x, y in zip(*rows)),
+              f"block {p} after the commit differs from a fresh plan's")
+    ref1 = reference_pagerank(src1, dst1, n, iterations=KS_REF_ITERATIONS)
+    warm_err = float(np.abs(out_w["ranks"] - ref1).max() / ref1.max())
+    check(h_w.get("tier") == "streamed" and h_w["warm_started"]
+          and h_w["iters"] < h_c["iters"] and warm_err <= F32_REL_TOL,
+          f"the warm streamed run {h_w} (cold {h_c}, {warm_err} off "
+          f"float64)")
+
+    # device peaks against the streamed estimate
+    peaks = []
+    for algo, p, fn in (
+            ("pagerank", "f32", lambda: ST.pagerank_streamed(
+                t32, max_iterations=2, tol=0.0, device="cuda")),
+            ("pagerank", "bf16", lambda: ST.pagerank_streamed(
+                tiers["bf16"], max_iterations=2, tol=0.0, device="cuda")),
+            ("pagerank", "int8", lambda: ST.pagerank_streamed(
+                tiers["int8"], max_iterations=2, tol=0.0, device="cuda")),
+            ("katz", "f32", lambda: ST.katz_streamed(
+                t32, max_iterations=2, tol=0.0, device="cuda")),
+            ("wcc", "f32", lambda: ST.wcc_streamed(
+                t32, max_iterations=2, device="cuda"))):
+        peak = streamed_peak(fn)
+        est = T.streamed_request_bytes(n, e, p, algorithm=algo)
+        peaks.append({"algorithm": algo, "precision": p,
+                      "peak_bytes": peak, "estimate_bytes": est,
+                      "estimate_over_peak": est / max(peak, 1)})
+    torch.cuda.empty_cache()
+    s32 = stats["f32"]
+    summary = {
+        "n_nodes": n, "n_edges": e, "n_blocks": t32.n_blocks,
+        "per": t32.per, "block": t32.block, "plan_s": plan_s,
+        "wire_bytes_per_sweep": {p: t.wire_bytes_per_sweep
+                                 for p, t in tiers.items()},
+        "raw_bytes_per_sweep": t32.raw_bytes_per_sweep,
+        "h2d_gb_per_s": s32["wire_bytes_per_sweep"]
+        / max(s32["serial_transfer_s"], 1e-12) / 1e9,
+        "stats": stats,
+        "ms_per_iteration": {
+            tag: secs[tag] / max(runs[tag][2], 1) * 1e3
+            for tag in runs},
+        "seconds": secs, "vs_float64": vs64, "reduced": reduced,
+        "katz_vs_float64": katz_err, "bit_equal": bit_equal,
+        "server": {"streamed": h_s, "cold": h_c, "warm": h_w,
+                   "warm_vs_float64": warm_err, "shed": shed,
+                   "touched_blocks": touched.tolist(), "local": h_l,
+                   "local_blocks": local},
+        "peaks": peaks, "launches": launches}
+    print("tier", json.dumps(summary, default=float), flush=True)
+    for ln in peaks:
+        lo, hi = TIER_FOOTPRINT_RANGE
+        check(lo <= ln["estimate_over_peak"] <= hi,
+              f"the streamed estimate of {ln['algorithm']} "
+              f"{ln['precision']} is {ln['estimate_over_peak']:.3f} x its "
+              f"measured peak, outside [{lo}, {hi}]")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5524,7 +6116,9 @@ def main():
         "similarity": timed("similarity", phase_similarity, base),
         "node2vec": timed("node2vec", phase_node2vec, base),
         "gnn_train": timed("gnn_train", phase_gnn_train, base),
-        "communities": timed("communities", phase_communities, base)})
+        "communities": timed("communities", phase_communities, base),
+        "lane": timed("lane", phase_lane, base),
+        "tier": timed("tier", phase_tier, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

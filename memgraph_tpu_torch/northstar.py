@@ -240,6 +240,12 @@ class CooSource:
             out += [ends[1 - side], ends[2] if weighted else None]
         return tuple(out)
 
+    def edge_keys(self):
+        """(edge ids, type ids) of the current edges, in ``edges``' order
+        (one edge type: 0), for the columnar edge table."""
+        ids = self.alive_ids()
+        return ids, np.zeros(len(ids), dtype=np.int32)
+
     def vertex_property(self, name, gids):
         rows = self._props.get(name)
         odd = self._prop_odd.get(name, {})

@@ -598,3 +598,101 @@ class GraphCache:
 
 
 GLOBAL_GRAPH_CACHE = GraphCache()
+
+
+# ---------------------------------------------------------------------------
+# partition-centric blocked layout (host half)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardedCSR:
+    """Partition-centric (owner block, dst block)-blocked edge layout.
+
+    Port of the host half of memgraph_tpu/ops/csr.py's ``ShardedCSR``:
+    vertices are split into ``n_shards`` contiguous blocks of ``block``
+    ids (padded to n_pad2 = n_shards * block, so ``n_nodes % n_shards``
+    just pads the last block); every edge is owned by the block of its
+    ``by`` endpoint ("src" for the pull-style SpMV, "dst" for label
+    propagation).  Within a row, edges are (dst, src)-sorted, so a row is
+    a concatenation of (owner, dst-block) runs: the run into block q is
+    ``block_ptr[p, q]:block_ptr[p, q+1]``.
+
+    Arrays are numpy, stacked (n_shards, per).  The streamed tier
+    (ops/tier.py) encodes each row as one host-pinned block; placing the
+    rows one a card (``to_device``, ``refresh``, ``shard_csr``) waits for
+    the mesh.
+
+    Padding edges: src = the row's block base, dst = n_nodes (the sink
+    row, always < n_pad2), weight 0, at the row's tail so dst stays
+    sorted."""
+
+    src: np.ndarray          # (P, per) int32
+    dst: np.ndarray          # (P, per) int32
+    weights: np.ndarray      # (P, per) float32
+    block_ptr: np.ndarray    # (P, P+1) int32: (p, q)-run boundaries
+    n_nodes: int
+    n_edges: int
+    n_shards: int
+    block: int               # vertices a block
+    n_pad2: int              # n_shards * block
+    per: int                 # edges a row (padding included)
+    by: str                  # "src" | "dst": the owning endpoint
+
+
+def _ceil_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def shard_edges(src, dst, weights, n_nodes: int, n_shards: int,
+                by: str = "src", block_multiple: int = 8,
+                slack: float = 0.0) -> ShardedCSR:
+    """Block COO edges partition-centrically over ``n_shards`` rows (the
+    reference's arrays, one for one).  ``block`` is rounded up to
+    ``block_multiple``.  ``slack`` (port only; 0: the reference's layout)
+    widens every row by that share of the fullest row, so that edges a
+    commit adds fit in place (ops/delta.py ``apply_edge_delta``)."""
+    if by not in ("src", "dst"):
+        raise ValueError(f"by must be 'src' or 'dst', got {by!r}")
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    n_edges = len(src)
+    w = (np.ones(n_edges, dtype=np.float32) if weights is None
+         else np.asarray(weights, dtype=np.float32))
+    # +1: the sink row n_nodes must exist inside the padded vertex space
+    block = _ceil_multiple(max((n_nodes + 1 + n_shards - 1) // n_shards, 1),
+                           block_multiple)
+    n_pad2 = n_shards * block
+
+    owner = (src if by == "src" else dst) // block
+    if n_shards * n_pad2 * n_pad2 < 2**62:
+        # the lexsort's (owner, dst, src) order as one stable int64 sort
+        order = np.argsort((owner * n_pad2 + dst) * n_pad2 + src,
+                           kind="stable")
+    else:
+        order = np.lexsort((src, dst, owner))
+    s_s, d_s, w_s = src[order], dst[order], w[order]
+    counts = np.bincount(owner, minlength=n_shards)
+    fullest = int(counts.max(initial=0))
+    if slack > 0:
+        fullest += int(np.ceil(fullest * slack))
+    per = _ceil_multiple(max(fullest, 1), block_multiple)
+
+    src_b = np.empty((n_shards, per), dtype=np.int32)
+    dst_b = np.full((n_shards, per), n_nodes, dtype=np.int32)
+    w_b = np.zeros((n_shards, per), dtype=np.float32)
+    # padding src gathers in bounds on its own block: the block base
+    src_b[:] = (np.arange(n_shards, dtype=np.int32) * block)[:, None]
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    bounds = np.arange(n_shards + 1, dtype=np.int64) * block
+    block_ptr = np.empty((n_shards, n_shards + 1), dtype=np.int32)
+    for p in range(n_shards):
+        lo, hi = offsets[p], offsets[p + 1]
+        src_b[p, :hi - lo] = s_s[lo:hi]
+        dst_b[p, :hi - lo] = d_s[lo:hi]
+        w_b[p, :hi - lo] = w_s[lo:hi]
+        block_ptr[p] = np.searchsorted(dst_b[p], bounds)
+    return ShardedCSR(src=src_b, dst=dst_b, weights=w_b,
+                      block_ptr=block_ptr, n_nodes=n_nodes,
+                      n_edges=n_edges, n_shards=n_shards, block=block,
+                      n_pad2=n_pad2, per=per, by=by)

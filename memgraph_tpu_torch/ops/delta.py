@@ -54,10 +54,14 @@ The reference's metrics (``delta.applied_total``,
 the ``delta.resident_generations`` gauge) count the work of the warm
 pool, the resident layer and ``GraphCache`` in
 ``utils.metrics.global_metrics``, which the server's health reply
-ships.  Not ported: ``apply_edge_delta`` over a sharded CSR and
-the resident generation's sharded variants (``ensure_sharded``, which
-wait for the mesh) and its streamed paging plans (``ensure_tier``,
-which wait for ``ops/tier.py``).
+ships.
+
+``apply_edge_delta`` splices a delta into a host ``ShardedCSR``
+(ops/csr.py), rewriting only the rows it touches; a resident
+generation's streamed paging plans (``ResidentGraph.ensure_tier``,
+ops/tier.py) move by it on every commit, re-packing only the touched
+blocks.  Not ported: the generation's placed sharded variants
+(``ensure_sharded``), which wait for the mesh.
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..utils.metrics import global_metrics
-from .csr import (ChangeLogUnknowable, DeviceGraph, _raw, _weights,
-                  from_coo)
+from .csr import (ChangeLogUnknowable, DeviceGraph, ShardedCSR, _raw,
+                  _weights, from_coo)
 
 log = logging.getLogger(__name__)
 
@@ -83,6 +87,13 @@ DELTA_COMPACT_FRACTION = 0.25
 
 #: a single delta larger than this fraction of the edges compacts outright
 DELTA_MAX_FRACTION = 0.25
+
+#: the room a generation's paging plan keeps in each row for added edges,
+#: as a share of its fullest row (ops/tier.py ``plan_tier(slack=)``): the
+#: reference plans rows with none, so the first commit that adds to the
+#: fullest row overflows it and drops the plan for a cold re-encode.  It
+#: costs this share of padding in the wire bytes of a sweep.
+TIER_ROW_SLACK = 1 / 64
 
 #: per-algorithm warm-start contracts:
 #:   "always"     a contraction with one fixpoint: any seed converges to
@@ -538,6 +549,113 @@ class LocalWarmPool:
 GLOBAL_WARM_POOL = LocalWarmPool()
 
 
+# --- the host ShardedCSR splice ----------------------------------------------
+
+
+def _row_real_count(dst_row: np.ndarray, sink: int) -> int:
+    """Real edges in a (dst, src)-sorted row (padding entries all carry
+    dst == sink and sort to the tail)."""
+    return int(np.searchsorted(dst_row, sink, side="left"))
+
+
+def _match_removals(row_src, row_dst, row_w, rem_src, rem_dst, rem_w,
+                    n_pad2: int):
+    """Row positions matching each removal triple, or None if any removal
+    has no match (an inconsistent delta: the caller rebuilds).  The row
+    is (dst, src)-sorted, so each (dst, src) run is a binary search; the
+    weight is matched by a scan of the (tiny) run."""
+    key_row = row_dst.astype(np.int64) * n_pad2 + row_src
+    out = []
+    used: set = set()
+    for s, d, w in zip(rem_src, rem_dst, rem_w):
+        k = int(d) * n_pad2 + int(s)
+        lo = int(np.searchsorted(key_row, k, side="left"))
+        hi = int(np.searchsorted(key_row, k, side="right"))
+        hit = next((i for i in range(lo, hi)
+                    if i not in used and row_w[i] == w), -1)
+        if hit < 0:
+            return None
+        used.add(hit)
+        out.append(hit)
+    return out
+
+
+def apply_edge_delta(scsr: ShardedCSR, delta: EdgeDelta):
+    """Splice an EdgeDelta into a host ShardedCSR.
+
+    O(delta) index work plus an O(row) merge for the rows the delta
+    touches; every other row (its arrays and block_ptr) is kept as it
+    is, and the full build's global sort never runs.  Returns the new
+    ShardedCSR (``scsr`` itself for an empty delta), or None when the
+    splice cannot keep the layout (a row overflows its ``per`` capacity,
+    a removal matches no edge, an endpoint lies outside the layout): the
+    caller rebuilds."""
+    if not isinstance(scsr.src, np.ndarray):
+        raise ValueError("apply_edge_delta needs the HOST-side layout")
+    if delta.n_delta == 0:
+        return scsr
+    block, n_shards, per = scsr.block, scsr.n_shards, scsr.per
+    sink = scsr.n_nodes
+    by_src = scsr.by == "src"
+    add_owner = (delta.add_src if by_src else delta.add_dst) // block
+    rem_owner = (delta.rem_src if by_src else delta.rem_dst) // block
+    affected = np.union1d(np.unique(add_owner), np.unique(rem_owner))
+    if len(affected) and (affected.min() < 0
+                          or affected.max() >= n_shards):
+        return None
+
+    src_b = scsr.src.copy()
+    dst_b = scsr.dst.copy()
+    w_b = scsr.weights.copy()
+    block_ptr = scsr.block_ptr.copy()
+    shard_bounds = np.arange(n_shards + 1, dtype=np.int64) * block
+
+    for p in affected:
+        p = int(p)
+        rc = _row_real_count(dst_b[p], sink)
+        r_sel = rem_owner == p
+        a_sel = add_owner == p
+        row_s, row_d, row_w = src_b[p, :rc], dst_b[p, :rc], w_b[p, :rc]
+        keep = np.ones(rc, dtype=bool)
+        if r_sel.any():
+            hits = _match_removals(
+                row_s, row_d, row_w, delta.rem_src[r_sel],
+                delta.rem_dst[r_sel], delta.rem_w[r_sel], scsr.n_pad2)
+            if hits is None:
+                return None
+            keep[hits] = False
+        a_s = delta.add_src[a_sel]
+        a_d = delta.add_dst[a_sel]
+        a_w = delta.add_w[a_sel]
+        new_rc = int(keep.sum()) + len(a_s)
+        if new_rc > per:
+            return None           # capacity overflow: compaction
+        k_s, k_d, k_w = row_s[keep], row_d[keep], row_w[keep]
+        if len(a_s):
+            order = np.lexsort((a_s, a_d))
+            a_s, a_d, a_w = a_s[order], a_d[order], a_w[order]
+            # merge-insert into the (dst, src)-sorted survivors
+            kept_key = k_d.astype(np.int64) * scsr.n_pad2 + k_s
+            add_key = a_d.astype(np.int64) * scsr.n_pad2 + a_s
+            pos = np.searchsorted(kept_key, add_key, side="left")
+            k_s = np.insert(k_s, pos, a_s.astype(np.int32))
+            k_d = np.insert(k_d, pos, a_d.astype(np.int32))
+            k_w = np.insert(k_w, pos, a_w)
+        src_b[p, :new_rc] = k_s
+        dst_b[p, :new_rc] = k_d
+        w_b[p, :new_rc] = k_w
+        src_b[p, new_rc:] = np.int32(p * block)   # padding convention
+        dst_b[p, new_rc:] = np.int32(sink)
+        w_b[p, new_rc:] = 0.0
+        block_ptr[p] = np.searchsorted(dst_b[p], shard_bounds)
+
+    n_edges = scsr.n_edges + len(delta.add_src) - len(delta.rem_src)
+    return ShardedCSR(src=src_b, dst=dst_b, weights=w_b,
+                      block_ptr=block_ptr, n_nodes=scsr.n_nodes,
+                      n_edges=n_edges, n_shards=n_shards, block=block,
+                      n_pad2=scsr.n_pad2, per=per, by=scsr.by)
+
+
 # --- resident generations (the kernel server's) ------------------------------
 
 
@@ -556,8 +674,8 @@ class ResidentGraph:
     past ``ops.pagerank.DELTA_RECOMPACT_FRACTION``."""
 
     __slots__ = ("graph_key", "version", "solutions", "delta_edges",
-                 "base_edges", "_graph", "_coo", "_n_nodes", "_node_gids",
-                 "_device", "_anchor", "_anchor_changed")
+                 "base_edges", "tiers", "_graph", "_coo", "_n_nodes",
+                 "_node_gids", "_device", "_anchor", "_anchor_changed")
 
     def __init__(self, graph_key, version: int,
                  graph: DeviceGraph) -> None:
@@ -575,6 +693,8 @@ class ResidentGraph:
         self._anchor_changed: set = set()
         #: algo -> _Solution (the hits and the warm-start seeds)
         self.solutions: dict = {}
+        #: (precision, block_bytes) -> TierCSR (the streamed paging plans)
+        self.tiers: dict = {}
         self.delta_edges = 0
         self.base_edges = int(graph.n_edges)
 
@@ -614,11 +734,33 @@ class ResidentGraph:
                                    time.perf_counter() - t0)
         return self._graph
 
+    def ensure_tier(self, precision: str = "f32",
+                    block_bytes: int | None = None):
+        """The generation's streamed paging plan (ops/tier.py), built once
+        from the host COO and then moved by each commit (``apply``
+        re-packs only the touched blocks, into the room each row keeps,
+        ``TIER_ROW_SLACK``).  Nothing is placed: the blocks stay on the
+        host and the streamed fixpoints copy them a sweep at a time."""
+        from . import tier as mgtier
+        key = (precision, block_bytes)
+        t = self.tiers.get(key)
+        if t is None:
+            src, dst, w = self._coo
+            t = mgtier.plan_tier(
+                src.astype(np.int64), dst.astype(np.int64),
+                np.asarray(w, dtype=np.float32), self._n_nodes,
+                precision=precision, block_bytes=block_bytes,
+                slack=TIER_ROW_SLACK)
+            self.tiers[key] = t
+        return t
+
     # --- delta application -------------------------------------------------
 
     def apply(self, delta: EdgeDelta) -> bool:
         """Advance the generation by one EdgeDelta: splice the COO and
-        drop the snapshot (rebuilt lazily).  An oversized delta, or deltas
+        drop the snapshot (rebuilt lazily); each paging plan moves by the
+        same delta, re-packing only its touched blocks (a row overflow
+        drops the plan, which ``ensure_tier`` rebuilds from the COO).  An oversized delta, or deltas
         accumulated past ``DELTA_COMPACT_FRACTION`` of the edges, compact
         (``delta.compacted_total``).  False when a removal matches no edge
         (``delta.fallback_rebuild_total``): the caller re-imports.  The
@@ -647,6 +789,7 @@ class ResidentGraph:
         if self.delta_edges > DELTA_COMPACT_FRACTION * max(self.base_edges,
                                                            1):
             return self._compact(None, why="accumulated deltas")
+        self._splice_tiers(delta)
         global_metrics.increment("delta.applied_total")
         global_metrics.observe("delta.edge_count", float(delta.n_delta))
         return True
@@ -671,14 +814,28 @@ class ResidentGraph:
         self._graph = None
         return True
 
+    def _splice_tiers(self, delta: EdgeDelta) -> None:
+        new_tiers = {}
+        for key, t in self.tiers.items():
+            nt = t.apply_delta(delta)
+            if nt is None:
+                global_metrics.increment("delta.compacted_total")
+                log.info("delta: tier %s of %s overflowed its row capacity: "
+                         "dropped for a lazy rebuild", key, self.graph_key)
+            else:
+                new_tiers[key] = nt
+        self.tiers = new_tiers
+
     def _compact(self, delta, why: str) -> bool:
         """Splice ``delta`` (when given) and restart the accumulation
         count: the COO is exact either way, the next snapshot is built
-        from it and its plan follows the DeltaPlan rule."""
+        from it and its plan follows the DeltaPlan rule; the paging plans
+        are dropped (``ensure_tier`` rebuilds them from the COO)."""
         if delta is not None:
             if not self._splice(delta):
                 return False
             self._note_moved(delta)
+        self.tiers = {}
         self.delta_edges = 0
         self.base_edges = self.n_edges
         global_metrics.increment("delta.compacted_total")

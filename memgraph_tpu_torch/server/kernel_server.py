@@ -19,10 +19,14 @@ paid the process start, the CUDA context and the kernels' load.
     against a budget: 75% of the card's free bytes when the daemon
     starts (``torch.cuda.mem_get_info``; another process, such as the
     caller's, may hold memory already), ``MEMGRAPH_TPU_HBM_BUDGET_BYTES``
-    when set, 4 GiB on the CPU.  A request over it is shed, typed and
-    counted.  The reference's third verdict, the streamed out-of-core
-    run, waits for ``ops/tier.py``: here a request runs resident or is
-    shed.
+    when set, 4 GiB on the CPU.  The guard has the reference's three
+    verdicts (``tier.admission_{verdict}_total``): a request that fits
+    runs resident; a pagerank, katz or wcc request over the budget whose
+    STREAMED working set fits it (ops/tier.py
+    ``streamed_request_bytes``) runs streamed, its edges as host blocks
+    copied through the card a sweep at a time (parallel/streamed.py,
+    from the generation's ``ensure_tier``; the reply says ``"tier":
+    "streamed"``); anything else is shed, typed and counted.
   * Graphs stay resident per ``graph_key`` as generations
     (ops/delta.py ``ResidentGraph`` in a ``ResidentRegistry``): a request
     at a newer ``graph_version`` with the change log's delta payload
@@ -47,9 +51,13 @@ paid the process start, the CUDA context and the kernels' load.
     warm seeds, invalidated by the shipped change set one hop out (the
     reference's rule: a hit after a commit may be v0's vector; ROADMAP
     Queue 3 item 6).
-  * ``lane`` (the read lane) answers ``invalid``: it needs
-    ``ops/pipeline.py``, not ported yet.  A request's ``trace`` carrier
-    is accepted and dropped (the port has no ``observability/trace.py``).
+  * ``lane`` runs the read lane's hop count (ops/pipeline.py
+    ``hop_counts``, K1) over the request's edge arrays and masks: ``{"ok":
+    true, "rows" / "distinct"}``; a refusal of the lane's exactness
+    witness answers ``invalid`` with ``lane_refused: <reason>``, and a
+    failed launch is a typed ``device_error``, never a refusal.  A
+    request's ``trace`` carrier is accepted and dropped (the port has no
+    ``observability/trace.py``).
 
 The wire is the reference's, byte for byte, so the JAX package's own
 ``KernelClient`` talks to this daemon: length-prefixed frames, each a
@@ -246,6 +254,48 @@ def _ppr_chunk_lanes(n_nodes: int, n_edges: int, budget: int) -> int:
         if graph + _lane_state_bytes(n_nodes, n_edges, b) <= budget:
             return b
     return 1
+
+
+def _tier_precision(precision) -> str:
+    """The block codec's precision for a streamed run: the request's when
+    the codec has it, f32 otherwise."""
+    p = str(precision)
+    return p if p in ("f32", "bf16", "int8") else "f32"
+
+
+#: the algorithms a streamed run serves (parallel/streamed.py)
+_STREAMABLE = ("pagerank", "katz", "wcc")
+
+
+def run_streamed(gen, algorithm: str, header: dict, x0=None, device=None):
+    """One streamed algorithm over a generation's paging plan with a
+    request's parameters: (host answer, err or None, iterations)."""
+    from ..parallel import streamed as ST
+    max_iterations = int(header.get("max_iterations", 100))
+    precision = _tier_precision(header.get("precision", "f32"))
+    if algorithm == "pagerank":
+        x, err, iters = ST.pagerank_streamed(
+            gen.ensure_tier(precision),
+            damping=float(header.get("damping", 0.85)),
+            max_iterations=max_iterations,
+            tol=float(header.get("tol", 1e-6)), x0=x0, device=device)
+    elif algorithm == "katz":
+        x, err, iters = ST.katz_streamed(
+            gen.ensure_tier(precision),
+            alpha=float(header.get("alpha", 0.2)),
+            beta=float(header.get("beta", 1.0)),
+            max_iterations=max_iterations,
+            tol=float(header.get("tol", 1e-6)), x0=x0, device=device)
+    elif algorithm == "wcc":
+        x, _changed, iters = ST.wcc_streamed(
+            gen.ensure_tier("f32"), max_iterations=max_iterations,
+            comp0=x0, device=device)
+        err = None
+    else:
+        raise ValueError(f"no streamed run of {algorithm!r}")
+    dtype = np.int32 if algorithm == "wcc" else np.float32
+    return (np.asarray(x, dtype=dtype),
+            None if err is None else float(err), int(iters))
 
 
 def probe_device(device=None):
@@ -1211,16 +1261,8 @@ class KernelServer:
         """Admission, then the dispatch on a worker thread under the
         request's deadline, then the typed outcome."""
         est = _estimate_request_bytes(header, arrays, self.device)
-        if op in ("pagerank", "semiring") and "src" not in arrays:
-            # a graph_key-only request: price the resident generation's
-            # current counts (an unlocked peek: admission must not wait
-            # behind a dispatch)
-            gen = self._graphs.peek(header.get("graph_key"))
-            if gen is not None:
-                est = max(est, _graph_footprint_bytes(
-                    str(header.get("algorithm", "pagerank")),
-                    int(header.get("n_nodes") or 0) or gen.n_nodes,
-                    gen.n_edges, self.device))
+        if op in ("pagerank", "semiring"):
+            est = self._admit_graph_op(op, header, arrays, est)
         if est > self.hbm_budget_bytes:
             self._count("shed")
             global_metrics.increment(
@@ -1280,16 +1322,47 @@ class KernelServer:
         self._count(reply["outcome"])
         return reply, out_arrays
 
+    def _admit_graph_op(self, op: str, header: dict, arrays: dict,
+                        est: int) -> int:
+        """The three verdicts of a graph-shaped request: its estimate
+        priced on the wire's edges, or a graph_key-only request's on the
+        resident generation's current counts (an unlocked peek: admission
+        must not wait behind a dispatch); over the budget a streamable
+        request whose streamed working set fits is marked streamed and
+        priced at that.  Returns the estimate of the chosen mode."""
+        from ..ops import tier as mgtier
+        algorithm = "pagerank" if op == "pagerank" \
+            else str(header.get("algorithm", "pagerank"))
+        n_nodes = int(header.get("n_nodes") or 0)
+        n_edges = int(arrays["src"].shape[0]) if "src" in arrays else 0
+        if "src" not in arrays:
+            gen = self._graphs.peek(header.get("graph_key"))
+            if gen is not None:
+                n_nodes = n_nodes or gen.n_nodes
+                n_edges = gen.n_edges
+                est = max(est, _graph_footprint_bytes(
+                    algorithm, n_nodes, n_edges, self.device))
+        verdict, est_run = mgtier.admission_verdict(
+            est, self.hbm_budget_bytes, n_nodes=n_nodes, n_edges=n_edges,
+            streamable=algorithm in _STREAMABLE,
+            precision=_tier_precision(header.get("precision", "f32")),
+            algorithm=algorithm)
+        global_metrics.increment(f"tier.admission_{verdict}_total")
+        if verdict != "streamed":
+            return est
+        header["_tier_streamed"] = True
+        log.info("kernel_server: STREAMED %s request: resident estimate %d "
+                 "bytes exceeds the budget %d, the streamed working set %d "
+                 "bytes fits", op, est, self.hbm_budget_bytes, est_run)
+        return est_run
+
     def _dispatch_op(self, op: str, header: dict, arrays: dict):
         """Under _dispatch_lock, on the worker thread."""
         if op == "probe":
             checksum, platform = probe_device(self.device)
             return {"ok": True, "platform": platform, "sum": checksum}, None
         if op == "lane":
-            return ({"ok": False, "outcome": "invalid",
-                     "error": "the lane op needs the read lane "
-                              "(ops/pipeline.py), which the port does not "
-                              "have yet"}, None)
+            return self._op_lane(header, arrays)
         if op == "pagerank":
             header = {**header, "algorithm": "pagerank"}
         return self._op_semiring(header, arrays)
@@ -1354,14 +1427,15 @@ class KernelServer:
             self._modeled_peaks = peaks
             self._graphs_cached = len(self._graphs)
 
-    def _resolve_generation(self, header, arrays):
+    def _resolve_generation(self, header, arrays, place: bool = True):
         """The request's resident generation, under _dispatch_lock: the
         key's generation, moved O(delta) when the request is at a newer
         ``graph_version`` with the delta payload on its
         ``base_version``; a stale generation without a usable delta is
         dropped and re-imported from the request's edge arrays (never
-        served); a new key imports them.  None: nothing to run on (the
-        caller answers invalid)."""
+        served); a new key imports them, placed on the device unless
+        ``place`` is False (a streamed run keeps its edges on the host).
+        None: nothing to run on (the caller answers invalid)."""
         from ..ops import delta as mgdelta
         from ..ops.csr import from_coo
         key = header.get("graph_key")
@@ -1390,8 +1464,8 @@ class KernelServer:
                          arrays["dst"].astype(np.int64),
                          arrays.get("weights"),
                          n_nodes=header.get("n_nodes"))
-            gen = mgdelta.ResidentGraph(key, int(want or 0),
-                                        g.to_device(self.device))
+            gen = mgdelta.ResidentGraph(
+                key, int(want or 0), g.to_device(self.device) if place else g)
             if key:
                 self._graphs.put(gen)
                 self._update_memory_gauge()
@@ -1403,7 +1477,8 @@ class KernelServer:
         generation seeds the fixpoint under the contract; ``bfs`` is
         source-dependent and runs cold."""
         from ..ops import delta as mgdelta
-        gen = self._resolve_generation(header, arrays)
+        streamed = bool(header.pop("_tier_streamed", False))
+        gen = self._resolve_generation(header, arrays, place=not streamed)
         if gen is None:
             return ({"ok": False, "error": "unknown graph_key and no edge "
                      "arrays supplied"}, None)
@@ -1433,17 +1508,52 @@ class KernelServer:
                 reply["err"] = float(hit.err or 0.0)
             return reply, {name: np.asarray(hit.x, dtype=dtype)}
         x0, _reason = gen.warm_x0(algorithm, params_key)
-        x, err, iters = run_algorithm(gen.graph, algorithm, header, x0,
-                                      self.device)
+        if streamed:
+            # the snapshot is never built: the paging plan comes straight
+            # off the generation's host COO
+            x, err, iters = run_streamed(gen, algorithm, header, x0,
+                                         self.device)
+        else:
+            x, err, iters = run_algorithm(gen.graph, algorithm, header, x0,
+                                          self.device)
         gen.note_solution(algorithm, params_key, x, err=err, iters=iters,
                           max_iterations=max_iterations)
         if x0 is not None:
             mgdelta.record_warm_start(algorithm, iters)
         reply.update(iters=iters, warm_started=x0 is not None,
-                     tier="resident")
+                     tier="streamed" if streamed else "resident")
         if has_err:
             reply["err"] = float(err)
         return reply, {name: x}
+
+    def _op_lane(self, header, arrays):
+        """The read lane's hop count over the request's edges and masks
+        (ops/pipeline.py ``hop_counts``, the in-process lane's program),
+        under _dispatch_lock.  A refusal of the exactness witness answers
+        invalid with its reason; a kernel's failure raises on, to its
+        typed outcome."""
+        from ..ops import pipeline as pl
+        for need in ("src", "dst", "emask", "smask", "midmask", "tmask"):
+            if need not in arrays:
+                return ({"ok": False,
+                         "error": f"lane op needs array {need!r}"}, None)
+        global_metrics.increment("lane.remote_dispatch_total")
+        try:
+            totals = pl.hop_counts(
+                arrays["src"], arrays["dst"], arrays["emask"],
+                arrays["smask"], arrays["midmask"], arrays["tmask"],
+                int(header.get("n_nodes", len(arrays["smask"]))),
+                hops=int(header.get("hops", 2)),
+                include_lower=bool(header.get("include_lower", False)),
+                edge_unique=bool(header.get("edge_unique", True)),
+                need_rows=bool(header.get("need_rows", True)),
+                need_distinct=bool(header.get("need_distinct", False)),
+                fingerprint=header.get("fingerprint"), device=self.device)
+        except pl.LaneRefused as e:
+            return ({"ok": False, "outcome": "invalid",
+                     "lane_refused": e.reason,
+                     "error": f"lane refused: {e.reason}"}, None)
+        return ({"ok": True, **totals}, None)
 
 
 # --------------------------------------------------------------------------
@@ -1601,6 +1711,36 @@ class KernelClient:
         if not h.get("ok"):
             _raise_for_reply(h)
         return h, out
+
+    def lane_hops(self, src, dst, emask, smask, midmask, tmask, *,
+                  n_nodes, hops=2, include_lower=False, edge_unique=True,
+                  need_rows=True, need_distinct=False, deadline_s=None,
+                  fingerprint=None) -> dict:
+        """One read-lane hop count on the daemon: {"rows": n, "distinct":
+        n} per the request's flags.  A refusal raises the lane's
+        ``LaneRefused`` with its reason, as the in-process lane does."""
+        from ..ops.pipeline import LaneRefused
+        arrays = {"src": np.asarray(src, dtype=np.int32),
+                  "dst": np.asarray(dst, dtype=np.int32),
+                  "emask": np.asarray(emask, dtype=bool),
+                  "smask": np.asarray(smask, dtype=bool),
+                  "midmask": np.asarray(midmask, dtype=np.float32),
+                  "tmask": np.asarray(tmask, dtype=np.float32)}
+        header = {"op": "lane", "n_nodes": int(n_nodes), "hops": int(hops),
+                  "include_lower": bool(include_lower),
+                  "edge_unique": bool(edge_unique),
+                  "need_rows": bool(need_rows),
+                  "need_distinct": bool(need_distinct),
+                  "fingerprint": fingerprint}
+        if deadline_s is not None:
+            header["deadline_s"] = deadline_s
+        h, _out = self.call(header, arrays)
+        if not h.get("ok"):
+            if h.get("lane_refused"):
+                raise LaneRefused(h["lane_refused"], h.get("error", ""))
+            _raise_for_reply(h)
+        return {k: int(v) for k, v in h.items()
+                if k in ("rows", "distinct")}
 
     def shutdown(self) -> None:
         try:
@@ -1815,6 +1955,21 @@ class SupervisedKernelClient:
             lambda c: c.pagerank(src=src, dst=dst, weights=weights,
                                  n_nodes=n_nodes, graph_key=graph_key,
                                  deadline_s=deadline_s, **params),
+            idempotent)
+
+    def lane_hops(self, src, dst, emask, smask, midmask, tmask, *,
+                  n_nodes, idempotent: bool = True,
+                  deadline_s: float | None = None, **params):
+        """Read-lane hop counts with supervised retries (pure:
+        idempotent); a ``LaneRefused`` passes through untouched, so the
+        caller's typed fallback fires instead of a retry."""
+        if deadline_s is None:
+            deadline_s = self.deadline_s
+        return self._call_supervised(
+            "lane",
+            lambda c: c.lane_hops(src, dst, emask, smask, midmask, tmask,
+                                  n_nodes=n_nodes, deadline_s=deadline_s,
+                                  **params),
             idempotent)
 
     def ppr(self, sources, idempotent: bool = True,

@@ -25,6 +25,8 @@ of a cold in-process run (tests/test_delta.py's bound).
 import os
 import socket
 import struct
+import subprocess
+import sys
 import threading
 import time
 
@@ -36,9 +38,11 @@ from memgraph_tpu.ops import csr as jcsr
 from memgraph_tpu.ops import katz as jkatz
 from memgraph_tpu.ops import labelprop as jlp
 from memgraph_tpu.ops import pagerank as jpr
+from memgraph_tpu.ops import pipeline as jpl
 from memgraph_tpu.ops import traversal as jtr
 from memgraph_tpu_torch.northstar import CooSource
 from memgraph_tpu_torch.ops.csr import GraphCache
+from memgraph_tpu_torch.ops import pipeline as tpl
 from memgraph_tpu_torch.ops.delta import LocalWarmPool
 from memgraph_tpu_torch.procedures import graph_algorithms as P
 from memgraph_tpu_torch.server import kernel_server as ks
@@ -195,7 +199,9 @@ def test_semiring_algorithms_match_jax(daemon):
     assert np.array_equal(out["levels"], np.asarray(want))
     with pytest.raises(ks.KernelServerError, match="unknown semiring"):
         client.semiring("nope", **kw)
-    with pytest.raises(ks.KernelServerError, match="pipeline"):
+    # the lane op is served (below); a request without its arrays is
+    # answered invalid, naming what it lacks
+    with pytest.raises(ks.KernelServerError, match="lane op needs array"):
         h, _ = client.call({"op": "lane"})
         ks._raise_for_reply(h)
 
@@ -548,3 +554,136 @@ def test_classify_torch_oom_type():
     import torch
     from memgraph_tpu_torch.utils.devicefault import classify_device_error
     assert classify_device_error(torch.cuda.OutOfMemoryError("x")) == "oom"
+
+
+# --------------------------------------------------------------------------
+# the read lane's op
+# --------------------------------------------------------------------------
+
+
+def _lane_case(seed, n=600, e=5000):
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, e), np.arange(20)])
+    dst = np.concatenate([(rng.random(e) ** 2 * n).astype(np.int64),
+                          np.arange(20)])
+    return (src.astype(np.int32), dst.astype(np.int32),
+            rng.random(len(src)) > 0.1, rng.random(n) > 0.5,
+            (rng.random(n) > 0.3).astype(np.float32),
+            (rng.random(n) > 0.2).astype(np.float32)), n
+
+
+#: 5000 parallel 0 -> 1 and 1 -> 2 edges: 25M two-hop paths into node 2,
+#: past f32's 2^24 (both packages refuse it)
+_OVER = (np.repeat(np.array([0, 1], np.int32), 5000),
+         np.repeat(np.array([1, 2], np.int32), 5000),
+         np.ones(10_000, bool), np.array([True, False, False]),
+         np.ones(3, np.float32), np.ones(3, np.float32))
+
+
+@pytest.mark.parametrize("hops,include_lower,edge_unique", [
+    (1, False, True), (2, False, True), (2, True, False)])
+def test_lane_op_equals_the_in_process_lane_and_jax(daemon, hops,
+                                                    include_lower,
+                                                    edge_unique):
+    client, _ = daemon
+    arrays, n = _lane_case(hops * 3 + include_lower)
+    kw = dict(hops=hops, include_lower=include_lower,
+              edge_unique=edge_unique, need_rows=True, need_distinct=True)
+    got = client.lane_hops(*arrays, n_nodes=n, **kw)
+    assert got == tpl.hop_counts(*arrays, n, device="cpu", **kw) \
+        == jpl.hop_counts(*arrays, n, **kw)
+    h = client.health()["counters"]
+    assert h["lane.remote_dispatch_total"] >= 1
+
+
+def test_lane_op_refusal_and_bad_requests_are_typed(daemon):
+    client, sock = daemon
+    with pytest.raises(tpl.LaneRefused) as e:
+        client.lane_hops(*_OVER, n_nodes=3, hops=2)
+    assert e.value.reason == "precision_overflow"
+    h, _ = client.call({"op": "lane", "n_nodes": 3},
+                       {"src": np.zeros(1, np.int32)})
+    assert not h["ok"] and h["outcome"] == "invalid" \
+        and "needs array" in h["error"]
+    sup = ks.SupervisedKernelClient(sock, spawn=False, deadline_s=TIMEOUT)
+    try:
+        arrays, n = _lane_case(11)
+        assert sup.lane_hops(*arrays, n_nodes=n, hops=2) \
+            == jpl.hop_counts(*arrays, n, hops=2)
+        with pytest.raises(tpl.LaneRefused):
+            sup.lane_hops(*_OVER, n_nodes=3, hops=2)
+    finally:
+        sup.close()
+
+
+def test_lane_op_failed_launch_is_a_device_error(tmp_path, monkeypatch):
+    """A kernel's failure inside the lane is its typed device outcome,
+    never a refusal of the lane's witness."""
+    srv = ks.KernelServer(str(tmp_path / "f.sock"), device="cpu")
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+
+    def broken(*a, **k):
+        raise RuntimeError("csr_spmm_sum launch failed: CUDA error 719")
+
+    monkeypatch.setattr(SC, "csr_spmm_sum", broken)
+    arrays, n = _lane_case(2)
+    names = ("src", "dst", "emask", "smask", "midmask", "tmask")
+    reply, _ = srv._supervised("lane", {"n_nodes": n, "hops": 1},
+                               dict(zip(names, arrays)))
+    assert reply["outcome"] == "device_error" and reply["retryable"]
+    assert "lane_refused" not in reply
+
+
+def test_jax_client_lane_hops_on_an_in_process_port_server(tmp_path):
+    """The JAX package's KernelClient.lane_hops answered by the port's
+    server in this process: the totals of JAX's in-process hop_counts,
+    and the reference's typed refusal."""
+    from memgraph_tpu.server.kernel_server import KernelClient as JClient
+    sock = str(tmp_path / "inproc.sock")
+    srv = ks.KernelServer(sock, device="cpu")
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    deadline = time.monotonic() + TIMEOUT
+    while not os.path.exists(sock) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    jc = JClient(sock, timeout=TIMEOUT)
+    try:
+        for seed in (1, 2):
+            arrays, n = _lane_case(seed)
+            kw = dict(hops=2, include_lower=bool(seed % 2),
+                      need_distinct=True)
+            assert jc.lane_hops(*arrays, n_nodes=n, **kw) \
+                == jpl.hop_counts(*arrays, n, **kw)
+        with pytest.raises(jpl.LaneRefused) as e:
+            jc.lane_hops(*_OVER, n_nodes=3, hops=2)
+        assert e.value.reason == "precision_overflow"
+    finally:
+        jc.call({"op": "shutdown"})
+        jc.close()
+        t.join(timeout=TIMEOUT)
+    assert not t.is_alive()
+
+
+def test_reference_cypher_lane_runs_on_the_port_daemon(daemon):
+    """The reference's own ``TestHopParity`` queries (tests/test_lane.py)
+    through its Cypher interpreter with MEMGRAPH_TPU_LANE_REMOTE set and
+    its kernel-server socket at the port's daemon: every answer equals the
+    host path's and the lane served it (no ``remote_error`` fallback, or
+    the test's hit check fails); the daemon counts the dispatches."""
+    client, sock = daemon
+    before = client.health()["counters"].get("lane.remote_dispatch_total",
+                                              0.0)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               MEMGRAPH_TPU_LANE_REMOTE="1",
+               MEMGRAPH_TPU_KERNEL_SERVER_SOCKET=sock)
+    env.pop("MEMGRAPH_TPU_FAULTS", None)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/test_lane.py", "-q",
+         "-k", "TestHopParity", "-p", "no:randomly", "-p",
+         "no:cacheprovider"],
+        env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "9 passed" in run.stdout
+    after = client.health()["counters"]["lane.remote_dispatch_total"]
+    assert after - before == 8      # the self-target query is not a lane
