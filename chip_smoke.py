@@ -179,7 +179,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    bit-equal to the plain version on CPU copies of the same inputs.
 13. Betweenness (``betweenness`` line) on the north star: 8 sources from
    seed 0, directed and undirected, and 64 directed sources, against a
-   float64 Brandes over the same sources (max error 1e-4 of the largest
+   float64 Brandes over the same sources (plain torch on the card; max
+   error 1e-4 of the largest
    score; top 100: the card's top 100 all within that error of the
    reference's 100th score or above, the set overlap printed beside it;
    each node scored above 1e-12 of the largest within 1e-3 relative);
@@ -212,8 +213,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    and held bit-equal to the plain version on CPU copies and timed
    (``segment_kernels`` lines ``gnn_*``); the aggregation bit-equal to
    its plain version on CPU copies; two forwards bit-equal; h against a
-   float64 scipy forward within ``GNN_REL_TOL`` of the largest |h|, the
-   bf16 rounding of the float64 result beside it.
+   float64 forward (on the card) within ``GNN_REL_TOL`` of the largest
+   |h|, the bf16 rounding of the float64 result beside it.
 16. kNN (``knn`` line) on the 1M x 128 corpus (64 blobs, seed 19, 1% of
    the rows freed in ``valid_mask``): l2sq and cosine, f32 and bf16, 1
    and 100 queries, k = 10 and 100, ms a batch; f32 against a float64
@@ -260,7 +261,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    forward; the aggregation's backward, its layer-2 forward and the
    gathers' backward kept, held bit-equal to the plain version and timed
    (``segment_kernels`` lines ``gnn_train_*``); one epoch's gradients
-   against a float64 CPU autograd of the same loss within
+   against a float64 autograd (on the card) of the same loss within
    ``GNN_GRAD_TOL`` of each tensor's largest entry, the bf16 rounding
    beside it; ms an epoch, and a link epoch's split.
 21. (on v2, after the dense procedures) The RAG procedures
@@ -289,10 +290,11 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
 23. The index's delta refresh (``vector_delta`` line) on the 1M x 128
    corpus: a full build, a commit clearing 50 vectors, then one setting
    900 vectors, 50 on the cleared vertices, 50 of length 64, and
-   clearing 100: a delta (the counters), each live row bit-equal to a
-   full build of the same state, ``valid`` exactly the live rows, 100
-   queries' top 10 equal to the full build's; a wrapped log gives a full
-   build.
+   clearing 100: a delta (the counters); commits rewriting values the
+   vertices hold wrap the log, which gives a full build of the same
+   state; each live row of the delta bit-equal to it, ``valid`` exactly
+   the live rows, 100 queries' top 10 equal to the full build's (one
+   list read of the corpus serves both).
 24. Communities (``communities`` line):
    ``community_detection.louvain`` on the segment graph and
    ``leiden_community_detection.get`` on a 20,000-node, 90,000-edge graph
@@ -308,24 +310,34 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    and the north star against its admission estimate, within [1x, 2x];
    the allocator's cached blocks handed back and ``mem_get_info``
    printed; the daemon spawned on the card (this process built the
-   kernels first) and timed; ``pagerank.get`` and
-   ``pagerank.personalized`` with ``kernel=`` on v0 equal to the
-   in-process answers, routed with no fallback; the ``pagerank`` op at
-   the main path's 50 iterations within its bounds of float64 (whether
-   it is bit-equal to this process's run is printed) and a key-only
-   repeat a hit with the same bytes; 256 single-source PPR requests
+   kernels first) and timed; ``pagerank.get`` with ``kernel=`` on v0
+   bit-equal to this process's partition-centric loop on a mesh of 1
+   (the daemon's route) and within ``pagerank.get``'s L1 bound of its
+   in-process call, ``pagerank.personalized`` equal to the in-process
+   answer, routed with no fallback; the ``pagerank`` op at the main
+   path's 50 iterations within its bounds of float64 and bit-equal to
+   this process's mesh-of-1 run, and a key-only repeat a hit with the
+   same bytes; 256 single-source PPR requests
    (top 10) from 16 threads, 32 of them repeated for their full vectors
    (hits) and bit-equal to in-process runs; an out-of-range member
    ``invalid`` beside completed batchmates, an oversized request
    ``shed``; a commit of 1,000 added edges (the warm pool's seed 17)
-   shipped as the delta payload: one ``DeltaPlan`` and no plan build in
-   the daemon, the warm PageRank in fewer iterations than cold and
+   shipped as the delta payload: an O(delta) apply (``delta.applied_total``
+   +1, no re-shard, no compaction: the generation's sharded variant moved
+   by ``apply_edge_delta``) and no plan build in the daemon, the warm
+   PageRank in fewer iterations than cold and
    within ``pagerank.get``'s L1 bound of float64, exactly the cached
    sources whose neighbourhood the commit touched warm (two held to
    float64 within ``PPR_REL_TOL``), the rest hits; a one-edge commit in
-   one source's neighbourhood warms it alone; the daemon's K1, K2 and
-   Benes launches (its health reply) moved.  Its launches join the
-   kernels' ``launches_by_path`` as ``kernel_server``.
+   one source's neighbourhood warms it alone; the daemon's K1 and K2
+   launches (its health reply) moved.  Its launches join the kernels'
+   ``launches_by_path`` as ``kernel_server``.
+25a. (after traversal) The mesh (``mesh`` line, ``parallel/mesh.py``,
+   ``distributed.py``, ``analytics.py``, ``ops/spmv_mxu_sharded.py``) on
+   v0, over a mesh of 1 and of 4 shards on the one card (which share its
+   HBM and SMs: no multi-card scaling is measured): see ``phase_mesh``.
+   Its K1, K2 and Benes launches join ``launches_by_path`` as ``mesh``,
+   its recorded K1 calls the ``segment_kernels`` lines (``mesh_*``).
 26. The read lane (``lane`` line, ``ops/columnar.py``,
    ``ops/pipeline.py``) on v0's edges, 1,000 self-loops planted, and a
    CooSource of them with seeded vertex properties (an int ``age``, an
@@ -374,6 +386,7 @@ once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -664,16 +677,24 @@ def hold_network(packed, n, dtype, K=None, timed=False, route_s=0.0):
     print("benes", json.dumps(line), flush=True)
 
 
-def phase_benes():
-    """Random and identity permutations through the kernels."""
+def routed_permutation(n: int):
+    """(packed masks, host seconds) of the random permutation of 2^n
+    slots that ``phase_benes`` holds the kernels on."""
+    from memgraph_tpu_torch.ops.benes import route_packed
+    t0 = time.perf_counter()
+    packed = route_packed(np.random.default_rng(100 + n).permutation(1 << n))
+    return packed, time.perf_counter() - t0
+
+
+def phase_benes(routed: dict):
+    """Random and identity permutations through the kernels; ``routed``
+    maps each of ``BENES_SIZES`` to its ``routed_permutation`` (a future:
+    routed on the host while the kernels build)."""
     import torch
     from memgraph_tpu_torch.ops import benes_cuda as BC
     from memgraph_tpu_torch.ops.benes import route_packed
     for n in BENES_SIZES:
-        t0 = time.perf_counter()
-        packed = route_packed(np.random.default_rng(100 + n).permutation(
-            1 << n))
-        route_s = time.perf_counter() - t0
+        packed, route_s = routed[n].result()
         for dtype in (torch.float32, torch.bfloat16):
             hold_network(packed, n, dtype, timed=n in TIMED_SIZES,
                          route_s=route_s)
@@ -1652,7 +1673,9 @@ def phase_katz(base: dict):
               f"katz {precisions[dt]} does not ride PageRank's routes")
 
     a_t = transposed_adjacency(base["src"], base["dst"], graph.n_nodes)
-    f32 = vs_float64(k32, reference_katz(a_t, KATZ_ALPHA))
+    katz64 = reference_katz(a_t, KATZ_ALPHA)
+    base.setdefault("refs", {})["katz64"] = katz64       # the mesh's too
+    f32 = vs_float64(k32, katz64)
     check(f32["max_rel"] <= F32_REL_TOL and f32["top100"] == 100,
           f"katz f32 off the float64 reference: {f32}")
     # katz_rel is derived for α λ <= 1/2 (ops/semiring.py)
@@ -2387,6 +2410,8 @@ def phase_traversal(base: dict):
 
     hops = csgraph.shortest_path(adj, unweighted=True,
                                  indices=np.concatenate([[source], sources]))
+    base.setdefault("refs", {}).update(      # the mesh's references too
+        weak=weak, source=source, hops=hops[0])
     want_levels = np.where(np.isinf(hops[0]), -1, hops[0]).astype(np.int32)
     check(np.array_equal(levels.cpu().numpy(), want_levels),
           "BFS levels are not the unweighted shortest paths")
@@ -2453,7 +2478,6 @@ BC_TOPK = 100
 # floor only keeps the quotient away from zero scores
 BC_NODE_REL_TOL = 1e-3
 BC_NODE_FLOOR = 1e-12
-REF_THREADS = 8         # threads of the float64 Brandes reference
 HIT_GETS = 20
 
 
@@ -2883,44 +2907,56 @@ def dedup_pairs(src, dst, n, directed):
 
 
 def reference_brandes(src, dst, n, sources, directed):
-    """float64 Brandes over ``sources`` (scipy BFS distances, numpy path
-    counts and dependencies level by level, a source a task on
-    ``REF_THREADS`` threads, their dependencies added in source order),
-    scaled by n / k, halved when undirected and normalized as
-    ops/betweenness.py does."""
-    from concurrent.futures import ThreadPoolExecutor
-    import scipy.sparse as sp
-    from scipy.sparse import csgraph
-    s, d = dedup_pairs(src, dst, n, directed)
-    adj = sp.csr_matrix((np.ones(len(s), dtype=np.int8), (s, d)),
-                        shape=(n, n))
+    """float64 Brandes over ``sources``, on the card in plain torch
+    (independent of ops/betweenness.py): a level-synchronous BFS from
+    each source over the simple graph (``dedup_pairs``), its shortest-
+    path DAG, the path counts sigma level by level up and the
+    dependencies level by level down (float64 ``index_add_``: sigma is an
+    integer count, exact below 2^53; a dependency's rounding is ~1e-16
+    relative), a source's dependencies added in source order; scaled by
+    n / k, halved when undirected and normalized as ops/betweenness.py
+    does."""
+    import torch
+    s_np, d_np = dedup_pairs(src, dst, n, directed)
+    s = torch.from_numpy(s_np.astype(np.int64)).cuda()
+    d = torch.from_numpy(d_np.astype(np.int64)).cuda()
 
     def dependencies(root):
-        dv = csgraph.shortest_path(adj, unweighted=True, indices=[root])[0]
-        du = dv[s]
-        dag = np.isfinite(du) & (dv[d] == du + 1)
-        es, ed, lv = s[dag], d[dag], du[dag].astype(np.int64)
-        order = np.argsort(lv, kind="stable")
-        es, ed, lv = es[order], ed[order], lv[order]
-        top = int(lv.max(initial=-1)) + 1
-        bounds = np.searchsorted(lv, np.arange(top + 1))
-        sigma = np.zeros(n)
+        dist = torch.full((n,), -1, dtype=torch.int64, device="cuda")
+        dist[root] = 0
+        frontier = torch.zeros(n, dtype=torch.bool, device="cuda")
+        frontier[root] = True
+        level = 0
+        while True:
+            nb = d[frontier[s]]
+            nb = nb[dist[nb] < 0]
+            if nb.numel() == 0:
+                break
+            level += 1
+            dist[nb] = level
+            frontier.zero_()
+            frontier[nb] = True
+        du = dist[s]
+        dag = (du >= 0) & (dist[d] == du + 1)
+        es, ed, lv = s[dag], d[dag], du[dag]
+        sigma = torch.zeros(n, dtype=torch.float64, device="cuda")
         sigma[root] = 1.0
-        for L in range(top):
-            sl = slice(bounds[L], bounds[L + 1])
-            sigma += np.bincount(ed[sl], weights=sigma[es[sl]], minlength=n)
-        delta = np.zeros(n)
-        for L in range(top - 1, -1, -1):
-            sl = slice(bounds[L], bounds[L + 1])
-            contrib = sigma[es[sl]] / sigma[ed[sl]] * (1.0 + delta[ed[sl]])
-            delta += np.bincount(es[sl], weights=contrib, minlength=n)
+        by_level = [lv == L for L in range(level)]
+        for sel in by_level:
+            sigma.index_add_(0, ed[sel], sigma[es[sel]])
+        delta = torch.zeros(n, dtype=torch.float64, device="cuda")
+        for sel in reversed(by_level):
+            a, b = es[sel], ed[sel]
+            delta.index_add_(0, a, sigma[a] / sigma[b] * (1.0 + delta[b]))
         delta[root] = 0.0
         return delta
 
-    bc = np.zeros(n)
-    with ThreadPoolExecutor(REF_THREADS) as pool:
-        for delta in pool.map(dependencies, sources):
-            bc += delta
+    bc = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for root in sources:
+        bc += dependencies(int(root))
+    bc = bc.cpu().numpy()
+    del s, d
+    torch.cuda.empty_cache()
     bc *= n / len(sources)
     if not directed:
         bc /= 2.0
@@ -3093,24 +3129,30 @@ RECOMMEND_CANDIDATES = 1000
 
 
 def gnn_reference(src, dst, n, feats, model):
-    """The float64 forward (scipy) of ``model`` on the n true nodes:
-    the undirected mean over parallel edges counted each, no rounding."""
-    import scipy.sparse as sp
-    ones = np.ones(len(src))
-    into = sp.csr_matrix((ones, (dst, src)), shape=(n, n))
-    out = sp.csr_matrix((ones, (src, dst)), shape=(n, n))
-    deg = np.maximum(np.asarray(into.sum(1)).ravel()
-                     + np.asarray(out.sum(1)).ravel(), 1.0)
-    h = feats.astype(np.float64)
+    """The float64 forward of ``model`` on the n true nodes (plain torch
+    on the card): the undirected mean over parallel edges counted each,
+    no rounding."""
+    import torch
+    s, d = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    ones = torch.ones(len(src), dtype=torch.float64, device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # torch's sparse notices
+        into = torch.sparse_coo_tensor(torch.stack([d, s]), ones,
+                                       (n, n)).coalesce()
+        out = torch.sparse_coo_tensor(torch.stack([s, d]), ones,
+                                      (n, n)).coalesce()
+    deg = torch.clamp(torch.bincount(s, minlength=n)
+                      + torch.bincount(d, minlength=n), min=1).double()
+    h = torch.from_numpy(np.asarray(feats, dtype=np.float64)).cuda()
     layers = len(model.w_self)
     for k in range(layers):
-        agg = (into @ h + out @ h) / deg[:, None]
-        h = (h @ model.w_self[k].double().cpu().numpy()
-             + agg @ model.w_neigh[k].double().cpu().numpy()
-             + model.b[k].double().cpu().numpy())
+        agg = (torch.sparse.mm(into, h) + torch.sparse.mm(out, h)) \
+            / deg[:, None]
+        h = (h @ model.w_self[k].double() + agg @ model.w_neigh[k].double()
+             + model.b[k].double())
         if k < layers - 1:
-            h = np.maximum(h, 0.0)
-    return h
+            h = torch.relu(h)
+    return h.cpu().numpy()
 
 
 def phase_gnn(base: dict):
@@ -3774,14 +3816,15 @@ def train_k1_launches(layers: int, epochs: int, gathers: int) -> int:
 
 
 def link_loss64(model, feats, src, dst, neg_src, neg_dst, n):
-    """The link loss of ``model`` in float64 on the CPU, no rounding:
-    the undirected mean over parallel edges counted each (torch.sparse),
-    the true edges then the negatives scored, sigmoid cross-entropy
-    averaged.  Returns (loss, the parameters' float64 leaves by layer)."""
+    """The link loss of ``model`` in float64 (on the card, plain torch),
+    no rounding: the undirected mean over parallel edges counted each
+    (torch.sparse), the true edges then the negatives scored, sigmoid
+    cross-entropy averaged.  Returns (loss, the parameters' float64
+    leaves by layer)."""
     import torch
     from torch.nn import functional as F
-    s, d = torch.from_numpy(src), torch.from_numpy(dst)
-    ones = torch.ones(len(src), dtype=torch.float64)
+    s, d = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    ones = torch.ones(len(src), dtype=torch.float64, device="cuda")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # torch's sparse notices
         into = torch.sparse_coo_tensor(torch.stack([d, s]), ones,
@@ -3790,20 +3833,21 @@ def link_loss64(model, feats, src, dst, neg_src, neg_dst, n):
                                       (n, n)).coalesce()
     deg = torch.clamp(torch.bincount(s, minlength=n)
                       + torch.bincount(d, minlength=n), min=1).double()
-    leaves = [[p.detach().double().cpu().requires_grad_(True)
+    leaves = [[p.detach().double().requires_grad_(True)
                for p in (model.w_self[k], model.w_neigh[k], model.b[k])]
               for k in range(len(model.w_self))]
-    h = feats[:n].double().cpu()
+    h = feats[:n].double()
     for k, (w_self, w_neigh, b) in enumerate(leaves):
         agg = (torch.sparse.mm(into, h) + torch.sparse.mm(out, h)) \
             / deg[:, None]
         h = h @ w_self + agg @ w_neigh + b
         if k < len(leaves) - 1:
             h = torch.relu(h)
-    ns, nd = neg_src.long().cpu(), neg_dst.long().cpu()
+    ns, nd = neg_src.long(), neg_dst.long()
     scores = torch.cat([(h[s] * h[d]).sum(-1), (h[ns] * h[nd]).sum(-1)])
-    labels = torch.cat([torch.ones(len(src), dtype=torch.float64),
-                        torch.zeros(len(ns), dtype=torch.float64)])
+    labels = torch.cat([
+        torch.ones(len(src), dtype=torch.float64, device="cuda"),
+        torch.zeros(len(ns), dtype=torch.float64, device="cuda")])
     loss = (-labels * F.logsigmoid(scores)
             - (1.0 - labels) * F.logsigmoid(-scores)).mean()
     return loss, leaves
@@ -3937,8 +3981,9 @@ def phase_gnn_train(base: dict):
     no gather; by src, the CSR order; the negatives, sorted), each held
     bit-equal to its plain version on CPU copies and timed
     (``segment_kernels`` lines ``gnn_train_*``).  One epoch's gradients
-    against a float64 CPU autograd of the same loss, negatives and
-    parameters within ``GNN_GRAD_TOL`` of each tensor's largest entry.
+    against a float64 autograd (on the card) of the same loss,
+    negatives and parameters within ``GNN_GRAD_TOL`` of each tensor's
+    largest entry.
     ms an epoch from a 30- and a 1-epoch run, and a link epoch's split
     (CUDA events)."""
     import torch
@@ -4042,7 +4087,7 @@ def phase_gnn_train(base: dict):
         for name, p, q in zip(("w_self", "w_neigh", "b"),
                               (init.w_self[k], init.w_neigh[k], init.b[k]),
                               leaves[k]):
-            want64 = q.grad
+            want64 = q.grad.cpu()
             top = float(want64.abs().max())
             err = float((p.grad.double().cpu() - want64).abs().max()) / top
             rounding = float((want64.to(torch.bfloat16).double()
@@ -4866,12 +4911,14 @@ def phase_vector_delta(base: dict):
     corpus: one full build; a commit that clears 50 vectors (refreshed);
     then the measured commit: 900 new values, 50 on the vertices that
     had none, 50 of another length (64) and 100 clears.  The refresh must
-    be a delta (the counters), each live gid's row bit-equal to a full
-    build of the same state and ``valid`` exactly the live rows, 100
-    queries' top 10 the full build's as (gid, score) pairs; then a
-    wrapped change log gives a full build.  Seconds of the full builds,
-    ms of the measured refresh.  Counts set to 0 just before, read just
-    after (the index launches none of the listed kernels)."""
+    be a delta (the counters); then commits that rewrite values the
+    vertices already hold wrap the change log, which must give a full
+    build of the same state (the counters); each live gid's row of the
+    delta entry is bit-equal to it and ``valid`` exactly the live rows,
+    100 queries' top 10 the full build's as (gid, score) pairs.  Seconds
+    of the full builds, ms of the measured refresh.  Counts set to 0
+    just before, read just after (the index launches none of the listed
+    kernels)."""
     import torch
     from memgraph_tpu_torch.northstar import N_NODES
     from memgraph_tpu_torch.procedures import vector_search as VS
@@ -4907,8 +4954,18 @@ def phase_vector_delta(base: dict):
         "delta_refreshes": before["delta_refreshes"] + 1},
         f"the commit's refresh was not a delta: {before} -> "
         f"{index_cache.counters}")
-    full, secs["full_build_same_state"] = timed_run(
-        lambda: VS.full_build(source, EMBEDDING, "cuda"))
+    # the full build of the same state: the log wrapped by commits that
+    # rewrite values the vertices already hold, so the cache must build
+    # in full (one list read of the corpus serves both checks)
+    n_sets = len(sets)
+    for i in range(source.log_size + 1):
+        source.commit(set_properties={EMBEDDING: (
+            [int(sets[i % n_sets])], [values[i % n_sets]])})
+    before = dict(index_cache.counters)
+    full, secs["wrapped_full_build"] = timed_run(
+        lambda: index_cache.get(source, EMBEDDING, "cuda"))
+    check(index_cache.counters["full_builds"] == before["full_builds"] + 1,
+          f"a wrapped log did not give a full build: {index_cache.counters}")
     launches = all_counts()
     live = N_NODES - VD_UNSET - VD_OFFDIM - VD_CLEARS + VD_UNSET
     check(entry.size == full.size == live
@@ -4939,14 +4996,6 @@ def phase_vector_delta(base: dict):
           f"the delta entry's top 10 differ from the full build's: "
           f"{int((g_d != g_f).sum())} gids, max score diff "
           f"{float(np.abs(s_d - s_f).max())}")
-    for i in range(source.log_size + 1):
-        source.commit(set_properties={EMBEDDING: (
-            [int(sets[i % len(sets)])], [points[int(sets[i % len(sets)])]])})
-    before = dict(index_cache.counters)
-    _, secs["wrapped_full_build"] = timed_run(
-        lambda: index_cache.get(source, EMBEDDING, "cuda"))
-    check(index_cache.counters["full_builds"] == before["full_builds"] + 1,
-          f"a wrapped log did not give a full build: {index_cache.counters}")
     summary = {"n_rows": live, "dim": dim, "seconds": secs,
                "delta_refresh_ms": secs["delta_refresh"] * 1e3,
                "capacity": int(entry.matrix.shape[0]),
@@ -4988,13 +5037,41 @@ def device_peak(run) -> int:
     return torch.cuda.max_memory_allocated() - a0
 
 
+def mesh_route_peak(host, op: str, header: dict) -> int:
+    """The device peak of one request of ``op`` on a fresh generation of
+    the host graph ``host``, imported as the daemon imports it (the
+    snapshot unplaced), through the server's own dispatch: the mesh
+    routes' sharded variant, placed by ``ensure_sharded``, and the
+    loop's temporaries."""
+    from memgraph_tpu_torch.ops.delta import ResidentGraph
+    from memgraph_tpu_torch.server import kernel_server as ks
+    srv = ks.KernelServer(os.devnull, device="cuda",
+                          hbm_budget_bytes=1 << 50)
+    srv._graphs.put(ResidentGraph("footprint", 1, host, device=srv.device))
+    box = {}
+
+    def run():
+        box["reply"], _ = srv._dispatch_op(op, {
+            "graph_key": "footprint", "graph_version": 1,
+            "n_nodes": host.n_nodes, **header}, {})
+
+    peak = device_peak(run)
+    check(box["reply"].get("ok") and srv._graphs.peek(
+        "footprint")._graph.device is None,
+          f"the {op} request's footprint run failed or placed the "
+          f"snapshot: {box['reply']}")
+    return peak
+
+
 def footprint_lines(base: dict) -> list:
     """Each resident algorithm's device peak, one cold run on a freshly
     placed graph (its arrays, the MXU route's placed routes, the run's
-    temporaries), at the segment graph and the north star, beside the
-    kernel server's admission estimate.  The north star's fresh graph
-    gets v0's host plan with nothing placed: no second plan build, the
-    same bytes on the card."""
+    temporaries), and each mesh route's (``pagerank_op``: the daemon's
+    ``pagerank`` op; ``bfs``: ``semiring``'s) on a fresh unplaced
+    generation (``mesh_route_peak``), at the segment graph and the north
+    star, beside the kernel server's admission estimate.  The north
+    star's fresh graph gets v0's host plan with nothing placed: no second
+    plan build, the same bytes on the card."""
     import torch
     from memgraph_tpu_torch.northstar import N_NODES, generate_graph
     from memgraph_tpu_torch.ops import pagerank as PR
@@ -5011,9 +5088,19 @@ def footprint_lines(base: dict) -> list:
     for label, (host, state) in sizes.items():
         n, e = host.n_nodes, host.n_edges
         runs = {a: {"algorithm": a} for a in ("pagerank", "katz", "wcc",
-                                              "labelprop", "bfs")}
+                                              "labelprop")}
         runs["katz"]["alpha"] = KATZ_ALPHA
         runs.update({f"ppr_{b}": {"lanes": b} for b in KS_PPR_LANES})
+        mesh = {"pagerank_op": ("pagerank", {}),
+                "bfs": ("semiring", {"algorithm": "bfs", "source": 0})}
+        n_pad, e_pad = ks._padded_graph_dims(n, e)
+
+        def line(name, peak, est):
+            return {"graph": label, "algorithm": name, "n_pad": n_pad,
+                    "e_pad": e_pad, "peak_bytes": peak,
+                    "estimate_bytes": est,
+                    "estimate_over_peak": est / max(peak, 1)}
+
         for name, header in runs.items():
 
             def run():
@@ -5038,11 +5125,12 @@ def footprint_lines(base: dict) -> list:
             else:
                 est = ks._graph_footprint_bytes(name, n, e,
                                                 torch.device("cuda"))
-            n_pad, e_pad = ks._padded_graph_dims(n, e)
-            lines.append({"graph": label, "algorithm": name, "n_pad": n_pad,
-                          "e_pad": e_pad, "peak_bytes": peak,
-                          "estimate_bytes": est,
-                          "estimate_over_peak": est / max(peak, 1)})
+            lines.append(line(name, peak, est))
+        for name, (op, header) in mesh.items():
+            lines.append(line(name, mesh_route_peak(host, op, header),
+                              ks._graph_footprint_bytes(
+                                  header.get("algorithm", "pagerank"), n, e,
+                                  torch.device("cuda"), op)))
     torch.cuda.empty_cache()
     return lines
 
@@ -5157,8 +5245,12 @@ def phase_kernel_server(base: dict):
 def drive_kernel_server(base, client, sock) -> dict:
     """The daemon's checks of ``phase_kernel_server``; its summary."""
     import threading
+    from memgraph_tpu_torch.ops.csr import shard_edges
     from memgraph_tpu_torch.ops.delta import LocalWarmPool, incident_edges
     from memgraph_tpu_torch.ops.pagerank import personalized_pagerank
+    from memgraph_tpu_torch.parallel.distributed import \
+        pagerank_partition_centric
+    from memgraph_tpu_torch.parallel.mesh import get_mesh_context
     from memgraph_tpu_torch.procedures import graph_algorithms as P
     from memgraph_tpu_torch.server import kernel_server as ks
     from memgraph_tpu_torch.utils.metrics import global_metrics
@@ -5181,7 +5273,19 @@ def drive_kernel_server(base, client, sock) -> dict:
 
     got_pr, first_s = timed_call(
         lambda: P.pagerank_get(source, kernel=sock, **kw))
-    want_pr = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    # the daemon's pagerank is the mesh's partition-centric loop over a
+    # mesh of 1: held bit for bit to that loop run here on the same
+    # snapshot, and within pagerank.get's L1 bound of its in-process call
+    ctx1 = get_mesh_context(1)
+    scsr1 = shard_edges(src0, dst0, w0, n, 1).to_device(ctx1)
+    mesh_pr, _, _ = pagerank_partition_centric(
+        scsr1, ctx1, damping=DAMPING, max_iterations=100, tol=PR_PROC_TOL)
+    want_pr = P._rows(graph, rank=mesh_pr.cpu().numpy())
+    inproc_pr = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    proc_l1 = float(np.abs(got_pr["rank"].astype(np.float64)
+                           - inproc_pr["rank"]).sum())
+    check(proc_l1 <= 10 * PR_PROC_TOL,
+          f"routed pagerank.get off the in-process call by L1 {proc_l1}")
     ppr_gids = [int(g) for g in graph.node_gids[[3, n // 3, n - 7]]]
     got_ppr, ppr_first_s = timed_call(
         lambda: P.pagerank_personalized(source, ppr_gids, kernel=sock, **kw))
@@ -5214,8 +5318,12 @@ def drive_kernel_server(base, client, sock) -> dict:
     check(vs64["max_rel"] <= F32_REL_TOL and vs64["l1"] <= F32_L1_TOL
           and vs64["top100"] == 100,
           f"the pagerank op's ranks off float64: {vs64}")
-    bit_equal = ranks.tobytes() == base["ranks"]["f32"].astype(
-        np.float32).tobytes()
+    mesh_ranks, _, _ = pagerank_partition_centric(
+        scsr1, ctx1, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0)
+    bit_equal = ranks.tobytes() == mesh_ranks.cpu().numpy().tobytes()
+    check(bit_equal, "the pagerank op's ranks are not this process's "
+                     "partition-centric run on a mesh of 1, bit for bit")
+    del scsr1
     (h2, out2), hit_s = timed_call(lambda: client.call_pagerank(
         **op, damping=DAMPING, max_iterations=ITERATIONS, tol=0.0))
     check(h2.get("cache") == "hit"
@@ -5360,16 +5468,24 @@ def drive_kernel_server(base, client, sock) -> dict:
     payload = {"changed": changed, "inc_src": inc[0], "inc_dst": inc[1],
                "inc_w": inc[2]}
     v1 = v0 + 1
-    plans = client.health()["plans"]
+    before = client.health()
+    plans = before["plans"]
     (hw, outw), warm_s = timed_call(lambda: client.call_pagerank(
         graph_key=key, graph_version=v1, base_version=v0, n_nodes=n,
         tol=KS_PR_TOL, **payload))
     after = client.health()
-    check(after["plans"]["build_plan"] == plans["build_plan"]
-          and after["plans"]["build_delta_plan"]
-          == plans["build_delta_plan"] + 1,
-          f"the commit's snapshot was not refreshed by one DeltaPlan: "
-          f"plans {plans} -> {after['plans']}")
+
+    def moved(name):
+        return after["counters"].get(name, 0.0) \
+            - before["counters"].get(name, 0.0)
+
+    # the generation's sharded variant moved by apply_edge_delta (no
+    # re-shard, no compaction) and the warm run built no plan
+    check(after["plans"] == plans and moved("delta.applied_total") == 1
+          and moved("delta.resharded_total") == 0
+          and moved("delta.compacted_total") == 0,
+          f"the commit was not an O(delta) apply: plans {plans} -> "
+          f"{after['plans']}, delta counters {after['counters']}")
     check(hw["warm_started"] and hw["graph_version"] == v1
           and hw["iters"] < hc["iters"],
           f"warm pagerank op {hw} not shorter than cold {hc}")
@@ -5449,9 +5565,7 @@ def drive_kernel_server(base, client, sock) -> dict:
     health = client.health()
     launches = {k: v - h0["launches"][k]
                 for k, v in health["launches"].items()}
-    check(all(launches[k] > 0 for k in ("benes_mid_gather",
-                                         "benes_outer_gather",
-                                         "csr_spmm_sum", "lane_sum")),
+    check(all(launches[k] > 0 for k in ("csr_spmm_sum", "lane_sum")),
           f"the daemon's launches did not move: {launches}")
     hc_ = health["counters"]
 
@@ -5463,7 +5577,8 @@ def drive_kernel_server(base, client, sock) -> dict:
         "n_nodes": n, "n_edges": int(graph.n_edges),
         "procedures": {"pagerank_get_first_s": first_s,
                        "pagerank_personalized_first_s": ppr_first_s,
-                       "equal": proc_equal},
+                       "equal": proc_equal,
+                       "pagerank_get_l1_vs_in_process": proc_l1},
         "pagerank_op": {"cold_ms": cold_s * 1e3, "hit_ms": hit_s * 1e3,
                         "cold_tol_ms": cold_tol_s * 1e3,
                         "cold_tol_iters": hc["iters"],
@@ -5485,6 +5600,313 @@ def drive_kernel_server(base, client, sock) -> dict:
         "launches": launches, "counters": {
             k: v for k, v in hc_.items()
             if k.startswith(("kernel_server.dispatch.", "delta.", "ppr."))}}
+
+MESH_SHARDS = 4             # shards of the multi-shard mesh, on one card
+MESH_LP_ROUNDS = 5          # label propagation rounds held to one card's
+MESH_SERVER_EVERY = 10      # the resumable server run's checkpoint interval
+MESH_FAULT_HIT = 4          # device.lost at the third chunk of that run
+MESH_MXU_PLAN_BUDGET_S = 45.0
+
+
+def mesh_collective_ms(ctx, block: int) -> float:
+    """CUDA-event ms of one PageRank collective of ``ctx``: the
+    psum_scatter of every shard's (P, block + 2) payload (counted
+    collectives, outside any run)."""
+    import torch
+    from memgraph_tpu_torch.parallel import mesh as M
+    P = ctx.n_shards
+    payloads = [torch.rand(P, block + 2, device=d) for d in ctx.devices]
+    before = dict(M.collective_counts)
+    ms = cuda_ms(lambda: M.psum_scatter(ctx, payloads), 50)
+    M.collective_counts.update(before)
+    return ms
+
+
+def phase_mesh(base: dict):
+    """The mesh (``mesh`` line, parallel/mesh.py, distributed.py,
+    analytics.py, ops/spmv_mxu_sharded.py) on the north star v0: a mesh
+    of 1 (``cuda:0``) and a mesh of ``MESH_SHARDS`` shards on the one card
+    (``cuda:0`` four times; they share its HBM and SMs, so nothing here
+    measures multi-card scaling).  On each: the placements timed;
+    partition-centric PageRank at 50 iterations (tol -1), f32 (within the
+    main path's bounds of float64) and bf16 (within PRECISION_BOUNDS of
+    f32), katz (α = 0.05, 50 iterations) within 1e-4 of float64,
+    WCC equal to scipy's components by minimum index, label propagation
+    (5 rounds) equal to the single-card labels, SSSP within
+    ``SSSP_REL_TOL`` of scipy's unweighted distances and BFS levels equal
+    to them; exactly one collective an iteration or round; the K1 and K2
+    launches of the path counted (set to 0 just before, read just after)
+    and recorded K1 calls held to the plain version; ms an iteration (the
+    slope between 5 and 50 iterations) beside the single-card segment
+    route's on the same graph, and the collective's ms.  Two mesh-4 runs
+    bit-equal.  The sharded MXU route on ``MESH_SHARDS`` shards: plan
+    build seconds, placement, PageRank at 50 iterations (bf16 route, the
+    reference's default, within PRECISION_BOUNDS of the f32 mesh ranks;
+    f32 route within the main path's bounds of float64), its Benes
+    gathers counted and held to their plain versions.  The resumable
+    server run: an in-process kernel server with checkpoint_every=10
+    serves the pagerank op at 50 iterations, then again with a
+    device.lost at the third chunk: resumed once, 10 iterations redone,
+    bit-equal to the unfaulted run."""
+    import torch
+    from memgraph_tpu_torch.ops import csr as C
+    from memgraph_tpu_torch.ops import pagerank as PR
+    from memgraph_tpu_torch.ops import segment_cuda as SC
+    from memgraph_tpu_torch.ops import spmv_mxu_sharded as MS
+    from memgraph_tpu_torch.ops.labelprop import label_propagation
+    from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
+    from memgraph_tpu_torch.parallel import analytics as A
+    from memgraph_tpu_torch.parallel import distributed as D
+    from memgraph_tpu_torch.parallel import mesh as M
+    from memgraph_tpu_torch.utils import faultinject as FI
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
+    graph, src, dst, ref = base["graph"], base["src"], base["dst"], \
+        base["ref"]
+    n = graph.n_nodes
+    b16 = PRECISION_BOUNDS["bf16"]
+
+    # the references: katz's and traversal's float64 / scipy answers on v0
+    # (base["refs"]), the single card's labels
+    refs = base["refs"]
+    katz64, weak = refs["katz64"], refs["weak"]
+    source, hops = refs["source"], refs["hops"]
+    want_levels = np.where(np.isinf(hops), -1, hops).astype(np.int32)
+    t0 = time.perf_counter()
+    single_lp, _ = label_propagation(graph, max_iterations=MESH_LP_ROUNDS)
+    refs_s = time.perf_counter() - t0
+
+    def hold(name, ok, what):
+        check(ok, f"mesh {name}: {what}")
+
+    kinds = ("benes_mid", "benes_mid_gather", "benes_outer",
+             "benes_outer_gather", "csr_spmm_sum", "lane_sum")
+    path = dict.fromkeys(kinds, 0)
+    out = {"n_nodes": n, "n_edges": int(graph.n_edges), "source": source,
+           "references_s": refs_s, "meshes": {}}
+    ranks4 = None
+    for name, ctx in (("1", M.get_mesh_context(1)),
+                      (str(MESH_SHARDS), M.get_mesh_context(
+                          devices=("cuda:0",) * MESH_SHARDS))):
+        line = {"devices": [str(d) for d in ctx.devices]}
+        (scsr, line["place_src_s"]) = timed_run(
+            lambda: C.shard_csr(graph, ctx, by="src"))
+        (_, line["place_dst_doubled_s"]) = timed_run(
+            lambda: C.shard_csr(graph, ctx, by="dst", doubled=True))
+        line.update(block=scsr.block, per=scsr.per, n_pad2=scsr.n_pad2)
+        secs, iters = {}, {}
+
+        def run(tag, fn):
+            res, secs[tag] = timed_run(fn)
+            return res
+
+        # the mesh path: counts set to 0 just before, read just after
+        reset_all_counts()
+        M.reset_collective_counts()
+        r32, _, iters["pagerank_f32"] = run("pagerank_f32", lambda: (
+            A.pagerank_mesh(graph, ctx, damping=DAMPING,
+                            max_iterations=ITERATIONS, tol=-1.0)))
+        r16, _, iters["pagerank_bf16"] = run("pagerank_bf16", lambda: (
+            A.pagerank_mesh(graph, ctx, damping=DAMPING,
+                            max_iterations=ITERATIONS, tol=-1.0,
+                            precision="bf16")))
+        kz, _, iters["katz"] = run("katz", lambda: A.katz_mesh(
+            graph, ctx, alpha=KATZ_ALPHA, beta=KATZ_BETA,
+            max_iterations=ITERATIONS, tol=-1.0))
+        comp, iters["wcc"] = run("wcc", lambda: A.components_mesh(
+            graph, ctx))
+        lp, iters["labelprop"] = run("labelprop", lambda: (
+            A.label_propagation_mesh(graph, ctx,
+                                     max_iterations=MESH_LP_ROUNDS)))
+        dist, iters["sssp"] = run("sssp", lambda: A.sssp_mesh(
+            graph, ctx, source))
+        levels, iters["bfs"] = run("bfs", lambda: A.bfs_mesh(
+            graph, ctx, source))
+        launches = all_counts()
+        coll = dict(M.collective_counts)
+        for k in kinds:
+            path[k] += launches[k]
+        hold(name, launches["csr_spmm_sum"] > 0 and launches["lane_sum"] > 0,
+             f"K1 / K2 not launched: {launches}")
+        hold(name, iters["pagerank_f32"] == iters["pagerank_bf16"]
+             == iters["katz"] == ITERATIONS, f"iterations {iters}")
+        hold(name, coll == {"psum_scatter": 2 * ITERATIONS,
+                            "psum": ITERATIONS,
+                            "pmin": iters["wcc"] + iters["sssp"]
+                            + iters["bfs"],
+                            "pmax": 0, "all_gather": iters["labelprop"]},
+             f"not one collective an iteration: {coll} for {iters}")
+        a = r32.double().cpu().numpy()
+        vs64 = {"max_rel": float((np.abs(a - ref) / ref).max()),
+                "l1": float(np.abs(a - ref).sum())}
+        hold(name, vs64["max_rel"] <= F32_REL_TOL
+             and vs64["l1"] <= F32_L1_TOL, f"f32 ranks off float64 {vs64}")
+        d16 = np.abs(r16.double().cpu().numpy() - a)
+        bf16 = {"linf": float(d16.max()), "l1": float(d16.sum())}
+        hold(name, bf16["linf"] <= b16["pagerank_linf"]
+             and bf16["l1"] <= b16["pagerank_l1"], f"bf16 off f32 {bf16}")
+        katz_rel = float((np.abs(kz.double().cpu().numpy() - katz64)
+                          / katz64).max())
+        hold(name, katz_rel <= F32_REL_TOL, f"katz off float64 {katz_rel}")
+        hold(name, np.array_equal(comp, min_index_labels(weak)),
+             "WCC labels are not scipy's components by minimum index")
+        hold(name, np.array_equal(lp, single_lp),
+             "labels differ from the single-card label propagation")
+        reach = np.isfinite(hops)
+        hold(name, np.array_equal(np.isfinite(dist), reach),
+             "SSSP's unreachable set is not scipy's")
+        pos = reach & (hops > 0)
+        sssp_rel = float((np.abs(dist[pos] - hops[pos]) / hops[pos]).max())
+        hold(name, sssp_rel <= SSSP_REL_TOL and dist[source] == 0.0,
+             f"SSSP off scipy by {sssp_rel}")
+        hold(name, np.array_equal(levels, want_levels),
+             "BFS levels are not the unweighted shortest paths")
+        # ms an iteration: the slope between warm runs of 5 and 50
+        (_, t50) = timed_run(lambda: A.pagerank_mesh(
+            graph, ctx, damping=DAMPING, max_iterations=ITERATIONS,
+            tol=-1.0))
+        (_, t5) = timed_run(lambda: A.pagerank_mesh(
+            graph, ctx, damping=DAMPING, max_iterations=5, tol=-1.0))
+        line.update(
+            seconds=secs, iterations=iters, launches=launches,
+            collectives=coll, vs_float64=vs64, bf16_vs_f32=bf16,
+            katz_vs_float64=katz_rel, sssp_vs_scipy=sssp_rel,
+            pagerank_ms_per_iteration=(t50 - t5) / (ITERATIONS - 5) * 1e3,
+            collective_ms=mesh_collective_ms(ctx, scsr.block))
+        if ctx.n_shards > 1:
+            ranks4 = r32
+            again, _, _ = A.pagerank_mesh(graph, ctx, damping=DAMPING,
+                                          max_iterations=ITERATIONS, tol=-1.0)
+            hold(name, again.cpu().numpy().tobytes()
+                 == r32.cpu().numpy().tobytes(), "two runs differ")
+            line["bit_equal_runs"] = True
+            # a shard's K1 calls held to the plain version (2 iterations)
+            with k1_recorded(D, lambda x, ptr, g, w, kw: (
+                    "contrib" if kw.get("mul", "times") == "times"
+                    else "wsum")) as calls:
+                A.pagerank_mesh(graph, ctx, max_iterations=2, tol=-1.0)
+            base["path_k1_lines"] += path_k1_lines(calls, "mesh")
+            x = r32[:scsr.block].contiguous()
+            m = (x > x.median()).to(torch.float32)
+            hold(name, same_bits(SC.lane_sum(x, m=m),
+                                 SC.lane_sum_reference(x, m=m)),
+                 "K2 disagrees with its plain version on a shard's block")
+        out["meshes"][name] = line
+        object.__setattr__(graph, "_sharded_csr", {})
+        del scsr
+        torch.cuda.empty_cache()
+
+    # the single-card segment route on the same graph, for its ms
+    keep = PR.MXU_MIN_EDGES
+    PR.MXU_MIN_EDGES = 1 << 62
+    try:
+        (_, s50) = timed_run(lambda: PR.pagerank(
+            graph, damping=DAMPING, max_iterations=ITERATIONS, tol=-1.0))
+        (_, s5) = timed_run(lambda: PR.pagerank(
+            graph, damping=DAMPING, max_iterations=5, tol=-1.0))
+    finally:
+        PR.MXU_MIN_EDGES = keep
+    out["segment_ms_per_iteration"] = (s50 - s5) / (ITERATIONS - 5) * 1e3
+
+    # the sharded MXU route on MESH_SHARDS shards of the one card
+    ctx = M.get_mesh_context(devices=("cuda:0",) * MESH_SHARDS)
+    plan, plan_s = timed_run(lambda: MS.build_sharded_plan(
+        src, dst, None, n, MESH_SHARDS))
+    mxu = {"plan_s": plan_s, "net_log2": plan.net_log2, "R_G": plan.R_G,
+           "C": plan.C, "node_net_log2": plan.node_net_log2,
+           "over_plan_budget": plan_s > MESH_MXU_PLAN_BUDGET_S}
+    reset_all_counts()
+    (m16, _, it16), mxu["bf16_s"] = timed_run(lambda: MS.pagerank_mxu_sharded(
+        src, dst, None, n, ctx, damping=DAMPING, max_iterations=ITERATIONS,
+        tol=-1.0, plan=plan))
+    mxu_launches = all_counts()
+    run16 = plan._kernel_cache[(ctx.cache_key, None)]
+    (m32, _, it32), mxu["f32_s"] = timed_run(lambda: MS.pagerank_mxu_sharded(
+        src, dst, None, n, ctx, damping=DAMPING, max_iterations=ITERATIONS,
+        tol=-1.0, plan=plan, route_dtype=torch.float32))
+    for k in kinds:
+        path[k] += all_counts()[k]
+    mxu["placement_s"] = run16.placement_s
+    hold("mxu", it16 == it32 == ITERATIONS, f"iterations {it16} / {it32}")
+    from memgraph_tpu_torch.ops import benes_cuda as BC
+    want = dict.fromkeys(kinds[:4], 0)
+    for route in run16.routes:
+        for k, v in BC.launches_per_placement(route[2]).items():
+            want[k] += v
+        for k, v in BC.launches_per_apply(route[2]).items():
+            want[k] += ITERATIONS * v
+    for route in run16.node_routes:
+        for k, v in BC.launches_per_placement(route[2]).items():
+            want[k] += v
+        for k, v in BC.launches_per_apply(route[2]).items():
+            want[k] += ITERATIONS * v
+    got = {k: mxu_launches[k] for k in kinds[:4]}
+    hold("mxu", got == want and got["benes_mid_gather"] > 0
+         and got["benes_outer_gather"] > 0,
+         f"Benes launches {got}, expected {want}")
+    a = m32.double().cpu().numpy()
+    vs64 = {"max_rel": float((np.abs(a - ref) / ref).max()),
+            "l1": float(np.abs(a - ref).sum())}
+    hold("mxu", vs64["max_rel"] <= F32_REL_TOL and vs64["l1"] <= F32_L1_TOL,
+         f"f32 route off float64 {vs64}")
+    d16 = np.abs(m16.double().cpu().numpy() - ranks4.double().cpu().numpy())
+    mxu.update(vs_float64=vs64, bf16_vs_mesh_f32={
+        "linf": float(d16.max()), "l1": float(d16.sum())},
+        launches=got)
+    hold("mxu", d16.max() <= b16["pagerank_linf"]
+         and d16.sum() <= b16["pagerank_l1"],
+         f"bf16 route off the f32 mesh ranks {mxu['bf16_vs_mesh_f32']}")
+    (_, t5) = timed_run(lambda: MS.pagerank_mxu_sharded(
+        src, dst, None, n, ctx, damping=DAMPING, max_iterations=5, tol=-1.0,
+        plan=plan))
+    (_, t50) = timed_run(lambda: MS.pagerank_mxu_sharded(
+        src, dst, None, n, ctx, damping=DAMPING, max_iterations=ITERATIONS,
+        tol=-1.0, plan=plan))
+    mxu["bf16_ms_per_iteration"] = (t50 - t5) / (ITERATIONS - 5) * 1e3
+    mxu["route_kernels"] = route_kernels(
+        "mesh_shard0_edge_bf16", run16.routes[0], plan.masks_packed[0],
+        torch.bfloat16)
+    out["mxu_sharded"] = mxu
+    del plan, run16
+    torch.cuda.empty_cache()
+
+    # the resumable server run: unfaulted, then a device.lost mid-run
+    server = {}
+    with served(checkpoint_every=MESH_SERVER_EVERY) as (_, client):
+        kw = {"graph_key": "mesh", "n_nodes": n, "damping": DAMPING,
+              "max_iterations": ITERATIONS}
+        (h0, o0), server["cold_s"] = timed_run(lambda: client.call_pagerank(
+            src=src, dst=dst, tol=-1.0, **kw))
+        resumes = global_metrics.value("analytics.resume_total")
+        redone = global_metrics.value("analytics.redone_iterations_total")
+        FI.reset()
+        FI.arm("device.lost", "raise", at=MESH_FAULT_HIT)
+        try:
+            # another tol (-2: the same 50 iterations) so that the stored
+            # solution does not answer
+            (h1, o1), server["faulted_s"] = timed_run(
+                lambda: client.call_pagerank(tol=-2.0, **kw))
+        finally:
+            FI.reset()
+        server.update(
+            cold_iters=h0["iters"], faulted_iters=h1["iters"],
+            resumes=global_metrics.value("analytics.resume_total") - resumes,
+            redone_iterations=global_metrics.value(
+                "analytics.redone_iterations_total") - redone,
+            bit_equal=o0["ranks"].tobytes() == o1["ranks"].tobytes())
+    hold("server", server["resumes"] == 1
+         and server["redone_iterations"] == MESH_SERVER_EVERY
+         and h0["iters"] == h1["iters"] == ITERATIONS and server["bit_equal"],
+         f"the resumed run {server}")
+    out["server"] = server
+    out["launches"] = path
+    print("mesh", json.dumps(out, default=float), flush=True)
+    # the runs' closures hold placed rows in cycles: free them here, not
+    # inside a later phase's peak measurement
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
+
 
 LANE_SEED = 53              # the lane's vertex properties and masks
 LANE_LOOPS = 1_000          # self-loops planted in the lane's edge table
@@ -6059,6 +6481,13 @@ def main():
 
     card = card_line()
     print("card", card, flush=True)
+    # the benes phase's permutations route on the host (the native router
+    # runs outside the GIL) while nvcc builds the kernels
+    from concurrent.futures import ThreadPoolExecutor
+    router = ThreadPoolExecutor(max_workers=1)
+    routed = {n: router.submit(routed_permutation, n)
+              for n in sorted(BENES_SIZES, reverse=True)}
+    router.shutdown(wait=False)
     t0 = time.perf_counter()
     load_kernels()
     check(get_router() is not None, "host Benes router did not build")
@@ -6071,7 +6500,7 @@ def main():
         print(f"phase_s {name} {time.perf_counter() - t0:.3f}", flush=True)
         return out
 
-    timed("benes", phase_benes)
+    timed("benes", phase_benes, routed)
     micro_launches, micro_lines = timed("micro", phase_micro, sm_clock_hz())
     # the segment kernels' counts over the MXU paths too (they stay 0)
     seg_before = {}
@@ -6107,6 +6536,7 @@ def main():
         "segment": timed("segment", phase_segment, base),
         "ppr": timed("ppr", phase_ppr, base),
         "traversal": timed("traversal", phase_traversal, base),
+        "mesh": timed("mesh", phase_mesh, base),
         "labelprop": timed("labelprop", phase_labelprop, base),
         "betweenness": timed("betweenness", phase_betweenness, base),
         "gnn": timed("gnn", phase_gnn, base),

@@ -34,15 +34,22 @@ def _wcc_epilogue(comp, acc, env, P):
 
 def weakly_connected_components(graph: DeviceGraph,
                                 max_iterations: int = 200, comp0=None,
-                                device=None):
+                                device=None, mesh=None):
     """Returns (component_id[:n_nodes] as a host int32 array, iterations).
     Component ids are the minimum dense node index in each component.
 
     ``comp0`` warm-starts the min-label propagation from a previous
     assignment; it is only valid when the graph since that assignment
     ADDED edges (min labels can merge components, never split them).
-    ``device``: explicit, else the graph's, else the card."""
+    ``device``: explicit, else the graph's, else the card.  ``mesh``
+    routes through the mesh (parallel/analytics.py ``components_mesh``;
+    see ops.pagerank.pagerank)."""
     dev = graph_device(graph, device)
+    backend, ctx = S.route_backend(graph, dev, mesh, semiring="min_first")
+    if backend == "mesh":
+        from ..parallel.analytics import components_mesh
+        return components_mesh(graph, ctx, max_iterations=max_iterations,
+                               comp0=comp0)
     g = on_device(graph, dev)
     start = np.arange(g.n_pad, dtype=np.int32)
     if comp0 is not None:

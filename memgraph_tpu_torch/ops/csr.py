@@ -618,18 +618,33 @@ class ShardedCSR:
     a concatenation of (owner, dst-block) runs: the run into block q is
     ``block_ptr[p, q]:block_ptr[p, q+1]``.
 
-    Arrays are numpy, stacked (n_shards, per).  The streamed tier
-    (ops/tier.py) encodes each row as one host-pinned block; placing the
-    rows one a card (``to_device``, ``refresh``, ``shard_csr``) waits for
-    the mesh.
+    On the host the arrays are numpy, stacked (n_shards, per): the
+    streamed tier (ops/tier.py) encodes each row as one host-pinned block,
+    and a resident generation splices commits into them (ops/delta.py
+    ``apply_edge_delta``).  ``to_device(ctx)`` places them on a mesh
+    (parallel/mesh.py): ``src``, ``dst`` and ``weights`` become tuples of
+    one tensor a shard, row p on shard p's device, and ``runs`` holds
+    each row's run data, built on the host once a placement:
+
+      ``dst_ptr``      (n_pad2 + 1,) int32: the real edges into vertex j
+                       are [dst_ptr[j], dst_ptr[j+1]) (K1's runs; the
+                       padding edges lie in no run)
+      ``dst_longest``  the longest of those runs (K1's launch shape)
+      ``rc``           the row's real edges (the rest is padding)
+      ``src_longest``  for a src-owned row, the largest local out-degree
+                       (K1's launch shape for the weight sums)
+      ``local_src``    for a src-owned row, src - the block base (int32)
+
+    ``host`` keeps the host layout a placement came from, so ``refresh``
+    re-places it after a device loss.
 
     Padding edges: src = the row's block base, dst = n_nodes (the sink
     row, always < n_pad2), weight 0, at the row's tail so dst stays
     sorted."""
 
-    src: np.ndarray          # (P, per) int32
-    dst: np.ndarray          # (P, per) int32
-    weights: np.ndarray      # (P, per) float32
+    src: object              # (P, per) int32, or a tensor a shard
+    dst: object              # (P, per) int32, or a tensor a shard
+    weights: object          # (P, per) float32, or a tensor a shard
     block_ptr: np.ndarray    # (P, P+1) int32: (p, q)-run boundaries
     n_nodes: int
     n_edges: int
@@ -638,6 +653,60 @@ class ShardedCSR:
     n_pad2: int              # n_shards * block
     per: int                 # edges a row (padding included)
     by: str                  # "src" | "dst": the owning endpoint
+    runs: tuple = field(default=None, repr=False, compare=False)
+    host: object = field(default=None, repr=False, compare=False)
+    ctx_key: tuple = field(default=None, repr=False, compare=False)
+
+    @property
+    def placed(self) -> bool:
+        return not isinstance(self.src, np.ndarray)
+
+    def to_device(self, ctx) -> "ShardedCSR":
+        """The rows placed one a shard of ``ctx`` (each uploaded once,
+        pinned), with their run data; a placed layout is returned as it
+        is."""
+        if self.placed:
+            return self
+        sink = self.n_nodes
+        bounds = np.arange(self.n_pad2 + 1, dtype=np.int64)
+        runs, ptrs, local = [], [], []
+        for p in range(self.n_shards):
+            dst = self.dst[p]
+            rc = int(np.searchsorted(dst, sink, side="left"))
+            ptr = np.searchsorted(dst[:rc], bounds).astype(np.int32)
+            r = {"rc": rc, "dst_longest": int(np.diff(ptr).max(initial=0))}
+            if self.by == "src":
+                loc = (self.src[p] - np.int32(p * self.block)).astype(
+                    np.int32)
+                local.append(loc)
+                r["src_longest"] = int(np.bincount(
+                    loc[:rc], minlength=1).max())
+            runs.append(r)
+            ptrs.append(ptr)
+        on = ctx.put_edge_blocks(np.stack(ptrs))
+        loc_on = ctx.put_edge_blocks(np.stack(local)) if local else None
+        for p, r in enumerate(runs):
+            r["dst_ptr"] = on[p]
+            if loc_on is not None:
+                r["local_src"] = loc_on[p]
+        placed = ShardedCSR(
+            src=ctx.put_edge_blocks(self.src),
+            dst=ctx.put_edge_blocks(self.dst),
+            weights=ctx.put_edge_blocks(self.weights),
+            block_ptr=self.block_ptr, n_nodes=self.n_nodes,
+            n_edges=self.n_edges, n_shards=self.n_shards, block=self.block,
+            n_pad2=self.n_pad2, per=self.per, by=self.by,
+            runs=tuple(runs), host=self, ctx_key=ctx.cache_key)
+        ctx.synchronize()
+        return placed
+
+    def refresh(self, ctx) -> "ShardedCSR":
+        """Place the host layout again (the device-lost recovery hook of
+        parallel/checkpoint.py: the rows on the card are gone); a host
+        layout is returned as it is."""
+        if not self.placed:
+            return self
+        return self.host.to_device(ctx)
 
 
 def _ceil_multiple(x: int, m: int) -> int:
@@ -667,8 +736,9 @@ def shard_edges(src, dst, weights, n_nodes: int, n_shards: int,
     owner = (src if by == "src" else dst) // block
     if n_shards * n_pad2 * n_pad2 < 2**62:
         # the lexsort's (owner, dst, src) order as one stable int64 sort
-        order = np.argsort((owner * n_pad2 + dst) * n_pad2 + src,
-                           kind="stable")
+        # (torch's sorts on every host core; a stable order is unique)
+        order = torch.sort(torch.from_numpy(
+            (owner * n_pad2 + dst) * n_pad2 + src), stable=True)[1].numpy()
     else:
         order = np.lexsort((src, dst, owner))
     s_s, d_s, w_s = src[order], dst[order], w[order]
@@ -696,3 +766,37 @@ def shard_edges(src, dst, weights, n_nodes: int, n_shards: int,
                       block_ptr=block_ptr, n_nodes=n_nodes,
                       n_edges=n_edges, n_shards=n_shards, block=block,
                       n_pad2=n_pad2, per=per, by=by)
+
+
+_sharded_csr_guard = threading.Lock()
+
+
+def shard_csr(graph: DeviceGraph, ctx, by: str = "src",
+              doubled: bool = False) -> ShardedCSR:
+    """The partition-centric ShardedCSR of ``graph`` placed on ``ctx``,
+    cached on the (immutable) snapshot per (mesh, by, doubled): repeated
+    mesh calls on an unchanged graph pay the blocking and the transfer
+    once.  ``doubled=True`` concatenates both edge directions before
+    blocking (the undirected view label propagation iterates over)."""
+    key = (ctx.cache_key, by, doubled)
+    cache = getattr(graph, "_sharded_csr", None)
+    if cache is not None and key in cache:
+        return cache[key]
+    with _sharded_csr_guard:
+        cache = getattr(graph, "_sharded_csr", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(graph, "_sharded_csr", cache)
+        if key not in cache:
+            if graph.host_coo is not None:
+                src, dst, w = graph.host_coo
+            else:
+                src, dst, w = graph.host_edges()
+            if doubled:
+                src, dst = (np.concatenate([src, dst]),
+                            np.concatenate([dst, src]))
+                w = np.concatenate([w, w])
+            scsr = shard_edges(src, dst, w, graph.n_nodes, ctx.n_shards,
+                               by=by)
+            cache[key] = scsr.to_device(ctx)
+    return cache[key]

@@ -57,11 +57,13 @@ pool, the resident layer and ``GraphCache`` in
 ships.
 
 ``apply_edge_delta`` splices a delta into a host ``ShardedCSR``
-(ops/csr.py), rewriting only the rows it touches; a resident
-generation's streamed paging plans (``ResidentGraph.ensure_tier``,
-ops/tier.py) move by it on every commit, re-packing only the touched
-blocks.  Not ported: the generation's placed sharded variants
-(``ensure_sharded``), which wait for the mesh.
+(ops/csr.py), rewriting only the rows it touches.  A resident
+generation's partition-centric variants (``ResidentGraph.ensure_sharded``:
+the host layout per (by, doubled), planned with ``TIER_ROW_SLACK`` of room
+a row, and its placement per mesh) and its streamed paging plans
+(``ensure_tier``, ops/tier.py) move by it on every commit: only the
+touched rows are rewritten (blocks re-packed), no global sort runs, and
+a moved variant is placed again at its next use.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ import numpy as np
 
 from ..utils.metrics import global_metrics
 from .csr import (ChangeLogUnknowable, DeviceGraph, ShardedCSR, _raw,
-                  _weights, from_coo)
+                  _weights, from_coo, shard_edges)
 
 log = logging.getLogger(__name__)
 
@@ -674,11 +676,12 @@ class ResidentGraph:
     past ``ops.pagerank.DELTA_RECOMPACT_FRACTION``."""
 
     __slots__ = ("graph_key", "version", "solutions", "delta_edges",
-                 "base_edges", "tiers", "_graph", "_coo", "_n_nodes",
-                 "_node_gids", "_device", "_anchor", "_anchor_changed")
+                 "base_edges", "tiers", "host_variants", "_graph", "_coo",
+                 "_n_nodes", "_node_gids", "_device", "_anchor",
+                 "_anchor_changed")
 
-    def __init__(self, graph_key, version: int,
-                 graph: DeviceGraph) -> None:
+    def __init__(self, graph_key, version: int, graph: DeviceGraph,
+                 device=None) -> None:
         if graph.host_coo is None:
             raise ValueError("ResidentGraph needs a snapshot with host "
                              "COO arrays (from_coo keeps them)")
@@ -688,13 +691,18 @@ class ResidentGraph:
         self._coo = graph.host_coo
         self._n_nodes = int(graph.n_nodes)
         self._node_gids = graph.node_gids
-        self._device = graph.device
+        # ``device``: a host snapshot is placed there at its first read
+        # (a route that never reads it, the mesh's, places nothing)
+        self._device = graph.device if device is None else device
         self._anchor = None
         self._anchor_changed: set = set()
         #: algo -> _Solution (the hits and the warm-start seeds)
         self.solutions: dict = {}
         #: (precision, block_bytes) -> TierCSR (the streamed paging plans)
         self.tiers: dict = {}
+        #: (by, doubled) -> host ShardedCSR (the splice substrate; each
+        #: holds its placements per mesh)
+        self.host_variants: dict = {}
         self.delta_edges = 0
         self.base_edges = int(graph.n_edges)
 
@@ -716,7 +724,11 @@ class ResidentGraph:
         """The snapshot, rebuilt from the COO on its first read after a
         delta (``from_coo``, then placed as the first one was), with the
         refresh lineage; a rebuild's seconds are the ``delta.snapshot_s``
-        summary."""
+        summary.  A host snapshot given with a ``device`` is placed at its
+        first read."""
+        if self._graph is not None and self._graph.device is None \
+                and self._device is not None:
+            self._graph = self._graph.to_device(self._device)
         if self._graph is None:
             t0 = time.perf_counter()
             src, dst, w = self._coo
@@ -754,24 +766,74 @@ class ResidentGraph:
             self.tiers[key] = t
         return t
 
+    # --- sharded variants ----------------------------------------------------
+
+    def ensure_sharded(self, ctx, by: str = "src",
+                       doubled: bool = False) -> ShardedCSR:
+        """The generation's partition-centric layout placed on ``ctx``
+        (parallel/mesh.py): the host layout per (by, doubled) is built
+        once from the COO, with ``TIER_ROW_SLACK`` of room a row so that a
+        commit fits in place, and kept as the splice substrate; its
+        placement is cached per mesh, so an unmoved generation is never
+        re-sorted or re-sent.  The seconds of a call are the
+        ``delta.sharded_s`` summary."""
+        t0 = time.perf_counter()
+        hv = self.host_variants.get((by, doubled))
+        if hv is None or hv.n_shards != ctx.n_shards:
+            hv = self._reshard(by, doubled, ctx.n_shards)
+            self.host_variants[(by, doubled)] = hv
+        dev = self._install(ctx, hv)
+        global_metrics.observe("delta.sharded_s", time.perf_counter() - t0)
+        return dev
+
+    def _reshard(self, by, doubled, n_shards) -> ShardedCSR:
+        """A fresh sharded variant of the COO (the global sort; counted
+        ``delta.resharded_total``, which a commit's splice leaves)."""
+        global_metrics.increment("delta.resharded_total")
+        src, dst, w = self._coo
+        src = src.astype(np.int64)
+        dst = dst.astype(np.int64)
+        if doubled:
+            src, dst = (np.concatenate([src, dst]),
+                        np.concatenate([dst, src]))
+            w = np.concatenate([w, w])
+        return shard_edges(src, dst, w, self._n_nodes, n_shards, by=by,
+                           slack=TIER_ROW_SLACK)
+
+    @staticmethod
+    def _install(ctx, host_scsr) -> ShardedCSR:
+        """``host_scsr`` placed on ``ctx``, cached on the host layout
+        itself (one placement a mesh)."""
+        cache = getattr(host_scsr, "_placed_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(host_scsr, "_placed_cache", cache)
+        dev = cache.get(ctx.cache_key)
+        if dev is None:
+            dev = cache[ctx.cache_key] = host_scsr.to_device(ctx)
+        return dev
+
     # --- delta application -------------------------------------------------
 
-    def apply(self, delta: EdgeDelta) -> bool:
+    def apply(self, delta: EdgeDelta, ctx=None) -> bool:
         """Advance the generation by one EdgeDelta: splice the COO and
-        drop the snapshot (rebuilt lazily); each paging plan moves by the
-        same delta, re-packing only its touched blocks (a row overflow
-        drops the plan, which ``ensure_tier`` rebuilds from the COO).  An oversized delta, or deltas
+        drop the snapshot (rebuilt lazily); each sharded variant and each
+        paging plan moves by the same delta, rewriting only the rows it
+        touches (``apply_edge_delta``; a row overflow re-shards that
+        variant, or drops the plan, which ``ensure_tier`` rebuilds from
+        the COO), and the moved variants are placed again on ``ctx``.  An
+        oversized delta, or deltas
         accumulated past ``DELTA_COMPACT_FRACTION`` of the edges, compact
         (``delta.compacted_total``).  False when a removal matches no edge
         (``delta.fallback_rebuild_total``): the caller re-imports.  The
         seconds of each call are the ``delta.apply_s`` summary."""
         t0 = time.perf_counter()
         try:
-            return self._apply(delta)
+            return self._apply(delta, ctx)
         finally:
             global_metrics.observe("delta.apply_s", time.perf_counter() - t0)
 
-    def _apply(self, delta: EdgeDelta) -> bool:
+    def _apply(self, delta: EdgeDelta, ctx) -> bool:
         if delta.n_delta == 0:
             # a property-only bump: the edges stand, every seed stays
             # valid
@@ -781,14 +843,15 @@ class ResidentGraph:
             return True
         if delta.n_delta > max(DELTA_MAX_FRACTION * max(self.base_edges, 1),
                                1024):
-            return self._compact(delta, why="oversized delta")
+            return self._compact(delta, why="oversized delta", ctx=ctx)
         if not self._splice(delta):
             return False
         self.delta_edges += delta.n_delta
         self._note_moved(delta)
         if self.delta_edges > DELTA_COMPACT_FRACTION * max(self.base_edges,
                                                            1):
-            return self._compact(None, why="accumulated deltas")
+            return self._compact(None, why="accumulated deltas", ctx=ctx)
+        self._splice_variants(delta, ctx)
         self._splice_tiers(delta)
         global_metrics.increment("delta.applied_total")
         global_metrics.observe("delta.edge_count", float(delta.n_delta))
@@ -814,6 +877,30 @@ class ResidentGraph:
         self._graph = None
         return True
 
+    def _splice_variants(self, delta: EdgeDelta, ctx) -> None:
+        """Move every sharded variant by ``delta`` (doubled variants by the
+        doubled delta) and place the moved ones again."""
+        new = {}
+        for (by, doubled), hv in self.host_variants.items():
+            nv = apply_edge_delta(hv, delta.doubled() if doubled else delta)
+            if nv is None:
+                global_metrics.increment("delta.compacted_total")
+                log.info("delta: variant (%s, doubled=%s) of %s overflowed "
+                         "its row capacity: re-sharded", by, doubled,
+                         self.graph_key)
+                nv = self._reshard(by, doubled, hv.n_shards)
+            new[(by, doubled)] = nv
+        self._replace_variants(new, ctx)
+
+    def _replace_variants(self, new: dict, ctx) -> None:
+        """Keep the moved variants, placed again on ``ctx`` (on any other
+        mesh ``ensure_sharded`` places them at their next use)."""
+        self.host_variants = new
+        if ctx is not None:
+            for nv in new.values():
+                if nv.n_shards == ctx.n_shards:
+                    self._install(ctx, nv)
+
     def _splice_tiers(self, delta: EdgeDelta) -> None:
         new_tiers = {}
         for key, t in self.tiers.items():
@@ -826,15 +913,19 @@ class ResidentGraph:
                 new_tiers[key] = nt
         self.tiers = new_tiers
 
-    def _compact(self, delta, why: str) -> bool:
+    def _compact(self, delta, why: str, ctx=None) -> bool:
         """Splice ``delta`` (when given) and restart the accumulation
         count: the COO is exact either way, the next snapshot is built
-        from it and its plan follows the DeltaPlan rule; the paging plans
-        are dropped (``ensure_tier`` rebuilds them from the COO)."""
+        from it and its plan follows the DeltaPlan rule; the sharded
+        variants are re-sharded from the COO and placed again, the paging
+        plans dropped (``ensure_tier`` rebuilds them from the COO)."""
         if delta is not None:
             if not self._splice(delta):
                 return False
             self._note_moved(delta)
+        self._replace_variants(
+            {(by, doubled): self._reshard(by, doubled, hv.n_shards)
+             for (by, doubled), hv in self.host_variants.items()}, ctx)
         self.tiers = {}
         self.delta_edges = 0
         self.base_edges = self.n_edges

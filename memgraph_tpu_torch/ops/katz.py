@@ -58,7 +58,8 @@ def _katz_normalized(x, normalized: bool):
 def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
                     beta: float = 1.0, max_iterations: int = 100,
                     tol: float = 1e-6, normalized: bool = False,
-                    precision: str = "f32", x0=None, device=None):
+                    precision: str = "f32", x0=None, device=None,
+                    mesh=None):
     """Returns (centralities[:n_nodes] as a tensor on the device, error,
     iterations).
 
@@ -67,10 +68,17 @@ def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
     from a previous solution (a contraction for α < 1/λ_max: the same
     fixpoint at the same tol from any seed).  ``normalized`` divides by
     the L2 norm.  ``device``: explicit, else the graph's, else the
-    card."""
+    card.  ``mesh`` routes through the mesh (parallel/analytics.py
+    ``katz_mesh``; see ops.pagerank.pagerank)."""
     S._check_precision(precision)
     dev = graph_device(graph, device)
-    if S.route_backend(graph, dev, precision=precision) == "mxu":
+    backend, ctx = S.route_backend(graph, dev, mesh, precision=precision)
+    if backend == "mesh":
+        from ..parallel.analytics import katz_mesh
+        return katz_mesh(graph, ctx, alpha=alpha, beta=beta,
+                         max_iterations=max_iterations, tol=tol,
+                         normalized=normalized, precision=precision, x0=x0)
+    if backend == "mxu":
         x, err, iters = S.mxu_fixpoint(
             graph, epilogue=_katz_mxu_epilogue,
             params={"alpha": np.float32(alpha), "beta": np.float32(beta)},

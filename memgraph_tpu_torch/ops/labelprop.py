@@ -87,7 +87,7 @@ def _labelprop_epilogue(labels, proposed, env, P):
 
 def label_propagation(graph: DeviceGraph, max_iterations: int = 30,
                       self_weight: float = 0.0, directed: bool = False,
-                      labels0=None, device=None):
+                      labels0=None, device=None, mesh=None):
     """Returns (community label[:n_nodes] as a host int32 array,
     iterations).
 
@@ -96,8 +96,16 @@ def label_propagation(graph: DeviceGraph, max_iterations: int = 30,
     padding edges included, as the reference does.  ``labels0``
     warm-starts the election from a previous labeling (valid over
     adds-only deltas only, as the reference warns).  ``device``:
-    explicit, else the graph's, else the card."""
+    explicit, else the graph's, else the card.  ``mesh`` routes through
+    the mesh (parallel/analytics.py ``label_propagation_mesh``; see
+    ops.pagerank.pagerank)."""
     dev = graph_device(graph, device)
+    backend, ctx = S.route_backend(graph, dev, mesh, semiring="max_min")
+    if backend == "mesh":
+        from ..parallel.analytics import label_propagation_mesh
+        return label_propagation_mesh(
+            graph, ctx, max_iterations=max_iterations,
+            self_weight=self_weight, directed=directed, labels0=labels0)
     g = on_device(graph, dev)
     if directed:
         src2, dst2, w2 = g.src_idx, g.col_idx, g.weights

@@ -9,6 +9,9 @@
   louvain.cpp      -> ``louvain_move_native``: Louvain's local-move loop
                       (ops/louvain.py), the same double operations in the
                       same order as its python loop.
+  edge_color.cpp   -> ``balanced_edge_color_native``: the balanced
+                      bipartite edge coloring that assigns the sharded MXU
+                      route's edges to shards (ops/spmv_mxu_sharded.py).
 
 Each library is built with ``g++`` into the port's build directory at
 first use.  Without a compiler the callers take their numpy paths.
@@ -47,6 +50,9 @@ _SIGNATURES = {
             _I64P, _I64P, _F32P, _I64, _I64, _I64, _I64,
             _I32P, _I32P, _F32P, _I32P, _I32P, _F32P, _I32P, _F32P,
             _I32P])},
+    "edge_color.cpp": {
+        "balanced_edge_color": (ctypes.c_int, [
+            _I64P, _I64P, _I64, _I64, _I64, ctypes.c_int, _U8P])},
     "louvain.cpp": {
         "louvain_move": (ctypes.c_int, [
             _I64, _I64P, _I64P, _F64P, _F64P, _I64P, ctypes.c_double,
@@ -93,6 +99,32 @@ def get_router():
 def get_csr_builder():
     """The CSR builder library, or None when it cannot be built here."""
     return _load("csr_builder.cpp")
+
+
+def get_edge_color():
+    """The edge coloring library, or None when it cannot be built here."""
+    return _load("edge_color.cpp")
+
+
+def balanced_edge_color_native(src: np.ndarray, dst: np.ndarray,
+                               n_src: int, n_dst: int, levels: int):
+    """Balanced bipartite edge coloring into 2^levels shards (Euler
+    splits): every vertex's edges divide floor(d/P)..ceil(d/P) a shard on
+    BOTH sides.  uint8 shard ids, or None when the library cannot be
+    built here."""
+    lib = get_edge_color()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    out = np.zeros(len(src), dtype=np.uint8)
+    rc = lib.balanced_edge_color(src.ctypes.data_as(_I64P),
+                                 dst.ctypes.data_as(_I64P), len(src),
+                                 int(n_src), int(n_dst), int(levels),
+                                 out.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise ValueError("invalid input for balanced_edge_color")
+    return out
 
 
 def get_louvain():

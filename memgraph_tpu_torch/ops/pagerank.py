@@ -392,13 +392,18 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
 
 def pagerank(graph: DeviceGraph, damping: float = 0.85,
              max_iterations: int = 100, tol: float = 1e-6,
-             precision: str = "f32", x0=None, device=None):
+             precision: str = "f32", x0=None, device=None, mesh=None):
     """Returns (ranks[:n_nodes] as a tensor on the device, error,
     iterations).
 
     ``device`` — where to run: explicit, else the graph's device (after
     ``graph.to_device``), else the card.  Without a card and without an
     explicit CPU request this raises.
+
+    ``mesh`` — routes through the mesh (parallel/analytics.py
+    ``pagerank_mesh``): a MeshContext, a shard count, a tuple of devices,
+    or None (MEMGRAPH_TPU_MESH_DEVICES; unset keeps the single-card
+    routes).  A mesh of 1 runs the same sharded code as any other size.
 
     ``precision`` — "f32" (exact), "bf16" (contributions rounded, f32
     accumulation) or "int8" (quantized streaming; segment backend only);
@@ -410,8 +415,13 @@ def pagerank(graph: DeviceGraph, damping: float = 0.85,
     """
     S._check_precision(precision)
     dev = graph_device(graph, device)
-    backend = S.route_backend(graph, dev, precision=precision,
-                              min_edges=MXU_MIN_EDGES)
+    backend, ctx = S.route_backend(graph, dev, mesh, precision=precision,
+                                   min_edges=MXU_MIN_EDGES)
+    if backend == "mesh":
+        from ..parallel.analytics import pagerank_mesh
+        return pagerank_mesh(graph, ctx, damping=damping,
+                             max_iterations=max_iterations, tol=tol,
+                             precision=precision, x0=x0)
     if backend == "mxu":
         return _pagerank_via_mxu(graph, dev, damping, max_iterations, tol,
                                  precision, x0=x0)

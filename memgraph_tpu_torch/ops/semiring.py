@@ -5,8 +5,12 @@ Port of memgraph_tpu/ops/semiring.py: the (⊕, ⊗) algebra (``SEMIRINGS``),
 the per-edge building blocks (``edge_combine``, ``edge_reduce``), the
 semiring matvec ``spmv`` (masks, ``mask_fill``, push ``frontier``s,
 (n, B) lanes), direction-optimizing ``select_pull``, the fused
-``fixpoint`` loop and the MXU plan's ``mxu_fixpoint``.  Two backends sit
+``fixpoint`` loop and the MXU plan's ``mxu_fixpoint``.  Three backends sit
 behind ``route_backend``:
+
+  * ``mesh``    — the partition-centric kernels of parallel/distributed.py
+    over a MeshContext, when a mesh is asked for (``mesh=`` or
+    MEMGRAPH_TPU_MESH_DEVICES); see parallel/analytics.py.
 
   * ``mxu``     — the gather-free plan of ops/spmv_mxu.py (expand matmul,
     Benes route on the CUDA kernels of ops/benes_cuda.py, one-hot extract
@@ -449,16 +453,25 @@ def pagerank_update(acc, dangling_mass, valid, n_f, damping):
                     + damping * (acc + dangling_mass / n_f))
 
 
-def route_backend(graph, device: torch.device, *, semiring="plus_times",
-                  precision: str = "f32", min_edges: int | None = None):
-    """"mxu" or "segment" for a semiring fixpoint on ``device``.
+def route_backend(graph, device: torch.device, mesh=None, *,
+                  semiring="plus_times", precision: str = "f32",
+                  min_edges: int | None = None):
+    """Which backend a semiring fixpoint on ``device`` runs on:
+    ("mesh", MeshContext) | ("mxu", None) | ("segment", None).
 
-    The MXU plan's reduce/extract phase is a one-hot matmul — a SUM — so
-    only ⊕ = sum semirings ride it, and its route moves f32/bf16, so int8
-    stays on the segment backend.  On
-    the CPU the segment backend serves unless MEMGRAPH_TPU_FORCE_MXU is
-    set (the JAX package asks its default backend the same question)."""
+    A mesh (``mesh=``: a MeshContext, a shard count on ``device``'s type
+    or a tuple of devices; None: MEMGRAPH_TPU_MESH_DEVICES, unset for no
+    mesh; parallel/mesh.py ``resolve_mesh``) takes every algorithm.  The
+    MXU plan's reduce/extract phase is a one-hot matmul — a SUM — so only
+    ⊕ = sum semirings ride it, and its route moves f32/bf16, so int8
+    stays on the segment backend.  On the CPU the segment backend serves
+    unless MEMGRAPH_TPU_FORCE_MXU is set (the JAX package asks its
+    default backend the same question)."""
+    from ..parallel.mesh import resolve_mesh
     _check_precision(precision)
+    ctx = resolve_mesh(mesh, device)
+    if ctx is not None:
+        return "mesh", ctx
     sr = resolve_semiring(semiring)
     if min_edges is None:
         min_edges = MXU_MIN_EDGES
@@ -466,5 +479,5 @@ def route_backend(graph, device: torch.device, *, semiring="plus_times",
             and graph.n_edges >= min_edges
             and (device.type != "cpu"
                  or os.environ.get("MEMGRAPH_TPU_FORCE_MXU"))):
-        return "mxu"
-    return "segment"
+        return "mxu", None
+    return "segment", None

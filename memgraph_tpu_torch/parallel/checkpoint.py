@@ -19,7 +19,8 @@ host:
 
 Every fault, resume, checkpoint and slow chunk is counted in
 ``utils.metrics.global_metrics`` under the reference's ``analytics.*``
-names.  The reference's trace span per chunk is dropped (the port has no
+names, and (port only) the iterations a resume redoes in
+``analytics.redone_iterations_total``.  The reference's trace span per chunk is dropped (the port has no
 ``observability/trace.py``, as the kernel server drops a request's
 ``trace``).
 """
@@ -173,6 +174,8 @@ def run_resumable(*, algo: str, chunk, carry, carry_to_host,
                 # most it_stop - checkpoint iterations (<= k) are redone
                 report.lost_spans.append(it_stop - it)
                 global_metrics.increment("analytics.resume_total")
+                global_metrics.increment(
+                    "analytics.redone_iterations_total", it_stop - it)
                 continue
             faults_in_a_row = 0
             elapsed = time.monotonic() - t0

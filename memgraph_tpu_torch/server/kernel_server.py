@@ -36,12 +36,22 @@ paid the process start, the CUDA context and the kernels' load.
     A repeated request on an unmoved generation returns the stored
     solution's bytes; a moved one seeds the fixpoint under the warm-start
     contract.
-  * ``pagerank`` and ``semiring`` (pagerank, katz, wcc, labelprop, bfs)
-    run the port's ops on the generation's snapshot: the MXU route at
-    ``MXU_MIN_EDGES`` edges or more on the card (Benes gathers), the
-    segment route below (K1, K2).  The reference's ``pagerank`` rides
-    the mesh's resumable partition-centric loop with checkpoints; that
-    waits for the mesh, and ``bfs`` runs ``ops.traversal.bfs_levels``.
+  * ``pagerank`` runs the mesh's resumable partition-centric loop
+    (parallel/distributed.py ``pagerank_partition_centric``) over the
+    generation's sharded variant (``ResidentGraph.ensure_sharded``, moved
+    O(delta) by a commit) on ``analytics_mesh()`` or a mesh of 1 on the
+    daemon's device, with a host checkpoint every ``checkpoint_every``
+    iterations (MEMGRAPH_TPU_CHECKPOINT_EVERY, 16 by default) under the job
+    key ``kernel_server:pagerank:<graph_key>`` (with the generation's
+    version and the parameters): a device fault mid-run resumes from the
+    last checkpoint, bit-exact; no snapshot is placed for it.
+    ``semiring``'s pagerank, katz, wcc and labelprop run the port's ops on
+    the generation's snapshot (the mesh when MEMGRAPH_TPU_MESH_DEVICES is
+    set; else the MXU route at ``MXU_MIN_EDGES`` edges or more on the
+    card, the segment route below), and its ``bfs`` always runs the
+    mesh's, over the same sharded variant (parallel/analytics.py
+    ``bfs_partition_centric``, ``bfs_mesh``'s loop).  Admission prices
+    each on the route it runs (``_MESH_FOOTPRINT``).
   * ``ppr`` enters the COALESCING plane (``PprServingPlane``): requests
     gather for a window (``MEMGRAPH_TPU_PPR_BATCH_WINDOW_MS``, 4 ms, or
     ``MEMGRAPH_TPU_PPR_MAX_BATCH``, 32, requests) and run as one batched
@@ -117,6 +127,16 @@ def log_path(socket_path: str) -> str:
     return socket_path + ".log"
 
 
+def _resolve_checkpoint_every() -> int:
+    """The daemon's checkpoint interval: MEMGRAPH_TPU_CHECKPOINT_EVERY,
+    16 by default (0: one full-budget chunk)."""
+    try:
+        return max(0, int(os.environ.get(
+            "MEMGRAPH_TPU_CHECKPOINT_EVERY", "16")))
+    except ValueError:
+        return 16
+
+
 def _resolve_hbm_budget(device) -> int:
     """The admission budget: ``MEMGRAPH_TPU_HBM_BUDGET_BYTES``, else 75%
     of the card's free bytes now, else (the CPU) 4 GiB."""
@@ -160,7 +180,6 @@ _ALGO_FOOTPRINT = {
     "katz": (16, 40),
     "wcc": (64, 54),
     "labelprop": (115, 206),
-    "bfs": (51, 65),
     "ppr": (30, 44),
 }
 
@@ -174,9 +193,25 @@ _MXU_FOOTPRINT = {
     "katz": (16, 67),
 }
 
+#: the mesh routes the daemon serves, over the generation's sharded
+#: variant on a mesh of 1 (``ResidentGraph.ensure_sharded``: its rows,
+#: ``local_src`` and dst runs, placed by the request) and the loop's
+#: temporaries, with no snapshot placed beside it: the ``pagerank`` op's
+#: partition-centric loop (keyed "pagerank") and the ``semiring`` op's
+#: ``bfs``.  Measured on an H100 (chip_smoke.py ``mesh_route_peak``):
+#: 42-52 bytes a real edge, the vertex vectors included, at the segment
+#: graph and the north star, so the edge term alone covers an e_pad with
+#: no padding; 1.16-1.72 times the measured peaks.
+#: A wider mesh holds a share of the same bytes on each device
+_MESH_FOOTPRINT = {
+    "pagerank": (16, 48),
+    "bfs": (16, 42),
+}
+
 #: an unknown algorithm is priced at the column-wise max
 _ALGO_FOOTPRINT_DEFAULT = tuple(
-    max(c) for c in zip(*_ALGO_FOOTPRINT.values(), *_MXU_FOOTPRINT.values()))
+    max(c) for c in zip(*_ALGO_FOOTPRINT.values(), *_MXU_FOOTPRINT.values(),
+                        *_MESH_FOOTPRINT.values()))
 
 
 def _mxu_route(device, n_edges: int) -> bool:
@@ -186,16 +221,21 @@ def _mxu_route(device, n_edges: int) -> bool:
     from ..ops import pagerank as PR
     from ..ops import semiring as S
     return S.route_backend(SimpleNamespace(n_edges=int(n_edges)), device,
-                           min_edges=PR.MXU_MIN_EDGES) == "mxu"
+                           min_edges=PR.MXU_MIN_EDGES)[0] == "mxu"
 
 
 def _graph_footprint_bytes(algorithm, n_nodes: int, n_edges: int,
-                           device=None) -> int:
+                           device=None, op: str = "semiring") -> int:
     """The modeled device peak of one fixpoint over the padded graph on
-    ``device`` (a graph_key-only request ships no bytes but pays this);
-    without a device, the segment route's."""
+    ``device`` (a graph_key-only request ships no bytes but pays this),
+    on the route ``op`` runs it by: the ``pagerank`` op and ``bfs`` on
+    the mesh; else the MXU route where it serves, or the segment route's
+    (always without a device)."""
     algorithm = str(algorithm)
-    if algorithm in _MXU_FOOTPRINT and device is not None \
+    if op == "pagerank" or algorithm == "bfs":
+        node_b, edge_b = _MESH_FOOTPRINT[
+            "pagerank" if op == "pagerank" else algorithm]
+    elif algorithm in _MXU_FOOTPRINT and device is not None \
             and _mxu_route(device, n_edges):
         node_b, edge_b = _MXU_FOOTPRINT[algorithm]
     else:
@@ -206,9 +246,10 @@ def _graph_footprint_bytes(algorithm, n_nodes: int, n_edges: int,
 
 
 def _estimate_request_bytes(header: dict, arrays: dict,
-                            device=None) -> int:
-    """A request's footprint on ``device``: the fixpoint's modeled peak
-    plus one copy of the wire arrays (their host-to-device staging)."""
+                            device=None, op: str = "semiring") -> int:
+    """A request of ``op``'s footprint on ``device``: the fixpoint's
+    modeled peak plus one copy of the wire arrays (their host-to-device
+    staging)."""
     wire_bytes = sum(int(np.prod(a.shape, dtype=np.int64))
                      * a.dtype.itemsize for a in arrays.values())
     n_nodes = int(header.get("n_nodes") or 0)
@@ -216,7 +257,7 @@ def _estimate_request_bytes(header: dict, arrays: dict,
     n_edges = int(src.shape[0]) if src is not None \
         else int(header.get("n_edges") or 0)
     return wire_bytes + _graph_footprint_bytes(
-        header.get("algorithm", "pagerank"), n_nodes, n_edges, device)
+        header.get("algorithm", "pagerank"), n_nodes, n_edges, device, op)
 
 
 def _generation_modeled_bytes(gen) -> int:
@@ -1084,7 +1125,7 @@ class KernelServer:
                  idle_timeout_s: float = 0.0,
                  hbm_budget_bytes: int | None = None,
                  wedge_after_s: float = 60.0,
-                 device=None) -> None:
+                 device=None, checkpoint_every: int | None = None) -> None:
         from ..device import resolve_device
         from ..ops.delta import ResidentRegistry
         self.socket_path = socket_path
@@ -1093,6 +1134,8 @@ class KernelServer:
         self.hbm_budget_bytes = hbm_budget_bytes \
             if hbm_budget_bytes is not None \
             else _resolve_hbm_budget(self.device)
+        self.checkpoint_every = checkpoint_every \
+            if checkpoint_every is not None else _resolve_checkpoint_every()
         self.wedge_after_s = wedge_after_s
         # written only under _dispatch_lock (admission peeks)
         self._graphs = ResidentRegistry(self.MAX_CACHED_GRAPHS)
@@ -1260,7 +1303,7 @@ class KernelServer:
     def _supervised(self, op: str, header: dict, arrays: dict):
         """Admission, then the dispatch on a worker thread under the
         request's deadline, then the typed outcome."""
-        est = _estimate_request_bytes(header, arrays, self.device)
+        est = _estimate_request_bytes(header, arrays, self.device, op)
         if op in ("pagerank", "semiring"):
             est = self._admit_graph_op(op, header, arrays, est)
         if est > self.hbm_budget_bytes:
@@ -1341,7 +1384,7 @@ class KernelServer:
                 n_nodes = n_nodes or gen.n_nodes
                 n_edges = gen.n_edges
                 est = max(est, _graph_footprint_bytes(
-                    algorithm, n_nodes, n_edges, self.device))
+                    algorithm, n_nodes, n_edges, self.device, op))
         verdict, est_run = mgtier.admission_verdict(
             est, self.hbm_budget_bytes, n_nodes=n_nodes, n_edges=n_edges,
             streamable=algorithm in _STREAMABLE,
@@ -1364,8 +1407,40 @@ class KernelServer:
         if op == "lane":
             return self._op_lane(header, arrays)
         if op == "pagerank":
-            header = {**header, "algorithm": "pagerank"}
+            return self._op_semiring({**header, "algorithm": "pagerank"},
+                                     arrays, mesh_route=True)
         return self._op_semiring(header, arrays)
+
+    def _mesh(self):
+        """The mesh the resident mesh routes run on: the environment's
+        (``analytics_mesh``), else a mesh of 1 on the daemon's device."""
+        from ..parallel.mesh import analytics_mesh, get_mesh_context
+        return analytics_mesh(self.device) or get_mesh_context(
+            1, device=self.device)
+
+    def _mesh_pagerank(self, gen, header, x0, params_key):
+        """The ``pagerank`` op's compute: the partition-centric loop over
+        the generation's sharded variant (the snapshot stays lazy: a
+        commit costs O(delta)), checkpointed every ``checkpoint_every``
+        iterations under the job key ``kernel_server:pagerank:<key>``
+        with the generation's version, the parameters and the iteration
+        budget: a run that raised leaves a checkpoint that only a request
+        of the same graph and parameters resumes."""
+        from ..parallel.distributed import pagerank_partition_centric
+        ctx = self._mesh()
+        key = header.get("graph_key")
+        max_iterations = int(header.get("max_iterations", 100))
+        if key:
+            key = f"{key}:{gen.version}:{params_key}:{max_iterations}"
+        ranks, err, iters = pagerank_partition_centric(
+            gen.ensure_sharded(ctx, by="src"), ctx,
+            damping=float(header.get("damping", 0.85)),
+            max_iterations=max_iterations,
+            tol=float(header.get("tol", 1e-6)),
+            precision=str(header.get("precision", "f32")), x0=x0,
+            checkpoint_every=self.checkpoint_every,
+            job=f"kernel_server:pagerank:{key}" if key else None)
+        return ranks.cpu().numpy().astype(np.float32), err, iters
 
     def _health_reply(self) -> dict:
         """Liveness, the wedge verdict and the counters; never takes the
@@ -1433,9 +1508,11 @@ class KernelServer:
         ``graph_version`` with the delta payload on its
         ``base_version``; a stale generation without a usable delta is
         dropped and re-imported from the request's edge arrays (never
-        served); a new key imports them, placed on the device unless
-        ``place`` is False (a streamed run keeps its edges on the host).
-        None: nothing to run on (the caller answers invalid)."""
+        served); a new key imports them with the snapshot on the host,
+        placed on the device at its first read unless ``place`` is False
+        (a streamed run keeps its edges on the host; the mesh routes read
+        the sharded variants, never the snapshot).  None: nothing to run
+        on (the caller answers invalid)."""
         from ..ops import delta as mgdelta
         from ..ops.csr import from_coo
         key = header.get("graph_key")
@@ -1465,17 +1542,21 @@ class KernelServer:
                          arrays.get("weights"),
                          n_nodes=header.get("n_nodes"))
             gen = mgdelta.ResidentGraph(
-                key, int(want or 0), g.to_device(self.device) if place else g)
+                key, int(want or 0), g, device=self.device if place else None)
             if key:
                 self._graphs.put(gen)
                 self._update_memory_gauge()
         return gen
 
-    def _op_semiring(self, header, arrays):
+    def _op_semiring(self, header, arrays, mesh_route: bool = False):
         """A resident algorithm over the request's generation, under
         _dispatch_lock: a hit returns the stored bytes, a moved
         generation seeds the fixpoint under the contract; ``bfs`` is
-        source-dependent and runs cold."""
+        source-dependent and runs cold, on the mesh over the generation's
+        sharded variant.  ``mesh_route`` (the ``pagerank`` op) computes a
+        resident PageRank by ``_mesh_pagerank``; its solutions are keyed
+        apart from the ``semiring`` op's, whose pagerank sums in another
+        order."""
         from ..ops import delta as mgdelta
         streamed = bool(header.pop("_tier_streamed", False))
         gen = self._resolve_generation(header, arrays, place=not streamed)
@@ -1486,16 +1567,24 @@ class KernelServer:
         precision = str(header.get("precision", "f32"))
         max_iterations = int(header.get("max_iterations", 100))
         if algorithm == "bfs":
-            levels, _, iters = run_algorithm(gen.graph, "bfs", header,
-                                             device=self.device)
-            return ({"ok": True, "iters": iters, "algorithm": algorithm,
-                     "precision": precision}, {"levels": levels})
+            from ..parallel.analytics import bfs_partition_centric
+            ctx = self._mesh()
+            levels, iters = bfs_partition_centric(
+                gen.ensure_sharded(ctx, by="src"), ctx,
+                int(header.get("source", 0)),
+                max_iterations=max_iterations, precision=precision,
+                checkpoint_every=self.checkpoint_every)
+            return ({"ok": True, "iters": int(iters),
+                     "algorithm": algorithm, "precision": precision},
+                    {"levels": np.asarray(levels, dtype=np.int32)})
         if algorithm not in _RESIDENT:
             return ({"ok": False,
                      "error": f"unknown semiring algorithm {algorithm!r}"},
                     None)
         name, dtype, has_err = _RESIDENT[algorithm]
         params_key = _params_key(algorithm, header)
+        if mesh_route:
+            params_key += ("op", "pagerank")
         reply = {"ok": True, "algorithm": algorithm,
                  "graph_version": gen.version}
         if has_err:
@@ -1513,6 +1602,8 @@ class KernelServer:
             # off the generation's host COO
             x, err, iters = run_streamed(gen, algorithm, header, x0,
                                          self.device)
+        elif mesh_route:
+            x, err, iters = self._mesh_pagerank(gen, header, x0, params_key)
         else:
             x, err, iters = run_algorithm(gen.graph, algorithm, header, x0,
                                           self.device)

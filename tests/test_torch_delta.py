@@ -534,3 +534,113 @@ def test_jax_bf16_refresh_serves_the_base_plan_and_the_port_does_not(
     b = PRECISION_BOUNDS["bf16"]
     assert np.abs(port_bf16 - f32).max() <= b["pagerank_linf"]
     assert np.abs(port_bf16 - f32).sum() <= b["pagerank_l1"]
+
+
+# --------------------------------------------------------------------------
+# the resident generation's sharded variants (ResidentGraph.ensure_sharded)
+# --------------------------------------------------------------------------
+
+def _resident_case(n=400, e=3000, seed=5):
+    from memgraph_tpu_torch.ops import delta as TD
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = rng.uniform(0.5, 2.0, e).astype(np.float32)
+    gen = TD.ResidentGraph("k", 1, from_coo(src, dst, w, n_nodes=n))
+    return gen, rng, n
+
+
+def _a_delta(gen, rng, n, n_add=40, n_rem=25):
+    from memgraph_tpu_torch.ops import delta as TD
+    s, d, w = gen.coo
+    rem = rng.choice(len(s), n_rem, replace=False)
+    return TD.EdgeDelta(
+        base_version=gen.version, version=gen.version + 1,
+        add_src=rng.integers(0, n, n_add), add_dst=rng.integers(0, n, n_add),
+        add_w=rng.uniform(0.5, 2.0, n_add).astype(np.float32),
+        rem_src=s[rem].astype(np.int64), rem_dst=d[rem].astype(np.int64),
+        rem_w=w[rem])
+
+
+@pytest.mark.parametrize("by,doubled", [("src", False), ("dst", True)])
+def test_ensure_sharded_after_apply_equals_a_fresh_sharding(by, doubled):
+    """A commit moves the placed variant through ``apply_edge_delta``
+    (no re-shard: ``delta.compacted_total`` unchanged) and places it
+    again; its rows equal a fresh ``shard_edges`` of the spliced COO
+    (with the generation's row slack), array for array, on the host and
+    on the mesh."""
+    from memgraph_tpu_torch.ops import delta as TD
+    from memgraph_tpu_torch.ops.csr import shard_edges
+    from memgraph_tpu_torch.parallel.mesh import get_mesh_context
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+    ctx = get_mesh_context(devices=("cpu",) * 4)
+    gen, rng, n = _resident_case()
+    placed0 = gen.ensure_sharded(ctx, by=by, doubled=doubled)
+    assert gen.ensure_sharded(ctx, by=by, doubled=doubled) is placed0
+    compacted = global_metrics.value("delta.compacted_total")
+    assert gen.apply(_a_delta(gen, rng, n), ctx)
+    assert global_metrics.value("delta.compacted_total") == compacted
+    got = gen.ensure_sharded(ctx, by=by, doubled=doubled)
+    assert got is not placed0 and got.ctx_key == ctx.cache_key
+    s, d, w = gen.coo
+    s, d = s.astype(np.int64), d.astype(np.int64)
+    if doubled:
+        s, d, w = (np.concatenate([s, d]), np.concatenate([d, s]),
+                   np.concatenate([w, w]))
+    want = shard_edges(s, d, w, n, 4, by=by, slack=TD.TIER_ROW_SLACK)
+    assert got.n_edges == want.n_edges and got.block == want.block
+    # the splice keeps the row capacity it was planned with; a fresh
+    # sharding plans from the new fullest row: the rows are equal up to
+    # the shorter capacity, and padding past it (the last block's run
+    # holds the sink's padding, so it ends at the row's capacity)
+    np.testing.assert_array_equal(got.block_ptr[:, :-1],
+                                  want.block_ptr[:, :-1])
+    assert np.all(got.block_ptr[:, -1] == got.per)
+    per = min(got.per, want.per)
+    pad = {"src": (np.arange(4, dtype=np.int32) * got.block)[:, None],
+           "dst": np.int32(n), "weights": np.float32(0.0)}
+    got_rows, want_rows = {}, {}
+    for f in ("src", "dst", "weights"):
+        rows = np.stack([t.numpy() for t in getattr(got, f)])
+        assert rows.tobytes() == getattr(got.host, f).tobytes(), f
+        for a in (rows, getattr(want, f)):
+            assert np.all(a[:, per:] == pad[f]), f
+        got_rows[f], want_rows[f] = rows[:, :per], getattr(want, f)[:, :per]
+    for f in ("src", "dst"):
+        assert got_rows[f].tobytes() == \
+            np.ascontiguousarray(want_rows[f]).tobytes(), f
+    # within a run of equal (dst, src) keys (parallel edges) the splice
+    # inserts an added edge first and a fresh sort keeps the COO's order:
+    # the weights are equal as a multiset of each run
+    for p in range(4):
+        keys = (got_rows["src"][p], got_rows["dst"][p])
+        a = got_rows["weights"][p][np.lexsort((got_rows["weights"][p],)
+                                              + keys)]
+        b = want_rows["weights"][p][np.lexsort((want_rows["weights"][p],)
+                                               + keys)]
+        assert a.tobytes() == b.tobytes()
+
+
+def test_compaction_reshards_and_the_mesh_answer_follows():
+    """Deltas past the compaction fraction re-shard the variants from the
+    COO; the resident mesh PageRank on the moved generation equals a run
+    on a fresh sharding of its COO, bit for bit."""
+    from memgraph_tpu_torch.ops import delta as TD
+    from memgraph_tpu_torch.ops.csr import shard_edges
+    from memgraph_tpu_torch.parallel.distributed import \
+        pagerank_partition_centric
+    from memgraph_tpu_torch.parallel.mesh import get_mesh_context
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+    ctx = get_mesh_context(devices=("cpu",) * 4)
+    gen, rng, n = _resident_case()
+    gen.ensure_sharded(ctx)
+    compacted = global_metrics.value("delta.compacted_total")
+    for _ in range(3):
+        assert gen.apply(_a_delta(gen, rng, n, n_add=300, n_rem=10), ctx)
+    assert global_metrics.value("delta.compacted_total") > compacted
+    got, _, it = pagerank_partition_centric(gen.ensure_sharded(ctx), ctx,
+                                            tol=0.0, max_iterations=20)
+    s, d, w = gen.coo
+    fresh = shard_edges(s, d, w, n, 4, slack=TD.TIER_ROW_SLACK)
+    want, _, _ = pagerank_partition_centric(fresh, ctx, tol=0.0,
+                                            max_iterations=20)
+    assert it == 20 and got.numpy().tobytes() == want.numpy().tobytes()

@@ -43,7 +43,12 @@ from memgraph_tpu.ops import traversal as jtr
 from memgraph_tpu_torch.northstar import CooSource
 from memgraph_tpu_torch.ops.csr import GraphCache
 from memgraph_tpu_torch.ops import pipeline as tpl
+from memgraph_tpu_torch.ops.csr import shard_edges
 from memgraph_tpu_torch.ops.delta import LocalWarmPool
+from memgraph_tpu_torch.parallel import analytics as TA
+from memgraph_tpu_torch.parallel.distributed import \
+    pagerank_partition_centric
+from memgraph_tpu_torch.parallel.mesh import get_mesh_context
 from memgraph_tpu_torch.procedures import graph_algorithms as P
 from memgraph_tpu_torch.server import kernel_server as ks
 from memgraph_tpu_torch.utils.metrics import global_metrics
@@ -207,16 +212,20 @@ def test_semiring_algorithms_match_jax(daemon):
 
 
 def test_delta_refresh_and_warm_start(daemon):
-    """Full import at v1 (the MXU route: a full plan); the commit ships
-    only the delta payload at v2: the generation moves O(delta), its
-    snapshot's plan is a DeltaPlan (no plan build), and the warm reply
-    matches a cold in-process run on the new graph, in no more
-    iterations."""
+    """Full import at v1 (``semiring``'s pagerank takes the MXU route: a
+    full plan; the ``pagerank`` op the mesh's, on the generation's sharded
+    variant); the commit ships only the delta payload at v2: the
+    generation moves O(delta), the ``pagerank`` op's warm reply builds no
+    plan and matches a cold in-process run on the new graph, in no more
+    iterations, and ``semiring``'s snapshot refreshes through a DeltaPlan
+    (no plan build)."""
     client, _ = daemon
     n, e = 1000, 8000
     src, dst = _graph(30, n, e)
-    h1, _ = client.call_pagerank(src=src, dst=dst, n_nodes=n,
-                                 graph_key="dg1", graph_version=1, tol=TOL)
+    client.semiring("pagerank", src=src, dst=dst, n_nodes=n,
+                    graph_key="dg1", graph_version=1, tol=TOL)
+    h1, _ = client.call_pagerank(n_nodes=n, graph_key="dg1",
+                                 graph_version=1, tol=TOL)
     plans = client.health()["plans"]
     rng = np.random.default_rng(31)
     add_src, add_dst = rng.integers(0, n, 20), rng.integers(0, n, 20)
@@ -230,13 +239,18 @@ def test_delta_refresh_and_warm_start(daemon):
     assert h2["warm_started"] and h2["graph_version"] == 2
     assert h2["err"] <= TOL and h2["iters"] <= h1["iters"]
     after = client.health()
-    assert after["plans"]["build_plan"] == plans["build_plan"]
-    assert after["plans"]["build_delta_plan"] == \
-        plans["build_delta_plan"] + 1
+    assert after["plans"] == plans
     assert after["counters"]["delta.applied_total"] >= 1
     want, it_ref = _jax_pagerank(src2, dst2, n, tol=TOL)
     assert np.abs(want - out2["ranks"]).max() < 10 * TOL
     assert h2["iters"] <= it_ref
+    _, out3 = client.semiring("pagerank", n_nodes=n, graph_key="dg1",
+                              tol=TOL)
+    after = client.health()
+    assert after["plans"]["build_plan"] == plans["build_plan"]
+    assert after["plans"]["build_delta_plan"] == \
+        plans["build_delta_plan"] + 1
+    assert np.abs(want - out3["ranks"]).max() < 10 * TOL
 
 
 def test_wcc_monotone_gate(daemon):
@@ -280,24 +294,30 @@ def test_typed_outcomes_through_fault_env(tmp_path):
     counts its own hits, and hit 1 of every point is the start-up probe.
     Dispatch 2 completes (the import), 3 raises device_error, 4 oom,
     5 stalls past its deadline (the health op reports it in flight),
-    then the daemon serves again."""
+    then the daemon serves again.  The requests are ``semiring``'s
+    pagerank, one fault point a dispatch (the ``pagerank`` op checkpoints
+    and resumes a device fault itself: test_device_lost_mid_run_resumes_
+    bit_equal)."""
     sock = str(tmp_path / "ks.sock")
     client = _spawn(sock, MEMGRAPH_TPU_FAULTS=(
         "device.call=raise@3,device.oom=raise@4,device.hang=delay:1.5@5"))
+
+    def pagerank(**kw):
+        return client.semiring("pagerank", **kw)[1]["ranks"]
+
     try:
         n, e = 200, 1200
         src, dst = _graph(3, n, e)
-        ref, _, _ = client.pagerank(src=src, dst=dst, n_nodes=n,
-                                    graph_key="f", tol=1e-9)
+        ref = pagerank(src=src, dst=dst, n_nodes=n, graph_key="f", tol=1e-9)
         with pytest.raises(ks.KernelDeviceError) as ei:
-            client.pagerank(graph_key="f", tol=1e-8)
+            pagerank(graph_key="f", tol=1e-8)
         assert ei.value.outcome == "device_error" and ei.value.retryable
         with pytest.raises(ks.KernelOom) as ei:
-            client.pagerank(graph_key="f", tol=1e-8)
+            pagerank(graph_key="f", tol=1e-8)
         assert ei.value.outcome == "oom" and not ei.value.retryable
         t0 = time.monotonic()
         with pytest.raises(ks.KernelDeadlineExceeded):
-            client.pagerank(graph_key="f", tol=1e-8, deadline_s=0.2)
+            pagerank(graph_key="f", tol=1e-8, deadline_s=0.2)
         assert time.monotonic() - t0 < 1.2
         h = client.health()
         assert h["in_flight"] >= 1
@@ -305,7 +325,7 @@ def test_typed_outcomes_through_fault_env(tmp_path):
         for outcome in ("device_error", "oom", "deadline_exceeded"):
             assert counters[f"kernel_server.dispatch.{outcome}_total"] >= 1
         time.sleep(1.5)
-        again, _, _ = client.pagerank(graph_key="f", tol=1e-9)
+        again = pagerank(graph_key="f", tol=1e-9)
         assert again.tobytes() == ref.tobytes()    # the stored solution
     finally:
         client.shutdown()
@@ -430,9 +450,13 @@ def test_jax_resumable_route_fails_and_the_port_serves(tmp_path):
 def test_procedures_route_gives_the_in_process_answers(daemon):
     """``pagerank.get`` and ``pagerank.personalized`` with ``kernel=``:
     the first call ships the edges, a call after a commit ships the delta
-    payload only; the answers are the in-process ones (bit for bit when
-    cold; a warm PageRank within 10 stop_epsilon in L1), the routed
-    calls counted and no fallback."""
+    payload only.  The daemon's ``pagerank`` runs the mesh's
+    partition-centric loop, so a cold routed ``pagerank.get`` is bit for
+    bit an in-process ``pagerank_partition_centric`` on the same
+    snapshot (mesh of 1, same tolerance), and within pagerank.get's L1
+    bound (10 stop_epsilon) of the in-process call; a warm one within
+    that bound too; PPR as the in-process answers; the routed calls
+    counted and no fallback."""
     _, sock = daemon
     n, e = 500, 3000
     src, dst = _graph(7, n, e)
@@ -442,8 +466,15 @@ def test_procedures_route_gives_the_in_process_answers(daemon):
     routed = global_metrics.value("analytics.kernel_routed_total")
     fallbacks = global_metrics.value("analytics.kernel_route_fallback_total")
     got = P.pagerank_get(source, kernel=sock, **kw)
-    want = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    graph = cache.get(source, device="cpu")
+    ctx = get_mesh_context(1, device="cpu")
+    mesh_ranks, _, _ = pagerank_partition_centric(
+        shard_edges(*graph.host_coo, graph.n_nodes, 1).to_device(ctx), ctx,
+        damping=0.85, max_iterations=100, tol=1e-5)
+    want = P._rows(graph, rank=mesh_ranks.numpy())
     assert got["rank"].tobytes() == want["rank"].tobytes()
+    want = P.pagerank_get(source, pool=LocalWarmPool(), **kw)
+    assert np.abs(got["rank"] - want["rank"]).sum() < 10 * 1e-5
     got = P.pagerank_personalized(source, [3, 4], kernel=sock, **kw)
     want = P.pagerank_personalized(source, [3, 4], **kw)
     assert got["rank"].tobytes() == want["rank"].tobytes()
@@ -687,3 +718,202 @@ def test_reference_cypher_lane_runs_on_the_port_daemon(daemon):
     assert "9 passed" in run.stdout
     after = client.health()["counters"]["lane.remote_dispatch_total"]
     assert after - before == 8      # the self-target query is not a lane
+
+
+# --------------------------------------------------------------------------
+# the mesh route of the pagerank op and of semiring's bfs
+# --------------------------------------------------------------------------
+
+def test_pagerank_op_runs_the_mesh_route(daemon):
+    """The ``pagerank`` op answers, bit for bit, what an in-process
+    ``pagerank_partition_centric`` gives on the same snapshot over a mesh
+    of 1 (the generation's variant keeps row slack; the answer does not
+    depend on it), f32 and bf16; a repeat is the stored bytes."""
+    client, _ = daemon
+    n, e = 700, 5000
+    src, dst = _graph(40, n, e)
+    ctx = get_mesh_context(1, device="cpu")
+    scsr = shard_edges(src, dst, None, n, 1).to_device(ctx)
+    for precision in ("f32", "bf16"):
+        h, out = client.call_pagerank(src=src, dst=dst, n_nodes=n,
+                                      graph_key="mesh1", graph_version=1,
+                                      tol=TOL, precision=precision)
+        want, err, iters = pagerank_partition_centric(
+            scsr, ctx, tol=TOL, precision=precision)
+        assert h["tier"] == "resident" and h["iters"] == iters
+        assert out["ranks"].tobytes() == want.numpy().tobytes()
+        h, again = client.call_pagerank(n_nodes=n, graph_key="mesh1",
+                                        graph_version=1, tol=TOL,
+                                        precision=precision)
+        assert h["cache"] == "hit"
+        assert again["ranks"].tobytes() == out["ranks"].tobytes()
+
+
+def test_semiring_bfs_runs_the_mesh_and_its_pagerank_stays(daemon):
+    """``semiring``'s bfs is ``bfs_mesh`` on a mesh of 1; its pagerank
+    stays the ops-level one (the MXU route here), bit for bit the
+    in-process ``ops.pagerank.pagerank`` of the same snapshot."""
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    client, _ = daemon
+    n, e = 700, 6000
+    src, dst = _graph(41, n, e)
+    g = from_coo(src, dst, n_nodes=n)
+    h, out = client.semiring("bfs", src=src, dst=dst, n_nodes=n, source=5)
+    want, iters = TA.bfs_mesh(g, get_mesh_context(1, device="cpu"), 5)
+    assert h["iters"] == iters
+    assert np.array_equal(out["levels"], want)
+    h, out = client.semiring("pagerank", src=src, dst=dst, n_nodes=n,
+                             tol=TOL)
+    want, _, iters = pagerank(g, tol=TOL, device="cpu")
+    assert h["iters"] == iters
+    assert out["ranks"].tobytes() == want.numpy().tobytes()
+
+
+def test_pagerank_op_and_semiring_pagerank_keep_their_own_solutions(daemon):
+    """At equal parameters on one generation, the ``semiring`` op's
+    pagerank (the ops-level route) and the ``pagerank`` op (the mesh
+    loop) each answer their own route's bytes: neither is a hit nor a
+    seed of the other's stored solution."""
+    from memgraph_tpu_torch.ops.csr import from_coo
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    client, _ = daemon
+    n, e = 700, 6000
+    src, dst = _graph(43, n, e)
+    ctx = get_mesh_context(1, device="cpu")
+    mesh, _, mesh_iters = pagerank_partition_centric(
+        shard_edges(src, dst, None, n, 1).to_device(ctx), ctx, tol=TOL)
+    ops, _, ops_iters = pagerank(from_coo(src, dst, n_nodes=n), tol=TOL,
+                                 device="cpu")
+    mesh, ops = mesh.numpy().tobytes(), ops.numpy().tobytes()
+    assert mesh != ops           # two summation orders
+    kw = dict(n_nodes=n, graph_key="routes", graph_version=1, tol=TOL)
+    for _ in range(2):
+        h, out = client.semiring("pagerank", src=src, dst=dst, **kw)
+        assert h.get("cache") != "hit" and not h["warm_started"]
+        assert out["ranks"].tobytes() == ops and h["iters"] == ops_iters
+        h, out = client.call_pagerank(**kw)
+        assert h.get("cache") != "hit" and not h["warm_started"]
+        assert out["ranks"].tobytes() == mesh and h["iters"] == mesh_iters
+    h, out = client.call_pagerank(**kw)
+    assert h["cache"] == "hit" and out["ranks"].tobytes() == mesh
+
+
+def test_mesh_routes_place_no_snapshot_and_are_priced_on_the_mesh(tmp_path):
+    """A generation imported by the ``pagerank`` op or ``semiring``'s bfs
+    keeps its snapshot on the host (both run over the sharded variant);
+    a later ops-level request places it once.  Admission prices both mesh
+    routes on ``_MESH_FOOTPRINT``, the ops-level pagerank on its own."""
+    n, e = 400, 2500
+    src, dst = _graph(44, n, e)
+    srv = ks.KernelServer(str(tmp_path / "p.sock"), device="cpu")
+    arrays = {"src": src, "dst": dst}
+    for key, op, header in (("pr", "pagerank", {}),
+                            ("bfs", "semiring",
+                             {"algorithm": "bfs", "source": 3})):
+        reply, _ = srv._supervised(op, {"graph_key": key, "n_nodes": n,
+                                        "graph_version": 1, **header},
+                                   dict(arrays))
+        assert reply["outcome"] == "completed"
+        gen = srv._graphs.peek(key)
+        assert gen._graph.device is None
+        assert list(gen.host_variants) == [("src", False)]
+    reply, _ = srv._supervised("semiring", {
+        "graph_key": "pr", "n_nodes": n, "graph_version": 1,
+        "algorithm": "wcc"}, {})
+    assert reply["outcome"] == "completed"
+    placed = srv._graphs.peek("pr")._graph
+    assert placed.device is not None and srv._graphs.peek("pr").graph \
+        is placed
+    n_pad, e_pad = ks._padded_graph_dims(n, e)
+    wire = src.nbytes + dst.nbytes
+    for op, header, row in (
+            ("pagerank", {}, ks._MESH_FOOTPRINT["pagerank"]),
+            ("semiring", {"algorithm": "bfs"}, ks._MESH_FOOTPRINT["bfs"]),
+            ("semiring", {"algorithm": "pagerank"},
+             ks._ALGO_FOOTPRINT["pagerank"])):
+        assert ks._estimate_request_bytes({"n_nodes": n, **header}, arrays,
+                                          srv.device, op) \
+            == wire + n_pad * row[0] + e_pad * row[1]
+
+
+@pytest.mark.parametrize("moved", ["version", "damping", "max_iterations"])
+def test_failed_run_checkpoint_resumes_only_its_own_request(tmp_path,
+                                                            moved):
+    """A ``pagerank`` op run whose retries run out leaves its checkpoint;
+    a request on another generation version, another damping or another
+    iteration budget does not restore it: it answers what a server that
+    never failed answers, bit for bit."""
+    from memgraph_tpu_torch.utils import faultinject as FI
+    n, e = 500, 3000
+    src, dst = _graph(45, n, e)
+    header = {"graph_key": "stale", "n_nodes": n, "graph_version": 1,
+              "tol": 0.0, "max_iterations": 20}
+    arrays = {"src": src, "dst": dst}
+    faulty = ks.KernelServer(str(tmp_path / "f.sock"), device="cpu",
+                             checkpoint_every=3)
+    FI.reset()
+    # hit 1 is the dispatch's own point, then one a chunk: the first
+    # chunk checkpoints, every later one (and each retry) is lost
+    FI.arm("device.lost", "raise", at=list(range(3, 40)))
+    try:
+        reply, _ = faulty._supervised("pagerank", dict(header),
+                                      dict(arrays))
+    finally:
+        FI.reset()
+    assert reply["outcome"] != "completed"
+    nxt = dict(header, **{"version": {"graph_version": 2},
+                          "damping": {"damping": 0.8},
+                          "max_iterations": {"max_iterations": 9}}[moved])
+    answers = []
+    for srv in (faulty, ks.KernelServer(str(tmp_path / "c.sock"),
+                                        device="cpu", checkpoint_every=3)):
+        restored = global_metrics.value("analytics.checkpoint.restored_total")
+        reply, out = srv._supervised("pagerank", dict(nxt), dict(arrays))
+        assert reply["outcome"] == "completed"
+        assert reply["iters"] == nxt["max_iterations"]
+        assert global_metrics.value(
+            "analytics.checkpoint.restored_total") == restored
+        answers.append(out["ranks"].tobytes())
+    assert answers[0] == answers[1]
+
+
+def test_device_lost_mid_run_resumes_bit_equal(tmp_path):
+    """An in-process server with ``checkpoint_every=3``: a device.lost at
+    the third chunk of the resident PageRank resumes from the checkpoint
+    (the rows placed again) and answers what an unfaulted run answers,
+    bit for bit; the resume is counted."""
+    from memgraph_tpu_torch.utils import faultinject as FI
+    n, e = 500, 3000
+    src, dst = _graph(42, n, e)
+    answers = []
+    for fault in (False, True):
+        srv = ks.KernelServer(str(tmp_path / f"r{int(fault)}.sock"),
+                              device="cpu", checkpoint_every=3)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        deadline = time.monotonic() + TIMEOUT
+        while True:
+            try:
+                c = ks.KernelClient(srv.socket_path, timeout=TIMEOUT)
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+        resumes = global_metrics.value("analytics.resume_total")
+        FI.reset()
+        if fault:
+            # hit 1 is the dispatch's own point, then one a chunk
+            FI.arm("device.lost", "raise", at=4)
+        try:
+            h, out = c.call_pagerank(src=src, dst=dst, n_nodes=n,
+                                     graph_key="r", tol=0.0,
+                                     max_iterations=20)
+        finally:
+            FI.reset()
+            c.shutdown()
+            c.close()
+        assert h["iters"] == 20
+        assert global_metrics.value("analytics.resume_total") \
+            == resumes + int(fault)
+        answers.append(out["ranks"])
+    assert answers[0].tobytes() == answers[1].tobytes()

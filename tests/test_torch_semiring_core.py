@@ -360,8 +360,8 @@ def test_route_backend_keeps_non_sum_semirings_off_the_mxu_plan(monkeypatch):
         n_edges = 10 ** 7
 
     cpu = torch.device("cpu")
-    assert TS.route_backend(G, cpu) == "mxu"
-    assert TS.route_backend(G, cpu, semiring="plus_first") == "mxu"
+    assert TS.route_backend(G, cpu) == ("mxu", None)
+    assert TS.route_backend(G, cpu, semiring="plus_first") == ("mxu", None)
     for name in ("min_first", "min_plus", "max_min", "or_and"):
-        assert TS.route_backend(G, cpu, semiring=name) == "segment"
-    assert TS.route_backend(G, cpu, precision="int8") == "segment"
+        assert TS.route_backend(G, cpu, semiring=name) == ("segment", None)
+    assert TS.route_backend(G, cpu, precision="int8") == ("segment", None)
