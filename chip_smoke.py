@@ -326,11 +326,16 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    +1, no re-shard, no compaction: the generation's sharded variant moved
    by ``apply_edge_delta``) and no plan build in the daemon, the warm
    PageRank in fewer iterations than cold and
-   within ``pagerank.get``'s L1 bound of float64, exactly the cached
-   sources whose neighbourhood the commit touched warm (two held to
-   float64 within ``PPR_REL_TOL``), the rest hits; a one-edge commit in
-   one source's neighbourhood warms it alone; the daemon's K1 and K2
-   launches (its health reply) moved.  Its launches join the kernels'
+   within ``pagerank.get``'s L1 bound of float64, every cached source
+   whose neighbourhood the commit touched warm (two held to float64
+   within ``PPR_REL_TOL``) and any whose mass on the changed nodes could
+   move it past that bound, the rest hits (16 held to float64 on the new
+   graph within ``PPR_REL_TOL``; a 1,000-edge commit leaves few or none);
+   the delta rides a hit where the drift rule predicts one, else a warm
+   request; a one-edge commit in one source's neighbourhood, shipped on
+   a predicted hit, warms that source and leaves hits (16 held to
+   float64 on the new graph within ``PPR_REL_TOL``); the daemon's K1 and
+   K2 launches (its health reply) moved.  Its launches join the kernels'
    ``launches_by_path`` as ``kernel_server``.
 25a. (after traversal) The mesh (``mesh`` line, ``parallel/mesh.py``,
    ``distributed.py``, ``analytics.py``, ``ops/spmv_mxu_sharded.py``) on
@@ -369,10 +374,52 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    the request is shed.  Each algorithm's streamed device peak against
    ``streamed_request_bytes`` within [1x, 2x].  Wire and raw bytes a
    sweep, H2D GB/s, the transfer's hidden share, ms an iteration.
-28. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+28. (after the tier) The temporal graph network (``tgn`` line,
+   ``procedures/tgn_module.py``) on a synthetic bipartite stream at the
+   scale of JODIE's Wikipedia dataset (8,227 users, 1,000 pages, 157,474
+   timestamped edges, seed ``TGN_SEED``): one ``train_and_eval`` epoch at
+   the module's defaults, twice, the losses finite and the two runs'
+   losses and memories bit-equal; the stream's first batch on the card
+   against the port's CPU path in float64 from the same weights
+   (``TGN_LOSS_TOL``; ``TGN_WEIGHT_TOL``; the memory within
+   ``TGN_MEMORY_TOL`` plus the time encoding's f32 angle rounding, 2 x
+   2^-24 x the batch's largest timestamp).  ms a batch
+   and batches a second.  No kernel launch (dense products, torch's).
+29. Node text embeddings (``embeddings`` line,
+   ``procedures/embeddings_module.py``): 100,000 vertices, each with a
+   label and three properties, some sentences planted twice, at D = 256
+   and batch 2048: every norm 1 within 1e-6, equal sentences equal
+   vectors, one chunk against a float64 numpy product of the same counts
+   and projection (``EMB_TOL``).  The host hashing seconds and the device
+   ms a chunk.  No kernel launch.
+30. Spans and stage extents (``trace`` line, ``observability/``): a
+   daemon on the card with tracing armed answers an armed, traced
+   ``pagerank`` op and a PPR request on the segment graph: the spans
+   come home through the carrier, every name in ``SPAN_NAMES``, every
+   parent in the trace, the daemon's ``kernel.dispatch`` under the
+   client's ``kernel.request``, each stage's seconds at most the
+   request's wall time.  The segment route's ms an iteration, disarmed
+   and armed, in turns; disarmed within ``TRACE_DISARMED_SLACK`` of
+   armed.  Its launches join ``launches_by_path`` as ``trace``: this
+   process's (the segment runs, counted from 0, K1 checked to move) and
+   the daemon's (its health reply's counts before and after, K1 checked
+   to move), added kernel by kernel.
+31. node2vec's 2-D sharded step (``node2vec_sharded`` line,
+   ``models/node2vec.py`` ``build_sharded_train_step``,
+   ``parallel/mesh.py`` ``make_mesh_2d``) on the north star's nodes at
+   the module's width (dim 128, batch 8192, 5 negatives) on a 2 x 2 mesh
+   on the one card: 10 steps against the single-card ``train_step`` from
+   the same tables (loss within ``N2V2D_LOSS_REL``; tables within
+   ``N2V2D_TABLE_REL`` of their largest entry, and all but a share
+   ``N2V2D_BULK_SHARE`` of the entries within ``N2V2D_BULK_REL``), two
+   runs bit-equal, K1
+   launches exactly 3 x 4 shards x 10 steps.  ms a step at 1 x 1 and 2 x
+   2 (four shards share one card: no scaling is claimed).
+32. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
-   launches by path, ``lane`` and ``tier`` among them), the card's name
-   and power limit, and last ``{"ok": true, "device": {...}}``.
+   launches by path, ``lane``, ``tier``, ``tgn``, ``embeddings``,
+   ``trace`` and ``node2vec_sharded`` among them), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -1089,9 +1136,18 @@ def phase_micro(sm_hz: float):
     return launches, lines
 
 
-def micro_kernel_entries(launches: dict, lines: dict) -> list:
+def micro_counts() -> dict:
+    """The micro kernels' launch counters, by kernel."""
+    from memgraph_tpu_torch.benchmarks import micro, micro2, micro3
+    return {fn.__name__: fn.launches for mod in (micro, micro2, micro3)
+            for fn in mod.KERNELS}
+
+
+def micro_kernel_entries(launches: dict, lines: dict, paths) -> list:
     """The micro kernels' entries of the {"kernels": [...]} line: numbers
-    at the largest size the entry point runs, every size under shapes."""
+    at the largest size the entry point runs, every size under shapes;
+    by path, the entry points' launches and 0 on each of ``paths`` (the
+    caller checked that no counter moved after the micro phase)."""
     out = []
     for name, replaces in MICRO_REPLACES.items():
         timed = [ln for ln in lines[name] if "ms" in ln]
@@ -1100,6 +1156,8 @@ def micro_kernel_entries(launches: dict, lines: dict) -> list:
             "name": name, "route": "cuda",
             "source": "memgraph_tpu_torch/ops/csrc/micro.cu",
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {"micro": launches[name],
+                                 **dict.fromkeys(paths, 0)},
             "max_abs_err": max(ln["max_abs_err"] for ln in lines[name]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -5182,13 +5240,16 @@ def phase_kernel_server(base: dict):
     the generation moves O(delta), its snapshot through a DeltaPlan (no
     full plan build in the daemon), the warm PageRank in fewer
     iterations than cold and within ``pagerank.get``'s bound of float64,
-    exactly the cached sources whose neighbourhood the commit touched
-    warm (two held to float64), the others hits (16 of them measured
-    against float64 on the new graph, not checked: the reference's
-    invalidation looks one hop out); a one-edge commit inside one
-    source's neighbourhood, shipped on a request the cache answers,
-    moves the generation and warms that source only.  The
-    daemon's launches come home on its health reply."""
+    every cached source whose neighbourhood the commit touched warm (two
+    held to float64), and so is any whose mass on the changed nodes could
+    move it past the PPR bound (``kernel_server.PPR_HIT_BOUND``); the
+    others hits, up to 16 of them held to float64 on the new graph
+    within ``PPR_REL_TOL`` (the delta rides a predicted hit, else a warm
+    request); a one-edge commit inside one source's neighbourhood,
+    shipped on a request the cache answers (a hit the drift rule
+    predicts), moves the generation and warms that source, the others
+    hits or warm by the mass rule, 16 of the hits held to float64 on the
+    new graph.  The daemon's launches come home on its health reply."""
     import tempfile
     import torch
     from memgraph_tpu_torch.server import kernel_server as ks
@@ -5399,9 +5460,11 @@ def drive_kernel_server(base, client, sock) -> dict:
           f"first burst not all cold: {burst_stats['cache']}")
     sample = rng.choice(sources, KS_SAMPLED, replace=False)
     sampled_equal = 0
+    full = {}                  # the sampled sources' cached v0 vectors
     for s in sample:
         h, out = client.ppr([int(s)], graph_version=v0, **ppr_kw)
         check(h["cache"] == "hit", f"the repeat of source {s} was no hit")
+        full[int(s)] = out["ranks"]
         want, _, iters = personalized_pagerank(
             graph, [int(s)], tol=PPR_TOL, max_iterations=PPR_MAX_ITERATIONS)
         want = want.cpu().numpy()
@@ -5503,32 +5566,71 @@ def drive_kernel_server(base, client, sock) -> dict:
             out[a].add(b)
         return out
 
-    def ship(hot, version, base_version, delta):
+    def carried(r, *changes) -> bool:
+        """Whether a cached vector ``r`` (fresh: no drift yet) stays a hit
+        across the change sets ``changes`` in turn: the daemon's drift
+        rule (``_PprCacheEntry.carries_over``) replayed on the same
+        vector."""
+        drift = 0.0
+        for ids in changes:
+            ids = np.unique(np.asarray(ids, dtype=np.int64))
+            mass = float(np.sum(r[ids[ids < len(r)]], dtype=np.float64))
+            drift = drift + 2.0 * DAMPING / (1.0 - DAMPING) * (mass + drift)
+            if drift > ks.PPR_HIT_BOUND * float(r.max()):
+                return False
+        return True
+
+    def stays_hot(nb, r, *changes) -> bool:
+        """The daemon's whole rule on an entry fresh before ``changes``
+        (neighbourhood ``nb``, vector ``r``): no change meets a bounded
+        neighbourhood, and the drift stays within the bound."""
+        return len(nb) <= ks.PPR_NEIGH_CAP and not any(
+            nb & set(np.asarray(c).tolist()) for c in changes) \
+            and carried(r, *changes)
+
+    def ship(hot, version, base_version, delta, cache="hit"):
         """The commit's delta payload, on one request of a burst source
-        the commit leaves cached (a client ships it once; later requests
-        are key-only): a hit, which moves the generation before it is
-        answered."""
+        (a client ships it once; later requests are key-only): a hit
+        where the commit leaves the source's vector within the bound,
+        which moves the generation before it is answered, else a warm
+        recomputation."""
         h, _ = client.ppr([hot], graph_version=version,
                           base_version=base_version, top_k=KS_TOPK,
                           **ppr_kw, **delta)
-        check(h["outcome"] == "completed" and h["cache"] == "hit",
-              f"the delta's request for source {hot}: {h}")
+        check(h["outcome"] == "completed" and h["cache"] == cache,
+              f"the delta's request for source {hot}: {h}, not {cache}")
 
     neigh0 = neighbourhoods(src0, dst0)
     expect_warm = {s for s, nb in neigh0.items() if nb & set(
         changed.tolist())}
-    ship(min(set(neigh0) - expect_warm), v1, v0, payload)
+    # 1,000 changed nodes hold more than the bound's mass of most sources'
+    # vectors: the delta rides a hit only where one is predicted
+    hot = [s for s in sorted(full) if stays_hot(neigh0[s], full[s], changed)]
+    shipped = hot[0] if hot else int(sample[0])
+    ship(shipped, v1, v0, payload, "hit" if hot else "warm")
     replies1, burst1 = burst(v1, KS_TOPK)
     got_warm = {s for s, (h, _) in replies1.items() if h["cache"] == "warm"}
     got_hit = {s for s, (h, _) in replies1.items() if h["cache"] == "hit"}
-    check(got_warm == expect_warm and got_hit == set(neigh0) - expect_warm,
-          f"after the commit: {len(got_warm)} warm, expected "
-          f"{len(expect_warm)}; {len(got_hit)} hits")
-    # the warm replies held to float64 on v1; the hits (v0's vectors,
-    # kept because the commit missed their neighbourhoods) measured
+    # the shipped source was answered at v1 already: a hit in the burst
+    check(expect_warm - {shipped} <= got_warm and shipped in got_hit
+          and got_hit == set(neigh0) - got_warm,
+          f"after the commit: {len(got_warm)} warm, at least "
+          f"{len(expect_warm)} expected; {len(got_hit)} hits")
+    # the sampled sources, whose cached v0 vectors this process holds:
+    # warm exactly where the rule replayed on them says so
+    others = sorted(set(full) - {shipped})
+    want_warm1 = {s for s in others
+                  if not stays_hot(neigh0[s], full[s], changed)}
+    check(want_warm1 == got_warm & set(others),
+          f"after the commit, sampled sources warm "
+          f"{sorted(got_warm & set(others))}, the rule says "
+          f"{sorted(want_warm1)}")
+    # the warm replies held to float64 on v1; so are hits (v0's vectors,
+    # kept because the commit missed their neighbourhoods and moved them
+    # by at most the bound)
     held = sorted(expect_warm)[:KS_HELD_WARM]
     held_hits = sorted(int(s) for s in rng.choice(
-        sorted(got_hit), KS_HELD_HITS, replace=False))
+        sorted(got_hit), min(KS_HELD_HITS, len(got_hit)), replace=False))
     refs = ppr_reference64(src1, dst1, n, [[s] for s in held + held_hits],
                            iterations=PPR_MAX_ITERATIONS)
     rel = {}
@@ -5540,6 +5642,9 @@ def drive_kernel_server(base, client, sock) -> dict:
     check(all(e <= PPR_REL_TOL for e in warm_err),
           f"warm PPR replies off float64: {warm_err}")
     hit_err = [rel[s] for s in held_hits]
+    check(all(e <= PPR_REL_TOL for e in hit_err),
+          f"PPR hits after the commit off float64 on the new graph: "
+          f"{hit_err}")
 
     # a one-edge commit inside one source's neighbourhood: that source
     # warm, every other hit
@@ -5554,13 +5659,52 @@ def drive_kernel_server(base, client, sock) -> dict:
     bitmap[:] = False
     bitmap[[s0, t_node]] = True
     inc2 = incident_edges(src2, dst2, w2, bitmap)
-    ship(min(set(neigh1) - {s0}), v1 + 1, v1,
+    # the sampled sources recomputed at v1 (no drift): their v1 vectors
+    recomputed = (set(full) & got_warm) | (set() if hot else {shipped})
+    full1 = {}
+    for s in sorted(recomputed):
+        h, out = client.ppr([s], graph_version=v1, **ppr_kw)
+        check(h["cache"] == "hit", f"source {s} repeat at v1 no hit")
+        full1[s] = out["ranks"]
+    hot = [s for s in sorted(full1)
+           if s != s0 and not neigh1[s] & {s0, t_node}
+           and carried(full1[s], [s0, t_node])]
+    check(bool(hot), "no sampled source stays a hit across the one-edge "
+                     f"commit ({len(full1)} predicted)")
+    ship(hot[0], v1 + 1, v1,
          {"changed": np.asarray([s0, t_node]), "inc_src": inc2[0],
           "inc_dst": inc2[1], "inc_w": inc2[2]})
     replies2, burst2 = burst(v1 + 1, KS_TOPK)
     got_warm2 = [s for s, (h, _) in replies2.items() if h["cache"] == "warm"]
-    check(got_warm2 == [s0] and burst2["cache"]["hit"] == KS_REQUESTS - 1,
+    check(s0 in got_warm2 and 0 < burst2["cache"]["hit"]
+          == KS_REQUESTS - len(got_warm2),
           f"a commit in source {s0}'s neighbourhood warmed {got_warm2}")
+    # the sampled sources again, exactly: an entry recomputed at v1 is
+    # fresh there; one carried across the first commit keeps its v0
+    # vector, its v0 neighbourhood and that commit's drift
+    edge2 = [s0, t_node]
+    others2 = sorted(set(full) - {hot[0]})
+    want_warm2 = {s for s in others2 if not (
+        stays_hot(neigh1[s], full1[s], edge2) if s in full1
+        else stays_hot(neigh0[s], full[s], changed, edge2))}
+    check(want_warm2 == set(got_warm2) & set(others2),
+          f"after the one-edge commit, sampled sources warm "
+          f"{sorted(set(got_warm2) & set(others2))}, the rule says "
+          f"{sorted(want_warm2)}")
+    # the hits after it (vectors carried across the commit) held to
+    # float64 on the new graph
+    hits2 = sorted(s for s, (h, _) in replies2.items() if h["cache"] == "hit")
+    held2 = sorted(int(s) for s in rng.choice(
+        hits2, min(KS_HELD_HITS, len(hits2)), replace=False))
+    refs2 = ppr_reference64(src2, dst2, n, [[s] for s in held2],
+                            iterations=PPR_MAX_ITERATIONS)
+    hit_err2 = []
+    for s, r64 in zip(held2, refs2.T):
+        h, out = client.ppr([s], graph_version=v1 + 1, **ppr_kw)
+        check(h["cache"] == "hit", f"source {s} repeat at v2 no hit")
+        hit_err2.append(float(np.abs(out["ranks"] - r64).max() / r64.max()))
+    check(all(e <= PPR_REL_TOL for e in hit_err2),
+          f"PPR hits after the one-edge commit off float64: {hit_err2}")
 
     health = client.health()
     launches = {k: v - h0["launches"][k]
@@ -5592,7 +5736,11 @@ def drive_kernel_server(base, client, sock) -> dict:
         "ppr": {"burst": burst_stats, "after_commit": burst1,
                 "after_one_edge": burst2, "sampled_bit_equal": sampled_equal,
                 "warm_vs_float64": warm_err, "warm_expected":
-                len(expect_warm), "hits_vs_float64": hit_err,
+                len(expect_warm), "warm_by_mass": len(got_warm - expect_warm),
+                "hits_vs_float64": hit_err,
+                "one_edge_warm": len(got_warm2),
+                "sampled_warm": [len(want_warm1), len(want_warm2)],
+                "hits_after_one_edge_vs_float64": hit_err2,
                 "hits_over_bound": sum(e > PPR_REL_TOL for e in hit_err),
                 "one_edge_source": s0},
         "budget_bytes": health["hbm_budget_bytes"],
@@ -6469,6 +6617,448 @@ def phase_tier(base: dict):
     return launches
 
 
+TGN_SEED = 61
+TGN_USERS, TGN_PAGES, TGN_EDGES = 8_227, 1_000, 157_474   # JODIE Wikipedia
+TGN_SPAN_S = 2_678_400.0    # the stream's timestamps: 31 days of seconds
+TGN_LOSS_TOL = 1e-5         # the first batch: card f32 against CPU float64
+TGN_MEMORY_TOL = 1e-5       # plus the time encoding's f32 angle rounding
+# one Adam step from zero moments moves a weight by lr g / (|g| + 1e-8):
+# a gradient within f32 rounding (~1e-9) of zero moves by up to lr / 10
+TGN_WEIGHT_TOL = 1e-3
+EMB_NODES = 100_000
+EMB_DIM, EMB_BATCH = 256, 2048
+EMB_SEED = 67
+EMB_TWINS = 100             # vertices planted with another's sentence
+EMB_TOL = 1e-5              # a chunk against the float64 product
+TRACE_REPS = 5              # disarmed / armed runs, in turns
+TRACE_DISARMED_SLACK = 0.10
+N2V2D_STEPS = 10
+N2V2D_SEED = 71
+N2V2D_LOSS_REL = 1e-5
+# the tables: Adam's m / sqrt(v) amplifies the rounding of a gradient that
+# nearly cancels, so a few entries move by more than the rest; the bulk
+# is held tighter
+N2V2D_TABLE_REL = 1e-4      # every entry, of the largest entry
+N2V2D_BULK_REL = 1e-6       # ... and all but a share N2V2D_BULK_SHARE
+N2V2D_BULK_SHARE = 1e-4
+
+
+def tgn_stream():
+    """The synthetic JODIE-Wikipedia-scale stream: (src, dst, ts) with
+    user gids [0, TGN_USERS) and page gids after them; users' activity
+    and pages' popularity skewed (rand**2, rand**3), timestamps sorted
+    uniform over 31 days."""
+    rng = np.random.default_rng(TGN_SEED)
+    users = (rng.random(TGN_EDGES) ** 2 * TGN_USERS).astype(np.int64)
+    pages = TGN_USERS + (rng.random(TGN_EDGES) ** 3
+                         * TGN_PAGES).astype(np.int64)
+    ts = np.sort(rng.uniform(0.0, TGN_SPAN_S, TGN_EDGES)).astype(np.float32)
+    return users, pages, ts
+
+
+def phase_tgn(base: dict):
+    """The temporal graph network on the card (``tgn`` line): see the
+    module docstring's item 28.  Counts set to 0 just before the epochs,
+    read just after: no hand-written kernel runs on this path."""
+    import torch
+    from memgraph_tpu_torch.northstar import CooSource
+    from memgraph_tpu_torch.procedures import tgn_module as TT
+
+    users, pages, ts = tgn_stream()
+    source = CooSource(users, pages, TGN_USERS + TGN_PAGES, weights=ts)
+    w0 = TT.init_weights(32, 8, seed=7, device="cpu")
+    runs = []
+    reset_all_counts()
+    for _ in range(2):
+        TT.set_params({}, device="cuda", weights=w0)
+        t0 = time.perf_counter()
+        rows = TT.train_and_eval(source, 1, timestamp_property="weight",
+                                 device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = TT._STATE["tgn"]
+        runs.append({"rows": rows, "s": secs, "batches": st.step,
+                     "losses": np.asarray(st.train_losses + st.eval_scores),
+                     "memory": st.memory.cpu().numpy(),
+                     "last_seen": st.last_seen.cpu().numpy()})
+    launches = all_counts()
+    TT.reset()
+    a, b = runs
+    check(all(v == 0 for v in launches.values()),
+          f"the tgn path launched a kernel: {launches}")
+    n_batches = -(-int(TGN_EDGES * 0.8) // 64) \
+        + -(-(TGN_EDGES - int(TGN_EDGES * 0.8)) // 64)
+    check(a["batches"] == n_batches and len(a["losses"]) == n_batches,
+          f"an epoch ran {a['batches']} batches, not {n_batches}")
+    check(bool(np.isfinite(a["losses"]).all()), "a tgn loss is not finite")
+    check(all(np.array_equal(a[k], b[k])
+              for k in ("losses", "memory", "last_seen")),
+          "two tgn epochs from one seed differ")
+    # the stream's first batch: the card in f32 against the CPU in float64
+    first = TT.edges_by_time(source, "weight")[:64]
+    card = TT.TgnState({}, device="cuda", weights=w0)
+    ref = TT.TgnState({}, device="cpu", weights=w0, dtype=torch.float64)
+    loss_c, loss_r = card.ingest(first, True), ref.ingest(first, True)
+    mem_err = float((card.memory.cpu().double() - ref.memory).abs().max())
+    # sin / cos of δ e^{-i}: f32 rounds e^{-i} and the product, 2^-24
+    # each, so the angle is off by up to 2 * 2^-24 * δ (radians)
+    mem_tol = TGN_MEMORY_TOL + 2.0 * 2.0 ** -24 * max(e[2] for e in first)
+    w_err = max(float((card.weights[k].detach().cpu().double()
+                       - ref.weights[k].detach()).abs().max())
+                for k in card.weights)
+    check(abs(loss_c - loss_r) <= TGN_LOSS_TOL
+          and mem_err <= mem_tol and w_err <= TGN_WEIGHT_TOL,
+          f"a tgn batch on the card off float64: loss {loss_c} vs "
+          f"{loss_r}, memory {mem_err}, weights {w_err}")
+    ms = b["s"] * 1e3 / b["batches"]
+    summary = {
+        "users": TGN_USERS, "pages": TGN_PAGES, "edges": TGN_EDGES,
+        "batches": b["batches"], "epoch_s": [a["s"], b["s"]],
+        "ms_a_batch": ms, "batches_per_s": 1e3 / ms,
+        "train_loss": float(b["rows"]["train_loss"][0]),
+        "eval_loss": float(b["rows"]["eval_loss"][0]),
+        "first_batch_vs_float64": {"loss": abs(loss_c - loss_r),
+                                   "memory": mem_err, "memory_tol": mem_tol,
+                                   "weights": w_err},
+        "launches": launches}
+    print("tgn", json.dumps(summary), flush=True)
+    return launches
+
+
+class TextSource:
+    """``EMB_NODES`` vertices, each with a label and three properties
+    (``name``, ``age``, ``city``), for the embeddings: the two reads the
+    text procedures make (``vertices``, ``vertex_records``)."""
+
+    LABELS = ("Person", "Company", "City", "Product")
+    WORDS = ("ada", "grace", "alan", "edsger", "barbara", "donald", "john",
+             "frances", "ken", "dennis", "leslie", "tony", "margaret",
+             "radia", "whitfield", "shafi", "silvio", "judea", "yann")
+
+    def __init__(self):
+        rng = np.random.default_rng(EMB_SEED)
+        n = EMB_NODES
+        self.storage = self
+        self.label = rng.integers(0, len(self.LABELS), n)
+        self.first = rng.integers(0, len(self.WORDS), n)
+        self.last = rng.integers(0, len(self.WORDS), n)
+        self.age = rng.integers(18, 90, n)
+        self.city = rng.integers(0, 500, n)
+        # twins: the last EMB_TWINS vertices copy vertices of other chunks
+        self.twins = np.arange(EMB_TWINS)
+        for a in ("label", "first", "last", "age", "city"):
+            col = getattr(self, a)
+            col[n - EMB_TWINS:] = col[self.twins]
+
+    def vertices(self, label_filter=None):
+        return np.arange(EMB_NODES, dtype=np.int64)
+
+    def vertex_records(self, gids):
+        W = self.WORDS
+        return [([self.LABELS[self.label[g]]],
+                 {"name": f"{W[self.first[g]]} {W[self.last[g]]}",
+                  "age": int(self.age[g]), "city": f"city-{self.city[g]}"})
+                for g in np.asarray(gids).tolist()]
+
+
+def phase_embeddings(base: dict):
+    """Node text embeddings on the card (``embeddings`` line): see the
+    module docstring's item 29."""
+    import torch
+    from memgraph_tpu_torch.procedures import embeddings_module as TE
+
+    source = TextSource()
+    # the path's host hashing, timed where it runs (its chunks' counts
+    # kept for the float64 check)
+    counts, hash_s = [], [0.0]
+    chunk_counts = TE.chunk_counts
+
+    def timed_counts(texts, batch_size):
+        t0 = time.perf_counter()
+        out = chunk_counts(texts, batch_size)
+        hash_s[0] += time.perf_counter() - t0
+        if not counts:
+            counts.append(out)
+        return out
+
+    TE.chunk_counts = timed_counts
+    try:
+        reset_all_counts()
+        out, secs = timed_run(lambda: TE.compute_embeddings(
+            source, {"dimension": EMB_DIM, "batch_size": EMB_BATCH},
+            device="cuda"))
+        launches = all_counts()
+    finally:
+        TE.chunk_counts = chunk_counts
+    check(all(v == 0 for v in launches.values()),
+          f"the embeddings path launched a kernel: {launches}")
+    vecs = out["embedding"]
+    check(vecs.shape == (EMB_NODES, EMB_DIM) and int(out["count"][0])
+          == EMB_NODES, f"embeddings of shape {vecs.shape}")
+    norm_err = float(np.abs(np.linalg.norm(vecs.astype(np.float64), axis=1)
+                            - 1.0).max())
+    check(norm_err <= 1e-6, f"an embedding's norm is off 1 by {norm_err}")
+    twins = EMB_NODES - EMB_TWINS + np.arange(EMB_TWINS)
+    check(np.array_equal(vecs[twins], vecs[source.twins]),
+          "equal sentences got different vectors")
+    # one chunk's product on the card, and against float64
+    proj = TE.default_projection(EMB_DIM, "cuda")
+    c0 = torch.from_numpy(counts[0]).cuda()
+    chunk_ms = cuda_ms(lambda: TE.encode_chunk(c0, proj), 20)
+    upload_ms = cuda_ms(lambda: torch.from_numpy(counts[0]).cuda(), 5)
+    ref = counts[0].astype(np.float64) @ proj.cpu().numpy().astype(
+        np.float64)
+    ref /= np.maximum(np.linalg.norm(ref, axis=1, keepdims=True), 1e-12)
+    chunk_err = float(np.abs(vecs[:EMB_BATCH] - ref).max())
+    check(chunk_err <= EMB_TOL,
+          f"a chunk off the float64 product by {chunk_err}")
+    summary = {"nodes": EMB_NODES, "dimension": EMB_DIM,
+               "batch": EMB_BATCH, "chunks": -(-EMB_NODES // EMB_BATCH),
+               "compute_embeddings_s": secs, "hash_s": hash_s[0],
+               "chunk_ms": chunk_ms, "chunk_upload_ms": upload_ms,
+               "norm_err": norm_err, "chunk_vs_float64": chunk_err,
+               "device": TE.model_info(device="cuda")["device"][0],
+               "launches": launches}
+    print("embeddings", json.dumps(summary), flush=True)
+    return launches
+
+
+def phase_trace(base: dict):
+    """Spans and stage extents on the card (``trace`` line): see the
+    module docstring's item 30."""
+    import tempfile
+    import torch
+    from memgraph_tpu_torch.observability import stats as tstats
+    from memgraph_tpu_torch.observability import trace as ttrace
+    from memgraph_tpu_torch.ops.csr import GraphCache
+    from memgraph_tpu_torch.ops.pagerank import pagerank
+    from memgraph_tpu_torch.server import kernel_server as ks
+
+    seg, ssrc, sdst, _ = segment_source()
+    g = GraphCache().get(seg, device="cuda")
+
+    def per_iteration_ms():
+        t0 = time.perf_counter()
+        _, _, iters = pagerank(g, tol=0.0, max_iterations=ITERATIONS,
+                               device="cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    reset_all_counts()
+    per_iteration_ms()                               # warm
+    disarmed, armed = [], []
+    for _ in range(TRACE_REPS):
+        ttrace.disable()
+        disarmed.append(per_iteration_ms())
+        ttrace.enable(sample=1.0)
+        root = ttrace.begin_trace("query")
+        with ttrace.activate(root.ctx), tstats.collecting_stages():
+            armed.append(per_iteration_ms())
+        root.finish()
+    ttrace.disable()
+    local = all_counts()
+    check(local["csr_spmm_sum"] > 0,
+          f"the in-process segment runs launched no K1: {local}")
+    check(min(disarmed) <= (1 + TRACE_DISARMED_SLACK) * min(armed),
+          f"disarmed tracing costs: {min(disarmed)} ms an iteration "
+          f"against {min(armed)} armed")
+    check(ttrace.span("device.chunk") is ttrace._NOOP,
+          "a disarmed span is not the no-op")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sock = os.path.join(tempfile.mkdtemp(prefix="mgtr"), "ks.sock")
+    env = dict(os.environ, MEMGRAPH_TPU_TRACE="1")
+    try:
+        client = ks.ensure_server(sock, spawn_timeout_s=KS_TIMEOUT,
+                                  idle_timeout_s=KS_TIMEOUT, device="cuda",
+                                  env=env)
+    except RuntimeError as e:
+        fail(f"the traced kernel server did not start: {e}")
+    if client is None:
+        print(ks.log_tail(sock), file=sys.stderr, flush=True)
+        fail("the traced kernel server did not answer")
+    sup = ks.SupervisedKernelClient(sock, spawn=False, deadline_s=KS_TIMEOUT,
+                                    device="cuda")
+    ttrace.enable(sample=1.0)
+    requests = {}
+    try:
+        h0 = client.health()["launches"]
+        for name, call in (
+                ("pagerank", lambda: sup.pagerank(
+                    src=ssrc, dst=sdst, n_nodes=SEGMENT_NODES,
+                    graph_key="trace", graph_version=1, tol=1e-6)),
+                ("ppr", lambda: sup.ppr(
+                    [3], src=ssrc, dst=sdst, n_nodes=SEGMENT_NODES,
+                    graph_key="trace-ppr", graph_version=1, tol=1e-6))):
+            acc = tstats.StageAccumulator()
+            root = ttrace.begin_trace("query")
+            t0 = time.perf_counter()
+            with ttrace.activate(root.ctx), tstats.collecting_stages(acc):
+                call()
+            wall = time.perf_counter() - t0
+            root.finish()
+            (spans,) = ttrace.traces_json(root.trace_id)
+            by_id = {s["span_id"]: s for s in spans}
+            names = [s["name"] for s in spans]
+            check(all(n in ttrace.SPAN_NAMES for n in names)
+                  and all(s["trace_id"] == root.trace_id for s in spans)
+                  and all(s["parent_id"] is None or s["parent_id"] in by_id
+                          for s in spans),
+                  f"the {name} request's spans do not nest: {names}")
+            disp = [s for s in spans if s["name"] == "kernel.dispatch"]
+            check(len(disp) == 1 and names.count("kernel.request") == 1
+                  and by_id[disp[0]["parent_id"]]["name"]
+                  == "kernel.request" and disp[0]["pid"] != os.getpid(),
+                  f"the daemon's dispatch span did not come home under "
+                  f"the request: {names}")
+            stages = acc.snapshot()
+            check("kernel_dispatch" in stages and all(
+                s["seconds"] <= wall for s in stages.values()),
+                  f"the {name} request's stages pass its wall {wall}: "
+                  f"{stages}")
+            chunks = [s for s in spans if s["name"] == "device.chunk"]
+            check(all(by_id[c["parent_id"]]["name"] == "kernel.dispatch"
+                      for c in chunks),
+                  f"a device.chunk outside the dispatch: {names}")
+            requests[name] = {"wall_ms": wall * 1e3, "spans": len(spans),
+                              "names": sorted(set(names)),
+                              "device_chunks": len(chunks),
+                              "stages": stages}
+        check(requests["pagerank"]["device_chunks"] > 0,
+              "the pagerank op's chunks opened no span")
+        daemon = {k: v - h0[k]
+                  for k, v in client.health()["launches"].items()}
+    finally:
+        ttrace.disable()
+        ttrace.TRACER.reset()
+        sup.close()
+        client.shutdown()
+        client.close()
+        try:
+            client.process.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            client.process.kill()
+            client.process.wait()
+    check(daemon["csr_spmm_sum"] > 0,
+          f"the traced requests launched no K1 in the daemon: {daemon}")
+    launches = {k: local.get(k, 0) + daemon.get(k, 0)
+                for k in {*local, *daemon}}
+    summary = {"graph": {"n_nodes": SEGMENT_NODES, "n_edges": SEGMENT_EDGES},
+               "segment_iteration_ms": {"disarmed": disarmed,
+                                        "armed": armed,
+                                        "disarmed_min": min(disarmed),
+                                        "armed_min": min(armed)},
+               "requests": requests, "launches": launches,
+               "launches_in_process": local, "launches_daemon": daemon}
+    print("trace", json.dumps(summary), flush=True)
+    return launches
+
+
+def phase_node2vec_sharded(base: dict):
+    """node2vec's 2-D sharded step on the card (``node2vec_sharded``
+    line): see the module docstring's item 31."""
+    import torch
+    from memgraph_tpu_torch.models import node2vec as N
+    from memgraph_tpu_torch.northstar import N_NODES, generate_graph
+    from memgraph_tpu_torch.ops.gnn import adam
+    from memgraph_tpu_torch.parallel.mesh import make_mesh_2d
+
+    cfg = N.Node2VecConfig()
+    dim, B, K = cfg.embedding_dim, cfg.batch_size, cfg.negatives
+    n_pad = 1 << int(np.ceil(np.log2(N_NODES + 1)))
+    src, dst = base.get("src"), base.get("dst")
+    if src is None:
+        src, dst = generate_graph()
+    rng = np.random.default_rng(N2V2D_SEED)
+    batches = []
+    for k in range(N2V2D_STEPS):
+        e = rng.integers(0, len(src), B)
+        c = np.asarray(src[e], dtype=np.int64)
+        t = np.asarray(dst[e], dtype=np.int64)
+        if k == N2V2D_STEPS - 1:                  # a padded last batch
+            c[-100:], t[-100:] = -1, -1
+        neg = rng.integers(0, N_NODES, (B, K))
+        batches.append(tuple(torch.from_numpy(a).cuda()
+                             for a in (c, t, neg)))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    tables0 = N.init_params(n_pad, dim, gen, "cuda")
+
+    def single():
+        tables = {k: v.clone().requires_grad_(True)
+                  for k, v in tables0.items()}
+        opt = adam(list(tables.values()), cfg.learning_rate)
+        losses = [N.train_step(tables, opt, *b) for b in batches]
+        return {k: v.detach() for k, v in tables.items()}, losses
+
+    def sharded(mesh):
+        step, layout, _ = N.build_sharded_train_step(
+            mesh, lambda ts: adam(ts, cfg.learning_rate))
+        placed = {k: layout[k].place(tables0[k]) for k in ("in", "out")}
+        state = step.init(placed)
+        losses = []
+        for b in batches:
+            placed, state, loss = step(placed, state, *b)
+            losses.append(loss)
+        return {k: layout[k].gather(placed[k]) for k in placed}, losses
+
+    def ms_a_step(run):
+        run()                                    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / N2V2D_STEPS
+
+    mesh = make_mesh_2d(2, 2, devices=("cuda:0",) * 4)
+    # the path: counts set to 0 just before, read just after
+    reset_all_counts()
+    got, got_losses = sharded(mesh)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    want_k1 = 3 * 4 * N2V2D_STEPS
+    check(launches["csr_spmm_sum"] == want_k1
+          and all(v == 0 for k, v in launches.items()
+                  if k != "csr_spmm_sum"),
+          f"the 2-D step's launches {launches}, not {want_k1} K1")
+    again, again_losses = sharded(mesh)
+    check(all(torch.equal(got[k], again[k]) for k in got)
+          and all(torch.equal(a, b) for a, b in zip(got_losses,
+                                                    again_losses)),
+          "two 2-D node2vec runs differ")
+    want, want_losses = single()
+    loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                   for a, b in zip(got_losses, want_losses))
+    rel = {k: (got[k] - want[k]).abs() / want[k].abs().max() for k in got}
+    table_rel = max(float(r.max()) for r in rel.values())
+    bulk_share = max(float((r > N2V2D_BULK_REL).float().mean())
+                     for r in rel.values())
+    check(loss_rel <= N2V2D_LOSS_REL and table_rel <= N2V2D_TABLE_REL
+          and bulk_share <= N2V2D_BULK_SHARE,
+          f"the 2-D step off the single-card step: loss {loss_rel}, "
+          f"tables {table_rel}, share past {N2V2D_BULK_REL}: {bulk_share}")
+    del rel
+    check(all(np.isfinite(float(x)) for x in got_losses),
+          "a 2-D step's loss is not finite")
+    del again, want
+    torch.cuda.empty_cache()
+    timing = {"1x1": ms_a_step(lambda: sharded(make_mesh_2d(
+                  1, 1, devices=("cuda:0",)))),
+              "2x2": ms_a_step(lambda: sharded(mesh)),
+              "single_train_step": ms_a_step(single)}
+    summary = {"n_nodes": N_NODES, "n_pad": n_pad, "dim": dim, "batch": B,
+               "negatives": K, "steps": N2V2D_STEPS, "mesh": mesh.shape,
+               "losses": [float(x) for x in got_losses],
+               "vs_single_card": {"loss_rel": loss_rel,
+                                  "table_rel": table_rel,
+                                  "share_past_bulk_rel": bulk_share},
+               "ms_a_step": timing, "launches": launches}
+    print("node2vec_sharded", json.dumps(summary), flush=True)
+    del got, tables0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6502,6 +7092,7 @@ def main():
 
     timed("benes", phase_benes, routed)
     micro_launches, micro_lines = timed("micro", phase_micro, sm_clock_hz())
+    micro_after = micro_counts()        # the phase's own comparisons too
     # the segment kernels' counts over the MXU paths too (they stay 0)
     seg_before = {}
 
@@ -6548,7 +7139,12 @@ def main():
         "gnn_train": timed("gnn_train", phase_gnn_train, base),
         "communities": timed("communities", phase_communities, base),
         "lane": timed("lane", phase_lane, base),
-        "tier": timed("tier", phase_tier, base)})
+        "tier": timed("tier", phase_tier, base),
+        "tgn": timed("tgn", phase_tgn, base),
+        "embeddings": timed("embeddings", phase_embeddings, base),
+        "trace": timed("trace", phase_trace, base),
+        "node2vec_sharded": timed("node2vec_sharded",
+                                  phase_node2vec_sharded, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 
@@ -6591,7 +7187,10 @@ def main():
             "library_ms": main["library_ms"],
             "at": "edge net, f32",
             "shapes": {k: s[name] for k, s in shapes.items() if name in s}})
-    kernels += micro_kernel_entries(micro_launches, micro_lines)
+    check(micro_counts() == micro_after,
+          f"a micro kernel ran after the micro phase: {micro_counts()}")
+    kernels += micro_kernel_entries(micro_launches, micro_lines,
+                                    [*seg_before, *by_path])
     check(all(c == dict.fromkeys(c, 0) for c in seg_before.values()),
           f"a segment kernel ran on an MXU path: {seg_before}")
     kernels += segment_kernel_entries(seg_lines, seg_before, by_path)

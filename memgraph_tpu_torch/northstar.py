@@ -269,6 +269,23 @@ class CooSource:
                 out[i] = odd[g]
         return out
 
+    def vertex_records(self, gids):
+        """(label names, {property name: value}) of each vertex with a gid
+        in ``gids`` (None where it is not in the graph): no labels, and
+        the properties a vertex holds, numpy values as python ones."""
+        gids = np.asarray(gids, dtype=np.int64)
+        out = [None if not 0 <= g < self._n else ([], {})
+               for g in gids.tolist()]
+        for name in sorted(set(self._props) | set(self._prop_odd)):
+            vals = self.vertex_property(name, gids)
+            if isinstance(vals, np.ndarray):
+                vals = vals.tolist()
+            for rec, v in zip(out, vals):
+                if rec is not None and v is not None:
+                    rec[1][name] = v.tolist() if isinstance(
+                        v, (np.ndarray, np.generic)) else v
+        return out
+
     def _set_property(self, name, gid: int, value) -> None:
         """``name`` of vertex ``gid`` set to ``value`` (None: cleared)."""
         odd = self._prop_odd.setdefault(name, {})

@@ -48,8 +48,10 @@ def weakly_connected_components(graph: DeviceGraph,
     backend, ctx = S.route_backend(graph, dev, mesh, semiring="min_first")
     if backend == "mesh":
         from ..parallel.analytics import components_mesh
-        return components_mesh(graph, ctx, max_iterations=max_iterations,
-                               comp0=comp0)
+        with S.backend_extent("mesh"):
+            return components_mesh(graph, ctx,
+                                   max_iterations=max_iterations,
+                                   comp0=comp0)
     g = on_device(graph, dev)
     start = np.arange(g.n_pad, dtype=np.int32)
     if comp0 is not None:

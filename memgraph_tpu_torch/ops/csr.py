@@ -51,6 +51,12 @@ owns the graph.  A source gives
                          length); the dense paths' procedures (node
                          features, vector indexes) read either form
                          through ``property_rows``
+  ``vertex_records(gids)``
+                         for the text procedures (procedures/
+                         embeddings_module.py): each vertex's (label
+                         names, {property name: value}) as the storage
+                         holds them, one a gid in order, None where the
+                         vertex is not visible
 
 ``memgraph_tpu_torch.northstar.CooSource`` is one (a versioned COO graph);
 the tests hold an adapter of the JAX package's storage against it.

@@ -77,6 +77,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..observability import stats as mgstats
+from ..observability import trace as mgtrace
 from ..utils.metrics import global_metrics
 from .csr import (ChangeLogUnknowable, DeviceGraph, ShardedCSR, _raw,
                   _weights, from_coo, shard_edges)
@@ -776,14 +778,22 @@ class ResidentGraph:
         commit fits in place, and kept as the splice substrate; its
         placement is cached per mesh, so an unmoved generation is never
         re-sorted or re-sent.  The seconds of a call are the
-        ``delta.sharded_s`` summary."""
+        ``delta.sharded_s`` summary, a ``device.transfer`` span and the
+        active stage accumulator's ``device_transfer`` (a cached
+        placement shows as a near-zero extent)."""
         t0 = time.perf_counter()
-        hv = self.host_variants.get((by, doubled))
-        if hv is None or hv.n_shards != ctx.n_shards:
-            hv = self._reshard(by, doubled, ctx.n_shards)
-            self.host_variants[(by, doubled)] = hv
-        dev = self._install(ctx, hv)
-        global_metrics.observe("delta.sharded_s", time.perf_counter() - t0)
+        with mgtrace.span("device.transfer") as sp:
+            hv = self.host_variants.get((by, doubled))
+            if hv is None or hv.n_shards != ctx.n_shards:
+                hv = self._reshard(by, doubled, ctx.n_shards)
+                self.host_variants[(by, doubled)] = hv
+            dev = self._install(ctx, hv)
+            if sp:
+                sp.set(n_shards=ctx.n_shards, by=by,
+                       n_nodes=int(self._n_nodes), resident=True)
+        dt = time.perf_counter() - t0
+        global_metrics.observe("delta.sharded_s", dt)
+        mgstats.record_stage("device_transfer", dt)
         return dev
 
     def _reshard(self, by, doubled, n_shards) -> ShardedCSR:

@@ -75,9 +75,11 @@ def katz_centrality(graph: DeviceGraph, alpha: float = 0.2,
     backend, ctx = S.route_backend(graph, dev, mesh, precision=precision)
     if backend == "mesh":
         from ..parallel.analytics import katz_mesh
-        return katz_mesh(graph, ctx, alpha=alpha, beta=beta,
-                         max_iterations=max_iterations, tol=tol,
-                         normalized=normalized, precision=precision, x0=x0)
+        with S.backend_extent("mesh"):
+            return katz_mesh(graph, ctx, alpha=alpha, beta=beta,
+                             max_iterations=max_iterations, tol=tol,
+                             normalized=normalized, precision=precision,
+                             x0=x0)
     if backend == "mxu":
         x, err, iters = S.mxu_fixpoint(
             graph, epilogue=_katz_mxu_epilogue,

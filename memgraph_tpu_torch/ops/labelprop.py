@@ -103,9 +103,11 @@ def label_propagation(graph: DeviceGraph, max_iterations: int = 30,
     backend, ctx = S.route_backend(graph, dev, mesh, semiring="max_min")
     if backend == "mesh":
         from ..parallel.analytics import label_propagation_mesh
-        return label_propagation_mesh(
-            graph, ctx, max_iterations=max_iterations,
-            self_weight=self_weight, directed=directed, labels0=labels0)
+        with S.backend_extent("mesh"):
+            return label_propagation_mesh(
+                graph, ctx, max_iterations=max_iterations,
+                self_weight=self_weight, directed=directed,
+                labels0=labels0)
     g = on_device(graph, dev)
     if directed:
         src2, dst2, w2 = g.src_idx, g.col_idx, g.weights

@@ -386,7 +386,8 @@ def _pagerank_via_mxu(graph: DeviceGraph, device: torch.device, damping,
         if np.isfinite(total) and total > 0.0:
             x0_flat = np.zeros(len(plan.valid_out), dtype=np.float32)
             x0_flat[plan.out_relabel] = x0 / np.float32(total)
-    rank, err, iters = run(x0_flat, damping, int(max_iterations), tol)
+    with S.backend_extent("mxu", record_iterate=True):
+        rank, err, iters = run(x0_flat, damping, int(max_iterations), tol)
     return rank[run.out_relabel], err, iters
 
 
@@ -419,9 +420,10 @@ def pagerank(graph: DeviceGraph, damping: float = 0.85,
                                    min_edges=MXU_MIN_EDGES)
     if backend == "mesh":
         from ..parallel.analytics import pagerank_mesh
-        return pagerank_mesh(graph, ctx, damping=damping,
-                             max_iterations=max_iterations, tol=tol,
-                             precision=precision, x0=x0)
+        with S.backend_extent("mesh"):
+            return pagerank_mesh(graph, ctx, damping=damping,
+                                 max_iterations=max_iterations, tol=tol,
+                                 precision=precision, x0=x0)
     if backend == "mxu":
         return _pagerank_via_mxu(graph, dev, damping, max_iterations, tol,
                                  precision, x0=x0)
@@ -526,9 +528,9 @@ def personalized_pagerank(graph: DeviceGraph, source_nodes,
     A failure of the plane falls back to the in-process run, on the same
     device, loudly (``_ppr_via_kernel``).  A routed answer may be the
     plane's cache hit of an older version when the commits since touched
-    nothing within one hop of the sources (the reference's invalidation;
-    ROADMAP Queue 3 item 6).  ``device``: explicit, else the graph's,
-    else the card."""
+    nothing within one hop of the sources and their bound on its change
+    stays within ``kernel_server.PPR_HIT_BOUND`` of its largest entry.
+    ``device``: explicit, else the graph's, else the card."""
     S._check_precision(precision)
     dev = graph_device(graph, device)
     if kernel is not None:
@@ -647,18 +649,19 @@ def personalized_pagerank_batch(graph: DeviceGraph, source_sets,
                      device=dev)
     iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
     it = 0
-    while it < max_iterations and not bool(done.all()):
-        acc = S.spmv("plus_times", x, A["src"], A["dst"], env["w"],
-                     n_out=g.n_pad, sorted=True, precision=precision,
-                     ptr=A["dst_ptr"], longest=A["dst_longest"])
-        new_x, new_err = _ppr_epilogue(x, acc, env, P)
-        # freeze converged lanes: their iterate is exactly the
-        # sequential loop's stopping state
-        x = torch.where(done, x, new_x)
-        err = torch.where(done, err, new_err)
-        iters = torch.where(done, iters, iters + 1)
-        done = done | (err <= tol_t)
-        it += 1
+    with S.backend_extent("segment", record_iterate=True):
+        while it < max_iterations and not bool(done.all()):
+            acc = S.spmv("plus_times", x, A["src"], A["dst"], env["w"],
+                         n_out=g.n_pad, sorted=True, precision=precision,
+                         ptr=A["dst_ptr"], longest=A["dst_longest"])
+            new_x, new_err = _ppr_epilogue(x, acc, env, P)
+            # freeze converged lanes: their iterate is exactly the
+            # sequential loop's stopping state
+            x = torch.where(done, x, new_x)
+            err = torch.where(done, err, new_err)
+            iters = torch.where(done, iters, iters + 1)
+            done = done | (err <= tol_t)
+            it += 1
     if raw:
         return x, err, iters
     ranks = x[:g.n_nodes, :n_req].T.cpu().numpy()

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import stats as mgstats
 from ..utils.metrics import global_metrics
 from . import segment_cuda as SC
 from . import semiring as S
@@ -96,7 +97,7 @@ _program_lock = threading.Lock()
 def _get_program(key, build, *build_args):
     """Get, or build and store under one lock, with the reference's
     accounting (``lane.compiled_total``, ``lane.compile_latency_sec``,
-    the ``lane.resident`` gauge)."""
+    the ``lane.resident`` gauge, the ``lane_compile`` stage)."""
     fn = _PROGRAM_CACHE.get(key)
     if fn is not None:
         return fn
@@ -106,11 +107,12 @@ def _get_program(key, build, *build_args):
             t0 = time.perf_counter()
             fn = build(*build_args)
             _PROGRAM_CACHE[key] = fn
+            dt = time.perf_counter() - t0
             global_metrics.increment("lane.compiled_total")
-            global_metrics.observe("lane.compile_latency_sec",
-                                   time.perf_counter() - t0)
+            global_metrics.observe("lane.compile_latency_sec", dt)
             global_metrics.set_gauge("lane.resident",
                                      float(len(_PROGRAM_CACHE)))
+            mgstats.record_stage("lane_compile", dt)
     return fn
 
 
@@ -292,10 +294,13 @@ def masked_aggregate(preds: tuple, aggs: tuple, vals: np.ndarray,
            _bucket(max(n, 1)))
     fn = _program(key, fingerprint, _build_agg_program, tuple(preds),
                   tuple(aggs))
-    raw = fn(_tensor(vals, np.int32, dev),
-             _tensor(present, bool, dev),
-             _tensor(base, bool, dev),
-             _rhs(rhs))
+    t0 = time.perf_counter()
+    args = (_tensor(vals, np.int32, dev), _tensor(present, bool, dev),
+            _tensor(base, bool, dev), _rhs(rhs))
+    mgstats.record_stage("lane_dispatch", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    raw = fn(*args)                      # host values: the read is inside
+    mgstats.record_stage("lane_iterate", time.perf_counter() - t0)
     out = []
     i = 0
     for kind, ci in aggs:
@@ -416,6 +421,7 @@ def hop_counts(src, dst, emask, smask: np.ndarray,
     or raw host arrays.  Returns {"rows": int, "distinct": int} (keys per
     request); raises :class:`LaneRefused` when the f32 multiplicity
     witness trips."""
+    t0 = time.perf_counter()
     if isinstance(src, StagedEdges):
         st = src
     else:
@@ -433,8 +439,12 @@ def hop_counts(src, dst, emask, smask: np.ndarray,
             a = np.concatenate([a, np.zeros(n - len(a), dtype=dtype)])
         return _tensor(a, dtype, dev)
 
-    raw = fn(st, node_mask(smask, bool), node_mask(midmask, np.float32),
-             node_mask(tmask, np.float32), n)
+    masks = (node_mask(smask, bool), node_mask(midmask, np.float32),
+             node_mask(tmask, np.float32))
+    mgstats.record_stage("lane_dispatch", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    raw = fn(st, *masks, n)              # host values: the read is inside
+    mgstats.record_stage("lane_iterate", time.perf_counter() - t0)
     max1, max2, total_f = raw[0], raw[1], raw[2]
     if max1 >= _F24 or max2 >= _F24:
         raise LaneRefused("precision_overflow",
@@ -488,13 +498,16 @@ def masked_topk(preds: tuple, ascending: bool, vals: np.ndarray,
            _bucket(max(n, 1)))
     fn = _program(key, fingerprint, _build_topk_program, tuple(preds),
                   ascending)
-    order, count = fn(
-        _tensor(vals, np.int32, dev),
-        _tensor(present, bool, dev),
-        _tensor(keyv, np.int32, dev),
-        _tensor(keyp, bool, dev),
-        _rhs(rhs))
-    return order.to(torch.int32).cpu().numpy(), int(count)
+    t0 = time.perf_counter()
+    args = (_tensor(vals, np.int32, dev), _tensor(present, bool, dev),
+            _tensor(keyv, np.int32, dev), _tensor(keyp, bool, dev),
+            _rhs(rhs))
+    mgstats.record_stage("lane_dispatch", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    order, count = fn(*args)
+    order, count = order.to(torch.int32).cpu().numpy(), int(count)
+    mgstats.record_stage("lane_iterate", time.perf_counter() - t0)
+    return order, count
 
 
 # --------------------------------------------------------------------------

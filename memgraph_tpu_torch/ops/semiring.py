@@ -40,11 +40,15 @@ vector symmetrically per iteration.  The documented error bounds live in
 from __future__ import annotations
 
 import os
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..observability import stats as mgstats
+from ..observability import trace as mgtrace
 from . import segment_cuda as SC
 
 # ---------------------------------------------------------------------------
@@ -371,6 +375,11 @@ def fixpoint(sr, *, arrays, params=None, x0=None, n_out: int, epilogue,
     and ``src_longest``), else finds them in the sorted keys each
     iteration.
 
+    The loop is one ``device.chunk`` span and adds its extent to the
+    active stage accumulator's ``device_iterate`` and
+    ``semiring_segment`` (observability/stats.py); the metric's read
+    each iteration makes the extent cover the card's work.
+
     Returns (x, metric as a float or bool, iterations).
     """
     sr = resolve_semiring(sr)
@@ -390,17 +399,25 @@ def fixpoint(sr, *, arrays, params=None, x0=None, n_out: int, epilogue,
     else:
         m, go = True, bool
     it = 0
-    while go(m) and it < max_iterations:
-        if step is not None:
-            acc = step(x, A, env, params, n_out)
-        else:
-            acc = _default_step(
-                sr, A, env, x, params, n_out=n_out, sorted=sorted,
-                sorted_backward=sorted_backward, direction=direction,
-                precision=precision)
-        x, m_t = epilogue(x, acc, env, params)
-        m = float(m_t) if metric == "err" else bool(m_t)
-        it += 1
+    t0 = time.perf_counter()
+    with mgtrace.span("device.chunk") as sp:
+        while go(m) and it < max_iterations:
+            if step is not None:
+                acc = step(x, A, env, params, n_out)
+            else:
+                acc = _default_step(
+                    sr, A, env, x, params, n_out=n_out, sorted=sorted,
+                    sorted_backward=sorted_backward, direction=direction,
+                    precision=precision)
+            x, m_t = epilogue(x, acc, env, params)
+            m = float(m_t) if metric == "err" else bool(m_t)
+            it += 1
+        if sp:
+            sp.set(semiring=sr.name, precision=precision,
+                   backend="segment", iterations=it)
+    dt = time.perf_counter() - t0
+    mgstats.record_stage("device_iterate", dt)
+    mgstats.record_stage("semiring_segment", dt)
     return x, m, it
 
 
@@ -441,8 +458,9 @@ def mxu_fixpoint(graph, *, epilogue, params, max_iterations, tol,
         x0_flat = np.zeros(len(plan.valid_out), dtype=np.float32)
         x0_flat[plan.out_relabel] = \
             np.asarray(x0, dtype=np.float32)[:graph.n_nodes]
-    x, err, iters = run(x0_flat, params, int(max_iterations),
-                        np.float32(tol))
+    with backend_extent("mxu", record_iterate=True):
+        x, err, iters = run(x0_flat, params, int(max_iterations),
+                            np.float32(tol))
     return x[run.out_relabel], float(err), int(iters)
 
 
@@ -451,6 +469,24 @@ def pagerank_update(acc, dangling_mass, valid, n_f, damping):
     backends."""
     return valid * ((1.0 - damping) / n_f
                     + damping * (acc + dangling_mass / n_f))
+
+
+@contextmanager
+def backend_extent(backend: str, record_iterate: bool = False):
+    """Add a backend dispatch's extent to the active stage accumulator
+    (``semiring_mesh`` / ``semiring_mxu`` / ``semiring_segment``; with
+    ``record_iterate`` also ``device_iterate``).  The segment fixpoint
+    records its own; the mesh and MXU call sites wrap their dispatch
+    with this.  Their loops read a value back every iteration, so the
+    extent covers the card's work."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        mgstats.record_stage(f"semiring_{backend}", dt)
+        if record_iterate:
+            mgstats.record_stage("device_iterate", dt)
 
 
 def route_backend(graph, device: torch.device, mesh=None, *,

@@ -30,18 +30,31 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
+from ..observability import stats as mgstats
+from ..observability import trace as mgtrace
 from ..ops.csr import DeviceGraph, shard_csr
 from .mesh import MeshContext
 
 
 def _shard_traced(graph: DeviceGraph, ctx: MeshContext, by: str = "src",
                   doubled: bool = False):
-    """The snapshot's placed ShardedCSR on ``ctx`` (cached)."""
-    return shard_csr(graph, ctx, by=by, doubled=doubled)
+    """The snapshot's placed ShardedCSR on ``ctx`` (cached), under a
+    ``device.transfer`` span; the same extent goes to the active stage
+    accumulator's ``device_transfer``.  A cache hit shows as a near-zero
+    extent; the uploads are asynchronous, so the extent is the host's."""
+    t0 = time.perf_counter()
+    with mgtrace.span("device.transfer") as sp:
+        scsr = shard_csr(graph, ctx, by=by, doubled=doubled)
+        if sp:
+            sp.set(n_shards=ctx.n_shards, by=by,
+                   n_nodes=int(graph.n_nodes))
+    mgstats.record_stage("device_transfer", time.perf_counter() - t0)
+    return scsr
 
 
 def default_checkpoint_every() -> int:

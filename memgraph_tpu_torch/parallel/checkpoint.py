@@ -32,6 +32,8 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
+from ..observability import stats as mgstats
+from ..observability import trace as mgtrace
 from ..utils import devicefault
 from ..utils.metrics import global_metrics
 from ..utils.retry import RetryPolicy
@@ -147,9 +149,15 @@ def run_resumable(*, algo: str, chunk, carry, carry_to_host,
             it_stop = min(max_iterations, it + k)
             t0 = time.monotonic()
             try:
-                devicefault.device_fault_point()
-                new_carry = chunk(carry, it_stop)
-                new_it = int(iter_of(new_carry))
+                # one chunk = one span (a faulted chunk records as an
+                # error); the iteration's read ends it on the card's time
+                with mgtrace.span("device.chunk") as sp:
+                    devicefault.device_fault_point()
+                    new_carry = chunk(carry, it_stop)
+                    new_it = int(iter_of(new_carry))
+                    if sp:
+                        sp.set(algo=algo, chunk=report.chunks,
+                               it_from=it, it_to=new_it)
             except Exception as e:  # noqa: BLE001 — classified below
                 kind = devicefault.classify_device_error(e)
                 if kind is None:
@@ -179,6 +187,12 @@ def run_resumable(*, algo: str, chunk, carry, carry_to_host,
                 continue
             faults_in_a_row = 0
             elapsed = time.monotonic() - t0
+            # the first completed chunk folds in the kernels' first-use
+            # build, later chunks are iteration time (the reference's
+            # convention for XLA's compile)
+            mgstats.record_stage(
+                "device_compile" if report.chunks == 0
+                else "device_iterate", elapsed)
             if chunk_deadline_s is not None and elapsed > chunk_deadline_s:
                 # the chunk COMPLETED, late
                 report.slow_chunks += 1

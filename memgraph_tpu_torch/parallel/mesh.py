@@ -32,6 +32,13 @@ on the CPU (the counterpart of the JAX tests' 8 virtual host devices).
 All devices of a mesh are of one type; a payload that lies elsewhere
 than its shard's device is refused.
 
+``make_mesh_2d(data, model)`` lays ``data * model`` devices out as a
+(data x model) grid (``Mesh2D``, axis names ``("data", "model")``) for
+embedding training: batch rows split over ``data``, table columns over
+``model``.  Its collectives run along one axis (``psum_axis``), each as
+the 1-D collective over the devices of that row or column, in the same
+fixed shard order.
+
 ``analytics_mesh()`` is the process default the ops route through:
 MEMGRAPH_TPU_MESH_DEVICES = "all" | "<int>" (unset: no mesh, the
 single-chip routes).  On the CPU (an entry point asked for ``device="cpu"``)
@@ -306,3 +313,85 @@ def replicated(ctx: MeshContext, fn, *per_shard) -> list:
         if dev not in got:
             got[dev] = fn(*(a[p] for a in per_shard))
     return [got[d] for d in ctx.devices]
+
+
+# --------------------------------------------------------------------------
+# the 2-D (data x model) layout
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """A (data x model) grid of devices, row-major: shard (i, j) is
+    ``devices[i * model + j]``.  Repeats allowed (every shard on one card,
+    as a 1-D mesh may)."""
+
+    data: int
+    model: int
+    devices: tuple
+    axis_names: tuple = ("data", "model")
+
+    def __post_init__(self):
+        devs = tuple(resolve_device(d) for d in self.devices)
+        if len(devs) != self.data * self.model or self.data < 1 \
+                or self.model < 1:
+            raise ValueError(f"a {self.data} x {self.model} mesh needs "
+                             f"{self.data * self.model} devices, not "
+                             f"{len(devs)}")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError("a mesh's shards must all be on cuda or all "
+                             "on cpu")
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_names[0]: self.data,
+                self.axis_names[1]: self.model}
+
+    def device(self, i: int, j: int) -> torch.device:
+        return self.devices[i * self.model + j]
+
+    def axis_context(self, axis: str, index: int) -> MeshContext:
+        """The 1-D mesh along ``axis`` through row (``axis == "model"``:
+        data index ``index``) or column (``"data"``: model index
+        ``index``) of the grid, in shard order."""
+        if axis == self.axis_names[1]:
+            devs = tuple(self.device(index, j) for j in range(self.model))
+        elif axis == self.axis_names[0]:
+            devs = tuple(self.device(i, index) for i in range(self.data))
+        else:
+            raise ValueError(f"no mesh axis {axis!r}: {self.axis_names}")
+        return get_mesh_context(devices=devs, axis=axis)
+
+
+def make_mesh_2d(data: int, model: int, devices=None) -> Mesh2D:
+    """A (data x model) mesh over ``devices`` (row-major; repeats allowed),
+    by default the first ``data * model`` visible cards (raises when there
+    are fewer)."""
+    data, model = int(data), int(model)
+    if devices is None:
+        count = device_count()
+        if data * model > count:
+            raise ValueError(f"a {data} x {model} mesh needs "
+                             f"{data * model} devices; {count} available")
+        devices = tuple(torch.device("cuda", k) for k in range(data * model))
+    return Mesh2D(data, model, tuple(devices))
+
+
+def psum_axis(mesh: Mesh2D, grid, axis: str) -> list:
+    """``grid[i][j]`` summed along ``axis`` in shard order, the sum on
+    every shard of the row (``"model"``) or column (``"data"``): the same
+    ``psum`` as a 1-D mesh's, one a row or column."""
+    out = [[None] * mesh.model for _ in range(mesh.data)]
+    if axis == mesh.axis_names[1]:
+        for i in range(mesh.data):
+            got = psum(mesh.axis_context(axis, i), list(grid[i]))
+            for j in range(mesh.model):
+                out[i][j] = got[j]
+    else:
+        for j in range(mesh.model):
+            got = psum(mesh.axis_context(axis, j),
+                       [grid[i][j] for i in range(mesh.data)])
+            for i in range(mesh.data):
+                out[i][j] = got[i]
+    return out

@@ -55,6 +55,7 @@ import torch
 from ..device import resolve_device
 from ..ops import segment_cuda as SC
 from ..ops import tier as mgtier
+from ..observability import stats as mgstats
 from ..ops.semiring import pagerank_update
 from ..utils.metrics import global_metrics
 from .checkpoint import run_resumable
@@ -326,6 +327,7 @@ def _tier_fixpoint(*, algo, tier, device, env_of, iterate, x0, metric0,
             wall = time.perf_counter() - t0
             if measure is not None:
                 measured["serial"] = measure
+                mgstats.record_stage("device_transfer", measure["t_xfer"])
             elif not resident and measured["serial"] is not None:
                 s = measured["serial"]
                 if s["t_xfer"] > 0:

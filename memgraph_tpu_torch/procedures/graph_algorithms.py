@@ -64,6 +64,7 @@ from ..ops.delta import (GLOBAL_WARM_POOL, incident_edges,
 from ..ops.katz import degree_centrality, hits, katz_centrality
 from ..ops.labelprop import label_propagation
 from ..ops.pagerank import pagerank, personalized_pagerank
+from ..observability import stats as mgstats
 from ..ops.traversal import bfs_levels, khop_neighborhood, sssp
 from ..utils.metrics import global_metrics
 
@@ -105,9 +106,15 @@ def _warm(pool, source, graph, algo: str, params_key: tuple, compute):
     """The answer of ``algo`` on ``graph`` through the warm pool: the
     stored host array on a hit (read-only), else ``compute(seed)`` (seed
     None: cold) as a host array, of which the pool stores a copy for the
-    next call.  ``compute`` returns (answer, iterations)."""
+    next call.  ``compute`` returns (answer, iterations).  Under an
+    active stage accumulator (a profiled call, observability/stats.py)
+    a hit is demoted to a warm seed, as the reference does: the call
+    exists to measure the device path; the re-iterated answer is not
+    stored, so unprofiled repeats keep returning the stored bytes."""
     version = source.version
     cached, seed = pool.prepare(source, graph, version, algo, params_key)
+    if cached is not None and mgstats.stages_active():
+        return _host(compute(np.asarray(cached))[0])
     if cached is not None:
         return cached
     x, iters = compute(seed)
@@ -280,11 +287,10 @@ def pagerank_personalized(source, source_nodes, max_iterations=100,
     with gids ``source_nodes`` (those outside the snapshot are dropped;
     none left: no record); the kernel server's coalescing plane first.
     Routed, the answer may be the plane's cache hit of an earlier version
-    when the commits since touched nothing within one hop of the sources:
-    the reference's invalidation, which misses changes further out, so
-    such an answer can be off the new graph's by more than 1e-4 of its
-    largest entry (``chip_smoke.py``'s ``kernel_server`` phase measures
-    it; ROADMAP Queue 3 item 6)."""
+    when the commits since touched nothing within one hop of the sources
+    and moved the vector by at most 1e-4 of its largest entry
+    (``kernel_server.PPR_HIT_BOUND``; ``chip_smoke.py``'s
+    ``kernel_server`` phase holds such hits to a float64 PPR)."""
     graph = cache.get(source, device=device)
     sources = _indices(graph, source_nodes) if graph.n_nodes else []
     if not sources:

@@ -58,16 +58,21 @@ paid the process start, the CUDA context and the kernels' load.
     fixpoint per parameter group (K1 over lanes), top-k on the card, one
     host transfer a chunk; a per-source RESULT CACHE keyed on (graph
     key, sources, parameters) answers repeats and keeps stale vectors as
-    warm seeds, invalidated by the shipped change set one hop out (the
-    reference's rule: a hit after a commit may be v0's vector; ROADMAP
-    Queue 3 item 6).
+    warm seeds, invalidated by the shipped change set one hop out or
+    when the entry's own mass on the changed nodes could move it past
+    ``PPR_HIT_BOUND`` (the reference checks the first hop alone).
   * ``lane`` runs the read lane's hop count (ops/pipeline.py
     ``hop_counts``, K1) over the request's edge arrays and masks: ``{"ok":
     true, "rows" / "distinct"}``; a refusal of the lane's exactness
     witness answers ``invalid`` with ``lane_refused: <reason>``, and a
     failed launch is a typed ``device_error``, never a refusal.  A
-    request's ``trace`` carrier is accepted and dropped (the port has no
-    ``observability/trace.py``).
+    request's ``trace`` carrier (observability/trace.py) is adopted on
+    the dispatch's thread: the daemon's ``kernel.dispatch`` span and the
+    spans the op opens inside it come home in the reply's
+    ``trace_spans``, and the dispatch's stage extents (a
+    ``StageAccumulator``, observability/stats.py) in its ``stages`` (a
+    PPR batch's split evenly over its riders); the client adopts the
+    spans and merges the stages into its own active accumulator.
 
 The wire is the reference's, byte for byte, so the JAX package's own
 ``KernelClient`` talks to this daemon: length-prefixed frames, each a
@@ -101,6 +106,9 @@ import time
 
 import numpy as np
 
+from ..observability import stats as mgstats
+from ..observability import trace as mgtrace
+from ..ops.semiring import backend_extent
 from ..utils.devicefault import classify_device_error, device_fault_point
 from ..utils.metrics import global_metrics
 from ..utils.retry import RetryPolicy
@@ -493,6 +501,14 @@ def _recv_msg(sock: socket.socket):
 # --------------------------------------------------------------------------
 
 
+def _inject_trace(header: dict) -> None:
+    """Put the current trace's carrier on a request header (armed
+    tracing inside a trace only)."""
+    carrier = mgtrace.inject()
+    if carrier is not None:
+        header["trace"] = carrier
+
+
 def _env_int(name: str, default: int) -> int:
     try:
         return int(os.environ.get(name, "") or default)
@@ -527,11 +543,18 @@ def _source_neighborhood(graph, sources, cap: int = PPR_NEIGH_CAP):
     return frozenset(neigh)
 
 
+#: a hit may differ from the PPR of the graph's newest version by at most
+#: this fraction of the vector's largest entry (PERF.md §2's PPR bound)
+PPR_HIT_BOUND = 1e-4
+
+
 class _PprCacheEntry:
     """One cached PPR vector: ``fresh`` entries answer hits; stale ones
-    only seed the recomputation (a warm start)."""
+    only seed the recomputation (a warm start).  ``drift`` bounds the L1
+    distance between ``ranks`` and the PPR of ``version``'s graph."""
 
-    __slots__ = ("version", "ranks", "err", "iters", "neigh", "fresh")
+    __slots__ = ("version", "ranks", "err", "iters", "neigh", "fresh",
+                 "drift")
 
     def __init__(self, version, ranks, err, iters, neigh) -> None:
         self.version = version
@@ -540,6 +563,23 @@ class _PprCacheEntry:
         self.iters = iters
         self.neigh = neigh              # frozenset | None (= any change)
         self.fresh = True
+        self.drift = 0.0
+
+    def carries_over(self, changed: np.ndarray, damping: float) -> bool:
+        """Whether the vector stays a hit across a change of the nodes
+        ``changed`` (dense ids, an int array), and if so add the change's
+        bound to ``drift``.  PPR x = (1-d) e + d Pᵀx: a change of the
+        rows of the nodes C moves x by at most 2d/(1-d) Σ_{v∈C} x_v in
+        L1, and x's true mass on C is at most the cached mass plus the
+        drift so far."""
+        ids = changed[changed < self.ranks.shape[0]]
+        mass = float(np.sum(self.ranks[ids], dtype=np.float64))
+        drift = self.drift + 2.0 * damping / (1.0 - damping) * (
+            mass + self.drift)
+        if drift > PPR_HIT_BOUND * float(np.max(self.ranks, initial=0.0)):
+            return False
+        self.drift = drift
+        return True
 
 
 class PprResultCache:
@@ -547,12 +587,14 @@ class PprResultCache:
     tol, precision), a bounded LRU (``capacity``, 512 by default).
     ``note_version`` applies a request's shipped delta: entries whose
     neighbourhood (the sources and their out-neighbours) meets the
-    changed set become warm seeds, the others move to the new version
-    and keep their hits; an unknowable delta demotes every entry of the
-    key, and a moved dense-id layout drops them.  The reference's rule,
-    copied: PPR depends on every node the sources reach, so a change two
-    or more hops out leaves a hit that is the old version's vector
-    (ROADMAP Queue 3 item 6)."""
+    changed set become warm seeds; so do entries whose own mass on the
+    changed nodes could move the vector by more than ``PPR_HIT_BOUND``
+    of its largest entry (``_PprCacheEntry.carries_over``: PPR depends
+    on every node the sources reach, not on the first hop only); the
+    others move to the new version and keep their hits.  An unknowable
+    delta demotes every entry of the key, and a moved dense-id layout
+    drops them.  The reference keeps the first rule alone, which answers
+    a change two or more hops out with the old version's vector."""
 
     def __init__(self, capacity: int = 512) -> None:
         from collections import OrderedDict
@@ -579,15 +621,19 @@ class PprResultCache:
                 return
             targeted = (ids_stable and base_version == known
                         and changed is not None)
-            changed_set = frozenset(int(i) for i in changed) \
+            changed_ids = np.unique(np.asarray(
+                [int(i) for i in changed], dtype=np.int64)) \
+                if targeted else None
+            changed_set = frozenset(changed_ids.tolist()) \
                 if targeted else None
             for key, entry in list(self._entries.items()):
                 if key[0] != graph_key:
                     continue
                 if targeted:
                     if entry.neigh is not None and \
-                            not (entry.neigh & changed_set):
-                        entry.version = version      # one hop untouched
+                            not (entry.neigh & changed_set) and \
+                            entry.carries_over(changed_ids, key[2]):
+                        entry.version = version      # within the bound
                         continue
                     entry.fresh = False              # a warm seed
                 elif ids_stable:
@@ -624,11 +670,12 @@ class _PprPending:
     """One queued PPR request awaiting its batch."""
 
     __slots__ = ("header", "arrays", "event", "reply", "out_arrays",
-                 "warm_entry", "abandoned")
+                 "warm_entry", "abandoned", "carrier")
 
-    def __init__(self, header, arrays, warm_entry) -> None:
+    def __init__(self, header, arrays, warm_entry, carrier=None) -> None:
         self.header = header
         self.arrays = arrays
+        self.carrier = carrier
         self.event = threading.Event()
         self.reply = None
         self.out_arrays = None
@@ -683,7 +730,7 @@ class PprServingPlane:
         if sources is None or len(sources) == 0:
             return (_failure("invalid", False,
                              "ppr request carries no sources"), None)
-        header.pop("trace", None)
+        carrier = header.pop("trace", None)
         graph_key = header.get("graph_key")
         version = int(header.get("graph_version") or 0)
         self.cache.note_version(
@@ -696,13 +743,17 @@ class PprServingPlane:
                               header.get("precision", "f32"))
         warm_entry = None
         if graph_key is not None:
+            t0 = time.perf_counter()
+            t_wall = time.time()
             status, entry = self.cache.lookup(ckey)
             if status == "hit":
                 global_metrics.increment("ppr.cache_hit_total")
                 self._absorb_payload(header, arrays)
                 return self._reply_from_vector(
                     header, entry.ranks, entry.err, entry.iters,
-                    cache="hit", batch_size=1, coalesced=False)
+                    cache="hit", batch_size=1, coalesced=False,
+                    carrier=carrier, t_wall=t_wall,
+                    dur=time.perf_counter() - t0)
             if status == "warm":
                 warm_entry = entry
             global_metrics.increment("ppr.cache_miss_total")
@@ -731,7 +782,7 @@ class PprServingPlane:
             return self._shed(
                 f"PPR coalescing queue saturated ({depth} >= "
                 f"{self.max_queue} pending)")
-        pending = _PprPending(header, arrays, warm_entry)
+        pending = _PprPending(header, arrays, warm_entry, carrier)
         self._ensure_thread()
         self._queue.put(pending)
         global_metrics.set_gauge("ppr.queue_depth",
@@ -788,12 +839,23 @@ class PprServingPlane:
 
     @staticmethod
     def _reply_from_vector(header, ranks, err, iters, *, cache, batch_size,
-                           coalesced, topk=None):
+                           coalesced, topk=None, stages=None, carrier=None,
+                           t_wall=None, dur=None):
         k = int(header.get("top_k") or 0)
         reply = {"ok": True, "outcome": "completed", "err": float(err),
                  "iters": int(iters), "cache": cache,
                  "batch_size": int(batch_size),
                  "coalesced": bool(coalesced)}
+        if stages:
+            reply["stages"] = stages
+        if carrier and carrier.get("trace_id"):
+            with mgtrace.adopt(carrier):
+                mgtrace.record_span(
+                    "kernel.dispatch", t_wall or time.time(), dur or 0.0,
+                    op="ppr", batch=int(batch_size), cache=cache)
+            spans = mgtrace.take_trace(carrier["trace_id"])
+            if spans:
+                reply["trace_spans"] = spans
         if k > 0:
             if topk is not None:
                 vals, idx = topk
@@ -900,9 +962,11 @@ class PprServingPlane:
             global_metrics.increment("ppr.coalesced_total",
                                      delta=len(members))
         t0 = time.perf_counter()
+        t_wall = time.time()
+        acc = mgstats.StageAccumulator()
         try:
             try:
-                with server._dispatch_lock:
+                with mgstats.collecting_stages(acc), server._dispatch_lock:
                     device_fault_point()
                     g = self._resolve_group_graph(members)
                     if g is None:
@@ -918,13 +982,21 @@ class PprServingPlane:
                 self._fail_group(members, reply["outcome"],
                                  reply["retryable"], reply["error"])
                 return
-            global_metrics.observe("ppr.drain_s", time.perf_counter() - t0)
+            dur = time.perf_counter() - t0
+            global_metrics.observe("ppr.drain_s", dur)
+            # the batch's device seconds split evenly over its riders, so
+            # the callers' sums stay the batch's
+            share = 1.0 / max(1, len(live))
+            stages = {name: {"seconds": slot["seconds"] * share,
+                             "count": slot["count"]}
+                      for name, slot in acc.snapshot().items()}
             for m, (ranks, err, iters, cache_state, topk) in zip(live,
                                                                  results):
                 m.reply, m.out_arrays = self._reply_from_vector(
                     m.header, ranks, err, iters, cache=cache_state,
                     batch_size=len(members), coalesced=len(members) > 1,
-                    topk=topk)
+                    topk=topk, stages=stages, carrier=m.carrier,
+                    t_wall=t_wall, dur=dur)
                 server._count("completed")
                 m.event.set()
         finally:
@@ -1320,20 +1392,39 @@ class KernelServer:
 
         deadline_s = header.get("deadline_s")
         deadline_s = float(deadline_s) if deadline_s else None
-        header.pop("trace", None)
+        carrier = header.pop("trace", None)
         did = self._dispatch_begin(deadline_s or self.wedge_after_s)
         box: dict = {}
         t_dispatch = time.perf_counter()
 
         def work():
             try:
-                with self._dispatch_lock:
+                # the activation is thread-local: the worker adopts the
+                # remote context itself; the accumulator's snapshot ships
+                # home in the reply
+                acc = mgstats.StageAccumulator()
+                with mgstats.collecting_stages(acc), \
+                        mgtrace.adopt(carrier), \
+                        mgtrace.span("kernel.dispatch", op=op,
+                                     pid=os.getpid()), \
+                        self._dispatch_lock:
                     device_fault_point()
                     box["result"] = self._dispatch_op(op, header, arrays)
+                box["stages"] = acc.snapshot()
             except BaseException as e:  # noqa: BLE001 — classified below
                 box["exc"] = e
             finally:
                 self._dispatch_end(did)
+
+        def ship_trace(reply: dict) -> dict:
+            """This dispatch's spans and stage extents, on the reply."""
+            if carrier and carrier.get("trace_id"):
+                spans = mgtrace.take_trace(carrier["trace_id"])
+                if spans:
+                    reply["trace_spans"] = spans
+            if box.get("stages"):
+                reply["stages"] = box["stages"]
+            return reply
 
         t = threading.Thread(target=work, daemon=True,
                              name=f"ks-dispatch-{did}")
@@ -1356,14 +1447,14 @@ class KernelServer:
             self._count(reply["outcome"])
             log.warning("kernel_server: dispatch %d (%s) failed [%s]: %s",
                         did, op, reply["outcome"], box["exc"])
-            return reply, None
+            return ship_trace(reply), None
         reply, out_arrays = box["result"]
         if reply.get("ok", True):
             reply.setdefault("outcome", "completed")
         else:
             reply.setdefault("outcome", "invalid")
         self._count(reply["outcome"])
-        return reply, out_arrays
+        return ship_trace(reply), out_arrays
 
     def _admit_graph_op(self, op: str, header: dict, arrays: dict,
                         est: int) -> int:
@@ -1432,14 +1523,15 @@ class KernelServer:
         max_iterations = int(header.get("max_iterations", 100))
         if key:
             key = f"{key}:{gen.version}:{params_key}:{max_iterations}"
-        ranks, err, iters = pagerank_partition_centric(
-            gen.ensure_sharded(ctx, by="src"), ctx,
-            damping=float(header.get("damping", 0.85)),
-            max_iterations=max_iterations,
-            tol=float(header.get("tol", 1e-6)),
-            precision=str(header.get("precision", "f32")), x0=x0,
-            checkpoint_every=self.checkpoint_every,
-            job=f"kernel_server:pagerank:{key}" if key else None)
+        scsr = gen.ensure_sharded(ctx, by="src")
+        with backend_extent("mesh"):
+            ranks, err, iters = pagerank_partition_centric(
+                scsr, ctx, damping=float(header.get("damping", 0.85)),
+                max_iterations=max_iterations,
+                tol=float(header.get("tol", 1e-6)),
+                precision=str(header.get("precision", "f32")), x0=x0,
+                checkpoint_every=self.checkpoint_every,
+                job=f"kernel_server:pagerank:{key}" if key else None)
         return ranks.cpu().numpy().astype(np.float32), err, iters
 
     def _health_reply(self) -> dict:
@@ -1569,11 +1661,12 @@ class KernelServer:
         if algorithm == "bfs":
             from ..parallel.analytics import bfs_partition_centric
             ctx = self._mesh()
-            levels, iters = bfs_partition_centric(
-                gen.ensure_sharded(ctx, by="src"), ctx,
-                int(header.get("source", 0)),
-                max_iterations=max_iterations, precision=precision,
-                checkpoint_every=self.checkpoint_every)
+            scsr = gen.ensure_sharded(ctx, by="src")
+            with backend_extent("mesh"):
+                levels, iters = bfs_partition_centric(
+                    scsr, ctx, int(header.get("source", 0)),
+                    max_iterations=max_iterations, precision=precision,
+                    checkpoint_every=self.checkpoint_every)
             return ({"ok": True, "iters": int(iters),
                      "algorithm": algorithm, "precision": precision},
                     {"levels": np.asarray(levels, dtype=np.int32)})
@@ -1704,7 +1797,14 @@ class KernelClient:
 
     def call(self, header: dict, arrays=None):
         _send_msg(self._sock, header, arrays)
-        return _recv_msg(self._sock)
+        h, out = _recv_msg(self._sock)
+        # the spans the daemon recorded for this trace, and the
+        # dispatch's stage extents, join the caller's
+        spans = h.pop("trace_spans", None)
+        if spans:
+            mgtrace.adopt_spans(spans)
+        mgstats.merge_stages(h.pop("stages", None))
+        return h, out
 
     def ping(self) -> bool:
         try:
@@ -1719,7 +1819,9 @@ class KernelClient:
 
     def probe(self) -> dict:
         """The typed device probe on the daemon."""
-        h, _ = self.call({"op": "probe"})
+        header = {"op": "probe"}
+        _inject_trace(header)
+        h, _ = self.call(header)
         return h
 
     def pagerank(self, src=None, dst=None, weights=None, n_nodes=None,
@@ -1750,6 +1852,7 @@ class KernelClient:
                         changed)
         if deadline_s is not None:
             header["deadline_s"] = deadline_s
+        _inject_trace(header)
         h, out = self.call(header, arrays)
         if not h.get("ok"):
             _raise_for_reply(h)
@@ -1775,6 +1878,7 @@ class KernelClient:
                   "precision": str(precision), "top_k": int(top_k)}
         if deadline_s is not None:
             header["deadline_s"] = deadline_s
+        _inject_trace(header)
         h, out = self.call(header, arrays)
         if not h.get("ok"):
             _raise_for_reply(h)
@@ -1798,6 +1902,7 @@ class KernelClient:
                         changed)
         if deadline_s is not None:
             header["deadline_s"] = deadline_s
+        _inject_trace(header)
         h, out = self.call(header, arrays)
         if not h.get("ok"):
             _raise_for_reply(h)
@@ -1825,6 +1930,7 @@ class KernelClient:
                   "fingerprint": fingerprint}
         if deadline_s is not None:
             header["deadline_s"] = deadline_s
+        _inject_trace(header)
         h, _out = self.call(header, arrays)
         if not h.get("ok"):
             if h.get("lane_refused"):
@@ -2005,7 +2111,15 @@ class SupervisedKernelClient:
         last: Exception | None = None
         for _attempt in self.retry.attempts():
             try:
-                return invoke(self._connect())
+                c = self._connect()
+                t0 = time.perf_counter()
+                with mgtrace.span("kernel.request", op=op,
+                                  attempt=_attempt):
+                    result = invoke(c)
+                # the caller-observed round trip (request, device, reply)
+                mgstats.record_stage("kernel_dispatch",
+                                     time.perf_counter() - t0)
+                return result
             except (AdmissionRejected, KernelOom):
                 raise
             except KernelDeadlineExceeded as e:

@@ -4,11 +4,85 @@ The port's stand-in for memgraph_tpu/observability/metrics.py's
 ``global_metrics``, kept to what the serving plane reads: the kernel
 server's health reply ships its counters to clients (another process),
 and the kernel routes count their routed and fallen-back calls here.
+``Histogram`` (the reference's fixed exponential buckets, with
+exemplars) and ``promname`` serve observability/stats.py's per-query
+latencies and expositions.
 """
 
 from __future__ import annotations
 
+import bisect
+import re
 import threading
+import time
+
+_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+#: the reference's buckets: 0.1 ms doubling 24 times
+DEFAULT_BUCKETS = tuple(0.0001 * (2 ** i) for i in range(24))
+
+
+def promname(name: str) -> str:
+    """Prometheus metric-name sanitization: every invalid character maps
+    to '_' and a leading digit gets a '_' prefix."""
+    out = _NAME_BAD.sub("_", name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+class Histogram:
+    """Fixed-bucket histogram with cumulative exposition and exemplars
+    (the reference's).  Not thread-safe on its own: its owner serializes
+    access."""
+
+    __slots__ = ("bounds", "bucket_counts", "count", "sum", "exemplars")
+
+    def __init__(self, bounds=DEFAULT_BUCKETS) -> None:
+        self.bounds = tuple(bounds)
+        self.bucket_counts = [0] * (len(self.bounds) + 1)  # last = +Inf
+        self.count = 0
+        self.sum = 0.0
+        #: bucket index -> (value, trace_id, unix_ts) of the latest
+        #: traced observation landing in that bucket
+        self.exemplars: dict[int, tuple[float, str, float]] = {}
+
+    def observe(self, value: float, trace_id: str | None = None) -> None:
+        idx = bisect.bisect_left(self.bounds, value)
+        self.bucket_counts[idx] += 1
+        self.count += 1
+        self.sum += value
+        if trace_id:
+            self.exemplars[idx] = (value, trace_id, time.time())
+
+    def quantile(self, q: float) -> float:
+        """Linear interpolation inside the bucket the rank falls in
+        (PromQL's histogram_quantile)."""
+        if self.count == 0:
+            return 0.0
+        rank = q * self.count
+        seen = 0
+        for i, c in enumerate(self.bucket_counts):
+            if c == 0:
+                continue
+            if seen + c >= rank:
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = self.bounds[i] if i < len(self.bounds) \
+                    else self.bounds[-1] * 2
+                frac = (rank - seen) / c
+                return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+            seen += c
+        return self.bounds[-1] * 2
+
+    def cumulative(self):
+        """[(le_bound_or_None, cumulative_count)], exposition order."""
+        total = 0
+        out = []
+        for i, c in enumerate(self.bucket_counts):
+            total += c
+            bound = self.bounds[i] if i < len(self.bounds) else None
+            out.append((bound, total))
+        return out
 
 
 class Metrics:

@@ -25,6 +25,10 @@ from memgraph_tpu.ops.spmv_mxu import _benes_apply_rolls
 from memgraph_tpu_torch.ops import benes as tbenes
 from memgraph_tpu_torch.ops import benes_cuda as BC
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

@@ -25,6 +25,10 @@ from memgraph_tpu_torch.ops import betweenness as TB
 from memgraph_tpu_torch.ops import segment_cuda as SC
 from memgraph_tpu_torch.ops.csr import from_coo
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 REL_JAX = 1e-5
 ABS_NX = 1e-4
 

@@ -21,6 +21,12 @@ from memgraph_tpu_torch.northstar import CooSource
 from memgraph_tpu_torch.ops import columnar as tcol
 from test_torch_snapshot import StorageSource
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N = 240
 
 #: property name -> value of vertex i (None: absent)

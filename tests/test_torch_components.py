@@ -20,6 +20,10 @@ from memgraph_tpu.ops import csr as jcsr
 from memgraph_tpu_torch.ops import components as tcomp
 from memgraph_tpu_torch.ops.csr import from_coo
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def _random(n, e, seed):
     rng = np.random.default_rng(seed)

@@ -23,6 +23,10 @@ from memgraph_tpu_torch.ops import gnn as G
 from memgraph_tpu_torch.ops import semiring as S
 from memgraph_tpu_torch.ops.csr import from_coo
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 FORWARD_ULP = 2.0 ** -7
 
 

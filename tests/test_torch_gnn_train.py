@@ -37,6 +37,10 @@ from memgraph_tpu_torch.ops import gnn as G
 from memgraph_tpu_torch.ops import segment_cuda as SC
 from memgraph_tpu_torch.ops.csr import from_coo
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 LOSS_REL = 2.0 ** -10
 GRAD_OF_LARGEST = 2.0 ** -6
 HISTORY_REL = 2.0 ** -7

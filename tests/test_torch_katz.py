@@ -46,6 +46,10 @@ from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
 from test_torch_pagerank import CASES
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9
 HITS_ATOL = 1e-6
 ALPHA = 0.05

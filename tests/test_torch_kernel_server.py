@@ -54,6 +54,12 @@ from memgraph_tpu_torch.server import kernel_server as ks
 from memgraph_tpu_torch.utils.metrics import global_metrics
 from memgraph_tpu_torch.utils.retry import RetryPolicy
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 TOL = 1e-6
 RTOL = 3e-4
 TIMEOUT = 60.0

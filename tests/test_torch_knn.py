@@ -29,6 +29,10 @@ import torch
 from memgraph_tpu.ops import knn as jknn
 from memgraph_tpu_torch.ops import knn as K
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

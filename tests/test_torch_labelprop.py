@@ -21,6 +21,10 @@ from memgraph_tpu_torch.ops import semiring as S
 from memgraph_tpu_torch.ops.csr import from_coo
 from memgraph_tpu_torch.ops.labelprop import label_propagation
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def _graph(n, e, seed, weighted):
     rng = np.random.default_rng(seed)

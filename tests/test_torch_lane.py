@@ -26,6 +26,10 @@ from memgraph_tpu.ops import pipeline as jpl
 from memgraph_tpu_torch.ops import columnar as tcol
 from memgraph_tpu_torch.ops import pipeline as tpl
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N_ROWS = 3000
 N_NODES = 700
 N_EDGES = 6000

@@ -23,6 +23,12 @@ from memgraph_tpu_torch.procedures import structure_modules as SM
 
 from test_torch_procedures import cypher, db, port  # noqa: F401
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 MOD_TOL = 1e-12
 
 

@@ -44,6 +44,10 @@ from memgraph_tpu_torch.parallel import mesh as M
 from memgraph_tpu_torch.parallel.checkpoint import CheckpointStore, RunReport
 from memgraph_tpu_torch.utils import faultinject as FI
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N, E = 203, 1500
 KATZ = {"alpha": 0.05, "max_iterations": 100, "tol": 1e-8}
 PR = {"tol": 1e-10, "max_iterations": 200}

@@ -23,6 +23,10 @@ import torch
 
 from memgraph_tpu_torch.benchmarks import _common, micro, micro2, micro3
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SMALL_EDGES = 131072     # pallas_micro2 needs E / 128 rows in 512-row tiles
 

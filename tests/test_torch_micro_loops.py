@@ -24,6 +24,10 @@ import torch
 
 from memgraph_tpu_torch.benchmarks import _common, loop_split, micro, micro3
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SMS = [132, 114]
 _SMEM = 232_448

@@ -20,6 +20,10 @@ import torch
 
 from memgraph_tpu_torch.benchmarks import cluster_probe, micro3
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SIZES = [128, 256, 4096, 8192]
 _SMS = [132, 114]

@@ -61,6 +61,10 @@ from memgraph_tpu_torch.procedures import vector_search as VS
 
 from test_torch_snapshot import StorageSource
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N, E = 120, 600
 ULP = 2.0 ** -7
 

@@ -15,6 +15,12 @@ from memgraph_tpu.ops import native as jnative
 from memgraph_tpu_torch.ops import csr as tcsr
 from memgraph_tpu_torch.ops import native as tnative
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 _KEYS = ("csr_src", "csr_dst", "csr_w", "csc_src", "csc_dst", "csc_w",
          "row_ptr", "out_degree")
 _FIELDS = ("row_ptr", "col_idx", "src_idx", "weights", "csc_src", "csc_dst",

@@ -29,6 +29,10 @@ from memgraph_tpu_torch.ops import pagerank as tpr
 from memgraph_tpu_torch.ops.csr import from_coo
 from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9
 
 

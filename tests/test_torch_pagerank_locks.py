@@ -29,6 +29,10 @@ from memgraph_tpu_torch.ops import spmv_mxu
 from memgraph_tpu_torch.ops.csr import from_coo
 from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9       # f32 against f32, as tests/test_torch_pagerank
 
 

@@ -28,6 +28,10 @@ from memgraph_tpu_torch.ops import pagerank as tpr
 from memgraph_tpu_torch.ops.csr import from_coo
 from memgraph_tpu_torch.ops.semiring import PRECISION_BOUNDS
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 TOL = 1e-8
 # a stop the two packages take at the same iteration: the L1 error there
 # is far above its f32 noise (TOL sits at it, where their differently

@@ -40,6 +40,10 @@ from memgraph_tpu_torch.server import kernel_server as ks
 from memgraph_tpu_torch.utils import faultinject as FI
 from memgraph_tpu_torch.utils.metrics import global_metrics
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 TOL = 1e-8
 TIMEOUT = 60.0
 
@@ -173,37 +177,138 @@ def test_cache_hit_on_repeat_and_no_stale_read(daemon):
 
 
 def test_targeted_invalidation_keeps_untouched_sources_hot(daemon):
+    """A change outside the source's neighbourhood, on nodes that hold
+    none of its PPR mass (two isolated nodes), keeps the entry a hit."""
     client, _ = daemon
     _, (src, dst, n) = _graph(seed=5)
-    client.ppr([100], src=src, dst=dst, n_nodes=n, graph_key="tgt",
+    n_all = n + 2
+    client.ppr([100], src=src, dst=dst, n_nodes=n_all, graph_key="tgt",
                graph_version=1, tol=TOL)
-    h, _ = client.ppr([100], graph_key="tgt", graph_version=1, n_nodes=n,
-                      tol=TOL)
+    h, _ = client.ppr([100], graph_key="tgt", graph_version=1,
+                      n_nodes=n_all, tol=TOL)
     assert h["cache"] == "hit"
-    near = set(dst[src == 100].tolist()) | {100}
-    far = [i for i in range(n) if i not in near][:2]
-    h, _ = client.ppr([100], src=src, dst=dst, n_nodes=n, graph_key="tgt",
-                      graph_version=2, base_version=1, changed=far, tol=TOL)
+    far = [n, n + 1]
+    h, _ = client.ppr([100], src=src, dst=dst, n_nodes=n_all,
+                      graph_key="tgt", graph_version=2, base_version=1,
+                      changed=far, tol=TOL)
     assert h["cache"] == "hit"            # provably untouched: still hot
+
+
+def _ppr64(src, dst, n, source, damping=0.85, iterations=400):
+    """Float64 PPR restarting on ``source`` (dangling mass restarts)."""
+    deg = np.bincount(src, minlength=n).astype(np.float64)
+    p = np.zeros(n)
+    p[source] = 1.0
+    x = p.copy()
+    for _ in range(iterations):
+        spread = np.zeros(n)
+        np.add.at(spread, dst, x[src] / deg[src])
+        x = (1 - damping) * p + damping * (spread + x[deg == 0].sum() * p)
+    return x
+
+
+def test_a_commit_two_hops_out_does_not_leave_a_stale_hit(daemon):
+    """A commit that rewires the out-edges of the node, outside the
+    source's one-hop neighbourhood, with the most of its PPR mass: the
+    reply after it holds to a float64 PPR of the new graph within 1e-4 of
+    its largest entry.  The first-hop rule alone (the reference's) keeps
+    the old vector as a hit here, off by more than that."""
+    client, _ = daemon
+    _, (src, dst, n) = _graph(seed=21)
+    s = 11
+    h1, out1 = client.ppr([s], src=src, dst=dst, n_nodes=n,
+                          graph_key="hop2", graph_version=1, tol=TOL)
+    assert h1["cache"] == "miss"
+    near = set(dst[src == s].tolist()) | {s}
+    ranks = out1["ranks"].copy()
+    ranks[list(near)] = -1.0
+    v = int(np.argmax(ranks))
+    rows = np.flatnonzero(src == v)
+    far = next(int(x) for x in np.argsort(out1["ranks"])
+               if int(x) not in near and int(x) != v)
+    src2, dst2 = src.copy(), dst.copy()
+    dst2[rows] = far
+    changed = sorted({v, far} | set(dst[rows].tolist()))
+    h2, out2 = client.ppr([s], src=src2, dst=dst2, n_nodes=n,
+                          graph_key="hop2", graph_version=2, base_version=1,
+                          changed=changed, tol=TOL)
+    want = _ppr64(src2, dst2, n, s)
+    stale = float(np.abs(out1["ranks"] - want).max() / want.max())
+    assert stale > 1e-4                 # the old vector is out of bounds
+    assert float(np.abs(out2["ranks"] - want).max() / want.max()) <= 1e-4
+    assert h2["cache"] == "warm"
+
+
+def test_drift_carries_a_small_commit_and_adds_up_to_a_demotion(daemon):
+    """A commit outside the source's one-hop neighbourhood whose nodes
+    hold a little of its PPR mass (a shortcut deep in a chain hanging off
+    the graph) stays a hit, within 1e-4 of its largest entry of a
+    float64 PPR of the new graph.  The bound of that commit is kept as
+    the entry's drift: a second commit on two isolated nodes (no mass,
+    which a fresh entry carries, see the test above) then passes the
+    bound with the drift added, and the reply is a warm one."""
+    client, _ = daemon
+    _, (src, dst, n) = _graph(seed=22)
+    s, length = 11, 80
+    chain = np.arange(n, n + length)
+    u = next(int(x) for x in range(n) if x != s and x not in set(
+        dst[src == s].tolist()))
+    src1 = np.concatenate([src, [u], chain[:-1], [chain[-1]]])
+    dst1 = np.concatenate([dst, [chain[0]], chain[1:], [0]])
+    n_all = n + length + 2
+    h1, out1 = client.ppr([s], src=src1, dst=dst1, n_nodes=n_all,
+                          graph_key="drift", graph_version=1, tol=TOL)
+    assert h1["cache"] == "miss"
+    ranks = out1["ranks"].astype(np.float64)
+    factor = 2 * 0.85 / (1 - 0.85)
+    bound = ks.PPR_HIT_BOUND * ranks.max()
+    # the shortcut c_k -> c_{k+2} whose bound sits nearest the geometric
+    # middle of (bound / (1 + factor), bound]: it carries, and a second
+    # commit of any mass no longer does
+    target = bound / np.sqrt(1 + factor)
+    live = [i for i in range(length - 2) if ranks[chain[i + 2]] > 0]
+    k = min(live, key=lambda i: abs(np.log(
+        factor * (ranks[chain[i]] + ranks[chain[i + 2]]) / target)))
+    pair = [int(chain[k]), int(chain[k + 2])]
+    m1 = factor * ranks[pair].sum()
+    assert bound / (1 + factor) < m1 <= bound
+    src2 = np.concatenate([src1, [pair[0]]])
+    dst2 = np.concatenate([dst1, [pair[1]]])
+    h2, out2 = client.ppr([s], src=src2, dst=dst2, n_nodes=n_all,
+                          graph_key="drift", graph_version=2, base_version=1,
+                          changed=pair, tol=TOL)
+    assert h2["cache"] == "hit"
+    assert out2["ranks"].tobytes() == out1["ranks"].tobytes()
+    want2 = _ppr64(src2, dst2, n_all, s)
+    assert float(np.abs(out2["ranks"] - want2).max() / want2.max()) <= 1e-4
+    iso = [n_all - 2, n_all - 1]
+    src3 = np.concatenate([src2, [iso[0]]])
+    dst3 = np.concatenate([dst2, [iso[1]]])
+    h3, out3 = client.ppr([s], src=src3, dst=dst3, n_nodes=n_all,
+                          graph_key="drift", graph_version=3, base_version=2,
+                          changed=iso, tol=TOL)
+    assert h3["cache"] == "warm"
+    want3 = _ppr64(src3, dst3, n_all, s)
+    assert float(np.abs(out3["ranks"] - want3).max() / want3.max()) <= 1e-4
 
 
 def test_a_hit_that_carries_a_delta_moves_the_generation(daemon):
     """``pagerank.personalized`` of s at v0, a commit far from s, s again
     at v1 (a hit whose request carries the delta payload), then t at v1
     (a key-only request): the hit applies its payload before it is
-    answered, so t runs on v1 with no fallback.  t's cold reply is
+    answered, so t runs on v1 with no fallback.  The commit joins two
+    isolated nodes, which hold none of s's PPR mass.  t's cold reply is
     within 1e-6 of the in-process answer (the resident COO's edge order
     differs from the snapshot's after a splice)."""
     client, sock = daemon
     n, e = 400, 2400
     rng = np.random.default_rng(18)
     src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
-    source = CooSource(src, dst, n)
+    source = CooSource(src, dst, n + 2)
     kw = {"cache": GraphCache(), "device": "cpu"}
     fallbacks = global_metrics.value("analytics.kernel_route_fallback_total")
     s, t = 5, 6
-    near = set(dst[src == s].tolist()) | {s}
-    far = [i for i in range(n) if i not in near and i != t]
+    far = [n, n + 1]
     P.pagerank_personalized(source, [s], kernel=sock, **kw)
     source.commit([far[0]], [far[1]])
     hits = client.health()["counters"].get("ppr.cache_hit_total", 0.0)
@@ -258,7 +363,12 @@ def test_oversized_request_sheds_typed(daemon):
 
 
 def test_ppr_counters_ride_the_health_reply(daemon):
+    """The plane's counters on the health reply, after a request of this
+    test's own (under xdist the daemon may have served nothing yet)."""
     client, _ = daemon
+    _, (src, dst, n) = _graph(seed=8)
+    client.ppr([1], src=src, dst=dst, n_nodes=n, graph_key="counters",
+               graph_version=1, tol=TOL)
     h = client.health()
     names = set(h["counters"])
     for name in ("ppr.requests_total", "ppr.batches_total",

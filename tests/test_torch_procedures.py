@@ -24,6 +24,12 @@ from memgraph_tpu_torch.utils.metrics import global_metrics
 
 from test_torch_snapshot import StorageSource
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N, E = 150, 700
 
 

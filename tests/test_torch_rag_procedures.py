@@ -29,6 +29,12 @@ from test_torch_ml_procedures import _build
 from test_torch_procedures import compare, cypher, db, port  # noqa: F401
 from test_torch_snapshot import StorageSource
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def rows(ictx, query, params=None) -> list:
     return Interpreter(ictx).execute(query, params)[1]

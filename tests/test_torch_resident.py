@@ -30,6 +30,10 @@ from memgraph_tpu_torch.ops import spmv_mxu as T
 from memgraph_tpu_torch.utils.metrics import global_metrics as tmetrics
 from test_torch_snapshot import StorageSource
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9
 ITERS = 25
 

@@ -26,6 +26,10 @@ from memgraph_tpu_torch.ops import csr as tcsr
 from memgraph_tpu_torch.ops import native as tnative
 from memgraph_tpu_torch.ops import segment_cuda as SC
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 LANES = (1, 3, 32)
 
 

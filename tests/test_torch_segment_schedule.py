@@ -23,6 +23,10 @@ import torch
 
 from memgraph_tpu_torch.ops import segment_cuda as SC
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 FORMS = ("sum", "dot", "l1")
 
 

@@ -28,6 +28,10 @@ import torch
 from memgraph_tpu.ops import semiring as JS
 from memgraph_tpu_torch.ops import semiring as TS
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N, E = 40, 300
 MODES = ("plain", "mask", "mask_fill", "frontier")
 

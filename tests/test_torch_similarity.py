@@ -13,6 +13,12 @@ from memgraph_tpu.ops import similarity as jsim
 from memgraph_tpu_torch.ops import similarity as T
 from memgraph_tpu_torch.ops.csr import from_coo
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def _graph(n, e, seed, pad=True):
     rng = np.random.default_rng(seed)

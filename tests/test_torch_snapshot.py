@@ -30,6 +30,12 @@ from memgraph_tpu_torch.ops import csr as tcsr
 from memgraph_tpu_torch.ops import pagerank as tpr
 from memgraph_tpu_torch.utils.metrics import global_metrics as tmetrics
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9
 ITERS = 25
 FIELDS = ("row_ptr", "col_idx", "src_idx", "weights", "csc_src", "csc_dst",
@@ -129,6 +135,23 @@ class StorageSource:
                 ws.append(ea.properties(View.OLD).get(wp))
             out += [gids, ws if wp is not None else None]
         return tuple(out)
+
+    def vertex_records(self, gids):
+        storage = self.storage
+        out = []
+        for gid in gids:
+            vertex = storage._vertices.get(int(gid))
+            va = None if vertex is None else VertexAccessor(vertex,
+                                                            self.accessor)
+            if va is None or not va.is_visible(View.OLD):
+                out.append(None)
+                continue
+            labels = [storage.label_mapper.id_to_name(lb)
+                      for lb in va.labels(View.OLD)]
+            props = {storage.property_mapper.id_to_name(pid): val
+                     for pid, val in va.properties(View.OLD).items()}
+            out.append((labels, props))
+        return out
 
     def vertex_property(self, name, gids):
         pid = self._prop(name)

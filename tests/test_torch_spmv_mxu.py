@@ -22,6 +22,10 @@ import torch
 from memgraph_tpu.ops import spmv_mxu as J
 from memgraph_tpu_torch.ops import spmv_mxu as T
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-9
 
 

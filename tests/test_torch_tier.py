@@ -33,6 +33,12 @@ from memgraph_tpu_torch.server.kernel_server import KernelServer
 from memgraph_tpu_torch.utils import faultinject as FI
 from memgraph_tpu_torch.utils.metrics import global_metrics
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 N, M = 600, 5000
 N_BLOCKS = 7          # small blocks: every run really streams
 REL = 1e-5

@@ -29,6 +29,10 @@ from memgraph_tpu_torch.procedures import vector_search as VS
 
 from test_torch_snapshot import StorageSource
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 DIM, N = 8, 80
 
 

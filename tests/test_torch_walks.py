@@ -25,6 +25,10 @@ from memgraph_tpu.ops import walks as jwalks
 from memgraph_tpu_torch.ops import walks as W
 from memgraph_tpu_torch.ops.csr import from_coo
 
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 SIGMAS = 5.0
 
 

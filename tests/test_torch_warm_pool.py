@@ -29,6 +29,12 @@ from memgraph_tpu.storage.storage import EdgeAccessor
 from test_torch_procedures import compare, cypher, db  # noqa: F401
 from test_torch_snapshot import StorageSource, _storage, assert_same_snapshot
 
+import torch
+
+# One intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def _coo(seed=0, n=120, e=900):
     rng = np.random.default_rng(seed)
