@@ -204,7 +204,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    ``get_training_results`` and ``predict``; ``node_classification.train``
    on the embedding property and ``get_training_data``;
    ``node2vec.random_walks`` from 100 nodes; ``node2vec.get_embeddings``
-   (1 epoch) on the segment graph's source; then a commit of 10 edges,
+   (1 epoch, ``N2V_FIT_WALKS`` walks a node) on the segment graph's
+   source; then a commit of 10 edges,
    after which ``predict`` must retrain; seconds a call.
 15. GraphSAGE inference (``gnn`` line) on the north star (v0) at the
    procedures' defaults (hidden 64, out 32, 2 layers) on degree
@@ -242,8 +243,9 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    standard errors of the reference's single-retry rule (float64 from
    the graph) on a seeded 10^6 of the steps where cur has an edge back
    to prev, a sample that must tell the rule from the uniform walk.
-   ``Node2Vec.fit`` at the defaults (dim 128, length 20, 4 walks a
-   node, window 5, 5 negatives, batch 8192) for one epoch on the
+   ``Node2Vec.fit`` at the defaults (dim 128, length 20, window 5, 5
+   negatives, batch 8192) but one walk a node (``N2V_FIT_WALKS``: the
+   defaults' 4 made the two fits 76 s of the run) for one epoch on the
    segment graph (cut from the north star, whose 840M pairs an epoch do
    not fit the run), twice bit-equal, three
    K1 launches a batch (counts set to 0 just before, read just after),
@@ -415,11 +417,15 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    runs bit-equal, K1
    launches exactly 3 x 4 shards x 10 steps.  ms a step at 1 x 1 and 2 x
    2 (four shards share one card: no scaling is claimed).
-32. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+32. The Cypher engine (``cypher`` line, ``storage/``, ``query/``): the
+   port's own MVCC storage and interpreter on the card, a user's path
+   from Cypher text to the kernels.  See ``phase_cypher``.
+33. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path, ``lane``, ``tier``, ``tgn``, ``embeddings``,
-   ``trace`` and ``node2vec_sharded`` among them), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+   ``trace``, ``node2vec_sharded`` and ``cypher`` among them), the
+   card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -3841,6 +3847,10 @@ WALK_PVALUE = 1e-4                  # the uniform choice's chi-square floor
 WALK_SAMPLE = 1_000_000             # biased steps held to the rule
 RETURN_SIGMAS = 5.0
 N2V_TIMED_STEPS = 50
+# the node2vec fits' walks a node (the node2vec phase's two and
+# training_procedures' get_embeddings): the defaults' 4 cut to 1 to keep
+# the script inside its time limit (at 4 they took ~115 s of it)
+N2V_FIT_WALKS = 1
 PROC_WALK_STARTS = 100
 
 
@@ -3929,7 +3939,8 @@ def phase_training_procedures(base: dict):
     ``get_training_results``, ``predict``; ``node_classification.train``
     on the embedding property and ``get_training_data``;
     ``node2vec.random_walks`` from 100 nodes; ``node2vec.get_embeddings``
-    (1 epoch) on the segment graph's own source; then a commit of 10
+    (1 epoch, ``N2V_FIT_WALKS`` walks a node) on the segment graph's own
+    source; then a commit of 10
     edges and ``link_prediction.predict``, which must retrain on the new
     snapshot.  Seconds a call; the records held to the slots."""
     import torch
@@ -3974,7 +3985,8 @@ def phase_training_procedures(base: dict):
             ("node2vec.random_walks", lambda: N2VP.random_walks(
                 source, picked.tolist() + [-1], 10, **kw)),
             ("node2vec.get_embeddings", lambda: N2VP.get_embeddings(
-                seg_source, epochs=1, cache=seg_cache, device="cuda"))):
+                seg_source, walks_per_node=N2V_FIT_WALKS, epochs=1,
+                cache=seg_cache, device="cuda"))):
         outs[name], secs[name] = timed_run(fn)
     lp = models.slot(source, "link_prediction")
     trained = lp.params
@@ -4003,7 +4015,8 @@ def phase_training_procedures(base: dict):
     launches = all_counts()
     link, forward = train_k1_launches(GNN_LAYERS, GNN_EPOCHS, 4), \
         2 * GNN_LAYERS
-    pairs = 2 * 5 * SEGMENT_NODES * 4 * 21    # get_embeddings' defaults
+    # get_embeddings' defaults but N2V_FIT_WALKS walks a node
+    pairs = 2 * 5 * SEGMENT_NODES * N2V_FIT_WALKS * 21
     want = 2 * (link + forward) + train_k1_launches(
         GNN_LAYERS, GNN_EPOCHS, 1) + 3 * max(pairs // 8192, 1)
     check(launches["csr_spmm_sum"] == want
@@ -4316,9 +4329,10 @@ def phase_node2vec(base: dict):
     out-edges uniform over their rows (chi-square); in the biased run the
     share of returns within 5 standard errors of the single-retry rule's
     (float64) on a seeded 10^6 of the steps that can return.
-    Training: ``Node2Vec.fit`` at the defaults for one epoch on the
-    segment graph (100,000 nodes, 450,000 edges; the north star's 840M
-    pairs an epoch do not fit the run),
+    Training: ``Node2Vec.fit`` at the defaults but ``N2V_FIT_WALKS``
+    walks a node, for one epoch on the segment graph (100,000 nodes,
+    450,000 edges; the north star's 840M pairs an epoch do not fit the
+    run),
     counts set to 0 just before two fits, read just after: three K1
     launches a batch (the gathers' backward), one batch's kept and held
     bit-equal to the plain version (``segment_kernels`` lines
@@ -4366,7 +4380,7 @@ def phase_node2vec(base: dict):
 
     src, dst = generate_graph(n_nodes=SEGMENT_NODES, n_edges=SEGMENT_EDGES)
     seg = from_coo(src, dst, n_nodes=SEGMENT_NODES).to_device("cuda")
-    cfg = N2V.Node2VecConfig(epochs=1)
+    cfg = N2V.Node2VecConfig(epochs=1, walks_per_node=N2V_FIT_WALKS)
     pairs = 2 * cfg.window * SEGMENT_NODES * cfg.walks_per_node \
         * (cfg.walk_length + 1)
     batches = max(pairs // cfg.batch_size, 1)
@@ -4431,8 +4445,9 @@ def phase_node2vec(base: dict):
         "walks": {"n_walks": n * WALKS_PER_NODE, "length": WALK_LENGTH,
                   **walks},
         "fit": {"n_nodes": SEGMENT_NODES, "n_edges": SEGMENT_EDGES,
-                "cut": "segment graph, one epoch: the north star's 840M "
-                       "pairs an epoch do not fit the run",
+                "cut": "segment graph, one epoch, one walk a node: the "
+                       "north star's 840M pairs an epoch do not fit the "
+                       "run",
                 "pairs": pairs, "batches": batches, "fit_s": fit_s,
                 "loss": losses[0], "ms_a_batch": batch_ms,
                 "edge_cosine": edge_cos, "random_cosine": random_cos},
@@ -7059,6 +7074,320 @@ def phase_node2vec_sharded(base: dict):
     return launches
 
 
+# the cypher phase: the north star's generator at a fifth of its size (the
+# host storage holds a graph as Python objects: 10M edges would take
+# ~200 s of ingest and ~11 GB), edges in chunks of batch_insert, a
+# commit of 1,000 edges, lane thresholds 1% and 75% of the ids
+CYPHER_NODES = 200_000
+CYPHER_EDGES = 2_000_000
+CYPHER_CHUNK = 250_000
+CYPHER_COMMIT = 1_000
+CYPHER_COMMIT_SEED = 23
+CYPHER_LANE_K = (2_000, 150_000)
+
+
+def peak_rss_mb() -> float:
+    """This process's peak resident set (MB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+@contextlib.contextmanager
+def cypher_split(P, sync):
+    """Seconds of a cold ``pagerank.get`` by stage while inside: the
+    snapshot's export (``ops.csr.export_csr`` and ``export_csr_delta``),
+    the plan (``spmv_mxu.build_plan``, ``build_delta_plan``,
+    ``place_plan``) and the whole of ``ops.pagerank.pagerank`` as
+    ``procedures/graph_algorithms.py`` calls it; iterations are the
+    latter less the plan; ``sync`` waits for the device.  Yields the dict
+    of seconds and calls."""
+    from memgraph_tpu_torch.ops import csr as CSR
+    from memgraph_tpu_torch.ops import spmv_mxu
+    split = {"export_s": 0.0, "plan_s": 0.0, "pagerank_s": 0.0,
+             "calls": {}}
+    real = {(CSR, "export_csr"): "export_s",
+            (CSR, "export_csr_delta"): "export_s",
+            (spmv_mxu, "build_plan"): "plan_s",
+            (spmv_mxu, "build_delta_plan"): "plan_s",
+            (spmv_mxu, "place_plan"): "plan_s",
+            (P, "pagerank"): "pagerank_s"}
+    saved = {k: getattr(*k) for k in real}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            split[real[key]] += time.perf_counter() - t0
+            split["calls"][key[1]] = split["calls"].get(key[1], 0) + 1
+            return out
+        return run
+
+    for key, fn in saved.items():
+        setattr(*key, timed(key, fn))
+    try:
+        yield split
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+        split["iterations_s"] = split["pagerank_s"] - split["plan_s"]
+
+
+def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
+                 n_edges: int = CYPHER_EDGES, device: str = "cuda"):
+    """The Cypher engine on the card (``cypher`` line): the port's own
+    storage and interpreter (``InterpreterContext(storage)``: the card by
+    default), driven as a user drives them.
+
+    The graph is ``northstar.generate_graph(200_000, 2_000_000)``, the
+    north star's generator cut to a fifth of its nodes and edges: the
+    host storage keeps every vertex and edge as Python objects, so the
+    north star's 10M edges would take ~200 s of ingest and ~11 GB of host
+    memory in it.  Vertices go in by Cypher through the bulk lane
+    (``UNWIND range(0, $n - 1) AS i CREATE (:User {id: i})``), then
+    ``CREATE INDEX ON :User(id)``, then the edges as ``FOLLOWS`` through
+    ``Accessor.batch_insert`` in chunks of ``CYPHER_CHUNK``, a transaction
+    each; the ingest seconds and the process's peak RSS are printed.
+
+    With the counts set to 0 just before and read just after, the path:
+    1. ``CALL pagerank.get() YIELD node, rank RETURN node.id AS id,
+       rank`` cold (the snapshot exported, the MXU plan built and placed:
+       2M edges take the MXU route), split into export, plan and
+       iterations, then warm (the warm pool's hit).  Held within the
+       ``pagerank.get`` L1 bound of a converged float64 PageRank on the
+       same edges, bit-equal to ``procedures.graph_algorithms.
+       pagerank_get`` recomputing on the same snapshot with a warm pool
+       of its own, and ``benes_mid_gather`` / ``benes_outer_gather``
+       launched.
+    2. A commit of ``CYPHER_COMMIT`` edges by Cypher (``UNWIND $pairs AS
+       p MATCH (a:User {id: p[0]}), (b:User {id: p[1]}) CREATE
+       (a)-[:FOLLOWS]->(b)``), then the CALL again: the snapshot comes
+       by a delta export, the plan by a DeltaPlan (no plan built), the
+       delta net's gathers launch (3 mid gathers an iteration), the
+       warm-start counter moves, and the answer is within the bound of
+       float64 on the new edges.
+    3. ``DROP INDEX ON :User(id)`` (with the index the planner serves an
+       id range from it and no lane runs), then two lane-shaped reads at
+       a selective and a broad threshold (``CYPHER_LANE_K``): ``MATCH
+       (n:User) WHERE n.id < $k RETURN count(n)`` and the 2-hop count
+       ``MATCH (n:User)-[:FOLLOWS]->()-[:FOLLOWS]->(m) WHERE n.id < $k
+       RETURN count(m)``, against numpy / scipy on the same arrays; no
+       fallback for their fingerprints; K1 and K2 launched.  ms of each
+       read cold (the columnar export and staging) and warm.
+
+    ``n_nodes``, ``n_edges`` and ``device`` exist to rehearse the phase
+    small on the CPU; the script runs it at the sizes above on the card.
+    Returns the path's launches."""
+    import torch
+    from memgraph_tpu_torch.northstar import generate_graph
+    from memgraph_tpu_torch.ops import pipeline as PL
+    from memgraph_tpu_torch.ops import spmv_mxu
+    from memgraph_tpu_torch.ops.csr import GLOBAL_GRAPH_CACHE
+    from memgraph_tpu_torch.ops.delta import LocalWarmPool
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.query.interpreter import (Interpreter,
+                                                      InterpreterContext)
+    from memgraph_tpu_torch.storage import InMemoryStorage
+    from memgraph_tpu_torch.storage.source import StorageSource
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    summary = {"card": card_line() if device != "cpu" else "cpu",
+               "n_nodes": n_nodes, "n_edges": n_edges}
+    src, dst = generate_graph(n_nodes=n_nodes, n_edges=n_edges)
+    storage = InMemoryStorage()
+    ictx = InterpreterContext(storage, device=None if device == "cuda"
+                              else device)
+    check(ictx.device.type == device, f"the context runs on {ictx.device}")
+    interp = Interpreter(ictx)
+
+    # --- ingest ------------------------------------------------------------
+    t_all = time.perf_counter()
+    _, t_v = timed(lambda: interp.execute(
+        "UNWIND range(0, $n - 1) AS i CREATE (:User {id: i})",
+        {"n": n_nodes}))
+    _, t_ix = timed(lambda: interp.execute("CREATE INDEX ON :User(id)"))
+    rows = interp.execute("MATCH (n:User) RETURN n.id, id(n)")[1]
+    check(len(rows) == n_nodes, f"{len(rows)} users, not {n_nodes}")
+    vertex_of = [None] * n_nodes
+    for uid, gid in rows:
+        vertex_of[uid] = storage._vertices[gid]
+    id_of_gid = {gid: uid for uid, gid in rows}
+    del rows
+    follows = storage.edge_type_mapper.name_to_id("FOLLOWS")
+    t0 = time.perf_counter()
+    for lo in range(0, n_edges, CYPHER_CHUNK):
+        acc = storage.access()
+        acc.batch_insert(edges=[
+            (follows, vertex_of[s], vertex_of[d], {})
+            for s, d in zip(src[lo:lo + CYPHER_CHUNK].tolist(),
+                            dst[lo:lo + CYPHER_CHUNK].tolist())])
+        acc.commit()
+    t_e = time.perf_counter() - t0
+    del vertex_of
+    summary["ingest"] = {"vertices_s": t_v, "index_s": t_ix, "edges_s": t_e,
+                         "total_s": time.perf_counter() - t_all,
+                         "peak_rss_mb": peak_rss_mb()}
+    print("cypher ingest", json.dumps({"card": summary["card"],
+                                       **summary["ingest"]}), flush=True)
+
+    call = ("CALL pagerank.get() YIELD node, rank "
+            "RETURN node.id AS id, rank")
+
+    def ranks_by_id(rows_):
+        out = np.full(n_nodes, np.nan)
+        for uid, r in rows_:
+            out[uid] = r
+        return out
+
+    def vs64(ranks, s_, d_):
+        ref = reference_pagerank(s_, d_, n_nodes,
+                                 iterations=PR_PROC_REF_ITERATIONS)
+        check(np.isfinite(ranks).all(), "pagerank.get: a rank is missing "
+                                        "or not finite")
+        return float(np.abs(ranks - ref).sum())
+
+    # --- the path: counts set to 0 just before, read just after ---------
+    reset_all_counts()
+    cnt0 = counts()
+    with cypher_split(P, sync) as split:
+        (cols, rows, _), t_cold = timed(lambda: interp.execute(call))
+    check(cols == ["id", "rank"] and len(rows) == n_nodes,
+          f"the CALL gave {cols} and {len(rows)} rows")
+    cold_launches = counts()
+    check(split["calls"].get("build_plan") == 1,
+          f"the cold CALL built {split['calls']} plans, not one MXU plan")
+    for name in ("benes_mid_gather", "benes_outer_gather"):
+        check(cold_launches[name] > cnt0[name],
+              f"the cold CALL launched no {name}: {cold_launches}")
+    ranks = ranks_by_id(rows)
+    l1 = vs64(ranks, src, dst)
+    check(l1 <= PR_PROC_L1,
+          f"pagerank.get through Cypher off float64 by L1 {l1} > "
+          f"{PR_PROC_L1}")
+    (_, rows_w, _), t_warm = timed(lambda: interp.execute(call))
+    check(np.array_equal(ranks_by_id(rows_w), ranks),
+          "the warm CALL's ranks are not the cold CALL's")
+    # the library call on the same snapshot, recomputed (a pool of its
+    # own): bit-equal
+    acc = storage.access()
+    try:
+        lib = P.pagerank_get(StorageSource(acc), pool=LocalWarmPool(),
+                             device=device)
+    finally:
+        acc.abort()
+    lib_ranks = np.full(n_nodes, np.nan)
+    lib_ranks[[id_of_gid[int(g)] for g in lib["node_gids"]]] = lib["rank"]
+    check(np.array_equal(lib_ranks, ranks),
+          "pagerank.get through Cypher is not bit-equal to the library "
+          "call on the same snapshot")
+    summary["call"] = {
+        "cold_s": t_cold, "warm_s": t_warm,
+        "split": {k: split[k] for k in ("export_s", "plan_s",
+                                        "iterations_s")},
+        "rows_s": t_cold - split["export_s"] - split["pagerank_s"],
+        "l1_vs_float64": l1, "l1_limit": PR_PROC_L1,
+        "bit_equal_library": True,
+        "gathers": {k: cold_launches[k] - cnt0[k]
+                    for k in ("benes_mid_gather", "benes_outer_gather")}}
+
+    # --- commit, then CALL -------------------------------------------------
+    rng = np.random.default_rng(CYPHER_COMMIT_SEED)
+    add_s = rng.integers(0, n_nodes, CYPHER_COMMIT)
+    add_d = (rng.random(CYPHER_COMMIT) ** 2 * n_nodes).astype(np.int64)
+    pairs = np.stack([add_s, add_d], 1).tolist()
+    _, t_commit = timed(lambda: interp.execute(
+        "UNWIND $pairs AS p MATCH (a:User {id: p[0]}), (b:User {id: p[1]}) "
+        "CREATE (a)-[:FOLLOWS]->(b)", {"pairs": pairs}))
+    delta0 = GLOBAL_GRAPH_CACHE.counters["export.delta"]
+    warm0 = global_metrics.value("delta.warm_start_total")
+    before = counts()
+    with cypher_split(P, sync) as split2:
+        (_, rows2, _), t_call2 = timed(lambda: interp.execute(call))
+    after = counts()
+    check(GLOBAL_GRAPH_CACHE.counters["export.delta"] == delta0 + 1,
+          "the CALL after the commit did not refresh its snapshot by delta")
+    check(split2["calls"].get("build_plan") is None
+          and split2["calls"].get("build_delta_plan") == 1,
+          f"the CALL after the commit planned {split2['calls']}, not one "
+          "DeltaPlan")
+    check(global_metrics.value("delta.warm_start_total") == warm0 + 1,
+          "the CALL after the commit did not warm-start")
+    moved = {k: after[k] - before[k]
+             for k in ("benes_mid_gather", "benes_outer_gather")}
+    check(moved["benes_mid_gather"] > 0 and moved["benes_outer_gather"] > 0,
+          f"the refreshed CALL launched no gathers: {moved}")
+    src2, dst2 = np.concatenate([src, add_s]), np.concatenate([dst, add_d])
+    ranks2 = ranks_by_id(rows2)
+    l1_2 = vs64(ranks2, src2, dst2)
+    check(l1_2 <= PR_PROC_L1,
+          f"pagerank.get after the commit off float64 by L1 {l1_2}")
+    sol = P.GLOBAL_WARM_POOL.solution(storage, "pagerank")
+    summary["commit_then_call"] = {
+        "commit_s": t_commit, "call_s": t_call2,
+        "split": {k: split2[k] for k in ("export_s", "plan_s",
+                                         "iterations_s")},
+        "iterations_warm": None if sol is None else sol.iters,
+        "l1_vs_float64": l1_2, "gathers": moved,
+        "mid_gathers_an_iteration": None if sol is None or not sol.iters
+        else moved["benes_mid_gather"] / sol.iters}
+
+    # --- the lane ----------------------------------------------------------
+    interp.execute("DROP INDEX ON :User(id)")
+    PL.LANE_REGISTRY.reset()
+    seg0 = seg_counts()
+    queries = {
+        "count": "MATCH (n:User) WHERE n.id < $k RETURN count(n)",
+        "two_hop": "MATCH (n:User)-[:FOLLOWS]->()-[:FOLLOWS]->(m) "
+                   "WHERE n.id < $k RETURN count(m)"}
+    out_deg = np.bincount(src2, minlength=n_nodes)
+    lane = {}
+    for k in CYPHER_LANE_K:
+        smask = np.arange(n_nodes) < k
+        ones = np.ones(n_nodes, bool)
+        want = {"count": int(smask.sum()),
+                "two_hop": lane_hops64(src2, dst2, np.ones(len(src2), bool),
+                                       smask, ones, ones, n_nodes, 2,
+                                       False, True)["rows"]}
+        for name, q in queries.items():
+            (_, r1, _), cold = timed(lambda: interp.execute(q, {"k": k}))
+            (_, r2, _), warm = timed(lambda: interp.execute(q, {"k": k}))
+            check(r1 == r2 == [[want[name]]],
+                  f"lane {name} at k={k}: {r1}, {r2}, not {want[name]}")
+            lane[f"{name}@{k}"] = {"cold_ms": cold * 1e3,
+                                   "warm_ms": warm * 1e3,
+                                   "answer": want[name]}
+    fps = PL.LANE_REGISTRY.snapshot()
+    check(len(fps) == 2 and all(not e["fallbacks"] and e["hits"] == 4
+                                for e in fps.values()),
+          f"the lane's fingerprints: {fps}")
+    seg1 = seg_counts()
+    lane_launches = {k: seg1[k] - seg0[k] for k in seg1}
+    check(all(v > 0 for v in lane_launches.values()),
+          f"the lane reads launched {lane_launches}")
+    summary["lane"] = {"reads": lane, "fingerprints": fps,
+                       "launches": lane_launches,
+                       "out_degree_max": int(out_deg.max())}
+    launches = all_counts()
+    summary["launches"] = launches
+    summary["peak_rss_mb"] = peak_rss_mb()
+    print("cypher", json.dumps(summary), flush=True)
+    del interp, ictx, storage
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7144,7 +7473,8 @@ def main():
         "embeddings": timed("embeddings", phase_embeddings, base),
         "trace": timed("trace", phase_trace, base),
         "node2vec_sharded": timed("node2vec_sharded",
-                                  phase_node2vec_sharded, base)})
+                                  phase_node2vec_sharded, base),
+        "cypher": timed("cypher", phase_cypher, base)})
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

@@ -10,4 +10,6 @@ kernels here (``ops/csrc``), built with ``nvcc`` at first use.
 
 from .device import resolve_device
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]

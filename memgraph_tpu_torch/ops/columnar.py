@@ -24,12 +24,12 @@ Absent properties are absent from ``present``.
 
 ``ColumnarCache`` keys a snapshot by (source version, label) with the
 reference's column-level sharing: a later query that needs more
-properties sweeps only the missing columns.  The reference also bypasses
-its cache for a transaction with its own uncommitted writes, a
-snapshot-isolation transaction older than the newest commit and a
-fine-grained (label-restricted) view (``_cacheable``); a source of the
-port is one committed view, so that waits for the Cypher layer, as the
-CSR snapshot's ``own_writes`` does.
+properties sweeps only the missing columns.  A source whose
+``cacheable`` is false (storage/source.py's ``ScanSource`` of a
+transaction with its own uncommitted writes, of a snapshot-isolation
+transaction older than the newest commit, or of a fine-grained view: the
+reference's ``_cacheable``) is exported fresh and never stored; a source
+without the attribute is one committed view, and is cached.
 """
 
 from __future__ import annotations
@@ -257,6 +257,8 @@ class ColumnarCache:
     def get(self, source, label, props: tuple[str, ...],
             abort_check=None) -> ColumnarSnapshot:
         version = source.version
+        if not getattr(source, "cacheable", True):
+            return export_columns(source, label, props, abort_check)
         return self._get_cached(
             source, (version, label), tuple(props),
             lambda ps: export_columns(source, label, ps, abort_check))
@@ -265,6 +267,8 @@ class ColumnarCache:
                   abort_check=None) -> EdgeSnapshot:
         """The edge table under (version, _EDGES_KEY), as ``get``."""
         version = source.version
+        if not getattr(source, "cacheable", True):
+            return export_edges(source, props, abort_check)
         return self._get_cached(
             source, (version, _EDGES_KEY), tuple(props),
             lambda ps: export_edges(source, ps, abort_check))

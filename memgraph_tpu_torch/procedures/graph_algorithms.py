@@ -43,7 +43,18 @@ plane falls back to the in-process path, logged and counted
 (``analytics.kernel_route_fallback_total``; ``kernel_routed_total``
 counts the routed calls).
 
-Left out: the mgp registration and the Cypher surface.
+The Cypher surface (the end of this module) registers each function
+under the reference's procedure names, aliases, arguments, defaults and
+result fields (memgraph_tpu/procedures/graph_algorithms.py's
+``mgp.read_proc`` blocks, and structure_modules.py's
+``betweenness_centrality.get``, the registration that serves there).
+Each is a thin wrapper: it calls the function on a ``StorageSource`` of
+the call's accessor on the interpreter's device, and turns the gid
+column into the storage's vertices at the call's view (a vertex gone
+from the view yields no record, as the reference's ``vertex_by_index``
+does).  The kernel-server route reads the interpreter's
+``kernel_server_socket`` setting, then the environment, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -461,3 +472,182 @@ PROCEDURES = {
     "sssp.get": sssp_get,
     "graph_util.khop": graph_util_khop,
 }
+
+
+# --- the Cypher surface --------------------------------------------------------
+
+
+from . import mgp  # noqa: E402 — the registrations below need the functions
+
+
+def _records(pctx, out: dict, fields: dict):
+    """The records of a function's columns: ``fields`` maps each result
+    field (its column's name) to its host type; vertices by gid at the
+    view."""
+    find, view = pctx.accessor.find_vertex, pctx.view
+    cols = [(name, out[name], cast) for name, cast in fields.items()]
+    for i, gid in enumerate(out["node_gids"]):
+        node = find(int(gid), view)
+        if node is not None:
+            rec = {"node": node}
+            for name, col, cast in cols:
+                rec[name] = cast(col[i])
+            yield rec
+
+
+def _kernel(pctx):
+    """The interpreter's kernel-server socket setting, or None."""
+    ictx = getattr(pctx.exec_ctx, "interpreter_context", None)
+    cfg = getattr(ictx, "config", None) or {}
+    return cfg.get("kernel_server_socket")
+
+
+def _gids(nodes) -> list:
+    return [v.gid for v in nodes if v is not None]
+
+
+_RANK = {"rank": float}
+
+
+def _pagerank_proc(ctx, max_iterations=100, damping_factor=0.85,
+                   stop_epsilon=1e-5, weight_property=None):
+    out = pagerank_get(ctx.source(), max_iterations, damping_factor,
+                       stop_epsilon, weight_property, device=ctx.device,
+                       kernel=_kernel(ctx))
+    yield from _records(ctx, out, _RANK)
+
+
+for _name in ("pagerank.get", "pagerank_tpu.get", "pagerank_online.get"):
+    mgp.read_proc(_name,
+                  opt_args=[("max_iterations", "INTEGER", 100),
+                            ("damping_factor", "FLOAT", 0.85),
+                            ("stop_epsilon", "FLOAT", 1e-5),
+                            ("weight_property", "STRING", None)],
+                  results=[("node", "NODE"), ("rank", "FLOAT")])(
+                      _pagerank_proc)
+
+
+@mgp.read_proc("pagerank.personalized",
+               args=[("source_nodes", "LIST")],
+               opt_args=[("max_iterations", "INTEGER", 100),
+                         ("damping_factor", "FLOAT", 0.85)],
+               results=[("node", "NODE"), ("rank", "FLOAT")])
+def _personalized_proc(ctx, source_nodes, max_iterations=100,
+                       damping_factor=0.85):
+    out = pagerank_personalized(ctx.source(), _gids(source_nodes),
+                                max_iterations, damping_factor,
+                                device=ctx.device, kernel=_kernel(ctx))
+    yield from _records(ctx, out, _RANK)
+
+
+def _katz_proc(ctx, alpha=0.2, epsilon=1e-2):
+    out = katz_centrality_get(ctx.source(), alpha, epsilon,
+                              device=ctx.device)
+    yield from _records(ctx, out, _RANK)
+
+
+for _name in ("katz_centrality.get", "katz_centrality_tpu.get",
+              "katz_centrality_online.get"):
+    mgp.read_proc(_name,
+                  opt_args=[("alpha", "FLOAT", 0.2),
+                            ("epsilon", "FLOAT", 1e-2)],
+                  results=[("node", "NODE"), ("rank", "FLOAT")])(_katz_proc)
+
+
+def _community_proc(ctx, max_iterations=30, weight_property=None):
+    out = community_detection_get(ctx.source(), max_iterations,
+                                  weight_property, device=ctx.device)
+    yield from _records(ctx, out, {"community_id": int})
+
+
+for _name in ("community_detection.get", "community_detection_tpu.get",
+              "community_detection_online.get", "label_propagation.get"):
+    mgp.read_proc(_name,
+                  opt_args=[("max_iterations", "INTEGER", 30),
+                            ("weight_property", "STRING", None)],
+                  results=[("node", "NODE"),
+                           ("community_id", "INTEGER")])(_community_proc)
+
+
+def _wcc_proc(ctx):
+    out = weakly_connected_components_get(ctx.source(), device=ctx.device)
+    yield from _records(ctx, out, {"component_id": int})
+
+
+for _name in ("weakly_connected_components.get", "wcc.get",
+              "connectivity.get", "wcc_tpu.get"):
+    mgp.read_proc(_name,
+                  results=[("node", "NODE"),
+                           ("component_id", "INTEGER")])(_wcc_proc)
+
+
+@mgp.read_proc("strongly_connected_components.get",
+               results=[("node", "NODE"), ("component_id", "INTEGER")])
+def _scc_proc(ctx):
+    out = strongly_connected_components_get(ctx.source(),
+                                            device=ctx.device)
+    yield from _records(ctx, out, {"component_id": int})
+
+
+@mgp.read_proc("degree_centrality.get",
+               opt_args=[("type", "STRING", "undirected")],
+               results=[("node", "NODE"), ("degree", "FLOAT")])
+def _degree_proc(ctx, type="undirected"):
+    out = degree_centrality_get(ctx.source(), type, device=ctx.device)
+    yield from _records(ctx, out, {"degree": float})
+
+
+@mgp.read_proc("hits.get",
+               opt_args=[("max_iterations", "INTEGER", 100),
+                         ("tolerance", "FLOAT", 1e-6)],
+               results=[("node", "NODE"), ("hub", "FLOAT"),
+                        ("authority", "FLOAT")])
+def _hits_proc(ctx, max_iterations=100, tolerance=1e-6):
+    out = hits_get(ctx.source(), max_iterations, tolerance,
+                   device=ctx.device)
+    yield from _records(ctx, out, {"hub": float, "authority": float})
+
+
+@mgp.read_proc("betweenness_centrality.get",
+               opt_args=[("directed", "BOOLEAN", True),
+                         ("normalized", "BOOLEAN", True),
+                         ("samples", "INTEGER", 0)],
+               results=[("node", "NODE"),
+                        ("betweenness_centrality", "FLOAT")])
+def _betweenness_proc(ctx, directed=True, normalized=True, samples=0):
+    out = betweenness_centrality_get(ctx.source(), directed, normalized,
+                                     samples, device=ctx.device)
+    yield from _records(ctx, out, {"betweenness_centrality": float})
+
+
+@mgp.read_proc("bfs.get",
+               args=[("source", "NODE")],
+               opt_args=[("directed", "BOOLEAN", True)],
+               results=[("node", "NODE"), ("level", "INTEGER")])
+def _bfs_proc(ctx, source, directed=True):
+    if source is None:
+        return
+    out = bfs_get(ctx.source(), source.gid, directed, device=ctx.device)
+    yield from _records(ctx, out, {"level": int})
+
+
+@mgp.read_proc("sssp.get",
+               args=[("source", "NODE")],
+               opt_args=[("weight_property", "STRING", "weight")],
+               results=[("node", "NODE"), ("distance", "FLOAT")])
+def _sssp_proc(ctx, source, weight_property="weight"):
+    if source is None:
+        return
+    out = sssp_get(ctx.source(), source.gid, weight_property,
+                   device=ctx.device)
+    yield from _records(ctx, out, {"distance": float})
+
+
+@mgp.read_proc("graph_util.khop",
+               args=[("sources", "LIST"), ("hops", "INTEGER")],
+               opt_args=[("directed", "BOOLEAN", False)],
+               results=[("node", "NODE")])
+def _khop_proc(ctx, sources, hops, directed=False):
+    out = graph_util_khop(ctx.source(), _gids(sources), hops, directed,
+                          device=ctx.device)
+    yield from _records(ctx, out, {})
