@@ -289,8 +289,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    labelprop cold (``cold_start_total`` + 2), PageRank warm; no plan
    built.  ``katz_centrality.get`` cold, a hit and warm on the segment
    graph within the katz line's bounds.
-23. The index's delta refresh (``vector_delta`` line) on the 1M x 128
-   corpus: a full build, a commit clearing 50 vectors, then one setting
+23. The index's delta refresh (``vector_delta`` line) on the first
+   100,000 rows of the 1M x 128 corpus (``VD_ROWS``): a full build, a commit clearing 50 vectors, then one setting
    900 vectors, 50 on the cleared vertices, 50 of length 64, and
    clearing 100: a delta (the counters); commits rewriting values the
    vertices hold wrap the log, which gives a full build of the same
@@ -418,14 +418,20 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    launches exactly 3 x 4 shards x 10 steps.  ms a step at 1 x 1 and 2 x
    2 (four shards share one card: no scaling is claimed).
 32. The Cypher engine (``cypher`` line, ``storage/``, ``query/``): the
-   port's own MVCC storage and interpreter on the card, a user's path
+   port's own MVCC storage and interpreter on the card, built by the
+   port's composition root (``main.build_database``), a user's path
    from Cypher text to the kernels.  See ``phase_cypher``.
-33. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+33. The Bolt entry point (``bolt`` line, ``server/``, ``auth/``,
+   ``dbms/``): a ``BoltServer`` serves the ``cypher`` phase's database
+   before it is freed, driven only through the port's ``BoltClient``:
+   auth, the lane, a commit, ``CALL pagerank.get()`` on the Benes
+   kernels, a tenant on K1, the info queries.  See ``bolt_step``.
+34. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path, ``lane``, ``tier``, ``tgn``, ``embeddings``,
-   ``trace``, ``node2vec_sharded`` and ``cypher`` among them), the
-   card's name and power limit, and last ``{"ok": true, "device":
-   {...}}``.
+   ``trace``, ``node2vec_sharded``, ``cypher`` and ``bolt`` among
+   them), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -4476,6 +4482,10 @@ SPL_PAIRS = 8
 SPL_REL_TOL = 1e-5          # SSSP_REL_TOL
 UF_PAIRS = 1_000
 VD_SEED = 43
+# the index's rows: the corpus's first 100,000 (a depth cut, for the
+# script's time limit: the full builds read the list form a row at a
+# time, 73 s at 1M rows on the card)
+VD_ROWS = 100_000
 VD_SETS, VD_UNSET, VD_OFFDIM, VD_CLEARS = 900, 50, 50, 100
 VD_OFF_DIM = 64
 VD_QUERIES = 100
@@ -4980,8 +4990,9 @@ def phase_communities(base: dict):
 
 
 def phase_vector_delta(base: dict):
-    """The embedding index's delta refresh on the north star's 1M x 128
-    corpus: one full build; a commit that clears 50 vectors (refreshed);
+    """The embedding index's delta refresh on the first ``VD_ROWS`` rows
+    of the north star's 1M x 128 corpus, a source of their own: one full
+    build; a commit that clears 50 vectors (refreshed);
     then the measured commit: 900 new values, 50 on the vertices that
     had none, 50 of another length (64) and 100 clears.  The refresh must
     be a delta (the counters); then commits that rewrite values the
@@ -4993,14 +5004,16 @@ def phase_vector_delta(base: dict):
     just before, read just after (the index launches none of the listed
     kernels)."""
     import torch
-    from memgraph_tpu_torch.northstar import N_NODES
+    from memgraph_tpu_torch.northstar import CooSource
     from memgraph_tpu_torch.procedures import vector_search as VS
 
-    source = base["source"]
-    points = base["corpus"][0]
+    points = base["corpus"][0][:VD_ROWS]
+    no_edges = np.zeros(0, np.int64)
+    source = CooSource(no_edges, no_edges, VD_ROWS,
+                       properties={EMBEDDING: points})
     dim = points.shape[1]
     rng = np.random.default_rng(VD_SEED)
-    picked = rng.choice(N_NODES, VD_SETS + VD_UNSET + VD_OFFDIM + VD_CLEARS,
+    picked = rng.choice(VD_ROWS, VD_SETS + VD_UNSET + VD_OFFDIM + VD_CLEARS,
                         replace=False)
     sets, unset, off, clears = np.split(picked, np.cumsum(
         [VD_SETS, VD_UNSET, VD_OFFDIM]))
@@ -5040,7 +5053,7 @@ def phase_vector_delta(base: dict):
     check(index_cache.counters["full_builds"] == before["full_builds"] + 1,
           f"a wrapped log did not give a full build: {index_cache.counters}")
     launches = all_counts()
-    live = N_NODES - VD_UNSET - VD_OFFDIM - VD_CLEARS + VD_UNSET
+    live = VD_ROWS - VD_UNSET - VD_OFFDIM - VD_CLEARS + VD_UNSET
     check(entry.size == full.size == live
           and set(entry.gid_to_row) == set(full.gid_to_row)
           and entry.dim_counts == full.dim_counts
@@ -5058,7 +5071,7 @@ def phase_vector_delta(base: dict):
     valid[rows_d] = 1.0
     check(torch.equal(entry.valid, valid),
           "the delta entry's valid is not exactly its live rows")
-    queries = torch.from_numpy(points[rng.choice(N_NODES, VD_QUERIES,
+    queries = torch.from_numpy(points[rng.choice(VD_ROWS, VD_QUERIES,
                                                  replace=False)]).cuda()
     (s_d, i_d), (s_f, i_f) = (VS._search_entry(e, queries, 10, "cosine")
                               for e in (entry, full))
@@ -7084,6 +7097,16 @@ CYPHER_CHUNK = 250_000
 CYPHER_COMMIT = 1_000
 CYPHER_COMMIT_SEED = 23
 CYPHER_LANE_K = (2_000, 150_000)
+# the bolt step: its commit's seed (the cypher phase's is 23), the tenant's
+# graph (under MXU_MIN_EDGES, so the segment route runs), its seed
+BOLT_COMMIT_SEED = 29
+BOLT_TENANT_NODES = 10_000
+BOLT_TENANT_EDGES = 50_000
+BOLT_TENANT_SEED = 31
+#: the reference's failure codes (memgraph_tpu/server/bolt.py): a refused
+#: login, and an error that is no syntax, semantic or transaction error
+BOLT_UNAUTHENTICATED = "Memgraph.ClientError.Security.Unauthenticated"
+BOLT_GENERAL_ERROR = "Memgraph.TransientError.General.Error"
 
 
 def peak_rss_mb() -> float:
@@ -7136,8 +7159,9 @@ def cypher_split(P, sync):
 def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
                  n_edges: int = CYPHER_EDGES, device: str = "cuda"):
     """The Cypher engine on the card (``cypher`` line): the port's own
-    storage and interpreter (``InterpreterContext(storage)``: the card by
-    default), driven as a user drives them.
+    storage and interpreter, built by its composition root
+    (``main.build_database``: a ``DbmsHandler`` on the card), driven as
+    a user drives them.
 
     The graph is ``northstar.generate_graph(200_000, 2_000_000)``, the
     north star's generator cut to a fifth of its nodes and edges: the
@@ -7175,19 +7199,22 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
        fallback for their fingerprints; K1 and K2 launched.  ms of each
        read cold (the columnar export and staging) and warm.
 
+    4. Before the storage is freed, ``bolt_step`` serves it over Bolt
+       (its own ``phase_s bolt`` and ``bolt`` lines).
+
     ``n_nodes``, ``n_edges`` and ``device`` exist to rehearse the phase
     small on the CPU; the script runs it at the sizes above on the card.
-    Returns the path's launches."""
+    Returns the path's launches and the Bolt step's."""
     import torch
     from memgraph_tpu_torch.northstar import generate_graph
     from memgraph_tpu_torch.ops import pipeline as PL
     from memgraph_tpu_torch.ops import spmv_mxu
     from memgraph_tpu_torch.ops.csr import GLOBAL_GRAPH_CACHE
     from memgraph_tpu_torch.ops.delta import LocalWarmPool
+    from memgraph_tpu_torch import main as M
+    from memgraph_tpu_torch.dbms.dbms import DbmsHandler
     from memgraph_tpu_torch.procedures import graph_algorithms as P
-    from memgraph_tpu_torch.query.interpreter import (Interpreter,
-                                                      InterpreterContext)
-    from memgraph_tpu_torch.storage import InMemoryStorage
+    from memgraph_tpu_torch.query.interpreter import Interpreter
     from memgraph_tpu_torch.storage.source import StorageSource
     from memgraph_tpu_torch.utils.metrics import global_metrics
 
@@ -7204,10 +7231,14 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
     summary = {"card": card_line() if device != "cpu" else "cpu",
                "n_nodes": n_nodes, "n_edges": n_edges}
     src, dst = generate_graph(n_nodes=n_nodes, n_edges=n_edges)
-    storage = InMemoryStorage()
-    ictx = InterpreterContext(storage, device=None if device == "cuda"
-                              else device)
-    check(ictx.device.type == device, f"the context runs on {ictx.device}")
+    # the port's composition root, as a server builds its database (its
+    # periodic GC and memory watcher off: the phase times its own work)
+    ictx = M.build_database(M.build_config(
+        ["--device", device, "--storage-gc-cycle-sec", "0",
+         "--memory-warning-threshold", "0"]))
+    storage = ictx.storage
+    check(ictx.device.type == device and isinstance(ictx.dbms, DbmsHandler),
+          f"the context runs on {ictx.device}, under {ictx.dbms}")
     interp = Interpreter(ictx)
 
     # --- ingest ------------------------------------------------------------
@@ -7381,10 +7412,302 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
     summary["launches"] = launches
     summary["peak_rss_mb"] = peak_rss_mb()
     print("cypher", json.dumps(summary), flush=True)
+
+    # --- the Bolt entry point serves this database before it is freed ---
+    t0 = time.perf_counter()
+    bolt_launches = bolt_step(
+        ictx, interp, n_nodes, src2, dst2, call, ranks_by_id, vs64, sync,
+        device,
+        lane_k=CYPHER_LANE_K[0],
+        lane_want=lane[f"two_hop@{CYPHER_LANE_K[0]}"]["answer"])
+    print(f"phase_s bolt {time.perf_counter() - t0:.3f}", flush=True)
     del interp, ictx, storage
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
+    return launches, bolt_launches
+
+
+@contextlib.contextmanager
+def interpreter_seconds():
+    """Seconds spent in ``Interpreter.prepare`` and ``pull`` while inside,
+    on any thread: the server's side of a Bolt request (parse, plan,
+    execute, the rows), not its wire (pack, send, unpack)."""
+    from memgraph_tpu_torch.query.interpreter import Interpreter
+    spent = {"s": 0.0, "calls": 0}
+    saved = Interpreter.prepare, Interpreter.pull
+
+    def wrap(fn):
+        def run(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        return run
+
+    Interpreter.prepare, Interpreter.pull = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield spent
+    finally:
+        Interpreter.prepare, Interpreter.pull = saved
+
+
+def bolt_step(ictx, interp, n_nodes, src, dst, call, ranks_by_id, vs64,
+              sync, device, lane_k, lane_want):
+    """The Bolt entry point on the card (``bolt`` line).  A ``BoltServer``
+    (``server/bolt.py``) serves the ``cypher`` phase's database (``src``,
+    ``dst``: its edges after the phase's commit; ``interp``: the phase's
+    in-process session) on 127.0.0.1 with an ``Auth`` store, and the
+    step drives it only through the port's ``BoltClient``.  The counts
+    are set to 0 just before each step and read just after:
+
+    1. Auth: the first user creates an admin (every privilege) and a
+       reader (MATCH); a wrong password fails with the reference's
+       Security code, the reader's MATCH succeeds and its write fails
+       with the reference's code.
+    2. The lane: the 2-hop count at ``lane_k``, twice, equal to numpy /
+       scipy (``lane_want``), the lane hitting with no fallback, K1 and
+       K2 launched.
+    3. A commit over Bolt: BEGIN, the ``UNWIND $pairs ... CREATE`` of
+       ``CYPHER_COMMIT`` edges (seed ``BOLT_COMMIT_SEED``; the id index
+       made again for its lookups), COMMIT.
+    4. ``CALL pagerank.get()`` over Bolt, its 200,000 rows pulled in the
+       client's batches: a delta export and a DeltaPlan, no plan built,
+       ``benes_mid_gather`` / ``benes_outer_gather`` launched during the
+       request, the rows bit-equal to the same CALL in process on the
+       same version and within ``PR_PROC_L1`` of a converged float64
+       PageRank on the new edges.  The server's seconds (prepare and
+       pull), the wire's (the rest of the client's wall) and rows a
+       second.
+    5. A tenant: ``CREATE DATABASE tenant2; USE DATABASE tenant2`` on one
+       session, 0 vertices there, a graph of ``BOLT_TENANT_NODES`` /
+       ``BOLT_TENANT_EDGES`` by Cypher (the segment route), its
+       ``CALL pagerank.get()`` on K1 within the bound of float64, and the
+       default database unchanged.
+    6. ``SHOW LICENSE INFO`` and ``SHOW ACTIVE USERS INFO`` answer, one
+       session a connection that logged in.
+
+    Returns the step's launches, kernel by kernel."""
+    from memgraph_tpu_torch.ops import pipeline as PL
+    from memgraph_tpu_torch.ops.csr import GLOBAL_GRAPH_CACHE
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.server.bolt import BoltServer
+    from memgraph_tpu_torch.server.client import BoltClient, BoltClientError
+
+    summary = {"card": card_line() if device != "cpu" else "cpu"}
+    launches = dict.fromkeys(all_counts(), 0)
+
+    @contextlib.contextmanager
+    def counted(name):
+        """The counts set to 0 before a step and added after it."""
+        reset_all_counts()
+        moved = {}
+        t0 = time.perf_counter()
+        yield moved
+        sync()
+        moved.update(all_counts())
+        for k, v in moved.items():
+            launches[k] += v
+        summary.setdefault("steps_s", {})[name] = time.perf_counter() - t0
+
+    def refused(client_call):
+        """(code, message) of the call's Bolt failure, or None."""
+        try:
+            client_call()
+        except BoltClientError as e:
+            return e.code, str(e)
+        return None
+
+    auth = ictx.auth_store          # main.build_database's, empty
+    check(not auth.users(), f"the store holds users: {auth.users()}")
+    server = BoltServer(ictx, "127.0.0.1", 0, auth)
+    thread, loop = server.run_in_thread()
+    port = server._server.sockets[0].getsockname()[1]
+    admin_pw = "admin-pw"
+    clients = []
+
+    def connect(user="", password=""):
+        c = BoltClient(port=port, username=user, password=password,
+                       timeout=600.0)
+        clients.append(c)
+        return c
+
+    # --- 1. auth -----------------------------------------------------------
+    with counted("auth"):
+        first = connect()
+        first.execute("CREATE USER admin IDENTIFIED BY $pw",
+                      {"pw": admin_pw})
+        first.close()
+        clients.remove(first)
+        admin = connect("admin", admin_pw)
+        admin.execute("CREATE USER reader IDENTIFIED BY 'reader-pw'")
+        admin.execute("GRANT MATCH TO reader")
+        wrong = refused(lambda: BoltClient(port=port, username="admin",
+                                           password="wrong", timeout=60.0))
+        check(wrong is not None and wrong[0] == BOLT_UNAUTHENTICATED,
+              f"a wrong password gave {wrong}")
+        reader = connect("reader", "reader-pw")
+        got = reader.execute("MATCH (n:User) WHERE n.id < 10 "
+                             "RETURN count(n)")[1]
+        check(got == [[10]], f"the reader's MATCH gave {got}")
+        write = refused(lambda: reader.execute("CREATE (:Nope)"))
+        check(write is not None and write[0] == BOLT_GENERAL_ERROR
+              and "missing privilege CREATE" in write[1],
+              f"the reader's write gave {write}")
+        reader.reset()
+    # the phase's in-process session goes on as the admin
+    interp.username = "admin"
+    summary["auth"] = {"users": auth.users(), "wrong_password": wrong[0],
+                       "reader_write": write[0]}
+
+    # --- 2. the lane over Bolt (before the commit) -------------------------
+    q_lane = ("MATCH (n:User)-[:FOLLOWS]->()-[:FOLLOWS]->(m) "
+              "WHERE n.id < $k RETURN count(m)")
+    PL.LANE_REGISTRY.reset()
+    with counted("lane") as lane_moved:
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rows = admin.execute(q_lane, {"k": lane_k})[1]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(rows == [[lane_want]],
+                  f"the lane's 2-hop count over Bolt: {rows}, not "
+                  f"{lane_want}")
+    fps = PL.LANE_REGISTRY.snapshot()
+    check(len(fps) == 1 and all(not e["fallbacks"] and e["hits"] == 2
+                                for e in fps.values()),
+          f"the lane over Bolt: {fps}")
+    check(lane_moved["csr_spmm_sum"] > 0 and lane_moved["lane_sum"] > 0,
+          f"the lane over Bolt launched {lane_moved}")
+    summary["lane"] = {"k": lane_k, "answer": lane_want, "ms": ms,
+                       "fingerprints": fps, "launches": dict(lane_moved)}
+
+    # --- 3. a commit over Bolt ---------------------------------------------
+    rng = np.random.default_rng(BOLT_COMMIT_SEED)
+    add_s = rng.integers(0, n_nodes, CYPHER_COMMIT)
+    add_d = (rng.random(CYPHER_COMMIT) ** 2 * n_nodes).astype(np.int64)
+    with counted("commit"):
+        admin.execute("CREATE INDEX ON :User(id)")
+        t0 = time.perf_counter()
+        admin.begin()
+        _, _, commit_summary = admin.execute(
+            "UNWIND $pairs AS p MATCH (a:User {id: p[0]}), "
+            "(b:User {id: p[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+            {"pairs": np.stack([add_s, add_d], 1).tolist()})
+        admin.commit()
+        t_commit = time.perf_counter() - t0
+    created = (commit_summary.get("stats") or {}).get(
+        "relationships-created")
+    check(created == CYPHER_COMMIT,
+          f"the commit over Bolt created {created} edges")
+    src3 = np.concatenate([src, add_s])
+    dst3 = np.concatenate([dst, add_d])
+
+    # --- 4. CALL pagerank.get() over Bolt ----------------------------------
+    delta0 = GLOBAL_GRAPH_CACHE.counters["export.delta"]
+    with counted("call") as call_moved, \
+            cypher_split(P, sync) as split, interpreter_seconds() as server_s:
+        t0 = time.perf_counter()
+        cols, rows, _ = admin.execute(call)
+        t_call = time.perf_counter() - t0
+    check(cols == ["id", "rank"] and len(rows) == n_nodes,
+          f"the CALL over Bolt gave {cols} and {len(rows)} rows")
+    check(GLOBAL_GRAPH_CACHE.counters["export.delta"] == delta0 + 1,
+          "the CALL over Bolt did not refresh its snapshot by delta")
+    check(split["calls"].get("build_plan") is None
+          and split["calls"].get("build_delta_plan") == 1,
+          f"the CALL over Bolt planned {split['calls']}, not one DeltaPlan")
+    for name in ("benes_mid_gather", "benes_outer_gather"):
+        check(call_moved[name] > 0,
+              f"the CALL over Bolt launched no {name}: {call_moved}")
+    ranks = ranks_by_id(rows)
+    in_process = ranks_by_id(interp.execute(call)[1])
+    check(np.array_equal(ranks, in_process),
+          "the CALL over Bolt is not bit-equal to the CALL in process on "
+          "the same version")
+    l1 = vs64(ranks, src3, dst3)
+    check(l1 <= PR_PROC_L1,
+          f"pagerank.get over Bolt off float64 by L1 {l1} > {PR_PROC_L1}")
+    summary["call"] = {
+        "rows": len(rows), "client_s": t_call, "server_s": server_s["s"],
+        "server_calls": server_s["calls"],
+        "wire_s": t_call - server_s["s"], "rows_a_s": len(rows) / t_call,
+        "split": {k: split[k] for k in ("export_s", "plan_s",
+                                        "iterations_s")},
+        "commit_s": t_commit, "l1_vs_float64": l1, "l1_limit": PR_PROC_L1,
+        "bit_equal_in_process": True,
+        "gathers": {k: call_moved[k] for k in ("benes_mid_gather",
+                                               "benes_outer_gather")}}
+
+    # --- 5. a tenant -------------------------------------------------------
+    n_t, e_t = BOLT_TENANT_NODES, BOLT_TENANT_EDGES
+    rng = np.random.default_rng(BOLT_TENANT_SEED)
+    t_src = rng.integers(0, n_t, e_t)
+    t_dst = (rng.random(e_t) ** 2 * n_t).astype(np.int64)
+    default_users = interp.execute("MATCH (n) RETURN count(n)")[1]
+    with counted("tenant") as tenant_moved:
+        admin.execute("CREATE DATABASE tenant2")
+        admin.execute("USE DATABASE tenant2")
+        empty = admin.execute("MATCH (n) RETURN count(n)")[1]
+        t0 = time.perf_counter()
+        admin.execute("UNWIND range(0, $n - 1) AS i CREATE (:User {id: i})",
+                      {"n": n_t})
+        admin.execute("CREATE INDEX ON :User(id)")
+        admin.execute("UNWIND $pairs AS p MATCH (a:User {id: p[0]}), "
+                      "(b:User {id: p[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+                      {"pairs": np.stack([t_src, t_dst], 1).tolist()})
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, t_rows, _ = admin.execute(call)
+        t_tcall = time.perf_counter() - t0
+    check(empty == [[0]], f"a new tenant holds {empty} vertices")
+    check(tenant_moved["csr_spmm_sum"] > 0,
+          f"the tenant's CALL launched no K1: {tenant_moved}")
+    t_ranks = np.full(n_t, np.nan)
+    for uid, r in t_rows:
+        t_ranks[uid] = r
+    check(len(t_rows) == n_t and np.isfinite(t_ranks).all(),
+          f"the tenant's CALL gave {len(t_rows)} rows")
+    t_ref = reference_pagerank(t_src, t_dst, n_t,
+                               iterations=PR_PROC_REF_ITERATIONS)
+    t_l1 = float(np.abs(t_ranks - t_ref).sum())
+    check(t_l1 <= PR_PROC_L1,
+          f"the tenant's pagerank.get off float64 by L1 {t_l1}")
+    check(interp.execute("MATCH (n) RETURN count(n)")[1] == default_users
+          == [[n_nodes]], "the tenant's work changed the default database")
+    check(np.array_equal(ranks_by_id(interp.execute(call)[1]), ranks),
+          "the default database's CALL changed after the tenant's work")
+    summary["tenant"] = {
+        "nodes": n_t, "edges": e_t, "build_s": t_build, "call_s": t_tcall,
+        "l1_vs_float64": t_l1, "launches": dict(tenant_moved)}
+
+    # --- 6. info queries ---------------------------------------------------
+    with counted("info"):
+        admin.execute("USE DATABASE memgraph")
+        lic = dict(admin.execute("SHOW LICENSE INFO")[1])
+        active = admin.execute("SHOW ACTIVE USERS INFO")[1]
+    check(set(lic) >= {"organization_name", "is_valid", "status"},
+          f"SHOW LICENSE INFO gave {lic}")
+    check(sorted(r[0] for r in active) == ["admin", "reader"]
+          and len(active) == len(clients),
+          f"SHOW ACTIVE USERS INFO gave {active} for {len(clients)} "
+          "connections")
+    summary["info"] = {"license": lic, "active_sessions": len(active)}
+
+    for c in clients:
+        c.close()
+    deadline = time.monotonic() + 10
+    while server._live_sessions and time.monotonic() < deadline:
+        time.sleep(0.01)
+    server.stop()
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(10)
+    check(not thread.is_alive(), "the Bolt server's thread did not stop")
+    ictx.dbms.drop("tenant2")
+    summary["launches"] = launches
+    print("bolt", json.dumps(summary), flush=True)
     return launches
 
 
@@ -7474,7 +7797,8 @@ def main():
         "trace": timed("trace", phase_trace, base),
         "node2vec_sharded": timed("node2vec_sharded",
                                   phase_node2vec_sharded, base),
-        "cypher": timed("cypher", phase_cypher, base)})
+    })
+    by_path["cypher"], by_path["bolt"] = timed("cypher", phase_cypher, base)
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

@@ -41,11 +41,12 @@ class QueryException(MemgraphTpuError):
 
 
 #: the later slices of the port, as the waiting families name them
-SLICE_BOLT = "Bolt entry point (server, auth, dbms)"
 SLICE_DURABILITY = "durability"
 SLICE_REPLICATION = "replication, coordination and sharding"
 SLICE_HOST_FEATURES = ("streams, triggers, TTL, dump, enums, text and "
                        "point indexes, on-disk storage")
+SLICE_OBSERVABILITY = ("observability (HTTP metrics, audit, telemetry, "
+                       "monitoring)")
 
 
 class NotPortedException(QueryException):

@@ -742,8 +742,10 @@ def fn_roles(ev, args):
     username = getattr(ev.ctx, "username", None)
     if not username:
         return []
-    from ..exceptions import SLICE_BOLT, NotPortedException
-    raise NotPortedException("roles()", SLICE_BOLT)
+    from ..auth.auth import resolve_auth
+    exec_ctx = getattr(ev.ctx, "exec_ctx", None)
+    auth = resolve_auth(getattr(exec_ctx, "interpreter_context", None))
+    return auth.user_roles(username)
 
 
 @register("elementid", 1, 1)

@@ -15,14 +15,17 @@ Port of memgraph_tpu/query/interpreter.py.  What differs:
   it raises.  Procedures (their snapshots) and the compiled read lane run
   on that device.
 - The families whose modules a later slice of the port brings raise
-  ``NotPortedException`` naming that slice: auth, user and tenant
-  profiles, multi-database and the license (the Bolt entry point's
-  slice); snapshots and recovery (durability); replication and
-  coordinators (replication); streams, triggers, TTL, ``DUMP DATABASE``,
-  the enum DDL and ``ON_DISK_TRANSACTIONAL`` (the host features' slice).
-- No auth store exists yet, so every session runs open: the privilege
-  check passes and no fine-grained view applies, as the reference does
-  when no user is defined.
+  ``NotPortedException`` naming that slice: snapshots and recovery
+  (durability); replication and coordinators (replication); streams,
+  triggers, TTL, ``DUMP DATABASE``, the enum DDL and
+  ``ON_DISK_TRANSACTIONAL`` (the host features' slice).
+- Auth, user and tenant profiles, multi-database and the license run on
+  the port's ``auth/``, ``dbms/`` and ``utils/license.py``.  Their
+  mutations publish no system transaction: that comes with replication,
+  and no port context has a replication state.  The auth store is the
+  session's root context's, also after ``USE DATABASE``: the reference
+  resolves the tenant's, which has none of its own, so its tenants fall
+  back to the empty process-wide store and run open.
 - Settings (``SET DATABASE SETTING``) live in memory: the kvstore that
   makes them durable comes with durability.
 """
@@ -50,8 +53,7 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 from ..device import resolve_device
-from ..exceptions import (SLICE_BOLT as _BOLT,
-                          SLICE_DURABILITY as _DURABILITY,
+from ..exceptions import (SLICE_DURABILITY as _DURABILITY,
                           SLICE_HOST_FEATURES as _HOST_FEATURES,
                           SLICE_REPLICATION as _REPLICATION,
                           HintedAbortError, NotPortedException,
@@ -112,6 +114,16 @@ class _Settings:
 
     def observe(self, name: str, fn) -> None:
         self._observers.setdefault(name, []).append(fn)
+
+
+def ensure_settings(ictx) -> _Settings:
+    """The one place that lazily attaches the runtime settings to an
+    interpreter context (shared by SET DATABASE SETTING and main's
+    license flags)."""
+    settings = getattr(ictx, "settings", None)
+    if settings is None:
+        settings = ictx.settings = _Settings()
+    return settings
 
 
 class InterpreterContext:
@@ -376,10 +388,7 @@ class Interpreter:
         raise NotPortedException("streams", _HOST_FEATURES)
 
     def _settings(self):
-        settings = getattr(self.ctx, "settings", None)
-        if settings is None:
-            settings = self.ctx.settings = _Settings()
-        return settings
+        return ensure_settings(self.ctx)
 
     def _prepare_enum(self, node: A.EnumQuery) -> PreparedQuery:
         raise NotPortedException("enum DDL", _HOST_FEATURES)
@@ -514,13 +523,109 @@ class Interpreter:
                                        "r")
 
     def _prepare_user_profile(self, node) -> PreparedQuery:
-        raise NotPortedException("user profiles", _BOLT)
+        """Per-user profiles (reference: auth/profiles/user_profiles.cpp,
+        grammar MemgraphCypher.g4:974-991)."""
+        from ..auth.profiles import ensure_user_profiles
+        profiles = ensure_user_profiles(self.ctx)
+        if node.action == "create":
+            profiles.create(node.name, node.limits or {})
+        elif node.action == "update":
+            profiles.update(node.name, node.limits or {})
+        elif node.action == "drop":
+            profiles.drop(node.name)
+        elif node.action == "assign":
+            profiles.assign(node.user, node.name)
+        elif node.action == "clear":
+            profiles.clear(node.user)
+        elif node.action == "users_for":
+            rows = [[u] for u in profiles.users_for(node.name)]
+            return self._prepare_generator(iter(rows), ["username"], "r")
+        elif node.action == "show_for":
+            pname = profiles.profile_for(node.user)
+            rows = ([[pname, limits] for _n, limits
+                     in profiles.show(pname)] if pname else [])
+            return self._prepare_generator(iter(rows),
+                                           ["profile", "limits"], "r")
+        elif node.action == "show":
+            rows = [[n, limits] for n, limits in profiles.show(node.name)]
+            return self._prepare_generator(iter(rows),
+                                           ["profile", "limits"], "r")
+        else:
+            raise SemanticException(
+                f"unknown profile action {node.action}")
+        return self._prepare_generator(iter([]), [], "w")
 
     def _prepare_tenant_profile(self, node) -> PreparedQuery:
-        raise NotPortedException("tenant profiles", _BOLT)
+        """Tenant profiles (reference: dbms/tenant_profiles.cpp)."""
+        dbms = getattr(self.ctx, "dbms", None)
+        if dbms is None:
+            raise QueryException(
+                "tenant profiles require a DbmsHandler (enabled "
+                "automatically by the server entry point)")
+        profiles = dbms.tenant_profiles
+        if node.action == "create":
+            profiles.create(node.name, node.limits or {})
+        elif node.action == "alter":
+            profiles.alter(node.name, node.limits or {})
+        elif node.action == "drop":
+            profiles.drop(node.name)
+        elif node.action == "assign":
+            if node.database not in dbms.names():
+                raise QueryException(
+                    f"database {node.database!r} does not exist")
+            profiles.assign(node.database, node.name)
+        elif node.action == "clear":
+            profiles.clear(node.database)
+        elif node.action == "show":
+            import json as _json
+            rows = [[name, _json.dumps(limits), dbs]
+                    for name, limits, dbs in profiles.show(node.name)]
+            return self._prepare_generator(
+                iter(rows), ["profile", "limits", "databases"], "r")
+        else:
+            raise SemanticException(
+                f"unknown tenant profile action {node.action}")
+        return self._prepare_generator(iter([]), [], "s")
 
     def _prepare_multidb(self, node: A.MultiDatabaseQuery) -> PreparedQuery:
-        raise NotPortedException("multi-database", _BOLT)
+        dbms = getattr(self.ctx, "dbms", None)
+        if dbms is None:
+            raise QueryException(
+                "multi-database support requires a DbmsHandler (enabled "
+                "automatically by the server entry point)")
+        if node.action == "create":
+            dbms.create(node.name)
+            return self._prepare_generator(
+                iter([[f"Database {node.name} created."]]), ["status"], "s")
+        if node.action == "drop":
+            dbms.drop(node.name)
+            return self._prepare_generator(
+                iter([[f"Database {node.name} dropped."]]), ["status"], "s")
+        if node.action == "use":
+            if self._in_explicit_txn:
+                raise TransactionException(
+                    "cannot switch databases inside a transaction")
+            target = dbms.get(node.name)
+            # the session keeps this Interpreter object; rebind it
+            self.ctx = target
+            return self._prepare_generator(
+                iter([[f"Using database {node.name}."]]), ["status"], "s")
+        if node.action == "suspend":
+            dbms.suspend(node.name)
+            return self._prepare_generator(
+                iter([[f"Database {node.name} suspended."]]),
+                ["status"], "s")
+        if node.action == "resume":
+            dbms.resume(node.name)
+            return self._prepare_generator(
+                iter([[f"Database {node.name} resumed."]]),
+                ["status"], "s")
+        if node.action == "show":
+            current = getattr(self.ctx, "database_name", "memgraph")
+            rows = [[name, name == current] for name in dbms.names()]
+            return self._prepare_generator(iter(rows),
+                                           ["Name", "Current"], "r")
+        raise SemanticException(f"unknown database action {node.action}")
 
     def _prepare_coordinator(self, node: A.CoordinatorQuery) -> PreparedQuery:
         raise NotPortedException("coordinators", _REPLICATION)
@@ -531,15 +636,72 @@ class Interpreter:
     def _fine_grained_view(self):
         """Storage-level fine-grained filter for this session's user, or
         None when unrestricted (reference: glue/auth_checker.cpp building a
-        FineGrainedAuthChecker per execution).  No auth store exists until
-        auth is ported, so no session is restricted."""
-        return None
+        FineGrainedAuthChecker per execution)."""
+        auth = self._auth_store()
+        if not auth.users():
+            return None
+        checker = auth.fine_grained_checker(self.username or "")
+        if not checker.restricted:
+            return None
+        from ..auth.fine_grained import FgStorageView
+        return FgStorageView(checker, self.ctx.storage)
+
+    def _auth_store(self):
+        """The session's auth store: its root context's, also after USE
+        DATABASE.  (The reference resolves the current database's
+        context, whose tenants carry no store of their own, so a tenant
+        falls back to the empty process-wide store and runs open.)"""
+        from ..auth.auth import resolve_auth
+        return resolve_auth(self.root_ctx)
+
+    @staticmethod
+    def _password_value(expr, parameters):
+        """Password expression -> value: literal or $parameter only — a
+        silently-ignored expression would null the password and open the
+        account."""
+        if expr is None:
+            return None
+        if isinstance(expr, A.Literal):
+            return expr.value
+        if isinstance(expr, A.Parameter):
+            params = parameters or {}
+            if expr.name not in params:
+                raise QueryException(
+                    f"password parameter ${expr.name} not provided")
+            return params[expr.name]
+        raise QueryException(
+            "passwords must be a string literal or a $parameter")
+
+    def _check_password_policy(self, password) -> None:
+        """--auth-password-strength-regex / --auth-password-permit-null
+        (reference: flags/general.cpp password policy)."""
+        import re as _re
+        cfg = getattr(self.ctx, "config", {}) or {}
+        if password is None:
+            if not cfg.get("auth_password_permit_null", True):
+                raise QueryException(
+                    "null passwords are forbidden "
+                    "(--no-auth-password-permit-null)")
+            return
+        pattern = cfg.get("auth_password_strength_regex", ".+")
+        if not _re.fullmatch(pattern, str(password)):
+            raise QueryException(
+                "the new password does not satisfy the password "
+                "strength policy (--auth-password-strength-regex)")
 
     def _check_privilege(self, privilege: str) -> None:
         """Enforce RBAC when users are defined (reference: AuthChecker,
-        glue/auth_checker.cpp). Sessions without users run open, and until
-        auth is ported no user can be defined."""
-        return
+        glue/auth_checker.cpp). Sessions without users run open."""
+        if self.system:
+            return
+        auth = self._auth_store()
+        if not auth.users():
+            return
+        from ..exceptions import AuthException
+        if not auth.has_privilege(self.username or "", privilege):
+            raise AuthException(
+                f"user {self.username or '<anonymous>'!r} is not allowed "
+                f"to execute this query (missing privilege {privilege})")
 
     _NODE_PRIVILEGES = {
         "IndexQuery": "INDEX", "ConstraintQuery": "CONSTRAINT",
@@ -1172,7 +1334,11 @@ class Interpreter:
             return self._prepare_generator(iter(rows),
                                            ["build info", "value"], "r")
         if node.kind == "license":
-            raise NotPortedException("SHOW LICENSE INFO", _BOLT)
+            from ..utils.license import LicenseChecker
+            info = LicenseChecker(self._settings()).info()
+            rows = [[k, v] for k, v in info.items()]
+            return self._prepare_generator(iter(rows),
+                                           ["license info", "value"], "r")
         if node.kind == "active_users":
             sessions = getattr(self.root_ctx, "active_sessions", {})
             # snapshot: the event-loop thread mutates this dict while
@@ -1281,8 +1447,65 @@ class Interpreter:
         raise NotPortedException("triggers", _HOST_FEATURES)
 
     def _prepare_auth(self, node: A.AuthQuery,
-                      parameters=None) -> PreparedQuery:
-        raise NotPortedException("auth", _BOLT)
+                  parameters=None) -> PreparedQuery:
+        auth = self._auth_store()
+        if node.action == "create_user":
+            pw = self._password_value(node.password, parameters)
+            self._check_password_policy(pw)
+            auth.create_user(node.user, pw)
+        elif node.action == "drop_user":
+            auth.drop_user(node.user)
+        elif node.action == "create_role":
+            auth.create_role(node.role)
+        elif node.action == "drop_role":
+            auth.drop_role(node.role)
+        elif node.action == "set_role":
+            auth.set_role(node.user, node.role)
+        elif node.action == "grant":
+            auth.grant(node.user, node.privileges)
+        elif node.action == "deny":
+            auth.deny(node.user, node.privileges)
+        elif node.action == "revoke":
+            auth.revoke(node.user, node.privileges)
+        elif node.action == "grant_fine_grained":
+            auth.grant_fine_grained(node.user, node.fg_kind, node.fg_items,
+                                    node.fg_level)
+        elif node.action == "revoke_fine_grained":
+            auth.revoke_fine_grained(node.user, node.fg_kind, node.fg_items)
+        elif node.action == "show_users":
+            return self._prepare_generator(
+                iter([[u] for u in auth.users()]), ["user"], "r")
+        elif node.action == "show_current_user":
+            return self._prepare_generator(
+                iter([[self.username or None]]), ["user"], "r")
+        elif node.action == "show_roles":
+            return self._prepare_generator(
+                iter([[r] for r in auth.roles()]), ["role"], "r")
+        elif node.action == "set_password":
+            pw = self._password_value(node.password, parameters)
+            self._check_password_policy(pw)
+            if not self.username:
+                raise QueryException(
+                    "SET PASSWORD requires an authenticated user")
+            auth.set_password(self.username, pw)
+        elif node.action == "show_privileges":
+            rows = [[p, eff] for p, eff
+                    in auth.effective_privileges(node.user)]
+            checker = auth.fine_grained_checker(node.user, allow_role=True)
+            if checker.restricted:
+                from ..auth.auth import FG_LEVELS
+                inv = {v: k for k, v in FG_LEVELS.items()}
+                for lbl, lv in sorted(checker._labels.items()):
+                    rows.append([f"LABEL :{lbl}" if lbl != "*"
+                                 else "LABEL *", inv[lv]])
+                for et, lv in sorted(checker._edge_types.items()):
+                    rows.append([f"EDGE_TYPE :{et}" if et != "*"
+                                 else "EDGE_TYPE *", inv[lv]])
+            return self._prepare_generator(
+                iter(rows), ["privilege", "effective"], "r")
+        else:
+            raise SemanticException(f"unknown auth action {node.action}")
+        return self._prepare_generator(iter([]), [], "s")
 
     # --- helpers ------------------------------------------------------------
 

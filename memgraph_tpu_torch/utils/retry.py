@@ -1,4 +1,5 @@
-"""Retry and backoff policy of the supervised kernel client.
+"""Retry and backoff policy of the supervised kernel client and the
+routed Bolt client (``server/client.py:RoutedClient``).
 
 Copy of what the kernel server's client uses of memgraph_tpu/utils/
 retry.py's ``RetryPolicy``: exponential backoff with a cap and seedable

@@ -14,8 +14,9 @@ decisions on lane-shaped reads above ``LANE_MIN_ROWS`` (the same counts
 per fingerprint in both registries); the device rule of the port's
 ``InterpreterContext`` (it raises without a card unless asked for the
 CPU); the typed refusal of each query family that a later slice brings;
-and an import of the whole port with ``jax`` and ``memgraph_tpu``
-blocked.
+the families of the Bolt entry point's slice (auth, profiles,
+multi-database, the license) against the JAX interpreter; and an import
+of the whole port with ``jax`` and ``memgraph_tpu`` blocked.
 """
 
 import os
@@ -450,15 +451,6 @@ def test_the_context_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 LATER = [
-    ("CREATE USER alice IDENTIFIED BY 'pw'", "auth", "Bolt"),
-    ("SHOW USERS", "auth", "Bolt"),
-    ("GRANT MATCH TO alice", "auth", "Bolt"),
-    ("CREATE PROFILE p LIMIT SESSIONS 1", "user profiles", "Bolt"),
-    ("CREATE TENANT PROFILE tp LIMIT memory_limit 100MB", "tenant profiles",
-     "Bolt"),
-    ("CREATE DATABASE db2", "multi-database", "Bolt"),
-    ("SHOW DATABASES", "multi-database", "Bolt"),
-    ("SHOW LICENSE INFO", "SHOW LICENSE INFO", "Bolt"),
     ("SET REPLICATION ROLE TO MAIN", "replication", "replication"),
     ("REGISTER REPLICA r1 SYNC TO '127.0.0.1:10000'", "replication",
      "replication"),
@@ -493,6 +485,44 @@ def test_a_family_of_a_later_slice_raises_its_typed_error(query, family,
     assert t.execute("RETURN 1")[1] == [[1]]
 
 
+#: the families of the Bolt entry point's slice: query -> statements run
+#: before it (as the first user, who is then the session's user)
+BOLT_SLICE = {
+    "CREATE USER alice IDENTIFIED BY 'pw'": [],
+    "SHOW USERS": ["CREATE USER alice IDENTIFIED BY 'pw'"],
+    "GRANT MATCH TO alice": ["CREATE USER alice IDENTIFIED BY 'pw'"],
+    "CREATE PROFILE p LIMIT SESSIONS 1": [],
+    "CREATE TENANT PROFILE tp LIMIT memory_limit 100MB": [],
+    "CREATE DATABASE db2": [],
+    "SHOW DATABASES": ["CREATE DATABASE db2"],
+    "SHOW LICENSE INFO": [],
+}
+
+
+@pytest.mark.parametrize("query", BOLT_SLICE, ids=list(BOLT_SLICE))
+def test_a_family_of_the_bolt_slice_answers_as_the_reference(query):
+    """Each family that waited for the Bolt entry point's slice gives the
+    JAX interpreter's rows or error, on a default database of each
+    package's ``DbmsHandler`` with an auth store of its own."""
+    from memgraph_tpu.auth.auth import Auth as JAuth
+    from memgraph_tpu.dbms.dbms import DbmsHandler as JDbms
+    from memgraph_tpu_torch.auth.auth import Auth as TAuth
+    from memgraph_tpu_torch.dbms.dbms import DbmsHandler as TDbms
+    outs = []
+    for dbms, auth, mod in ((JDbms(), JAuth(), jinterp),
+                            (TDbms(device="cpu"), TAuth(), tinterp)):
+        ctx = dbms.default()
+        ctx.auth_store = auth
+        it = mod.Interpreter(ctx)
+        out = [run(it, q) for q in BOLT_SLICE[query]]
+        if auth.users():
+            it.username = auth.users()[0]
+        out += [run(it, query), run(it, "RETURN 1")]
+        outs.append(out)
+    assert outs[1] == outs[0]
+    assert outs[1][-2][0] == "ok" and outs[1][-1][2] == [(1,)]
+
+
 def test_the_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, the Cypher engine included, imports with
     ``jax`` and ``memgraph_tpu`` made unimportable."""
@@ -509,6 +539,12 @@ names = [m.name for m in pkgutil.walk_packages(memgraph_tpu_torch.__path__,
                                                "memgraph_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"memgraph_tpu_torch.main", "memgraph_tpu_torch.server.bolt",
+        "memgraph_tpu_torch.server.packstream",
+        "memgraph_tpu_torch.server.client", "memgraph_tpu_torch.auth.auth",
+        "memgraph_tpu_torch.auth.module", "memgraph_tpu_torch.dbms.dbms",
+        "memgraph_tpu_torch.utils.license",
+        "memgraph_tpu_torch.utils.tls"} <= set(names)
 from memgraph_tpu_torch.query.interpreter import Interpreter, InterpreterContext
 from memgraph_tpu_torch.storage import InMemoryStorage
 it = Interpreter(InterpreterContext(InMemoryStorage(), device="cpu"))
