@@ -319,7 +319,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    answer, routed with no fallback; the ``pagerank`` op at the main
    path's 50 iterations within its bounds of float64 and bit-equal to
    this process's mesh-of-1 run, and a key-only repeat a hit with the
-   same bytes; 256 single-source PPR requests
+   same bytes; 128 single-source PPR requests
    (top 10) from 16 threads, 32 of them repeated for their full vectors
    (hits) and bit-equal to in-process runs; an out-of-range member
    ``invalid`` beside completed batchmates, an oversized request
@@ -426,12 +426,21 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    before it is freed, driven only through the port's ``BoltClient``:
    auth, the lane, a commit, ``CALL pagerank.get()`` on the Benes
    kernels, a tenant on K1, the info queries.  See ``bolt_step``.
-34. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+34. Durability and the forked read pool (``durability`` and
+   ``mp_executor`` lines, ``storage/durability/``, ``storage/kvstore.py``,
+   ``server/mp_executor.py``): the ``cypher`` phase's database, which
+   runs with a data directory and the WAL, is snapshotted, takes a WAL
+   tail, is closed and dropped, and is built again by recovery; the
+   recovered database's snapshot export, ``CALL pagerank.get()`` (the
+   Benes four) and lane read are held to the database before the
+   restart, and four read workers forked from it serve host reads and
+   refuse device work.  See ``durability_step``.
+35. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path, ``lane``, ``tier``, ``tgn``, ``embeddings``,
-   ``trace``, ``node2vec_sharded``, ``cypher`` and ``bolt`` among
-   them), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+   ``trace``, ``node2vec_sharded``, ``cypher``, ``bolt``, ``durability``
+   and ``mp_executor`` among them), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -452,6 +461,7 @@ import subprocess
 import sys
 import time
 import warnings
+import weakref
 
 import numpy as np
 
@@ -5094,7 +5104,9 @@ def phase_vector_delta(base: dict):
     return launches
 
 
-KS_REQUESTS = 256           # single-source PPR requests of the burst
+KS_REQUESTS = 128           # single-source PPR requests of the burst
+#                             (256 before the durability step: cut to
+#                             keep the script inside its 1,200 s limit)
 KS_THREADS = 16             # client threads sending them
 KS_SAMPLED = 32             # cold replies held bit-equal to in-process
 KS_SEED = 47                # the burst's sources and the sample
@@ -5260,7 +5272,7 @@ def phase_kernel_server(base: dict):
     through ``kernel=`` equal to the in-process answers; the ``pagerank``
     op at 50 iterations, tol 0, within the main path's bounds of float64
     (bit-equality to this process's run printed) and a key-only repeat a
-    hit with the same bytes; 256 single-source PPR requests from 16
+    hit with the same bytes; 128 single-source PPR requests from 16
     threads (top 10), 32 of them, cold, repeated for their full vectors:
     hits, bit-equal to in-process runs; an out-of-range member answered
     invalid beside completed batchmates, an oversized request shed; a
@@ -5421,7 +5433,8 @@ def drive_kernel_server(base, client, sock) -> dict:
     (hc, _), cold_tol_s = timed_call(lambda: client.call_pagerank(
         **op, tol=KS_PR_TOL))
 
-    # the PPR burst: 256 single-source requests from 16 threads, top 10
+    # the PPR burst: KS_REQUESTS single-source requests from 16 threads,
+    # top 10
     rng = np.random.default_rng(KS_SEED)
     sources = rng.choice(n, KS_REQUESTS, replace=False)
     replies, latencies, errors = {}, {}, []
@@ -7106,6 +7119,12 @@ BOLT_TENANT_SEED = 31
 #: the reference's failure codes (memgraph_tpu/server/bolt.py): a refused
 #: login, and an error that is no syntax, semantic or transaction error
 BOLT_UNAUTHENTICATED = "Memgraph.ClientError.Security.Unauthenticated"
+# the durability step: the WAL tail's seed, the forked read workers, the
+# users whose 1-hop neighbours they read, the parent's commit after them
+DURABILITY_TAIL_SEED = 37
+MP_WORKERS = 4
+MP_READ_IDS = (0, 1, 7, 1_000, 54_321, 199_999)
+MP_PARENT_COMMIT = 100
 BOLT_GENERAL_ERROR = "Memgraph.TransientError.General.Error"
 
 
@@ -7201,14 +7220,47 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
 
     4. Before the storage is freed, ``bolt_step`` serves it over Bolt
        (its own ``phase_s bolt`` and ``bolt`` lines).
+    5. ``durability_step``: the database is built with a data directory
+       (a temporary directory, removed at the end) and the WAL, as the
+       reference's documented defaults have it: snapshot, WAL tail,
+       restart by recovery, the forked read pool (its own ``phase_s
+       durability`` line and ``durability`` / ``mp_executor`` lines).
 
     ``n_nodes``, ``n_edges`` and ``device`` exist to rehearse the phase
     small on the CPU; the script runs it at the sizes above on the card.
-    Returns the path's launches and the Bolt step's."""
-    import torch
+    Returns the path's launches, the Bolt step's, the durability step's
+    and the forked read pool's."""
+    import shutil
+    import tempfile
     from memgraph_tpu_torch.northstar import generate_graph
+
+    summary = {"card": card_line() if device != "cpu" else "cpu",
+               "n_nodes": n_nodes, "n_edges": n_edges}
+    src, dst = generate_graph(n_nodes=n_nodes, n_edges=n_edges)
+    # the port's composition root, as a server builds its database (its
+    # periodic GC and memory watcher off: the phase times its own work),
+    # with a data directory and the WAL
+    data_dir = tempfile.mkdtemp(prefix="memgraph_tpu_torch_data_")
+    try:
+        return _phase_cypher(summary, src, dst, n_nodes, n_edges, device,
+                             data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def database_argv(device: str, data_dir: str) -> list:
+    """``main``'s flags of the cypher phase's database: the card (or the
+    CPU), GC and the memory watcher off, a data directory with the WAL,
+    recovery at start (the reference's defaults)."""
+    return ["--device", device, "--storage-gc-cycle-sec", "0",
+            "--memory-warning-threshold", "0", "--data-directory",
+            data_dir, "--storage-wal-enabled",
+            "--storage-recover-on-startup"]
+
+
+def _phase_cypher(summary, src, dst, n_nodes, n_edges, device, data_dir):
+    import torch
     from memgraph_tpu_torch.ops import pipeline as PL
-    from memgraph_tpu_torch.ops import spmv_mxu
     from memgraph_tpu_torch.ops.csr import GLOBAL_GRAPH_CACHE
     from memgraph_tpu_torch.ops.delta import LocalWarmPool
     from memgraph_tpu_torch import main as M
@@ -7228,17 +7280,12 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
         sync()
         return out, time.perf_counter() - t0
 
-    summary = {"card": card_line() if device != "cpu" else "cpu",
-               "n_nodes": n_nodes, "n_edges": n_edges}
-    src, dst = generate_graph(n_nodes=n_nodes, n_edges=n_edges)
-    # the port's composition root, as a server builds its database (its
-    # periodic GC and memory watcher off: the phase times its own work)
-    ictx = M.build_database(M.build_config(
-        ["--device", device, "--storage-gc-cycle-sec", "0",
-         "--memory-warning-threshold", "0"]))
+    ictx = M.build_database(M.build_config(database_argv(device, data_dir)))
     storage = ictx.storage
-    check(ictx.device.type == device and isinstance(ictx.dbms, DbmsHandler),
-          f"the context runs on {ictx.device}, under {ictx.dbms}")
+    check(ictx.device.type == device and isinstance(ictx.dbms, DbmsHandler)
+          and getattr(ictx.storage, "wal_file", None) is not None,
+          f"the context runs on {ictx.device}, under {ictx.dbms}, WAL "
+          f"{getattr(ictx.storage, 'wal_file', None)}")
     interp = Interpreter(ictx)
 
     # --- ingest ------------------------------------------------------------
@@ -7267,6 +7314,8 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
     del vertex_of
     summary["ingest"] = {"vertices_s": t_v, "index_s": t_ix, "edges_s": t_e,
                          "total_s": time.perf_counter() - t_all,
+                         "wal_bytes": dir_bytes(os.path.join(data_dir,
+                                                             "wal")),
                          "peak_rss_mb": peak_rss_mb()}
     print("cypher ingest", json.dumps({"card": summary["card"],
                                        **summary["ingest"]}), flush=True)
@@ -7421,11 +7470,395 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
         lane_k=CYPHER_LANE_K[0],
         lane_want=lane[f"two_hop@{CYPHER_LANE_K[0]}"]["answer"])
     print(f"phase_s bolt {time.perf_counter() - t0:.3f}", flush=True)
-    del interp, ictx, storage
+
+    # --- durability: snapshot, WAL tail, restart, the forked read pool ---
+    t0 = time.perf_counter()
+    bolt_s, bolt_d = bolt_commit_edges(n_nodes)
+    before = durability_before(
+        interp, storage, np.concatenate([src2, bolt_s]),
+        np.concatenate([dst2, bolt_d]), n_nodes, call, ranks_by_id, timed)
+    # the database is closed and dropped before it is built again: two
+    # copies of the storage never share the host
+    gone = weakref.ref(storage)
+    close_database(ictx.dbms)
+    del interp, ictx, storage, acc, lib
+    # bulk ingest froze the heap (storage.batch_insert's gc.freeze): thaw
+    # it, or the dropped storage's cycles are never collected
+    gc.unfreeze()
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
-    return launches, bolt_launches
+    check(gone() is None, "the storage before the restart is still held")
+    durability_launches, mp_launches = durability_after(
+        before, data_dir, n_nodes, call, ranks_by_id, vs64, sync, device,
+        src_all=np.concatenate([before["src"], before["tail_src"]]),
+        dst_all=np.concatenate([before["dst"], before["tail_dst"]]))
+    print(f"phase_s durability {time.perf_counter() - t0:.3f}", flush=True)
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return launches, bolt_launches, durability_launches, mp_launches
+
+
+def bolt_commit_edges(n_nodes):
+    """The (src, dst) ids of the Bolt step's commit (seed
+    ``BOLT_COMMIT_SEED``)."""
+    rng = np.random.default_rng(BOLT_COMMIT_SEED)
+    add_s = rng.integers(0, n_nodes, CYPHER_COMMIT)
+    add_d = (rng.random(CYPHER_COMMIT) ** 2 * n_nodes).astype(np.int64)
+    return add_s, add_d
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of the files directly in ``path``."""
+    return sum(e.stat().st_size for e in os.scandir(path) if e.is_file())
+
+
+def database_counts(interp) -> dict:
+    """What a restart must keep of the cypher phase's database: its vertex
+    and edge counts, its indexes (kind, label, properties, entries) and
+    its users."""
+    return {
+        "vertices": interp.execute("MATCH (n) RETURN count(n)")[1][0][0],
+        "edges": interp.execute("MATCH ()-[e]->() RETURN count(e)")[1][0][0],
+        "indexes": [r[:4] for r in interp.execute("SHOW INDEX INFO")[1]],
+        "users": sorted(interp.ctx.auth_store.users())}
+
+
+def host_export(storage):
+    """``ops.csr.export_csr`` of the storage's visible graph, kept on the
+    host (a read-only accessor: it commits)."""
+    from memgraph_tpu_torch.ops.csr import export_csr
+    from memgraph_tpu_torch.storage.source import StorageSource
+    acc = storage.access()
+    try:
+        return export_csr(StorageSource(acc), to_device=False)
+    finally:
+        acc.commit()
+
+
+def same_export(a, b) -> list:
+    """The fields in which two host exports differ (array for array)."""
+    import dataclasses
+    differ = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, tuple) and isinstance(y, tuple):
+            same = len(x) == len(y) and all(
+                np.array_equal(u, v) for u, v in zip(x, y))
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y))
+        else:
+            same = x == y
+        if not same:
+            differ.append(f.name)
+    return differ
+
+
+def close_database(dbms) -> None:
+    """Close every tenant's WAL segment and kvstore and forget the
+    tenants, as a stopping server leaves them."""
+    for ictx in list(dbms._databases.values()):
+        wal = getattr(ictx.storage, "wal_file", None)
+        if wal is not None:
+            wal.close()
+        kv = getattr(ictx, "kvstore", None)
+        if kv is not None:
+            kv.close()
+    dbms._databases.clear()
+
+
+def durability_before(interp, storage, src, dst, n_nodes, call, ranks_by_id,
+                      timed) -> dict:
+    """The durability step's first half, on the cypher phase's database
+    (``src``, ``dst``: its edges after the Bolt step): ``CREATE SNAPSHOT``
+    over Cypher (seconds, bytes), a commit of ``CYPHER_COMMIT`` edges by
+    Cypher (seed ``DURABILITY_TAIL_SEED``: the WAL tail after the
+    snapshot; the WAL's bytes), then ``CALL pagerank.get()`` in process
+    and a host export of the snapshot, kept for after the restart."""
+    out = {"src": src, "dst": dst}
+    (_, rows, _), out["snapshot_s"] = timed(
+        lambda: interp.execute("CREATE SNAPSHOT"))
+    out["snapshot_bytes"] = os.path.getsize(rows[0][0])
+    wal_dir = os.path.join(storage.config.durability_dir, "wal")
+    wal0 = dir_bytes(wal_dir)
+    rng = np.random.default_rng(DURABILITY_TAIL_SEED)
+    out["tail_src"] = rng.integers(0, n_nodes, CYPHER_COMMIT)
+    out["tail_dst"] = (rng.random(CYPHER_COMMIT) ** 2
+                       * n_nodes).astype(np.int64)
+    pairs = np.stack([out["tail_src"], out["tail_dst"]], 1).tolist()
+    _, out["tail_commit_s"] = timed(lambda: interp.execute(
+        "UNWIND $pairs AS p MATCH (a:User {id: p[0]}), (b:User {id: p[1]}) "
+        "CREATE (a)-[:FOLLOWS]->(b)", {"pairs": pairs}))
+    out["wal_bytes"] = dir_bytes(wal_dir)
+    out["wal_tail_bytes"] = out["wal_bytes"] - wal0
+    out["ranks"] = ranks_by_id(interp.execute(call)[1])
+    out["export"], out["export_s"] = timed(lambda: host_export(storage))
+    out["counts"] = database_counts(interp)
+    check(out["counts"]["edges"] == len(src) + CYPHER_COMMIT,
+          f"{out['counts']['edges']} edges before the restart, not "
+          f"{len(src) + CYPHER_COMMIT}")
+    return out
+
+
+def durability_after(before, data_dir, n_nodes, call, ranks_by_id, vs64,
+                     sync, device, src_all, dst_all):
+    """The durability step's second half (``durability`` and
+    ``mp_executor`` lines), on the database built again from
+    ``data_dir`` by ``main.build_database`` with
+    ``--storage-recover-on-startup`` after the first was closed and
+    dropped:
+
+    1. Recovery, timed: the build's seconds and recovery's own by stage
+       (the snapshot file's load, its apply, the WAL replay).
+    2. The same vertices, edges, indexes and users as before the restart,
+       and ``export_csr`` equal array for array to the export kept then.
+    3. A cold ``CALL pagerank.get()`` with the counts set to 0 just
+       before: split into export, plan and iterations; one MXU plan built
+       (the recovered storage is new: nothing cached for the old one may
+       serve it); ``benes_mid``, ``benes_outer``, ``benes_mid_gather``
+       and ``benes_outer_gather`` launched; bit-equal to
+       ``procedures.graph_algorithms.pagerank_get`` recomputing on the
+       recovered snapshot (a warm pool of its own) and within
+       ``PR_PROC_L1`` of a converged float64 PageRank on the same edges.
+    4. The lane's 2-hop count at ``CYPHER_LANE_K[0]`` (the id index
+       dropped, then made again), exact, K1 and K2 launched.
+    5. ``MPReadExecutor`` forks ``MP_WORKERS`` read workers from this
+       process with the card live (the fork's seconds): 1-hop reads by
+       the indexed id equal the in-process answers; ``CALL
+       pagerank.get()`` and a lane-shaped read are refused with
+       ``DeviceWorkRefused``; no kernel launches while the workers serve
+       (the ``mp_executor`` path's counts); ``close()`` reaps every
+       worker.  Then a commit of ``MP_PARENT_COMMIT`` edges in the
+       parent, and its CALL launches the Benes gathers again.
+
+    Returns the step's launches (3, 4 and 5's last CALL) and the read
+    pool's, kernel by kernel."""
+    import torch
+    from memgraph_tpu_torch import main as M
+    from memgraph_tpu_torch.exceptions import DeviceWorkRefused
+    from memgraph_tpu_torch.ops import pipeline as PL
+    from memgraph_tpu_torch.ops.delta import LocalWarmPool
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.query.interpreter import Interpreter
+    from memgraph_tpu_torch.server.mp_executor import (MPReadExecutor,
+                                                       device_reason)
+    from memgraph_tpu_torch.storage.durability import recovery as R
+    from memgraph_tpu_torch.storage.source import StorageSource
+
+    summary = {"card": card_line() if device != "cpu" else "cpu",
+               "snapshot": {"s": before["snapshot_s"],
+                            "bytes": before["snapshot_bytes"]},
+               "wal": {"bytes": before["wal_bytes"],
+                       "tail_bytes": before["wal_tail_bytes"],
+                       "tail_commit_s": before["tail_commit_s"]}}
+    launches = dict.fromkeys(all_counts(), 0)
+
+    def add(moved):
+        for k, v in moved.items():
+            launches[k] += v
+
+    # --- 1. recovery ---------------------------------------------------------
+    stats = {}
+    real = R.recover
+
+    def recording(storage):
+        out = real(storage)
+        stats.update(out)
+        return out
+
+    R.recover = recording
+    try:
+        t0 = time.perf_counter()
+        ictx = M.build_database(M.build_config(
+            database_argv(device, data_dir)))
+        build_s = time.perf_counter() - t0
+    finally:
+        R.recover = real
+    storage = ictx.storage
+    interp = Interpreter(ictx)
+    interp.username = "admin"       # the Bolt step's user, recovered
+    check(stats.get("snapshot") is not None
+          and stats["wal_transactions"] >= 1 and not stats["wal_corruption"],
+          f"recovery: {stats}")
+    summary["recovery"] = {
+        "build_s": build_s, "load_s": stats["load_s"],
+        "apply_s": stats["apply_s"], "replay_s": stats["replay_s"],
+        "wal_transactions": stats["wal_transactions"],
+        "peak_rss_mb": peak_rss_mb()}
+
+    # --- 2. the same database ------------------------------------------------
+    counts_after = database_counts(interp)
+    check(counts_after == before["counts"],
+          f"after the restart {counts_after}, before {before['counts']}")
+    differ = same_export(host_export(storage), before["export"])
+    check(not differ, f"export_csr after the restart differs in {differ}")
+    summary["same"] = {**counts_after, "export_equal": True}
+
+    # --- 3. the cold CALL ----------------------------------------------------
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with cypher_split(P, sync) as split:
+        cols, rows, _ = interp.execute(call)
+        sync()
+    t_cold = time.perf_counter() - t0
+    moved = all_counts()
+    add(moved)
+    check(cols == ["id", "rank"] and len(rows) == n_nodes,
+          f"the recovered CALL gave {cols} and {len(rows)} rows")
+    check(split["calls"].get("build_plan") == 1,
+          f"the recovered CALL planned {split['calls']}, not one MXU plan")
+    for name in ("benes_mid", "benes_outer", "benes_mid_gather",
+                 "benes_outer_gather"):
+        check(moved[name] > 0,
+              f"the recovered CALL launched no {name}: {moved}")
+    ranks = ranks_by_id(rows)
+    acc = storage.access()
+    try:
+        lib = P.pagerank_get(StorageSource(acc), pool=LocalWarmPool(),
+                             device=device)
+    finally:
+        acc.commit()
+    id_of_gid = {v.gid: v.properties[storage.property_mapper.name_to_id(
+        "id")] for v in storage._vertices.values()}
+    lib_ranks = np.full(n_nodes, np.nan)
+    lib_ranks[[id_of_gid[int(g)] for g in lib["node_gids"]]] = lib["rank"]
+    del lib, id_of_gid
+    check(np.array_equal(lib_ranks, ranks),
+          "the recovered CALL is not bit-equal to pagerank_get on the "
+          "recovered snapshot")
+    l1 = vs64(ranks, src_all, dst_all)
+    check(l1 <= PR_PROC_L1,
+          f"the recovered CALL off float64 by L1 {l1} > {PR_PROC_L1}")
+    summary["call"] = {
+        "cold_s": t_cold,
+        "split": {k: split[k] for k in ("export_s", "plan_s",
+                                        "iterations_s")},
+        "l1_vs_float64": l1, "l1_limit": PR_PROC_L1,
+        "l1_vs_before_restart": float(np.abs(ranks
+                                             - before["ranks"]).sum()),
+        "bit_equal_library": True,
+        "launches": {k: moved[k] for k in ("benes_mid", "benes_outer",
+                                           "benes_mid_gather",
+                                           "benes_outer_gather")}}
+
+    # --- 4. the lane ---------------------------------------------------------
+    k = CYPHER_LANE_K[0]
+    q_lane = ("MATCH (n:User)-[:FOLLOWS]->()-[:FOLLOWS]->(m) "
+              "WHERE n.id < $k RETURN count(m)")
+    smask = np.arange(n_nodes) < k
+    ones = np.ones(n_nodes, bool)
+    want = lane_hops64(src_all, dst_all, np.ones(len(src_all), bool), smask,
+                       ones, ones, n_nodes, 2, False, True)["rows"]
+    interp.execute("DROP INDEX ON :User(id)")
+    PL.LANE_REGISTRY.reset()
+    reset_all_counts()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = interp.execute(q_lane, {"k": k})[1]
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(got == [[want]], f"the recovered lane's 2-hop count: {got}, "
+                               f"not {want}")
+    moved = all_counts()
+    add(moved)
+    fps = PL.LANE_REGISTRY.snapshot()
+    check(len(fps) == 1 and all(not e["fallbacks"] and e["hits"] == 2
+                                for e in fps.values()),
+          f"the recovered lane: {fps}")
+    check(moved["csr_spmm_sum"] > 0 and moved["lane_sum"] > 0,
+          f"the recovered lane launched {moved}")
+    interp.execute("CREATE INDEX ON :User(id)")
+    summary["lane"] = {"k": k, "answer": want, "ms": ms,
+                       "launches": {n: moved[n] for n in ("csr_spmm_sum",
+                                                          "lane_sum")}}
+    summary["launches"] = dict(launches)
+    print("durability", json.dumps(summary), flush=True)
+
+    # --- 5. the forked read pool ---------------------------------------------
+    mp = {"card": summary["card"], "workers": MP_WORKERS}
+    q_read = ("MATCH (n:User {id: $id})-[:FOLLOWS]->(m) "
+              "RETURN m.id ORDER BY m.id")
+    # lane-shaped reads that scan the label (with the id index an id
+    # range is served from it, and no lane is planned)
+    q_count = "MATCH (n:User) RETURN count(n)"
+    q_hops = "MATCH (n:User)-[:FOLLOWS]->()-[:FOLLOWS]->(m) RETURN count(m)"
+    for q in (q_read, q_count, q_hops, call):
+        mp.setdefault("plan", {})[q] = device_reason(
+            ictx, q, ictx.cached_parse(q))
+    check(mp["plan"][q_read] is None
+          and "lane" in (mp["plan"][q_count] or "")
+          and "lane" in (mp["plan"][q_hops] or "")
+          and "procedure" in (mp["plan"][call] or ""),
+          f"the read pool's plan decisions: {mp['plan']}")
+    reset_all_counts()
+    ex = MPReadExecutor(ictx, n_workers=MP_WORKERS)
+    pids = [w[0] for w in ex._workers]
+    try:
+        mp["fork_s"] = ex.fork_s
+        t0 = time.perf_counter()
+        for uid in MP_READ_IDS:
+            uid = uid % n_nodes
+            got = ex.execute(q_read, {"id": uid}, username="admin")[1]
+            check(got == interp.execute(q_read, {"id": uid})[1],
+                  f"the read pool's 1-hop read of user {uid} differs")
+        mp["reads_s"] = time.perf_counter() - t0
+        refused = {}
+        for name, q, params in (("call", call, None),
+                                ("lane_count", q_count, None),
+                                ("lane_two_hop", q_hops, None)):
+            try:
+                ex.execute(q, params, username="admin")
+                refused[name] = None
+            except DeviceWorkRefused as e:
+                refused[name] = str(e)
+        check(all(refused.values()),
+              f"the read pool served device work: {refused}")
+        mp["refused"] = refused
+        mp_launches = all_counts()
+        check(all(v == 0 for v in mp_launches.values()),
+              f"a kernel launched while the read pool served: "
+              f"{mp_launches}")
+    finally:
+        ex.close()
+    reaped = []
+    for pid in pids:
+        try:
+            os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            reaped.append(pid)
+    check(reaped == pids, f"close() left workers {set(pids) - set(reaped)}")
+    mp["reaped"] = len(reaped)
+    mp["launches"] = mp_launches
+
+    # the parent's card after the fork: a commit, then the CALL on it
+    rng = np.random.default_rng(DURABILITY_TAIL_SEED + 1)
+    add_s = rng.integers(0, n_nodes, MP_PARENT_COMMIT)
+    add_d = rng.integers(0, n_nodes, MP_PARENT_COMMIT)
+    interp.execute("UNWIND $pairs AS p MATCH (a:User {id: p[0]}), "
+                   "(b:User {id: p[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+                   {"pairs": np.stack([add_s, add_d], 1).tolist()})
+    reset_all_counts()
+    ranks2 = ranks_by_id(interp.execute(call)[1])
+    sync()
+    moved = all_counts()
+    add(moved)
+    check(moved["benes_mid_gather"] > 0 and moved["benes_outer_gather"] > 0,
+          f"the parent's CALL after the fork launched {moved}")
+    l1_2 = vs64(ranks2, np.concatenate([src_all, add_s]),
+                np.concatenate([dst_all, add_d]))
+    check(l1_2 <= PR_PROC_L1,
+          f"the parent's CALL after the fork off float64 by L1 {l1_2}")
+    mp["parent_call"] = {"l1_vs_float64": l1_2,
+                         "gathers": {n: moved[n] for n in (
+                             "benes_mid_gather", "benes_outer_gather")}}
+    mp["peak_rss_mb"] = peak_rss_mb()
+    print("mp_executor", json.dumps(mp), flush=True)
+    close_database(ictx.dbms)
+    del interp, ictx, storage, acc
+    return launches, mp_launches
 
 
 @contextlib.contextmanager
@@ -7585,9 +8018,7 @@ def bolt_step(ictx, interp, n_nodes, src, dst, call, ranks_by_id, vs64,
                        "fingerprints": fps, "launches": dict(lane_moved)}
 
     # --- 3. a commit over Bolt ---------------------------------------------
-    rng = np.random.default_rng(BOLT_COMMIT_SEED)
-    add_s = rng.integers(0, n_nodes, CYPHER_COMMIT)
-    add_d = (rng.random(CYPHER_COMMIT) ** 2 * n_nodes).astype(np.int64)
+    add_s, add_d = bolt_commit_edges(n_nodes)
     with counted("commit"):
         admin.execute("CREATE INDEX ON :User(id)")
         t0 = time.perf_counter()
@@ -7798,7 +8229,8 @@ def main():
         "node2vec_sharded": timed("node2vec_sharded",
                                   phase_node2vec_sharded, base),
     })
-    by_path["cypher"], by_path["bolt"] = timed("cypher", phase_cypher, base)
+    (by_path["cypher"], by_path["bolt"], by_path["durability"],
+     by_path["mp_executor"]) = timed("cypher", phase_cypher, base)
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

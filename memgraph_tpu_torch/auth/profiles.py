@@ -13,8 +13,9 @@ Enforcement here:
     that user (explicit QUERY MEMORY LIMIT still wins; combined with a
     tenant-profile cap the smaller one applies).
 
-Copy of memgraph_tpu/auth/profiles.py for the port.  The port has no
-kvstore yet (it comes with durability), so its profiles live in memory.
+Copy of memgraph_tpu/auth/profiles.py for the port: with a data
+directory the profiles live in its kvstore (``storage/kvstore.py``),
+under the same key as the reference's.
 """
 
 from __future__ import annotations

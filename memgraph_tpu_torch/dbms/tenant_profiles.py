@@ -11,9 +11,9 @@ for every query running against an assigned database (an explicit
 QUERY MEMORY LIMIT still wins); the reference additionally meters the
 storage arena, which this build tracks globally, not per tenant.
 
-Copy of memgraph_tpu/dbms/tenant_profiles.py for the port.  The port has
-no kvstore yet (it comes with durability), so its profiles live in
-memory.
+Copy of memgraph_tpu/dbms/tenant_profiles.py for the port: with a data
+directory the profiles live in the default database's kvstore
+(``storage/kvstore.py``), under the same key as the reference's.
 """
 
 from __future__ import annotations

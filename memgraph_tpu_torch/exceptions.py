@@ -1,8 +1,9 @@
 """Framework-wide exception hierarchy.
 
-Copy of memgraph_tpu/exceptions.py, with one class of the port's own:
+Copy of memgraph_tpu/exceptions.py, with two classes of the port's own:
 ``NotPortedException``, the typed refusal of a query family whose
-modules a later slice of the port brings.
+modules a later slice of the port brings, and ``DeviceWorkRefused``, a
+forked read worker's refusal of a plan that reaches the device.
 
 Mirrors the error taxonomy the reference surfaces to clients (storage errors
 at memgraph/src/storage/v2/storage.hpp, query exceptions at
@@ -41,7 +42,6 @@ class QueryException(MemgraphTpuError):
 
 
 #: the later slices of the port, as the waiting families name them
-SLICE_DURABILITY = "durability"
 SLICE_REPLICATION = "replication, coordination and sharding"
 SLICE_HOST_FEATURES = ("streams, triggers, TTL, dump, enums, text and "
                        "point indexes, on-disk storage")
@@ -106,6 +106,13 @@ class FencedException(TransactionException):
 
 class ProcedureException(QueryException):
     """Error raised from a CALLed query module procedure."""
+
+
+class DeviceWorkRefused(QueryException):
+    """A forked read worker (server/mp_executor.py) refuses a query whose
+    plan reaches the device: a compiled read lane or a procedure call.
+    Decided from the plan before it runs; the caller runs such a query
+    on its in-process interpreter."""
 
 
 class WorkerCrashedError(MemgraphTpuError, ConnectionError):
@@ -182,6 +189,7 @@ WIRE_ERRORS = {
     "ReplicaUnavailableException": ReplicaUnavailableException,
     "FencedException": FencedException,
     "ProcedureException": ProcedureException,
+    "DeviceWorkRefused": DeviceWorkRefused,
     "ShardError": ShardError,
     "AuthException": AuthException,
 }

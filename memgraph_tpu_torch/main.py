@@ -11,22 +11,27 @@ Copy of memgraph_tpu/main.py for the port.  What differs:
   there.  Without a card and without ``--device cpu``, ``main`` exits 2
   and says why; nothing falls back to the CPU.
 - A flag whose module a later slice of the port brings (``LATER_FLAGS``:
-  the data directory and the storage durability flags, replication and
-  coordination, cluster TLS, streams' defaults, the HTTP metrics,
-  monitoring, telemetry and audit) refuses with the
+  replication and coordination, cluster TLS, streams' defaults, the
+  HTTP metrics, monitoring, telemetry and audit) refuses with the
   ``NotPortedException`` of its slice when set to anything but its
   default: ``build_database`` raises and ``main`` exits 1.  None is
   ignored silently.
-- ``build_database`` always wires an auth store (in memory) before the
-  init files run, so a user an init file creates is the server's.  (The
-  reference wires one only with a data directory or SSO modules; else
-  an init file's users go to the process-wide store, and ``serve``
-  gives the server a new, empty one.)
+- ``build_database`` always wires an auth store before the init files
+  run (``auth.json`` under ``--data-directory``, else in memory), so a
+  user an init file creates is the server's.  (The reference wires one
+  only with a data directory or SSO modules; else an init file's users
+  go to the process-wide store, and ``serve`` gives the server a new,
+  empty one.)
+- ``--storage-snapshot-thread-count`` sizes the snapshot pool in
+  ``build_database`` (the reference sets it in ``main``), so a database
+  built without ``main`` honours it too.
 - The reference's JAX platform switch has no counterpart, and the
   trigger store is not wired: triggers are a later slice's.
 
 Run:  python -m memgraph_tpu_torch.main --bolt-port 7687
-      (``--device cpu`` for the CPU)
+      (``--device cpu`` for the CPU; ``--data-directory D
+      --storage-wal-enabled --storage-recover-on-startup`` for a durable
+      database)
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import signal
 import sys
 
 from .auth.auth import Auth
-from .exceptions import (SLICE_DURABILITY, SLICE_HOST_FEATURES,
+from .exceptions import (SLICE_HOST_FEATURES,
                          SLICE_OBSERVABILITY, SLICE_REPLICATION,
                          NotPortedException)
 from .query.interpreter import Interpreter, InterpreterContext
@@ -49,16 +54,6 @@ from .storage.common import IsolationLevel, StorageMode
 
 #: flag (argparse dest) -> the later slice of the port whose module it needs
 LATER_FLAGS = {
-    **{name: SLICE_DURABILITY for name in (
-        "data_directory", "storage_wal_enabled",
-        "storage_wal_file_size_kib", "storage_snapshot_on_exit",
-        "storage_recover_on_startup", "data_recovery_on_startup",
-        "storage_snapshot_interval_sec", "storage_snapshot_interval",
-        "storage_snapshot_retention_count", "storage_snapshot_thread_count",
-        "storage_parallel_snapshot_creation",
-        "storage_parallel_schema_recovery", "storage_allow_recovery_failure",
-        "aws_access_key", "aws_secret_key", "aws_region",
-        "aws_endpoint_url")},
     **{name: SLICE_REPLICATION for name in (
         "replication_restore_state_on_startup", "coordinator_id",
         "coordinator_port", "coordinator_peers", "coordinator_hostname",
@@ -328,10 +323,27 @@ def build_database(args) -> InterpreterContext:
         COMPRESSION["enabled"] = True
         COMPRESSION["level"] = {"low": 1, "mid": 6, "high": 9}[
             args.storage_property_store_compression_level]
+    if args.storage_snapshot_interval:
+        try:
+            args.storage_snapshot_interval_sec = int(
+                args.storage_snapshot_interval)
+        except ValueError:
+            logging.warning("--storage-snapshot-interval: only numeric "
+                            "seconds are supported; ignoring %r",
+                            args.storage_snapshot_interval)
+    recover_flag = args.storage_recover_on_startup
+    if args.data_recovery_on_startup is not None:
+        recover_flag = args.data_recovery_on_startup
+    args.storage_recover_on_startup = recover_flag
     storage_config = StorageConfig(
         storage_mode=StorageMode(args.storage_mode),
         isolation_level=IsolationLevel(args.isolation_level),
+        durability_dir=args.data_directory,
+        wal_enabled=bool(args.storage_wal_enabled and args.data_directory),
+        wal_segment_size=args.storage_wal_file_size_kib * 1024,
+        snapshot_on_exit=args.storage_snapshot_on_exit,
         properties_on_edges=args.storage_properties_on_edges,
+        snapshot_retention_count=args.storage_snapshot_retention_count,
         delta_on_identical_property_update=(
             args.storage_delta_on_identical_property_update),
         automatic_label_index=(
@@ -339,7 +351,20 @@ def build_database(args) -> InterpreterContext:
         automatic_edge_type_index=(
             args.storage_automatic_edge_type_index_creation_enabled),
         gc_aggressive=args.storage_gc_aggressive,
+        allow_recovery_failure=args.storage_allow_recovery_failure,
     )
+    from .storage.durability import snapshot as _snap
+    if args.storage_snapshot_thread_count:
+        _snap.POOL_WORKERS = args.storage_snapshot_thread_count
+    if not (args.storage_parallel_schema_recovery
+            and args.storage_parallel_snapshot_creation):
+        _snap.POOL_WORKERS = 1
+    for flag, env in (("aws_access_key", "AWS_ACCESS_KEY_ID"),
+                      ("aws_secret_key", "AWS_SECRET_ACCESS_KEY"),
+                      ("aws_region", "AWS_DEFAULT_REGION"),
+                      ("aws_endpoint_url", "AWS_ENDPOINT_URL")):
+        if getattr(args, flag):
+            os.environ.setdefault(env, getattr(args, flag))
     timeout_sec = (args.query_execution_timeout_sec
                    if args.query_execution_timeout_sec is not None
                    else args.execution_timeout_sec)
@@ -367,9 +392,12 @@ def build_database(args) -> InterpreterContext:
         "experimental_config": args.experimental_config,
         "coordinator_hostname": args.coordinator_hostname,
     }
-    # multi-tenancy: every server runs behind a DbmsHandler, on one device
+    # multi-tenancy: every server runs behind a DbmsHandler, on one device;
+    # the default database recovers from (and persists to) the root data
+    # directory
     from .dbms.dbms import DbmsHandler
-    dbms = DbmsHandler(storage_config, interp_config, device=args.device)
+    dbms = DbmsHandler(storage_config, interp_config, device=args.device,
+                       recover_on_startup=args.storage_recover_on_startup)
     ictx = dbms.default()
     storage = ictx.storage
 
@@ -382,7 +410,8 @@ def build_database(args) -> InterpreterContext:
     from .ops.native import get_csr_builder
     get_csr_builder()
 
-    # background maintenance (reference: GC cycle flags)
+    # background maintenance (reference: periodic snapshots memgraph.cpp:588,
+    # GC cycle flags)
     import threading
 
     def _periodic(interval, fn, name):
@@ -397,6 +426,12 @@ def build_database(args) -> InterpreterContext:
         t = threading.Thread(target=loop, daemon=True, name=name)
         t.start()
 
+    if args.storage_snapshot_interval_sec and args.data_directory:
+        from .storage.durability.snapshot import create_snapshot
+        _periodic(args.storage_snapshot_interval_sec,
+                  lambda: create_snapshot(storage), "periodic-snapshot")
+        logging.info("periodic snapshots every %ds",
+                     args.storage_snapshot_interval_sec)
     if args.memory_warning_threshold:
         def _warn_low_memory():
             try:
@@ -419,7 +454,7 @@ def build_database(args) -> InterpreterContext:
 
     if args.license_key or args.organization_name:
         from .utils.license import LICENSE_SETTING, ORGANIZATION_SETTING
-        from .query.interpreter import ensure_settings
+        from .storage.kvstore import ensure_settings
         settings = ensure_settings(ictx)
         if args.license_key:
             settings.set(LICENSE_SETTING, args.license_key)
@@ -442,10 +477,15 @@ def build_database(args) -> InterpreterContext:
         logging.info("loaded query modules: %s", loaded)
 
     # auth store wired BEFORE the init file runs (single source of truth):
-    # in memory until durability is ported, with the SSO modules
+    # durable under the data directory, else in memory; with the SSO
+    # modules either way
     from .auth.module import parse_module_mappings
-    ictx.auth_store = Auth(
-        module_mappings=parse_module_mappings(args.auth_module_mappings))
+    auth_modules = parse_module_mappings(args.auth_module_mappings)
+    auth_path = None
+    if args.data_directory:
+        os.makedirs(args.data_directory, exist_ok=True)
+        auth_path = os.path.join(args.data_directory, "auth.json")
+    ictx.auth_store = Auth(auth_path, module_mappings=auth_modules)
 
     for path in (args.init_file, args.init_data_file):
         if path:
@@ -503,6 +543,10 @@ async def serve(args, ictx) -> None:
 
     logging.info("shutting down ...")
     server.stop()
+    if args.storage_snapshot_on_exit and args.data_directory:
+        from .storage.durability.snapshot import create_snapshot
+        create_snapshot(ictx.storage)
+        logging.info("exit snapshot written")
 
 
 def main(argv=None) -> int:

@@ -15,10 +15,9 @@ Port of memgraph_tpu/query/interpreter.py.  What differs:
   it raises.  Procedures (their snapshots) and the compiled read lane run
   on that device.
 - The families whose modules a later slice of the port brings raise
-  ``NotPortedException`` naming that slice: snapshots and recovery
-  (durability); replication and coordinators (replication); streams,
-  triggers, TTL, ``DUMP DATABASE``, the enum DDL and
-  ``ON_DISK_TRANSACTIONAL`` (the host features' slice).
+  ``NotPortedException`` naming that slice: replication and coordinators
+  (replication); streams, triggers, TTL, ``DUMP DATABASE``, the enum DDL
+  and ``ON_DISK_TRANSACTIONAL`` (the host features' slice).
 - Auth, user and tenant profiles, multi-database and the license run on
   the port's ``auth/``, ``dbms/`` and ``utils/license.py``.  Their
   mutations publish no system transaction: that comes with replication,
@@ -26,8 +25,6 @@ Port of memgraph_tpu/query/interpreter.py.  What differs:
   session's root context's, also after ``USE DATABASE``: the reference
   resolves the tenant's, which has none of its own, so its tenants fall
   back to the empty process-wide store and run open.
-- Settings (``SET DATABASE SETTING``) live in memory: the kvstore that
-  makes them durable comes with durability.
 """
 
 from __future__ import annotations
@@ -53,8 +50,7 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 from ..device import resolve_device
-from ..exceptions import (SLICE_DURABILITY as _DURABILITY,
-                          SLICE_HOST_FEATURES as _HOST_FEATURES,
+from ..exceptions import (SLICE_HOST_FEATURES as _HOST_FEATURES,
                           SLICE_REPLICATION as _REPLICATION,
                           HintedAbortError, NotPortedException,
                           QueryException, SemanticException,
@@ -90,40 +86,6 @@ class _SessionTrace:
         out = self.events
         self.events = []
         return out
-
-
-class _Settings:
-    """Runtime settings (reference: utils/settings.hpp), in memory: a copy
-    of memgraph_tpu/storage/kvstore.py's ``Settings`` without its kvstore,
-    which comes with durability."""
-
-    def __init__(self) -> None:
-        self._cache: dict[str, str] = {}
-        self._observers: dict[str, list] = {}
-
-    def set(self, name: str, value: str) -> None:
-        self._cache[name] = value
-        for fn in self._observers.get(name, []):
-            fn(value)
-
-    def get(self, name: str, default: Optional[str] = None) -> Optional[str]:
-        return self._cache.get(name, default)
-
-    def all(self) -> dict[str, str]:
-        return dict(self._cache)
-
-    def observe(self, name: str, fn) -> None:
-        self._observers.setdefault(name, []).append(fn)
-
-
-def ensure_settings(ictx) -> _Settings:
-    """The one place that lazily attaches the runtime settings to an
-    interpreter context (shared by SET DATABASE SETTING and main's
-    license flags)."""
-    settings = getattr(ictx, "settings", None)
-    if settings is None:
-        settings = ictx.settings = _Settings()
-    return settings
 
 
 class InterpreterContext:
@@ -388,6 +350,7 @@ class Interpreter:
         raise NotPortedException("streams", _HOST_FEATURES)
 
     def _settings(self):
+        from ..storage.kvstore import ensure_settings
         return ensure_settings(self.ctx)
 
     def _prepare_enum(self, node: A.EnumQuery) -> PreparedQuery:
@@ -1423,7 +1386,32 @@ class Interpreter:
                                        ["transaction_id", "killed"], "w")
 
     def _prepare_snapshot(self, node: A.SnapshotQuery) -> PreparedQuery:
-        raise NotPortedException("snapshots and recovery", _DURABILITY)
+        from ..storage.durability.snapshot import (create_snapshot,
+                                                   list_snapshots)
+        storage = self.ctx.storage
+        if node.action == "create":
+            path = create_snapshot(storage)
+            return self._prepare_generator(iter([[str(path)]]),
+                                           ["snapshot"], "s")
+        if node.action == "show":
+            rows = [[str(p), ts] for p, ts in list_snapshots(storage)]
+            return self._prepare_generator(iter(rows),
+                                           ["path", "timestamp"], "r")
+        if node.action == "recover":
+            from ..storage.durability.recovery import (
+                recover_latest_snapshot, recover_snapshot_from)
+            if node.source is not None:
+                if not node.source.strip():
+                    raise QueryException(
+                        "RECOVER SNAPSHOT FROM requires a non-empty "
+                        "source")
+                recover_snapshot_from(storage, node.source)
+            else:
+                recover_latest_snapshot(storage)
+            self.ctx.invalidate_plans()
+            return self._prepare_generator(iter([["Snapshot recovered."]]),
+                                           ["status"], "s")
+        raise SemanticException(f"unknown snapshot action {node.action}")
 
     def _prepare_isolation(self, node: A.IsolationLevelQuery) -> PreparedQuery:
         level = IsolationLevel(node.level)

@@ -1340,10 +1340,8 @@ class InMemoryStorage:
                 # encode ONCE under the lock: object fields hold exactly this
                 # transaction's final state here (no later writer can have
                 # touched them yet — they'd need the lock to commit)
-                # WAL frames come with the port's durability slice
-                raise StorageError(
-                    "commit hooks need WAL frames, which memgraph_tpu_torch "
-                    "does not encode yet")
+                from .durability.wal import encode_txn_ops
+                frame = encode_txn_ops(self, txn, commit_ts)
                 for hook in self.pre_commit_hooks:
                     # 2PC vote: a raise here aborts the commit before any
                     # durability or visibility effect

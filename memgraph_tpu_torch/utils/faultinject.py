@@ -1,19 +1,24 @@
-"""Deterministic device fault injection.
+"""Deterministic fault injection for the device and durability paths.
 
-Copy of the ``device.*`` points of memgraph_tpu/utils/faultinject.py and
-their grammar.  A point is armed programmatically (``arm``) or from the
+Copy of the ``device.*`` and durability points of
+memgraph_tpu/utils/faultinject.py and their grammar (the replication,
+Raft, management and stream points, and the network model, come with
+their slices).  A point is armed programmatically (``arm``) or from the
 ``MEMGRAPH_TPU_FAULTS`` environment variable at import, comma-separated
 specs::
 
-    MEMGRAPH_TPU_FAULTS="device.oom=raise@2,device.hang=delay:0.5@3"
+    MEMGRAPH_TPU_FAULTS="device.oom=raise@2,wal.write=torn:7+kill@5"
 
-    <point>=<action>[:<arg>]@<hit>[;<hit>...]
+    <point>=<action>[:<arg>][+<then>]@<hit>[;<hit>...]
 
 Actions: ``raise`` (``FaultInjected``, an OSError), ``kill``
-(``os._exit(137)``, as a kill -9 would end the process) and
-``delay:<sec>`` (sleep, then continue).  ``@<hits>`` lists the 1-based
-hits at which the action fires; without it every hit fires.  Each point
-counts its own hits.  An unarmed point costs one module-flag read.
+(``os._exit(137)``, as a kill -9 would end the process),
+``delay:<sec>`` (sleep, then continue) and, at write sites,
+``torn:<n>`` (write the record's first n bytes, flush them, then raise,
+or with ``+kill`` end the process: a crash mid-write at an exact byte
+offset).  ``@<hits>`` lists the 1-based hits at which the action fires;
+without it every hit fires.  Each point counts its own hits.  An
+unarmed point costs one module-flag read.
 """
 
 from __future__ import annotations
@@ -36,9 +41,13 @@ KNOWN_POINTS = (
     "device.oom",      # device memory exhausted
     "device.hang",     # armed delay:<sec>: the dispatch stalls
     "device.lost",     # the card is gone: "raise" in process, "kill" ends it
+    "wal.write",       # WalFile.sink, around the record write (torn-able)
+    "wal.fsync",       # WalFile.sink, before os.fsync
+    "snapshot.rename", # create_snapshot, before the tmp -> final os.replace
+    "kvstore.put",     # KVStore.put, before the sqlite write
 )
 
-ACTIONS = ("raise", "kill", "delay")
+ACTIONS = ("raise", "kill", "delay", "torn")
 
 
 class FaultInjected(OSError):
@@ -48,8 +57,9 @@ class FaultInjected(OSError):
 @dataclass
 class _FaultSpec:
     point: str
-    action: str                      # raise | kill | delay
-    arg: float | None = None         # delay seconds
+    action: str                      # raise | kill | delay | torn
+    arg: float | None = None         # delay seconds / torn byte count
+    then: str = "raise"              # torn's follow-up: raise | kill
     hits: frozenset[int] | None = None   # 1-based; None: every hit
     fired: int = field(default=0)
 
@@ -73,21 +83,30 @@ def _parse_spec(text: str) -> _FaultSpec:
     if not rest:
         raise ValueError(f"fault spec {text!r} has no action")
     action_part, _, hits_part = rest.partition("@")
+    then = "raise"
+    if "+" in action_part:
+        action_part, _, then = action_part.partition("+")
+        if then not in ("raise", "kill"):
+            raise ValueError(f"bad torn follow-up {then!r}")
     action, _, arg_s = action_part.partition(":")
     action = action.strip()
     if action not in ACTIONS:
         raise ValueError(f"unknown fault action {action!r}")
-    arg = float(arg_s or 0.05) if action == "delay" else None
+    arg: float | None = None
+    if action == "delay":
+        arg = float(arg_s or 0.05)
+    elif action == "torn":
+        arg = int(arg_s or 0)
     hits = None
     if hits_part:
         hits = frozenset(int(h) for h in hits_part.split(";") if h)
-    return _FaultSpec(point, action, arg, hits)
+    return _FaultSpec(point, action, arg, then, hits)
 
 
 def arm(point: str, action: str, *, arg: float | None = None,
-        at: int | list[int] | None = None) -> None:
+        at: int | list[int] | None = None, then: str = "raise") -> None:
     """Arm one point: ``action`` at hit ``at`` (one or a list; every hit
-    when None)."""
+    when None); ``then`` is a torn write's follow-up."""
     global _ARMED
     if point not in KNOWN_POINTS:
         raise ValueError(f"unknown fault point {point!r}")
@@ -98,7 +117,7 @@ def arm(point: str, action: str, *, arg: float | None = None,
         hits = frozenset([at] if isinstance(at, int) else at)
     with _LOCK:
         _SPECS.setdefault(point, []).append(
-            _FaultSpec(point, action, arg, hits))
+            _FaultSpec(point, action, arg, then, hits))
         _ARMED = True
 
 
@@ -130,11 +149,9 @@ def hit_count(point: str) -> int:
         return _COUNTS.get(point, 0)
 
 
-def fire(point: str) -> None:
-    """The hook of a call site: counts a hit and, when an armed spec
-    matches it, sleeps, raises ``FaultInjected`` or ends the process."""
-    if not _ARMED:
-        return
+def _next_matching(point: str) -> tuple[_FaultSpec | None, int]:
+    """Count a hit on ``point``; the armed spec that fires on it, and the
+    hit's number."""
     with _LOCK:
         hit = _COUNTS.get(point, 0) + 1
         _COUNTS[point] = hit
@@ -142,15 +159,54 @@ def fire(point: str) -> None:
                     None)
         if spec is not None:
             spec.fired += 1
-    if spec is None:
-        return
+    return spec, hit
+
+
+def _execute(spec: _FaultSpec, hit: int) -> None:
     if spec.action == "delay":
         time.sleep(spec.arg or 0.05)
         return
     if spec.action == "kill":
-        log.error("faultinject: killing process at %s (hit %d)", point, hit)
+        log.error("faultinject: killing process at %s (hit %d)",
+                  spec.point, hit)
         os._exit(KILL_EXIT_CODE)
-    raise FaultInjected(f"injected fault at {point} (hit {hit})")
+    # raise (a torn spec fired through fire() has no payload to tear)
+    raise FaultInjected(f"injected fault at {spec.point} (hit {hit})")
+
+
+def fire(point: str) -> None:
+    """The hook of a call site: counts a hit and, when an armed spec
+    matches it, sleeps, raises ``FaultInjected`` or ends the process."""
+    if not _ARMED:
+        return
+    spec, hit = _next_matching(point)
+    if spec is not None:
+        _execute(spec, hit)
+
+
+def faulty_write(point: str, fileobj, data: bytes) -> None:
+    """Write ``data`` to ``fileobj``, honouring the faults armed at
+    ``point``: a torn spec writes the first n bytes, flushes them so they
+    land in the file, then raises (or ends the process)."""
+    if not _ARMED:
+        fileobj.write(data)
+        return
+    spec, hit = _next_matching(point)
+    if spec is None:
+        fileobj.write(data)
+        return
+    if spec.action == "torn":
+        n = int(spec.arg or 0)
+        fileobj.write(data[:n])
+        fileobj.flush()
+        log.error("faultinject: torn write at %s: %d/%d bytes (hit %d)",
+                  point, n, len(data), hit)
+        if spec.then == "kill":
+            os._exit(KILL_EXIT_CODE)
+        raise FaultInjected(
+            f"injected torn write at {point}: {n}/{len(data)} bytes")
+    _execute(spec, hit)
+    fileobj.write(data)
 
 
 def _load_env() -> None:

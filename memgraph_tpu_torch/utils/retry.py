@@ -1,5 +1,6 @@
-"""Retry and backoff policy of the supervised kernel client and the
-routed Bolt client (``server/client.py:RoutedClient``).
+"""Retry and backoff policy of the supervised kernel client, the routed
+Bolt client (``server/client.py:RoutedClient``) and the snapshot download
+of ``RECOVER SNAPSHOT FROM`` (``storage/durability/recovery.py``).
 
 Copy of what the kernel server's client uses of memgraph_tpu/utils/
 retry.py's ``RetryPolicy``: exponential backoff with a cap and seedable
@@ -7,14 +8,14 @@ jitter, a retry budget, ``attempt_timeout`` (the per-attempt budget,
 each call's socket timeout) and ``deadline`` (the wall-clock budget
 across all attempts, backoff sleeps included: ``attempts()`` stops once
 the next backoff would cross it, and the caller sees the last real
-exception).
+exception), and ``call`` (retry a function on ``retry_on``).
 """
 
 from __future__ import annotations
 
 import random
 import time
-from typing import Iterator
+from typing import Callable, Iterator
 
 
 class RetryPolicy:
@@ -65,3 +66,25 @@ class RetryPolicy:
             if left is not None and delay >= left:
                 return
             time.sleep(delay)
+
+    def call(self, fn: Callable, *, retry_on=(ConnectionError, OSError),
+             on_retry: Callable | None = None):
+        """Run fn(), retrying on `retry_on` with backoff; re-raises the
+        last exception once the retry budget OR the overall deadline is
+        exhausted."""
+        t0 = time.monotonic()
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except retry_on as e:
+                if attempt >= self.max_retries:
+                    raise
+                delay = self.delay_for(attempt)
+                left = self.remaining(t0)
+                if left is not None and delay >= left:
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                time.sleep(delay)
+                attempt += 1

@@ -14,7 +14,9 @@ decisions on lane-shaped reads above ``LANE_MIN_ROWS`` (the same counts
 per fingerprint in both registries); the device rule of the port's
 ``InterpreterContext`` (it raises without a card unless asked for the
 CPU); the typed refusal of each query family that a later slice brings;
-the families of the Bolt entry point's slice (auth, profiles,
+the snapshot queries of the durability slice against the JAX interpreter,
+each package on a data directory of its own; the families of the Bolt
+entry point's slice (auth, profiles,
 multi-database, the license) against the JAX interpreter; and an import
 of the whole port with ``jax`` and ``memgraph_tpu`` blocked.
 """
@@ -462,8 +464,6 @@ LATER = [
      "triggers", "triggers"),
     ("SHOW TRIGGERS", "triggers", "triggers"),
     ("ENABLE TTL EVERY '1s'", "TTL", "TTL"),
-    ("CREATE SNAPSHOT", "snapshots and recovery", "durability"),
-    ("RECOVER SNAPSHOT", "snapshots and recovery", "durability"),
     ("DUMP DATABASE", "DUMP DATABASE", "dump"),
     ("CREATE ENUM Status VALUES { Active, Inactive }", "enum DDL", "enums"),
     ("SHOW ENUMS", "enum DDL", "enums"),
@@ -483,6 +483,44 @@ def test_a_family_of_a_later_slice_raises_its_typed_error(query, family,
     assert slice_word in info.value.slice
     # the session goes on
     assert t.execute("RETURN 1")[1] == [[1]]
+
+
+#: the snapshot queries of the durability slice: query -> statements run
+#: before it (on a graph of GRAPH's first statement)
+SNAPSHOT_QUERIES = {
+    "CREATE SNAPSHOT": [],
+    "SHOW SNAPSHOTS": ["CREATE SNAPSHOT"],
+    "RECOVER SNAPSHOT": ["CREATE SNAPSHOT", "CREATE (:Late {v: 1})"],
+    "RECOVER SNAPSHOT FROM ''": [],
+    "RECOVER SNAPSHOT FROM '/nope/missing.mgsnap'": [],
+}
+
+
+@pytest.mark.parametrize("query", SNAPSHOT_QUERIES,
+                         ids=list(SNAPSHOT_QUERIES))
+def test_a_snapshot_query_answers_as_the_reference(query, tmp_path):
+    """Each snapshot query gives the JAX interpreter's outcome (a path
+    becomes its file name's form), and what a recovery leaves equals."""
+    from memgraph_tpu.storage import StorageConfig as JConfig
+    from memgraph_tpu_torch.storage import StorageConfig as TConfig
+    outs = []
+    for name, mod, storage in (
+            ("jax", jinterp, lambda d: JStorage(JConfig(durability_dir=d))),
+            ("torch", tinterp, lambda d: TStorage(TConfig(
+                durability_dir=d)))):
+        d = str(tmp_path / name)
+        ctx = mod.InterpreterContext(storage(d), **(
+            {"device": "cpu"} if name == "torch" else {}))
+        it = mod.Interpreter(ctx)
+        it.execute(GRAPH[0])
+        out = [run(it, q) for q in SNAPSHOT_QUERIES[query] + [query]]
+        out = [re.sub(r"snapshot_\d+_", "snapshot_T_",
+                      repr(o).replace(d, "<dir>")) for o in out]
+        out += [repr(run(it, "MATCH (n) RETURN count(n)")),
+                repr(run(it, "MATCH ()-[r]->() RETURN count(r)"))]
+        outs.append(out)
+    assert outs[1] == outs[0]
+    assert "error" not in outs[1][0] or "FROM" in query
 
 
 #: the families of the Bolt entry point's slice: query -> statements run

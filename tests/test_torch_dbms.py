@@ -8,8 +8,9 @@ package's on the CPU.
 - The device rule: ``DbmsHandler(device="cpu")`` puts every tenant on the
   CPU; with no card (``torch.cuda.is_available`` patched) and no request
   for the CPU it raises.
-- The refusals of later slices: a durability directory and on-disk
-  storage raise ``NotPortedException`` naming their slice.
+- A durability directory: each tenant recovers from its own directory
+  under it, as the reference's do; on-disk storage raises
+  ``NotPortedException`` naming its slice.
 - The reference's tenants run open under auth (ROADMAP Queue 3 item 12):
   the port checks a tenant's statements against the session's store.
 """
@@ -22,8 +23,7 @@ from memgraph_tpu.dbms.dbms import DbmsHandler as JDbms
 from memgraph_tpu.query import interpreter as jinterp
 from memgraph_tpu_torch.auth.auth import Auth as TAuth
 from memgraph_tpu_torch.dbms.dbms import DbmsHandler as TDbms
-from memgraph_tpu_torch.exceptions import (SLICE_DURABILITY,
-                                           SLICE_HOST_FEATURES,
+from memgraph_tpu_torch.exceptions import (SLICE_HOST_FEATURES,
                                            NotPortedException)
 from memgraph_tpu_torch.query import interpreter as tinterp
 from memgraph_tpu_torch.storage import StorageConfig as TConfig
@@ -183,10 +183,39 @@ def test_without_a_card_and_without_the_cpu_it_raises(monkeypatch):
 
 
 def test_a_durability_directory_names_its_slice(tmp_path):
-    with pytest.raises(NotPortedException) as e:
-        TDbms(TConfig(durability_dir=str(tmp_path)), device="cpu")
-    assert e.value.slice == SLICE_DURABILITY
-    assert list(tmp_path.iterdir()) == []
+    """The durability slice has landed: a handler on a durability directory
+    keeps the default database at its root and each tenant under
+    ``databases/<name>``.  A handler built anew on it recovers the default
+    database, and a tenant when it is created again (neither package
+    lists its tenants in the directory), as the reference's does on the
+    same directory."""
+    from memgraph_tpu.storage import StorageConfig as JConfig
+    cfg = TConfig(durability_dir=str(tmp_path), wal_enabled=True)
+    t = TDbms(cfg, device="cpu")
+    it = tinterp.Interpreter(t.default())
+    it.execute("CREATE (:Root {v: 1})")
+    it.execute("CREATE DATABASE t1")
+    it.execute("USE DATABASE t1")
+    it.execute("CREATE INDEX ON :T(v)")
+    it.execute("UNWIND range(1, 3) AS i CREATE (:T {v: i})")
+    assert {"databases", "kvstore.db", "wal"} <= \
+        {p.name for p in tmp_path.iterdir()}
+    assert (tmp_path / "databases" / "t1" / "wal").is_dir()
+    reads = [("memgraph", "MATCH (n) RETURN labels(n), n.v"),
+             ("t1", "MATCH (n:T) RETURN sum(n.v)"),
+             ("t1", "SHOW INDEX INFO")]
+    outs = []
+    for dbms in (TDbms(cfg, device="cpu"),
+                 JDbms(JConfig(durability_dir=str(tmp_path),
+                               wal_enabled=True))):
+        assert dbms.names() == ["memgraph"]
+        dbms.create("t1")
+        outs.append([run(tinterp.Interpreter(dbms.get(db))
+                         if isinstance(dbms, TDbms)
+                         else jinterp.Interpreter(dbms.get(db)), q)
+                     for db, q in reads])
+    assert outs[0] == outs[1]
+    assert outs[0][1][2] == [(6,)]
 
 
 def test_on_disk_storage_names_its_slice():

@@ -8,6 +8,9 @@ package's on the CPU.
 - Each flag of a later slice (``main.LATER_FLAGS``) makes ``main`` exit 1
   with the ``NotPortedException`` text naming its slice; without a card
   and without ``--device cpu`` it exits 2.
+- Each durability flag builds a database that recovers what the JAX
+  package's recovers on the same flags, and a server process started
+  with a data directory writes its exit snapshot and recovers it.
 - ``python -m memgraph_tpu_torch.main --device cpu --bolt-port <free>``
   answers over Bolt and exits on SIGTERM, each step under a timeout.
 - ``--timezone`` (ROADMAP Queue 3 item 13): the reference's
@@ -148,28 +151,6 @@ def test_build_database_puts_the_default_database_on_the_device():
 
 #: an argv that sets each flag of a later slice off its default
 FLAG_ARGV = {
-    "data_directory": ["--data-directory", "mg_data"],
-    "storage_wal_enabled": ["--no-storage-wal-enabled"],
-    "storage_wal_file_size_kib": ["--storage-wal-file-size-kib", "1"],
-    "storage_snapshot_on_exit": ["--storage-snapshot-on-exit"],
-    "storage_recover_on_startup": ["--no-storage-recover-on-startup"],
-    "data_recovery_on_startup": ["--data-recovery-on-startup"],
-    "storage_snapshot_interval_sec": ["--storage-snapshot-interval-sec",
-                                      "5"],
-    "storage_snapshot_interval": ["--storage-snapshot-interval", "5"],
-    "storage_snapshot_retention_count": [
-        "--storage-snapshot-retention-count", "5"],
-    "storage_snapshot_thread_count": ["--storage-snapshot-thread-count",
-                                      "2"],
-    "storage_parallel_snapshot_creation": [
-        "--no-storage-parallel-snapshot-creation"],
-    "storage_parallel_schema_recovery": [
-        "--no-storage-parallel-schema-recovery"],
-    "storage_allow_recovery_failure": ["--storage-allow-recovery-failure"],
-    "aws_access_key": ["--aws-access-key", "k"],
-    "aws_secret_key": ["--aws-secret-key", "s"],
-    "aws_region": ["--aws-region", "r"],
-    "aws_endpoint_url": ["--aws-endpoint-url", "http://s3.invalid"],
     "replication_restore_state_on_startup": [
         "--replication-restore-state-on-startup"],
     "coordinator_id": ["--coordinator-id", "1"],
@@ -194,6 +175,37 @@ FLAG_ARGV = {
 }
 SLICE_OF = {**T.LATER_FLAGS, "storage_mode": TE.SLICE_HOST_FEATURES}
 
+#: an argv that sets each durability flag off its default (beside
+#: ``--data-directory``), and the environment an ``--aws-*`` flag sets
+DURABILITY_ARGV = {
+    "data_directory": [],
+    "storage_wal_enabled": ["--no-storage-wal-enabled"],
+    "storage_wal_file_size_kib": ["--storage-wal-file-size-kib", "1"],
+    "storage_snapshot_on_exit": ["--storage-snapshot-on-exit"],
+    "storage_recover_on_startup": ["--no-storage-recover-on-startup"],
+    "data_recovery_on_startup": ["--data-recovery-on-startup"],
+    "storage_snapshot_interval_sec": ["--storage-snapshot-interval-sec",
+                                      "3600"],
+    "storage_snapshot_interval": ["--storage-snapshot-interval", "3600"],
+    "storage_snapshot_retention_count": [
+        "--storage-snapshot-retention-count", "1"],
+    "storage_snapshot_thread_count": ["--storage-snapshot-thread-count",
+                                      "2"],
+    "storage_parallel_snapshot_creation": [
+        "--no-storage-parallel-snapshot-creation"],
+    "storage_parallel_schema_recovery": [
+        "--no-storage-parallel-schema-recovery"],
+    "storage_allow_recovery_failure": ["--storage-allow-recovery-failure"],
+    "aws_access_key": ["--aws-access-key", "k"],
+    "aws_secret_key": ["--aws-secret-key", "s"],
+    "aws_region": ["--aws-region", "r"],
+    "aws_endpoint_url": ["--aws-endpoint-url", "http://s3.invalid"],
+}
+AWS_ENV = {"aws_access_key": ("AWS_ACCESS_KEY_ID", "k"),
+           "aws_secret_key": ("AWS_SECRET_ACCESS_KEY", "s"),
+           "aws_region": ("AWS_DEFAULT_REGION", "r"),
+           "aws_endpoint_url": ("AWS_ENDPOINT_URL", "http://s3.invalid")}
+
 
 def test_every_later_flag_has_a_case():
     assert set(FLAG_ARGV) == set(SLICE_OF)
@@ -212,6 +224,56 @@ def test_a_flag_of_a_later_slice_exits_1_naming_it(flag, caplog, tmp_path,
         assert T.main(argv) == 1
     assert SLICE_OF[flag] in caplog.text
     assert list(tmp_path.iterdir()) == []          # nothing was written
+
+
+def test_no_durability_flag_is_a_later_slices():
+    assert not set(DURABILITY_ARGV) & set(T.LATER_FLAGS)
+    assert set(DURABILITY_ARGV) <= set(vars(T.build_config([])))
+
+
+def _restart_counts(mod, d, argv):
+    """Counts of :K after writing one vertex, a snapshot and one more
+    vertex on a database built from ``argv``, and then on one built anew
+    from the same flags and directory."""
+    interp = tinterp if mod is T else jinterp
+    extra = ["--device", "cpu"] if mod is T else []
+    full = QUIET + ["--data-directory", str(d)] + argv + extra
+    it = interp.Interpreter(mod.build_database(mod.build_config(full)))
+    it.execute("CREATE (:K {v: 1})")
+    it.execute("CREATE SNAPSHOT")
+    it.execute("CREATE (:K {v: 2})")
+    before = it.execute("MATCH (k:K) RETURN count(k)")[1]
+    it = interp.Interpreter(mod.build_database(mod.build_config(full)))
+    return before, it.execute("MATCH (k:K) RETURN count(k)")[1]
+
+
+@pytest.mark.parametrize("flag", sorted(DURABILITY_ARGV))
+def test_a_durability_flag_builds_a_database_that_recovers(flag, tmp_path,
+                                                           monkeypatch):
+    """What a database built on each durability flag recovers after a
+    restart: the JAX package's answer on the same flags (its
+    ``build_database`` raises ``UnboundLocalError`` on an ``--aws-*``
+    flag, ROADMAP Queue 3 item 13: there the port sets the variable and
+    recovers as without the flag)."""
+    from memgraph_tpu.storage.durability import snapshot as JS
+    from memgraph_tpu_torch.storage.durability import snapshot as TS
+    monkeypatch.chdir(tmp_path)
+    for mod in (JS, TS):
+        monkeypatch.setattr(mod, "POOL_WORKERS", mod.POOL_WORKERS)
+    for env, _ in AWS_ENV.values():
+        monkeypatch.delenv(env, raising=False)
+    argv = DURABILITY_ARGV[flag]
+    got = _restart_counts(T, tmp_path / "torch", argv)
+    if flag in AWS_ENV:
+        env, value = AWS_ENV[flag]
+        assert os.environ[env] == value
+        want = _restart_counts(J, tmp_path / "jax", [])
+    else:
+        want = _restart_counts(J, tmp_path / "jax", argv)
+    assert got == want
+    assert got[0] == [[2]]
+    assert got[1] == {"storage_recover_on_startup": [[0]],
+                      "storage_wal_enabled": [[1]]}.get(flag, [[2]])
 
 
 def test_without_a_card_main_exits_2_and_says_why(monkeypatch, caplog):
@@ -277,3 +339,57 @@ def test_the_server_process_answers_and_exits_on_sigterm(tmp_path):
             proc.wait(timeout=30)
         log.close()
     assert "Bolt server listening" in (tmp_path / "server.log").read_text()
+
+
+def _start_server(tmp_path, port, argv, log_name):
+    log = open(tmp_path / log_name, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "memgraph_tpu_torch.main", "--device", "cpu",
+         "--bolt-address", "127.0.0.1", "--bolt-port", str(port)] + argv
+        + QUIET, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 120
+    while True:
+        assert proc.poll() is None, (tmp_path / log_name).read_text()
+        assert time.monotonic() < deadline, "the server never listened"
+        try:
+            return proc, log, BoltClient(port=port, timeout=30)
+        except OSError:
+            time.sleep(0.2)
+
+
+def test_a_server_with_a_data_directory_recovers_after_a_restart(tmp_path):
+    """``--data-directory D --storage-wal-enabled
+    --storage-snapshot-on-exit``: a write over Bolt, SIGTERM (exit 0,
+    the exit snapshot written), then a server started with
+    ``--storage-recover-on-startup`` on D answers it over Bolt."""
+    data = tmp_path / "data"
+    argv = ["--data-directory", str(data), "--storage-wal-enabled",
+            "--storage-snapshot-on-exit", "--storage-recover-on-startup"]
+    for step in range(2):
+        proc, log, client = _start_server(tmp_path, free_port(), argv,
+                                          f"server{step}.log")
+        try:
+            if step == 0:
+                client.execute("CREATE INDEX ON :Kept(v)")
+                client.execute("UNWIND range(1, 5) AS i "
+                               "CREATE (:Kept {v: i})")
+            rows = client.execute("MATCH (k:Kept) RETURN sum(k.v)")[1]
+            indexes = client.execute("SHOW INDEX INFO")[1]
+        finally:
+            client.close()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                assert proc.wait(timeout=60) == 0
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                log.close()
+        assert rows == [[15]]
+        assert [r[:3] for r in indexes] == [["label+property", "Kept",
+                                             ["v"]]]
+        assert "exit snapshot written" in \
+            (tmp_path / f"server{step}.log").read_text()
+        assert len(list((data / "snapshots").glob("*.mgsnap"))) == step + 1
+
