@@ -63,8 +63,8 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    iterations at damping 0.85 and tol 0, in f32 and in bf16 (one MXU
    plan serves both).  Launch counts are reset just before and read just
    after, and must equal what the plan's networks imply.  f32 ranks
-   against a float64 scipy power iteration; bf16 against f32 inside
-   ``PRECISION_BOUNDS["bf16"]``.  Placement must not call
+   against a float64 power iteration (``reference_pagerank``); bf16
+   against f32 inside ``PRECISION_BOUNDS["bf16"]``.  Placement must not call
    ``np.unpackbits``; the line gives each route's placement split (host
    mask selection, upload, CUDA-event compose time).  Each kernel is then
    held against its plain version on the main path's own networks and
@@ -96,7 +96,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    It rides PageRank's plan and placed routes: it fails if
    ``build_plan`` ran, if any route was placed, if a stage kernel ran, or
    if a run made other than 2 x 50 ``benes_mid_gather`` and 4 x 50
-   ``benes_outer_gather`` launches.  f32 against a float64 scipy run of
+   ``benes_outer_gather`` launches.  f32 against a float64 run of
    the recurrence (max relative 1e-4, top-100 100/100), bf16 against f32
    inside ``PRECISION_BOUNDS["bf16"]["katz_rel"]``.  One ``katz`` line:
    the unnormalized plan's derivation and the multipliers' placement
@@ -134,7 +134,7 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    ``segment_kernels`` lines only).  ``segment_kernels`` lines.
 9. PPR on the north star (``ppr`` line), counts reset just before and
    read just after: one PPR (3 seeded sources, 50 iterations) against a
-   float64 scipy power iteration (max error 1e-4 of the largest entry,
+   float64 power iteration (max error 1e-4 of the largest entry,
    top-100 100/100); a 32-lane batch (1-5 seeded sources a lane, tol
    1e-6) whose lanes 0, 7, 19 and 31 are bit-equal to sequential runs
    with equal iterations; a 3-lane batch (bucket 4, padding dropped)
@@ -435,12 +435,20 @@ Run from the root of a checkout.  Phases (any failed check exits nonzero):
    Benes four) and lane read are held to the database before the
    restart, and four read workers forked from it serve host reads and
    refuse device work.  See ``durability_step``.
-35. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
+35. Replication, coordination and sharding (``replication``,
+   ``failover`` and ``sharding`` lines, ``replication/``,
+   ``coordination/``, ``sharding/``): the recovered database as a MAIN
+   with a replica caught up by snapshot, the replica's CALLs on the
+   Benes kernels before and after a SYNC commit, a failover under three
+   coordinators and the promoted MAIN's CALL, then a 4-worker shard
+   plane that refuses device work with 0 launches.  See ``cluster_step``.
+36. A JSON line of kernels ({"kernels": [...]}: the Benes four, the ten
    micro kernels, ``csr_spmm_sum`` and ``lane_sum``, each with its
    launches by path, ``lane``, ``tier``, ``tgn``, ``embeddings``,
-   ``trace``, ``node2vec_sharded``, ``cypher``, ``bolt``, ``durability``
-   and ``mp_executor`` among them), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+   ``trace``, ``node2vec_sharded``, ``cypher``, ``bolt``, ``durability``,
+   ``mp_executor``, ``replication``, ``failover`` and ``sharding`` among
+   them), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Times are CUDA-event times (kernels: launches queued behind a device
 spin, ``device_ms``, so a short kernel's time is not its Python
@@ -513,21 +521,37 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+#: where ``reference_pagerank`` runs: the card (a CPU rehearsal sets "cpu")
+REF_DEVICE = "cuda"
+
+
 def reference_pagerank(src, dst, n_nodes, iterations=ITERATIONS,
                        damping=DAMPING):
-    """float64 scipy CSR power iteration (bench.py:88-109)."""
-    import scipy.sparse as sp
-    deg = np.bincount(src, minlength=n_nodes).astype(np.float64)
-    inv_deg = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
-    mat = sp.csr_matrix((inv_deg[src], (dst, src)),
-                        shape=(n_nodes, n_nodes))
+    """float64 CSR power iteration (bench.py:88-109), on ``REF_DEVICE``:
+    torch's float64 sparse CSR product (cuSPARSE on the card), none of the
+    port's kernels; parallel edges sum, as in scipy's matrix.  (scipy on
+    the host took ~0.08 s an iteration at 10M edges, ~110 s over the
+    script's references.)"""
+    import torch
+    dev = torch.device(REF_DEVICE)
+    s_ = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
+    d_ = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
+    deg = torch.bincount(s_, minlength=n_nodes).to(torch.float64)
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1), 0.0)
+    with warnings.catch_warnings():     # torch's sparse beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        mat = torch.sparse_coo_tensor(
+            torch.stack([d_, s_]), inv_deg[s_], (n_nodes, n_nodes),
+            dtype=torch.float64).coalesce().to_sparse_csr()
+    del s_, d_
     dangling = deg == 0
-    rank = np.full(n_nodes, 1.0 / n_nodes)
+    rank = torch.full((n_nodes,), 1.0 / n_nodes, dtype=torch.float64,
+                      device=dev)
     for _ in range(iterations):
         dm = rank[dangling].sum()
-        rank = (1 - damping) / n_nodes + damping * (mat @ rank
-                                                    + dm / n_nodes)
-    return rank
+        rank = (1 - damping) / n_nodes + damping * (
+            (mat @ rank[:, None])[:, 0] + dm / n_nodes)
+    return rank.cpu().numpy()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1648,40 +1672,65 @@ def transposed_adjacency(src, dst, n_nodes):
                          shape=(n_nodes, n_nodes))
 
 
+def ref_csr(mat):
+    """A scipy CSR matrix as torch's float64 sparse CSR on ``REF_DEVICE``,
+    for the references' products (cuSPARSE on the card)."""
+    import torch
+    dev = torch.device(REF_DEVICE)
+    with warnings.catch_warnings():     # torch's sparse beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(mat.indptr.astype(np.int64), device=dev),
+            torch.as_tensor(mat.indices.astype(np.int64), device=dev),
+            torch.as_tensor(mat.data, dtype=torch.float64, device=dev),
+            mat.shape)
+
+
+def ref_mv(mat, x):
+    """mat @ x of a torch sparse matrix and a vector."""
+    return (mat @ x[:, None])[:, 0]
+
+
 def reference_katz(a_t, alpha, beta=KATZ_BETA, iterations=ITERATIONS):
-    """float64 scipy run of x <- alpha Aᵀx + beta from zeros."""
-    x = np.zeros(a_t.shape[0])
+    """float64 run of x <- alpha Aᵀx + beta from zeros (on ``REF_DEVICE``)."""
+    import torch
+    m = ref_csr(a_t)
+    x = torch.zeros(a_t.shape[0], dtype=torch.float64, device=m.device)
     for _ in range(iterations):
-        x = alpha * (a_t @ x) + beta
-    return x
+        x = alpha * ref_mv(m, x) + beta
+    return x.cpu().numpy()
 
 
 def spectral_radius(a_t, iterations=100) -> float:
     """λ of Aᵀ by a float64 power iteration (||Aᵀx|| / ||x||): katz
     contracts for α λ < 1, and ``katz_rel`` holds for α λ <= 1/2."""
+    import torch
+    m = ref_csr(a_t)
     n_nodes = a_t.shape[0]
-    x = np.ones(n_nodes) / np.sqrt(n_nodes)
+    x = torch.full((n_nodes,), 1.0 / np.sqrt(n_nodes), dtype=torch.float64,
+                   device=m.device)
     lam = 0.0
     for _ in range(iterations):
-        y = a_t @ x
-        lam = float(np.linalg.norm(y))
+        y = ref_mv(m, x)
+        lam = float(torch.linalg.norm(y))
         x = y / max(lam, 1e-300)
     return lam
 
 
 def reference_hits(a_t, iterations=ITERATIONS):
-    """float64 scipy run of HITS's steps (ops/katz.py:_hits_step): the
+    """float64 run of HITS's steps (ops/katz.py:_hits_step): the
     authorities from the hubs, then the hubs from the new authorities,
-    each L2-normalized, from ones."""
-    a = a_t.T.tocsr()
-    hub = np.ones(a_t.shape[0])
+    each L2-normalized, from ones (on ``REF_DEVICE``)."""
+    import torch
+    m_t, m = ref_csr(a_t), ref_csr(a_t.T.tocsr())
+    hub = torch.ones(a_t.shape[0], dtype=torch.float64, device=m.device)
     auth = hub
     for _ in range(iterations):
-        auth = a_t @ hub
-        auth = auth / max(np.linalg.norm(auth), 1e-30)
-        hub = a @ auth
-        hub = hub / max(np.linalg.norm(hub), 1e-30)
-    return hub, auth
+        auth = ref_mv(m_t, hub)
+        auth = auth / max(float(torch.linalg.norm(auth)), 1e-30)
+        hub = ref_mv(m, auth)
+        hub = hub / max(float(torch.linalg.norm(hub)), 1e-30)
+    return hub.cpu().numpy(), auth.cpu().numpy()
 
 
 def vs_float64(got, ref) -> dict:
@@ -2253,21 +2302,23 @@ def segment_kernel_entries(lines: dict, mxu: dict, by_path: dict) -> list:
 
 def reference_ppr(src, dst, n_nodes, sources, iterations=ITERATIONS,
                   damping=DAMPING):
-    """float64 scipy power iteration of PPR (ops/pagerank.py's update)
-    from the normalized restart vector."""
+    """float64 power iteration of PPR (ops/pagerank.py's update) from the
+    normalized restart vector (on ``REF_DEVICE``)."""
     import scipy.sparse as sp
+    import torch
     deg = np.bincount(src, minlength=n_nodes).astype(np.float64)
     inv_deg = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
-    mat = sp.csr_matrix((inv_deg[src], (dst, src)),
-                        shape=(n_nodes, n_nodes))
-    dangling = deg == 0
-    p = np.zeros(n_nodes)
-    p[np.asarray(sources)] = 1.0
+    mat = ref_csr(sp.csr_matrix((inv_deg[src], (dst, src)),
+                                shape=(n_nodes, n_nodes)))
+    dangling = torch.as_tensor(deg == 0, device=mat.device)
+    p = torch.zeros(n_nodes, dtype=torch.float64, device=mat.device)
+    p[torch.as_tensor(np.asarray(sources), device=mat.device)] = 1.0
     p /= p.sum()
-    x = p.copy()
+    x = p.clone()
     for _ in range(iterations):
-        x = (1 - damping) * p + damping * (mat @ x + x[dangling].sum() * p)
-    return x
+        x = (1 - damping) * p + damping * (ref_mv(mat, x)
+                                           + x[dangling].sum() * p)
+    return x.cpu().numpy()
 
 
 def phase_ppr(base: dict):
@@ -7126,6 +7177,18 @@ MP_WORKERS = 4
 MP_READ_IDS = (0, 1, 7, 1_000, 54_321, 199_999)
 MP_PARENT_COMMIT = 100
 BOLT_GENERAL_ERROR = "Memgraph.TransientError.General.Error"
+# the cluster step: the replicated commit's seed (1,000 edges, as the
+# cypher phase's), the promoted MAIN's commit, the shard plane's workers
+# and the Pokec-flavoured OLTP shape of OLTP_r13.json at a twentieth
+# (1M users / 5M follows there), its seed and its load batches a shard
+CLUSTER_COMMIT_SEED = 41
+FAILOVER_COMMIT = 100
+FAILOVER_COMMIT_SEED = 43
+SHARD_WORKERS = 4
+SHARD_USERS = 50_000
+SHARD_FOLLOWS = 250_000
+SHARD_SEED = 47
+SHARD_BATCH = 5_000
 
 
 def peak_rss_mb() -> float:
@@ -7225,11 +7288,16 @@ def phase_cypher(base: dict, n_nodes: int = CYPHER_NODES,
        reference's documented defaults have it: snapshot, WAL tail,
        restart by recovery, the forked read pool (its own ``phase_s
        durability`` line and ``durability`` / ``mp_executor`` lines).
+    6. ``cluster_step``: the recovered database as a MAIN, a replica of
+       it, failover under three coordinators, and the shard plane (its
+       ``phase_s cluster`` line and ``replication``, ``failover`` and
+       ``sharding`` lines).
 
     ``n_nodes``, ``n_edges`` and ``device`` exist to rehearse the phase
     small on the CPU; the script runs it at the sizes above on the card.
-    Returns the path's launches, the Bolt step's, the durability step's
-    and the forked read pool's."""
+    Returns the path's launches, the Bolt step's, the durability step's,
+    the forked read pool's and the cluster step's (by path:
+    ``replication``, ``failover``, ``sharding``)."""
     import shutil
     import tempfile
     from memgraph_tpu_torch.northstar import generate_graph
@@ -7489,15 +7557,23 @@ def _phase_cypher(summary, src, dst, n_nodes, n_edges, device, data_dir):
     if device != "cpu":
         torch.cuda.empty_cache()
     check(gone() is None, "the storage before the restart is still held")
-    durability_launches, mp_launches = durability_after(
+    durability_launches, mp_launches, main_db = durability_after(
         before, data_dir, n_nodes, call, ranks_by_id, vs64, sync, device,
         src_all=np.concatenate([before["src"], before["tail_src"]]),
         dst_all=np.concatenate([before["dst"], before["tail_dst"]]))
     print(f"phase_s durability {time.perf_counter() - t0:.3f}", flush=True)
+
+    # --- the cluster: a replica, failover, the shard plane ---------------
+    t0 = time.perf_counter()
+    cluster_launches = cluster_step(main_db, n_nodes, call, ranks_by_id,
+                                    vs64, sync, device)
+    print(f"phase_s cluster {time.perf_counter() - t0:.3f}", flush=True)
+    del main_db
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
-    return launches, bolt_launches, durability_launches, mp_launches
+    return (launches, bolt_launches, durability_launches, mp_launches,
+            cluster_launches)
 
 
 def bolt_commit_edges(n_nodes):
@@ -7633,8 +7709,9 @@ def durability_after(before, data_dir, n_nodes, call, ranks_by_id, vs64,
        worker.  Then a commit of ``MP_PARENT_COMMIT`` edges in the
        parent, and its CALL launches the Benes gathers again.
 
-    Returns the step's launches (3, 4 and 5's last CALL) and the read
-    pool's, kernel by kernel."""
+    Returns the step's launches (3, 4 and 5's last CALL), the read
+    pool's, kernel by kernel, and the database ({"ictx", "interp", "src",
+    "dst"}: its edges) for the cluster step, which closes it."""
     import torch
     from memgraph_tpu_torch import main as M
     from memgraph_tpu_torch.exceptions import DeviceWorkRefused
@@ -7856,9 +7933,563 @@ def durability_after(before, data_dir, n_nodes, call, ranks_by_id, vs64,
                              "benes_mid_gather", "benes_outer_gather")}}
     mp["peak_rss_mb"] = peak_rss_mb()
     print("mp_executor", json.dumps(mp), flush=True)
+    del acc
+    main_db = {"ictx": ictx, "interp": interp,
+               "src": np.concatenate([src_all, add_s]),
+               "dst": np.concatenate([dst_all, add_d])}
+    return launches, mp_launches, main_db
+
+
+def free_ports(n: int) -> list:
+    """n distinct free ephemeral ports on 127.0.0.1 (bound together, then
+    released), for the peers that must know each other's before start."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    out = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return out
+
+
+def wait_for(pred, what: str, timeout: float = 120.0) -> float:
+    """Seconds until ``pred()`` held (polled); fails after ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{what}: not within {timeout} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def cluster_step(main_db, n_nodes, call, ranks_by_id, vs64, sync, device):
+    """Replication, coordination and sharding on the card (``replication``,
+    ``failover`` and ``sharding`` lines), with the durability step's
+    recovered database ({"ictx", "interp", "src", "dst"}) as the MAIN
+    ("m0"), which it closes.  The launches of each path are counted from 0
+    just before it and read just after.
+
+    1. A replica ("r1"): a database built by ``main.build_database`` on
+       the card with ``--management-port``, ``SET REPLICATION ROLE TO
+       REPLICA WITH PORT 0``; on the MAIN ``REGISTER REPLICA r1 SYNC TO``
+       it: catch-up by snapshot transfer, its seconds split into the
+       MAIN's snapshot, the transfer and the replica's apply, and the peak
+       RSS (MAIN and replica share this process).  The two databases'
+       counts, indexes and users are equal, and their ``export_csr``
+       array for array.
+    2. The replica's cold ``CALL pagerank.get()`` (``replication`` path):
+       one MXU plan, ``benes_mid`` 2 / ``benes_outer`` 4 at placement and
+       2 / 4 gathers an iteration; bit-equal to
+       ``procedures.graph_algorithms.pagerank_get`` on the MAIN's storage
+       at the same version (a graph cache and a warm pool of its own:
+       the same snapshot, plan and start), within ``PR_PROC_L1`` of
+       float64; split into export, plan and iterations.
+    3. A commit of ``CYPHER_COMMIT`` edges on the MAIN (seed
+       ``CLUSTER_COMMIT_SEED``): SYNC, so the replica has it when the
+       commit returns; its CALL (``replication``) takes a delta export, a
+       DeltaPlan (the delta net: ``benes_mid`` 1 / ``benes_outer`` 2, 3 /
+       6 gathers an iteration) and a warm start, no plan build, and is
+       bit-equal to that library call on the MAIN after the same commit.
+       A write on the replica is refused with the reference's message.
+    4. Failover: a management server on each data instance, three
+       ``CoordinatorInstance``s in process (seeded ``random.Random``
+       election timeouts); both instances registered, and the topology
+       they run (m0 MAIN, r1 its SYNC replica) committed through Raft as
+       it is (``set_main`` proposed without reconfiguring the instances:
+       a demote restarts a replica's server, which forgets its position,
+       and the next registration would ship the 2M-edge snapshot again).
+       m0's management server stops; the coordinators promote r1 and the
+       fencing epoch rises; the seconds from the stop to the first
+       accepted write on r1 (a commit of ``FAILOVER_COMMIT`` edges) are
+       printed.  r1's CALL (``failover``): a delta export, a DeltaPlan,
+       one delta net, no plan build, within ``PR_PROC_L1`` of float64 on
+       the new graph.  A ``BoltClient`` ROUTE against a coordinator's
+       port Bolt server names r1 as WRITE.  m0's management server
+       returns: the coordinators demote it (the reference's reconcile)
+       and its write is refused as a REPLICA's; the coordinators stop
+       before their next round would ship m0 a second 2M-edge catch-up.
+       (A deposed MAIN learns
+       its epoch from a replica that heard it, ``FencedException``; with
+       r1 promoted it has none: tests/test_torch_coordination.py runs
+       that chain with three data instances.)  The coordinators stop and
+       both databases are freed before the next part.
+    5. ``ShardPlane`` with ``SHARD_WORKERS`` workers forked from this
+       process (the card live in it): ``SHARD_USERS`` users and
+       ``SHARD_FOLLOWS`` follows (numpy, seed ``SHARD_SEED``) loaded
+       routed by id, a follow on its source's shard as an edge to a
+       ``:Ref`` of its target; point reads; scatter counts equal to
+       numpy; a cross-shard 2PC write; a routed ``CALL pagerank.get()``
+       refused with ``DeviceWorkRefused``; a worker killed and respawned
+       from its WAL with the counts unchanged; 0 launches of every
+       kernel while the plane serves (``sharding``).
+
+    Returns {"replication": ..., "failover": ..., "sharding": ...}, each
+    kernel's launches on that path."""
+    import random
+    import torch
+    from memgraph_tpu_torch import main as M
+    from memgraph_tpu_torch.coordination import CoordinatorInstance
+    from memgraph_tpu_torch.coordination.data_instance import (
+        DataInstanceManagementServer)
+    from memgraph_tpu_torch.ops.csr import GLOBAL_GRAPH_CACHE, GraphCache
+    from memgraph_tpu_torch.ops.delta import LocalWarmPool
+    from memgraph_tpu_torch.procedures import graph_algorithms as P
+    from memgraph_tpu_torch.query.interpreter import (Interpreter,
+                                                      InterpreterContext)
+    from memgraph_tpu_torch.server.bolt import BoltServer
+    from memgraph_tpu_torch.server.client import BoltClient
+    from memgraph_tpu_torch.storage.source import StorageSource
+    from memgraph_tpu_torch.utils.metrics import global_metrics
+
+    card = card_line() if device != "cpu" else "cpu"
+    ictx, interp = main_db["ictx"], main_db["interp"]
+    src, dst = main_db["src"], main_db["dst"]
+    storage = ictx.storage
+    paths = {p: dict.fromkeys(all_counts(), 0)
+             for p in ("replication", "failover", "sharding")}
+
+    def add(path, moved):
+        for k, v in moved.items():
+            paths[path][k] += v
+
+    def commit_pairs(session, seed, m):
+        rng = np.random.default_rng(seed)
+        s_ = rng.integers(0, n_nodes, m)
+        d_ = (rng.random(m) ** 2 * n_nodes).astype(np.int64)
+        t0 = time.perf_counter()
+        session.execute("UNWIND $pairs AS p MATCH (a:User {id: p[0]}), "
+                        "(b:User {id: p[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+                        {"pairs": np.stack([s_, d_], 1).tolist()})
+        return s_, d_, time.perf_counter() - t0
+
+    def library(target_storage, cache, pool):
+        """pagerank_get on a storage, ranks by user id."""
+        acc = target_storage.access()
+        try:
+            lib = P.pagerank_get(StorageSource(acc), cache=cache, pool=pool,
+                                 device=device)
+            id_pid = target_storage.property_mapper.name_to_id("id")
+            ids = [target_storage._vertices[int(g)].properties[id_pid]
+                   for g in lib["node_gids"]]
+        finally:
+            acc.commit()
+        out = np.full(n_nodes, np.nan)
+        out[ids] = lib["rank"]
+        sync()
+        return out
+
+    # --- 1. the replica ------------------------------------------------------
+    mgmt_m, mgmt_r = free_ports(2)
+    rctx = M.build_database(M.build_config(
+        ["--device", device, "--storage-gc-cycle-sec", "0",
+         "--memory-warning-threshold", "0", "--bolt-port", "0",
+         "--management-port", str(mgmt_r)]))
+    rinterp = Interpreter(rctx)
+    rinterp.execute("SET REPLICATION ROLE TO REPLICA WITH PORT 0")
+    repl_r = rctx.replication.replica_server.port
+    rep = {"card": card}
+    t0 = time.perf_counter()
+    interp.execute(f"REGISTER REPLICA r1 SYNC TO '127.0.0.1:{repl_r}'")
+    catchup_s = time.perf_counter() - t0
+    client = ictx.replication.replicas["r1"]
+    server = rctx.replication.replica_server
+    check(client.catchup_used == "snapshot",
+          f"the replica caught up by {client.catchup_used}")
+    st = client.catchup_stats
+    apply_s = server.apply_stats["snapshot_apply_s"]
+    rep["catchup"] = {"s": catchup_s, "snapshot_s": st["snapshot_s"],
+                      "transfer_s": st["ship_s"] - apply_s,
+                      "apply_s": apply_s, "bytes": st["bytes"],
+                      "peak_rss_mb": peak_rss_mb()}
+    print("replication catchup", json.dumps(rep["catchup"]), flush=True)
+    # the replica's 2.2M applied objects are long-lived: into the
+    # permanent generation, as batch_insert paces a bulk load (else each
+    # full collection rescans both databases); thawed before they go
+    gc.freeze()
+    # the MAIN's users arrived with the catch-up's system state
+    rinterp.username = "admin"
+    counts_m, counts_r = database_counts(interp), database_counts(rinterp)
+    check(counts_r == counts_m,
+          f"the replica holds {counts_r}, the MAIN {counts_m}")
+    differ = same_export(host_export(rctx.storage), host_export(storage))
+    check(not differ, f"the replica's export_csr differs in {differ}")
+    rep["same"] = {**counts_r, "export_equal": True}
+
+    # --- 2. the replica's cold CALL -------------------------------------------
+    main_cache, main_pool = GraphCache(), LocalWarmPool()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with cypher_split(P, sync) as split:
+        cols, rows, _ = rinterp.execute(call)
+        sync()
+    t_cold = time.perf_counter() - t0
+    moved = all_counts()
+    add("replication", moved)
+    check(cols == ["id", "rank"] and len(rows) == n_nodes,
+          f"the replica's CALL gave {cols} and {len(rows)} rows")
+    check(split["calls"].get("build_plan") == 1,
+          f"the replica's CALL planned {split['calls']}, not one MXU plan")
+    sol = P.GLOBAL_WARM_POOL.solution(rctx.storage, "pagerank")
+    iters = sol.iters
+    want = {"benes_mid": 2, "benes_outer": 4, "benes_mid_gather": 2 * iters,
+            "benes_outer_gather": 4 * iters}
+    check(all(moved[k] == v for k, v in want.items()),
+          f"the replica's cold CALL launched {moved}, not {want} at "
+          f"{iters} iterations")
+    ranks = ranks_by_id(rows)
+    lib = library(storage, main_cache, main_pool)
+    check(np.array_equal(lib, ranks),
+          "the replica's cold CALL is not bit-equal to pagerank_get on the "
+          "MAIN at the same version")
+    l1 = vs64(ranks, src, dst)
+    check(l1 <= PR_PROC_L1, f"the replica's CALL off float64 by L1 {l1}")
+    rep["cold_call"] = {
+        "s": t_cold, "iterations": iters,
+        "split": {k: split[k] for k in ("export_s", "plan_s",
+                                        "iterations_s")},
+        "l1_vs_float64": l1, "bit_equal_main": True,
+        "launches": {k: moved[k] for k in want}}
+    (_, rows_w, _) = rinterp.execute(call)
+    check(np.array_equal(ranks_by_id(rows_w), ranks),
+          "the replica's warm CALL is not its cold CALL's answer")
+
+    # --- 3. a commit on the MAIN, then the replica's CALL ---------------------
+    add_s, add_d, commit_s = commit_pairs(interp, CLUSTER_COMMIT_SEED,
+                                          CYPHER_COMMIT)
+    src, dst = np.concatenate([src, add_s]), np.concatenate([dst, add_d])
+    got = rinterp.execute("MATCH ()-[e]->() RETURN count(e)")[1][0][0]
+    check(got == len(src), f"after the SYNC commit the replica holds {got} "
+                           f"edges, not {len(src)}")
+    delta0 = GLOBAL_GRAPH_CACHE.counters["export.delta"]
+    warm0 = global_metrics.value("delta.warm_start_total")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with cypher_split(P, sync) as split2:
+        rows2 = rinterp.execute(call)[1]
+        sync()
+    t_warm = time.perf_counter() - t0
+    moved = all_counts()
+    add("replication", moved)
+    check(GLOBAL_GRAPH_CACHE.counters["export.delta"] == delta0 + 1,
+          "the replica's CALL after the commit did not export by delta")
+    check(split2["calls"].get("build_plan") is None
+          and split2["calls"].get("build_delta_plan") == 1,
+          f"the replica's CALL after the commit planned {split2['calls']}")
+    check(global_metrics.value("delta.warm_start_total") == warm0 + 1,
+          "the replica's CALL after the commit did not warm-start")
+    iters2 = P.GLOBAL_WARM_POOL.solution(rctx.storage, "pagerank").iters
+    want2 = {"benes_mid": 1, "benes_outer": 2,
+             "benes_mid_gather": 3 * iters2,
+             "benes_outer_gather": 6 * iters2}
+    check(all(moved[k] == v for k, v in want2.items()),
+          f"the replica's delta CALL launched {moved}, not {want2}")
+    ranks2 = ranks_by_id(rows2)
+    check(np.array_equal(library(storage, main_cache, main_pool), ranks2),
+          "the replica's CALL after the commit is not bit-equal to the "
+          "MAIN's at the same version")
+    l1_2 = vs64(ranks2, src, dst)
+    check(l1_2 <= PR_PROC_L1,
+          f"the replica's CALL after the commit off float64 by L1 {l1_2}")
+    try:
+        rinterp.execute("CREATE (:Nope)")
+        refusal = None
+    except Exception as e:  # noqa: BLE001 — the refusal is checked
+        refusal = f"{type(e).__name__}: {e}"
+    check(refusal == "QueryException: write queries are forbidden on a "
+                     "REPLICA instance", f"a write on the replica: {refusal}")
+    del main_cache, main_pool, lib
+    rep["commit_then_call"] = {
+        "commit_s": commit_s, "call_s": t_warm, "iterations": iters2,
+        "split": {k: split2[k] for k in ("export_s", "plan_s",
+                                         "iterations_s")},
+        "l1_vs_float64": l1_2, "bit_equal_main": True,
+        "launches": {k: moved[k] for k in want2},
+        "frames_applied": server.apply_stats["frames"],
+        "frames_apply_s": server.apply_stats["frames_apply_s"]}
+    rep["write_refused"] = refusal
+    rep["launches"] = paths["replication"]
+    print("replication", json.dumps(rep), flush=True)
+
+    # --- 4. failover -----------------------------------------------------------
+    fo = {"card": card}
+    mgmt = DataInstanceManagementServer(ictx, "127.0.0.1", mgmt_m,
+                                        node_name="m0")
+    mgmt.start()
+    repl_m = free_ports(1)[0]
+    raft = free_ports(3)
+    ids = ["c1", "c2", "c3"]
+    coords = []
+    for k, cid in enumerate(ids):
+        peers = {ids[j]: ("127.0.0.1", raft[j]) for j in range(3) if j != k}
+        coords.append(CoordinatorInstance(
+            cid, "127.0.0.1", raft[k], peers,
+            rng=random.Random(CLUSTER_COMMIT_SEED + k)))
+    bolt_addr = {"m0": "127.0.0.1:17687", "r1": "127.0.0.1:17688"}
+    for c in coords:
+        c.start()
+    t0 = time.perf_counter()
+    wait_for(lambda: sum(c.raft.is_leader() for c in coords) == 1,
+             "a Raft leader among the coordinators")
+    fo["election_s"] = time.perf_counter() - t0
+    leader = next(c for c in coords if c.raft.is_leader())
+    check(leader.register_instance("m0", f"127.0.0.1:{mgmt_m}",
+                                   f"127.0.0.1:{repl_m}",
+                                   bolt_address=bolt_addr["m0"])
+          and leader.register_instance("r1", f"127.0.0.1:{mgmt_r}",
+                                       f"127.0.0.1:{repl_r}",
+                                       bolt_address=bolt_addr["r1"]),
+          "the coordinators did not commit the two registrations")
+    check(bool(leader.raft.propose({"op": "set_main", "name": "m0"})),
+          "the coordinators did not commit m0 as MAIN")
+    wait_for(lambda: all(c.main_name == "m0" and c.epoch == 1
+                         for c in coords), "m0 MAIN on every coordinator")
+    mgmt.stop()                                 # the MAIN goes unreachable
+    t_stop = time.perf_counter()
+    wait_for(lambda: all(c.main_name == "r1" and c.epoch == 2
+                         for c in coords), "the coordinators' failover to r1")
+    wait_for(lambda: rctx.replication.role == "main", "r1 promoted")
+    fo["promoted_s"] = time.perf_counter() - t_stop
+    check(rctx.storage.apply_gate is None,
+          "the promoted MAIN still holds a replica's apply gate")
+    rng = np.random.default_rng(FAILOVER_COMMIT_SEED)
+    f_s = rng.integers(0, n_nodes, FAILOVER_COMMIT)
+    f_d = rng.integers(0, n_nodes, FAILOVER_COMMIT)
+    while True:
+        try:
+            rinterp.execute("UNWIND $pairs AS p MATCH (a:User {id: p[0]}), "
+                            "(b:User {id: p[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+                            {"pairs": np.stack([f_s, f_d], 1).tolist()})
+            break
+        except Exception as e:  # noqa: BLE001 — until the MAIN accepts
+            if time.perf_counter() - t_stop > 120:
+                fail(f"the promoted MAIN refuses writes: {e}")
+            time.sleep(0.01)
+    fo["failover_s"] = time.perf_counter() - t_stop
+    fo["epoch"] = rctx.replication.current_epoch()
+    check(fo["epoch"] == 2, f"the promoted MAIN's epoch is {fo['epoch']}")
+    src, dst = np.concatenate([src, f_s]), np.concatenate([dst, f_d])
+    delta0 = GLOBAL_GRAPH_CACHE.counters["export.delta"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with cypher_split(P, sync) as split3:
+        rows3 = rinterp.execute(call)[1]
+        sync()
+    fo["call_s"] = time.perf_counter() - t0
+    moved = all_counts()
+    add("failover", moved)
+    check(GLOBAL_GRAPH_CACHE.counters["export.delta"] == delta0 + 1
+          and split3["calls"].get("build_plan") is None
+          and split3["calls"].get("build_delta_plan") == 1,
+          f"the promoted MAIN's CALL planned {split3['calls']}")
+    check(moved["benes_mid"] == 1 and moved["benes_outer"] == 2
+          and moved["benes_mid_gather"] > 0
+          and moved["benes_outer_gather"] > 0,
+          f"the promoted MAIN's CALL launched {moved}")
+    l1_3 = vs64(ranks_by_id(rows3), src, dst)
+    check(l1_3 <= PR_PROC_L1,
+          f"the promoted MAIN's CALL off float64 by L1 {l1_3}")
+    fo["call"] = {"split": {k: split3[k]
+                            for k in ("export_s", "plan_s", "iterations_s")},
+                  "l1_vs_float64": l1_3,
+                  "iterations": P.GLOBAL_WARM_POOL.solution(
+                      rctx.storage, "pagerank").iters}
+    # ROUTE over the port's Bolt, against a coordinator
+    cctx = InterpreterContext(ictx.storage.__class__(), device=device)
+    cctx.coordinator = coords[0]
+    from memgraph_tpu_torch.auth.auth import Auth
+    cctx.auth_store = Auth()
+    bolt = BoltServer(cctx, "127.0.0.1", 0, cctx.auth_store)
+    thread, loop = bolt.run_in_thread()
+    try:
+        bc = BoltClient(port=bolt._server.sockets[0].getsockname()[1],
+                        timeout=60.0)
+        rt = bc.route()
+        bc.close()
+    finally:
+        deadline = time.monotonic() + 10
+        while bolt._live_sessions and time.monotonic() < deadline:
+            time.sleep(0.01)
+        bolt.stop()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+    roles = {sv["role"]: sv["addresses"] for sv in rt["servers"]}
+    check(roles.get("WRITE") == [bolt_addr["r1"]] and rt["epoch"] == 2,
+          f"the coordinator's ROUTE table: {rt}")
+    fo["route"] = rt
+    # the deposed MAIN returns: demoted by the coordinators' reconcile
+    mgmt = DataInstanceManagementServer(ictx, "127.0.0.1", mgmt_m,
+                                        node_name="m0")
+    mgmt.start()
+    fo["demoted_s"] = wait_for(lambda: ictx.replication.role == "replica",
+                               "the deposed MAIN demoted")
+    # the health loops stop before their next round (0.5 s) would
+    # re-register m0 under r1 and ship it r1's 2M-edge snapshot: a second
+    # catch-up, which this step does not measure
+    for c in coords:
+        c._stop.set()
+    for c in coords:
+        c.stop()
+    try:
+        interp.execute("CREATE (:Nope)")
+        refusal = None
+    except Exception as e:  # noqa: BLE001 — the refusal is checked
+        refusal = f"{type(e).__name__}: {e}"
+    check(refusal == "QueryException: write queries are forbidden on a "
+                     "REPLICA instance",
+          f"a write on the deposed MAIN: {refusal}")
+    fo["deposed_write_refused"] = refusal
+    fo["fencing"] = [list(ictx.replication.fencing_info()),
+                     list(rctx.replication.fencing_info())]
+    fo["launches"] = paths["failover"]
+    fo["peak_rss_mb"] = peak_rss_mb()
+    print("failover", json.dumps(fo), flush=True)
+    mgmt.stop()
+    rctx.mgmt_server.stop()
+    for c in (ictx, rctx):
+        c.replication.shutdown()
     close_database(ictx.dbms)
-    del interp, ictx, storage, acc
-    return launches, mp_launches
+    close_database(rctx.dbms)
+    del ictx, interp, rctx, rinterp, storage, cctx, server, client, sol
+    main_db.clear()
+    gc.unfreeze()
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    # --- 5. the shard plane ------------------------------------------------------
+    sharding_step(paths, card)
+    return paths
+
+
+def sharding_step(paths, card):
+    """``cluster_step``'s part 5 (the ``sharding`` line)."""
+    from collections import defaultdict
+    from memgraph_tpu_torch.exceptions import DeviceWorkRefused
+    from memgraph_tpu_torch.sharding import ShardedClient, ShardPlane
+    from memgraph_tpu_torch.sharding.partition import shard_for_key
+
+    sh = {"card": card, "workers": SHARD_WORKERS, "users": SHARD_USERS,
+          "follows": SHARD_FOLLOWS}
+    rng = np.random.default_rng(SHARD_SEED)
+    f_src = rng.integers(0, SHARD_USERS, SHARD_FOLLOWS)
+    f_dst = (rng.random(SHARD_FOLLOWS) ** 2 * SHARD_USERS).astype(np.int64)
+    ages = rng.integers(14, 80, SHARD_USERS)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    plane = ShardPlane(n_shards=SHARD_WORKERS).start()
+    sh["start_s"] = time.perf_counter() - t0
+    try:
+        client = ShardedClient(plane)
+        client.ddl("CREATE INDEX ON :User(id)")
+        client.ddl("CREATE INDEX ON :Ref(id)")
+        shard_of = np.array([shard_for_key(i, SHARD_WORKERS)
+                             for i in range(SHARD_USERS)])
+        t0 = time.perf_counter()
+        for sid in range(SHARD_WORKERS):
+            ids = np.flatnonzero(shard_of == sid)
+            for lo in range(0, len(ids), SHARD_BATCH):
+                part = ids[lo:lo + SHARD_BATCH]
+                client.write("UNWIND $rows AS r CREATE (:User {id: r[0], "
+                             "age: r[1]})",
+                             {"rows": np.stack([part, ages[part]],
+                                               1).tolist()},
+                             key=int(part[0]))
+        by_shard = defaultdict(list)
+        for s_, d_ in zip(f_src.tolist(), f_dst.tolist()):
+            by_shard[int(shard_of[s_])].append([s_, d_])
+        for sid, rows in by_shard.items():
+            targets = sorted({d_ for _, d_ in rows})
+            key = int(rows[0][0])
+            for lo in range(0, len(targets), SHARD_BATCH):
+                client.write("UNWIND $ids AS i CREATE (:Ref {id: i})",
+                             {"ids": targets[lo:lo + SHARD_BATCH]}, key=key)
+            for lo in range(0, len(rows), SHARD_BATCH):
+                client.write("UNWIND $rows AS r MATCH (a:User {id: r[0]}), "
+                             "(b:Ref {id: r[1]}) CREATE (a)-[:FOLLOWS]->(b)",
+                             {"rows": rows[lo:lo + SHARD_BATCH]}, key=key)
+        load_s = time.perf_counter() - t0
+        sh["load"] = {"s": load_s,
+                      "records_per_s": (SHARD_USERS + SHARD_FOLLOWS)
+                      / load_s}
+        # point reads, against numpy
+        out_of = defaultdict(list)
+        for s_, d_ in zip(f_src.tolist(), f_dst.tolist()):
+            out_of[s_].append(d_)
+        t0 = time.perf_counter()
+        reads = 0
+        for uid in (0, 1, 7, 4_242, 31_337, SHARD_USERS - 1):
+            uid %= SHARD_USERS
+            got = client.read("MATCH (n:User {id: $id}) RETURN n.age",
+                              {"id": uid}, key=uid)[1]
+            check(got == [[int(ages[uid])]],
+                  f"the shard plane's age of {uid}: {got}")
+            got = client.read("MATCH (n:User {id: $id})-[:FOLLOWS]->(m) "
+                              "RETURN m.id ORDER BY m.id",
+                              {"id": uid}, key=uid)[1]
+            check(got == [[d_] for d_ in sorted(out_of[uid])],
+                  f"the shard plane's follows of {uid} differ")
+            reads += 2
+        sh["point_reads"] = {"reads": reads,
+                             "ms_each": (time.perf_counter() - t0)
+                             * 1e3 / reads}
+
+        def scatter_counts():
+            return {
+                "users": client.read("MATCH (n:User) WITH n "
+                                     "RETURN count(n) AS c")[1],
+                "follows": client.read("MATCH (:User)-[e:FOLLOWS]->() "
+                                       "WITH e RETURN count(e) AS c")[1],
+                "age_sum": client.read("MATCH (n:User) WITH n "
+                                       "RETURN sum(n.age) AS s")[1]}
+
+        t0 = time.perf_counter()
+        counted = scatter_counts()
+        sh["scatter_s"] = time.perf_counter() - t0
+        want = {"users": [[SHARD_USERS]], "follows": [[SHARD_FOLLOWS]],
+                "age_sum": [[int(ages.sum())]]}
+        check(counted == want, f"the scatter counts {counted}, not {want}")
+        # a cross-shard 2PC write: a transfer between two users' ages
+        a = 0
+        b = next(k for k in range(1, 64) if shard_of[k] != shard_of[a])
+        out = client.write_multi([
+            (a, "MATCH (n:User {id: $id}) SET n.age = n.age - 1", {"id": a}),
+            (b, "MATCH (n:User {id: $id}) SET n.age = n.age + 1",
+             {"id": b})])
+        check(len(out["shards"]) == 2, f"the 2PC write touched {out}")
+        check(client.read("MATCH (n:User {id: $id}) RETURN n.age",
+                          {"id": a}, key=a)[1] == [[int(ages[a]) - 1]]
+              and client.read("MATCH (n:User {id: $id}) RETURN n.age",
+                              {"id": b}, key=b)[1] == [[int(ages[b]) + 1]],
+              "the 2PC write's two sides")
+        check(scatter_counts() == want, "the 2PC write moved the sums")
+        # a routed CALL is refused, typed
+        try:
+            client.read("CALL pagerank.get() YIELD node, rank "
+                        "RETURN node.id AS id, rank", key=0)
+            refused = None
+        except DeviceWorkRefused as e:
+            refused = str(e)
+        check(refused is not None and "pagerank.get" in refused,
+              f"the routed CALL: {refused}")
+        sh["call_refused"] = refused
+        # a worker killed; the next request respawns it from its WAL
+        pid = plane.kill_worker(1)
+        t0 = time.perf_counter()
+        after = scatter_counts()
+        sh["respawn"] = {"s": plane.respawn_s,
+                         "first_scatter_s": time.perf_counter() - t0}
+        check(plane.owner(1).pid != pid and after == want,
+              f"after the respawn {after}, not {want}")
+        moved = all_counts()
+        paths["sharding"] = moved
+        check(all(v == 0 for v in moved.values()),
+              f"a kernel launched while the shard plane served: {moved}")
+        sh["launches"] = moved
+        sh["peak_rss_mb"] = peak_rss_mb()
+    finally:
+        plane.close()
+    print("sharding", json.dumps(sh), flush=True)
 
 
 @contextlib.contextmanager
@@ -8230,7 +8861,8 @@ def main():
                                   phase_node2vec_sharded, base),
     })
     (by_path["cypher"], by_path["bolt"], by_path["durability"],
-     by_path["mp_executor"]) = timed("cypher", phase_cypher, base)
+     by_path["mp_executor"], cluster) = timed("cypher", phase_cypher, base)
+    by_path.update(cluster)
     seg_lines["csr_spmm_sum"] += base.pop("path_k1_lines")
     del base
 

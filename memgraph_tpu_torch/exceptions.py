@@ -42,7 +42,6 @@ class QueryException(MemgraphTpuError):
 
 
 #: the later slices of the port, as the waiting families name them
-SLICE_REPLICATION = "replication, coordination and sharding"
 SLICE_HOST_FEATURES = ("streams, triggers, TTL, dump, enums, text and "
                        "point indexes, on-disk storage")
 SLICE_OBSERVABILITY = ("observability (HTTP metrics, audit, telemetry, "

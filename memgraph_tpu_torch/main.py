@@ -11,8 +11,8 @@ Copy of memgraph_tpu/main.py for the port.  What differs:
   there.  Without a card and without ``--device cpu``, ``main`` exits 2
   and says why; nothing falls back to the CPU.
 - A flag whose module a later slice of the port brings (``LATER_FLAGS``:
-  replication and coordination, cluster TLS, streams' defaults, the
-  HTTP metrics, monitoring, telemetry and audit) refuses with the
+  streams' defaults, the HTTP metrics, monitoring, telemetry and audit)
+  refuses with the
   ``NotPortedException`` of its slice when set to anything but its
   default: ``build_database`` raises and ``main`` exits 1.  None is
   ignored silently.
@@ -31,7 +31,9 @@ Copy of memgraph_tpu/main.py for the port.  What differs:
 Run:  python -m memgraph_tpu_torch.main --bolt-port 7687
       (``--device cpu`` for the CPU; ``--data-directory D
       --storage-wal-enabled --storage-recover-on-startup`` for a durable
-      database)
+      database; ``--management-port P`` for a data instance under
+      coordinators, ``--coordinator-id c1 --coordinator-port R
+      --coordinator-peers c2=host:R2,c3=host:R3`` for a coordinator)
 """
 
 from __future__ import annotations
@@ -44,8 +46,7 @@ import signal
 import sys
 
 from .auth.auth import Auth
-from .exceptions import (SLICE_HOST_FEATURES,
-                         SLICE_OBSERVABILITY, SLICE_REPLICATION,
+from .exceptions import (SLICE_HOST_FEATURES, SLICE_OBSERVABILITY,
                          NotPortedException)
 from .query.interpreter import Interpreter, InterpreterContext
 from .server.bolt import BoltServer
@@ -54,11 +55,6 @@ from .storage.common import IsolationLevel, StorageMode
 
 #: flag (argparse dest) -> the later slice of the port whose module it needs
 LATER_FLAGS = {
-    **{name: SLICE_REPLICATION for name in (
-        "replication_restore_state_on_startup", "coordinator_id",
-        "coordinator_port", "coordinator_peers", "coordinator_hostname",
-        "management_port", "cluster_cert_file", "cluster_key_file",
-        "cluster_ca_file")},
     **{name: SLICE_OBSERVABILITY for name in (
         "metrics_port", "metrics_address", "metrics_format",
         "monitoring_port", "monitoring_address", "telemetry_enabled",
@@ -476,6 +472,43 @@ def build_database(args) -> InterpreterContext:
         loaded = global_registry.load_directory(args.query_modules_directory)
         logging.info("loaded query modules: %s", loaded)
 
+    if args.coordinator_id:
+        from .coordination.coordinator import CoordinatorInstance
+        peers = {}
+        # peer format: id=host:raftport[@boltport] — the optional bolt
+        # port lets every coordinator advertise ALL coordinators in the
+        # ROUTE role, so drivers survive losing the one they bootstrapped
+        # from (reference: coordinator_instance.cpp routing table)
+        # own entry uses the DIALABLE advertised address, not the bind
+        # address (0.0.0.0 would be served verbatim to remote drivers);
+        # --coordinator-hostname overrides the host part (reference:
+        # coordination flag of the same name)
+        advertised = ictx.config["advertised_address"]
+        if args.coordinator_hostname:
+            advertised = (f"{args.coordinator_hostname}:"
+                          f"{advertised.rsplit(':', 1)[-1]}")
+        routers = [advertised]
+        for part in filter(None, args.coordinator_peers.split(",")):
+            pid, _, addr = part.partition("=")
+            addr, _, bolt_port = addr.partition("@")
+            host, _, port = addr.rpartition(":")
+            peers[pid] = (host, int(port))
+            if bolt_port:
+                routers.append(f"{host}:{int(bolt_port)}")
+        ictx.coordinator = CoordinatorInstance(
+            args.coordinator_id, args.bolt_address, args.coordinator_port,
+            peers, kvstore=getattr(ictx, "kvstore", None),
+            routers=routers)
+        ictx.coordinator.start()
+        logging.info("coordinator %s on raft port %d (%d peers)",
+                     args.coordinator_id, args.coordinator_port, len(peers))
+    if args.management_port:
+        from .coordination.data_instance import DataInstanceManagementServer
+        ictx.mgmt_server = DataInstanceManagementServer(
+            ictx, args.bolt_address, args.management_port)
+        ictx.mgmt_server.start()
+        logging.info("management server on port %d", args.management_port)
+
     # auth store wired BEFORE the init file runs (single source of truth):
     # durable under the data directory, else in memory; with the SSO
     # modules either way
@@ -493,6 +526,11 @@ def build_database(args) -> InterpreterContext:
             with open(path) as f:
                 for statement in split_statements(f.read()):
                     interp.execute(statement)
+
+    if args.replication_restore_state_on_startup:
+        from .replication.main_role import ReplicationState
+        ictx.replication = ReplicationState(ictx.storage, ictx=ictx)
+        ictx.replication.restore_state()
     return ictx
 
 
@@ -569,6 +607,15 @@ def main(argv=None) -> int:
         logging.error("--bolt-cert-file and --bolt-key-file must be "
                       "given together")
         return 1
+    if bool(args.cluster_cert_file) != bool(args.cluster_key_file):
+        logging.error("--cluster-cert-file and --cluster-key-file must be "
+                      "given together")
+        return 1
+    if args.cluster_cert_file and args.cluster_key_file:
+        from .utils.tls import set_cluster_tls
+        set_cluster_tls(args.cluster_cert_file, args.cluster_key_file,
+                        args.cluster_ca_file)
+        logging.info("intra-cluster TLS enabled")
     from .device import resolve_device
     try:
         resolve_device(args.device)

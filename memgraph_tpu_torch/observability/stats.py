@@ -44,6 +44,7 @@ import threading
 import time
 from collections import deque
 
+from ..utils.locks import fork_safe
 from ..utils.metrics import Histogram, global_metrics, promname
 
 ENV_DISABLE = "MEMGRAPH_TPU_STATS"          # "0" disables collection
@@ -249,7 +250,7 @@ QUERY_STATS_COLUMNS = ["fingerprint", "count", "errors", "latency_p50_ms",
                        "latency_p99_ms", "rows_total", "plan_cache_hits",
                        "trace_ids"]
 
-global_query_stats = QueryStatsRegistry()
+global_query_stats = fork_safe(QueryStatsRegistry())
 
 
 # --------------------------------------------------------------------------
@@ -556,7 +557,7 @@ class SaturationPlane:
         return None
 
 
-global_saturation = SaturationPlane()
+global_saturation = fork_safe(SaturationPlane())
 
 
 # --------------------------------------------------------------------------

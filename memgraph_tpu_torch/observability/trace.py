@@ -51,6 +51,8 @@ import os
 import threading
 import time
 
+from ..utils.locks import fork_safe
+
 log = logging.getLogger(__name__)
 
 ENV_ARM = "MEMGRAPH_TPU_TRACE"
@@ -460,7 +462,7 @@ class Tracer:
             log.debug("profiler range exit failed: %s", e)
 
 
-TRACER = Tracer()
+TRACER = fork_safe(Tracer())
 
 
 # --------------------------------------------------------------------------

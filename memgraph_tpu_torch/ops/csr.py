@@ -57,6 +57,10 @@ owns the graph.  A source gives
                          names, {property name: value}) as the storage
                          holds them, one a gid in order, None where the
                          vertex is not visible
+  ``read_gate()``        optional: a context ``GraphCache.get`` holds
+                         from its read of ``version`` to the end of the
+                         export (a replica's storage source: its frames
+                         apply past MVCC and wait for the gate)
 
 ``memgraph_tpu_torch.northstar.CooSource`` is one (a versioned COO graph);
 the tests hold an adapter of the JAX package's storage against it.
@@ -64,6 +68,7 @@ the tests hold an adapter of the JAX package's storage against it.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import weakref
@@ -75,6 +80,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.locks import fork_safe
 from ..utils.metrics import global_metrics
 
 _ARRAYS = ("row_ptr", "col_idx", "src_idx", "weights", "csc_src", "csc_dst",
@@ -514,6 +520,13 @@ class GraphCache:
 
     def get(self, source, weight_property=None, label_filter=None,
             edge_type_filter=None, device=None) -> DeviceGraph:
+        gate = getattr(source, "read_gate", None)
+        with (gate() if gate is not None else contextlib.nullcontext()):
+            return self._get(source, weight_property, label_filter,
+                             edge_type_filter, device)
+
+    def _get(self, source, weight_property, label_filter,
+             edge_type_filter, device) -> DeviceGraph:
         storage = source.storage
         dev = resolve_device(device)
         etf = (tuple(sorted(edge_type_filter))
@@ -603,7 +616,7 @@ class GraphCache:
             self._cache = weakref.WeakKeyDictionary()
 
 
-GLOBAL_GRAPH_CACHE = GraphCache()
+GLOBAL_GRAPH_CACHE = fork_safe(GraphCache())
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,7 @@ import numpy as np
 
 from ..observability import stats as mgstats
 from ..observability import trace as mgtrace
+from ..utils.locks import fork_safe
 from ..utils.metrics import global_metrics
 from .csr import (ChangeLogUnknowable, DeviceGraph, ShardedCSR, _raw,
                   _weights, from_coo, shard_edges)
@@ -550,7 +551,7 @@ class LocalWarmPool:
             self._pool = weakref.WeakKeyDictionary()
 
 
-GLOBAL_WARM_POOL = LocalWarmPool()
+GLOBAL_WARM_POOL = fork_safe(LocalWarmPool())
 
 
 # --- the host ShardedCSR splice ----------------------------------------------

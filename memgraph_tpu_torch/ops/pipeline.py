@@ -50,6 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..observability import stats as mgstats
+from ..utils.locks import fork_safe
 from ..utils.metrics import global_metrics
 from . import segment_cuda as SC
 from . import semiring as S
@@ -187,7 +188,7 @@ class LaneRegistry:
                     for fp, e in self._by_fp.items()}
 
 
-LANE_REGISTRY = LaneRegistry()
+LANE_REGISTRY = fork_safe(LaneRegistry())
 
 
 def lane_stats() -> dict:

@@ -15,13 +15,18 @@ Port of memgraph_tpu/query/interpreter.py.  What differs:
   it raises.  Procedures (their snapshots) and the compiled read lane run
   on that device.
 - The families whose modules a later slice of the port brings raise
-  ``NotPortedException`` naming that slice: replication and coordinators
-  (replication); streams, triggers, TTL, ``DUMP DATABASE``, the enum DDL
-  and ``ON_DISK_TRANSACTIONAL`` (the host features' slice).
+  ``NotPortedException`` naming that slice: streams, triggers, TTL,
+  ``DUMP DATABASE``, the enum DDL and ``ON_DISK_TRANSACTIONAL`` (the host
+  features' slice).  Replication and the coordinator queries run on the
+  port's ``replication/`` and ``coordination/``.
 - Auth, user and tenant profiles, multi-database and the license run on
-  the port's ``auth/``, ``dbms/`` and ``utils/license.py``.  Their
-  mutations publish no system transaction: that comes with replication,
-  and no port context has a replication state.  The auth store is the
+  the port's ``auth/``, ``dbms/`` and ``utils/license.py``; their
+  mutations publish system transactions to a MAIN's replicas, as the
+  reference's do.
+- A fenced MAIN (a newer epoch exists) refuses a Cypher write at
+  admission with ``FencedException``; the reference refuses it only in
+  the commit hook, which is gone once the fencing registration left the
+  MAIN without replicas, so it acks the write.  The auth store is the
   session's root context's, also after ``USE DATABASE``: the reference
   resolves the tenant's, which has none of its own, so its tenants fall
   back to the empty process-wide store and run open.
@@ -51,7 +56,6 @@ from typing import Iterator, Optional
 
 from ..device import resolve_device
 from ..exceptions import (SLICE_HOST_FEATURES as _HOST_FEATURES,
-                          SLICE_REPLICATION as _REPLICATION,
                           HintedAbortError, NotPortedException,
                           QueryException, SemanticException,
                           TransactionException)
@@ -558,10 +562,12 @@ class Interpreter:
                 "automatically by the server entry point)")
         if node.action == "create":
             dbms.create(node.name)
+            self._publish_system("db_create", {"name": node.name})
             return self._prepare_generator(
                 iter([[f"Database {node.name} created."]]), ["status"], "s")
         if node.action == "drop":
             dbms.drop(node.name)
+            self._publish_system("db_drop", {"name": node.name})
             return self._prepare_generator(
                 iter([[f"Database {node.name} dropped."]]), ["status"], "s")
         if node.action == "use":
@@ -575,11 +581,13 @@ class Interpreter:
                 iter([[f"Using database {node.name}."]]), ["status"], "s")
         if node.action == "suspend":
             dbms.suspend(node.name)
+            self._publish_system("db_suspend", {"name": node.name})
             return self._prepare_generator(
                 iter([[f"Database {node.name} suspended."]]),
                 ["status"], "s")
         if node.action == "resume":
             dbms.resume(node.name)
+            self._publish_system("db_resume", {"name": node.name})
             return self._prepare_generator(
                 iter([[f"Database {node.name} resumed."]]),
                 ["status"], "s")
@@ -591,7 +599,32 @@ class Interpreter:
         raise SemanticException(f"unknown database action {node.action}")
 
     def _prepare_coordinator(self, node: A.CoordinatorQuery) -> PreparedQuery:
-        raise NotPortedException("coordinators", _REPLICATION)
+        coordinator = getattr(self.ctx, "coordinator", None)
+        if coordinator is None:
+            raise QueryException(
+                "this instance is not a coordinator (start with "
+                "--coordinator-id/--coordinator-port)")
+        if node.action == "register":
+            ok = coordinator.register_instance(node.name, node.mgmt_address,
+                                               node.replication_address,
+                                               node.bolt_address)
+            if not ok:
+                raise QueryException(
+                    "could not commit instance registration (no raft "
+                    "majority or not the leader)")
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "unregister":
+            coordinator.unregister_instance(node.name)
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "set_main":
+            if not coordinator.set_instance_to_main(node.name):
+                raise QueryException(f"cannot promote {node.name!r}")
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "show":
+            return self._prepare_generator(
+                iter(coordinator.show_instances()),
+                ["name", "address", "role", "health"], "r")
+        raise SemanticException(f"unknown coordinator action {node.action}")
 
     def _prepare_ttl(self, node: A.TtlQuery) -> PreparedQuery:
         raise NotPortedException("TTL", _HOST_FEATURES)
@@ -695,8 +728,37 @@ class Interpreter:
                 f"{what} is forbidden: this MAIN was deposed (fenced); "
                 "reconnect via the coordinator routing table")
 
+    def _replication_state(self):
+        if getattr(self.ctx, "replication", None) is None:
+            from ..replication.main_role import ReplicationState
+            self.ctx.replication = ReplicationState(self.ctx.storage, ictx=self.ctx)
+        return self.ctx.replication
+
     def _prepare_replication(self, node: A.ReplicationQuery) -> PreparedQuery:
-        raise NotPortedException("replication", _REPLICATION)
+        from ..replication.main_role import ReplicationMode
+        state = self._replication_state()
+        if node.action == "set_role_main":
+            state.set_role_main()
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "set_role_replica":
+            state.set_role_replica("0.0.0.0", node.port)
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "register":
+            state.register_replica(node.name, node.address,
+                                   ReplicationMode[node.mode])
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "drop":
+            state.drop_replica(node.name)
+            return self._prepare_generator(iter([]), [], "s")
+        if node.action == "show_replicas":
+            return self._prepare_generator(
+                iter(state.show_replicas()),
+                ["name", "socket_address", "sync_mode",
+                 "last_acked_timestamp", "state"], "r")
+        if node.action == "show_role":
+            return self._prepare_generator(
+                iter([[state.role]]), ["replication role"], "r")
+        raise SemanticException(f"unknown replication action {node.action}")
 
     def pull(self, n: int = -1) -> tuple[list[list], bool, dict]:
         """Pull up to n rows (n<0 = all). Returns (rows, has_more, summary)."""
@@ -852,6 +914,14 @@ class Interpreter:
                 and is_write:
             raise QueryException(
                 "write queries are forbidden on a REPLICA instance")
+        if replication is not None and replication.role == "main" \
+                and is_write and replication.is_fenced():
+            # a deposed MAIN refuses at admission, also with no replica
+            # left to run the commit-time check (ROADMAP Queue 3 item 18)
+            from ..exceptions import FencedException
+            raise FencedException(
+                "write queries are forbidden: this MAIN was deposed "
+                "(fenced); reconnect via the coordinator routing table")
 
         if query.explain:
             rows = [[line] for line in plan_to_rows(plan)]
@@ -1493,7 +1563,16 @@ class Interpreter:
                 iter(rows), ["privilege", "effective"], "r")
         else:
             raise SemanticException(f"unknown auth action {node.action}")
+        # mutations replicate as ordered system transactions (reference:
+        # src/system/transaction.cpp — auth + multi-DB DDL must survive
+        # failover); full-state dumps keep replays idempotent
+        self._publish_system("auth", auth.to_dict())
         return self._prepare_generator(iter([]), [], "s")
+
+    def _publish_system(self, kind: str, data: dict) -> None:
+        replication = getattr(self.ctx, "replication", None)
+        if replication is not None and replication.role == "main":
+            replication.publish_system(kind, data)
 
     # --- helpers ------------------------------------------------------------
 

@@ -24,6 +24,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Optional
 
+from ...utils.locks import fork_safe
+
 
 @dataclass
 class Procedure:
@@ -176,4 +178,4 @@ class ProcedureRegistry:
         return loaded
 
 
-global_registry = ProcedureRegistry()
+global_registry = fork_safe(ProcedureRegistry())

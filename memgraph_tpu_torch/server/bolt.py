@@ -22,8 +22,9 @@ own).  What differs:
 - A numpy or torch scalar that reaches ``value_to_bolt`` raises
   ``PackStreamError``, as in the reference: the port's procedures yield
   Python values.
-- ROUTE answers the single-instance table; a coordinator's comes with
-  the port's replication slice.
+- ROUTE answers a coordinator's table from its live replicated state
+  (``coordination/coordinator.py:route_table``), else the
+  single-instance table, as in the reference.
 """
 
 from __future__ import annotations
@@ -634,10 +635,34 @@ class BoltSession:
         return True
 
     def on_route(self, fields) -> bool:
-        """The single-instance routing table: this server serves all
-        roles.  (The coordinator's table, from live cluster state, comes
-        with the port's replication slice.)"""
         addr = self.ictx.config.get("advertised_address", "localhost:7687")
+        coordinator = getattr(self.ictx, "coordinator", None)
+        if coordinator is not None:
+            # serve from LIVE replicated cluster state: MAIN writes,
+            # replicas read, this coordinator routes (reference:
+            # coordinator_instance.cpp; clients re-route to a surviving
+            # coordinator after a failover)
+            table = coordinator.route_table()
+            servers = []
+            if table["writers"]:
+                servers.append({"addresses": table["writers"],
+                                "role": "WRITE"})
+            if table["readers"]:
+                servers.append({"addresses": table["readers"],
+                                "role": "READ"})
+            servers.append(
+                {"addresses": coordinator.routers or [addr],
+                 "role": "ROUTE"})
+            rt = {"ttl": 10, "db": "memgraph",
+                  "epoch": table.get("epoch", 0),
+                  "servers": servers}
+            if table.get("shards"):
+                # shard topology (r18, mgshard) rides the ROUTE reply
+                # under the same fencing epoch as the writer table
+                rt["shards"] = table["shards"]
+            self.send_success({"rt": rt})
+            return True
+        # single-instance routing table: this server serves all roles
         self.send_success({"rt": {
             "ttl": 300,
             "db": "memgraph",

@@ -12,7 +12,11 @@ These classes are that source over an ``Accessor`` of the port's own
 maps in their order, objects without a delta chain directly, the others
 through MVCC at ``view`` (``View.OLD`` by default), with no session's
 fine-grained filter (a cached snapshot is every session's).  Its
-``version`` is the transaction's topology snapshot.
+``version`` is the transaction's topology snapshot, except on a replica
+(a storage with an ``apply_gate``): there frames are applied to the
+objects past MVCC, so every accessor reads the live state, and the
+version is the live topology version, read under ``read_gate()``
+together with the export (``ops/csr.py``'s ``GraphCache.get`` holds it).
 
 ``ScanSource`` reads as memgraph_tpu/ops/columnar.py's
 ``export_columns`` and ``export_edges`` read the accessor: its own
@@ -26,6 +30,8 @@ says whether a snapshot of this view may be shared (the reference's
 """
 
 from __future__ import annotations
+
+import contextlib
 
 from .common import IsolationLevel, View
 from .storage import ChangeLogUnknowable, EdgeAccessor, VertexAccessor
@@ -42,7 +48,15 @@ class StorageSource:
     @property
     def version(self):
         v = getattr(self.accessor, "topology_snapshot", None)
-        return self.storage.topology_version if v is None else v
+        if v is None or self.storage.apply_gate is not None:
+            return self.storage.topology_version
+        return v
+
+    def read_gate(self):
+        """Held across a snapshot's version read and export: a replica's
+        frames wait for it (a no-op context on a MAIN)."""
+        gate = self.storage.apply_gate
+        return contextlib.nullcontext() if gate is None else gate.read()
 
     def changes_between(self, v_from, v_to):
         from ..ops.csr import ChangeLogUnknowable as Unknowable

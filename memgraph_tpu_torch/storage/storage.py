@@ -1223,6 +1223,11 @@ class InMemoryStorage:
         # succeeded (e.g. wal_sink raised) — lets replication send
         # finalize('abort') so replicas don't orphan prepared frames
         self.commit_abort_hooks: list[Callable] = []
+        # a replica's ReplicaServer installs a utils.locks.ReadWriteGate
+        # here: its appliers change objects past MVCC under write(), and
+        # a snapshot export reads under read() (storage/source.py), so an
+        # export never reads two versions.  None on a MAIN.
+        self.apply_gate = None
         # stream name -> last durably-committed source position; written
         # by committing stream transactions, restored by recovery
         # (snapshot section + OP_STREAM_OFFSET replay) and by replication

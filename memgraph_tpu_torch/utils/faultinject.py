@@ -1,11 +1,10 @@
-"""Deterministic fault injection for the device and durability paths.
+"""Deterministic fault injection for the device, durability and cluster paths.
 
-Copy of the ``device.*`` and durability points of
-memgraph_tpu/utils/faultinject.py and their grammar (the replication,
-Raft, management and stream points, and the network model, come with
-their slices).  A point is armed programmatically (``arm``) or from the
-``MEMGRAPH_TPU_FAULTS`` environment variable at import, comma-separated
-specs::
+Copy of the ``device.*``, durability, replication, Raft and management
+points of memgraph_tpu/utils/faultinject.py, their grammar and its
+network model (the stream points come with their slice).  A point is
+armed programmatically (``arm``) or from the ``MEMGRAPH_TPU_FAULTS``
+environment variable at import, comma-separated specs::
 
     MEMGRAPH_TPU_FAULTS="device.oom=raise@2,wal.write=torn:7+kill@5"
 
@@ -13,18 +12,25 @@ specs::
 
 Actions: ``raise`` (``FaultInjected``, an OSError), ``kill``
 (``os._exit(137)``, as a kill -9 would end the process),
-``delay:<sec>`` (sleep, then continue) and, at write sites,
+``drop`` (``fire`` returns "drop" and the site skips the operation:
+a lost RPC), ``delay:<sec>`` (sleep, then continue) and, at write sites,
 ``torn:<n>`` (write the record's first n bytes, flush them, then raise,
 or with ``+kill`` end the process: a crash mid-write at an exact byte
 offset).  ``@<hits>`` lists the 1-based hits at which the action fires;
 without it every hit fires.  Each point counts its own hits.  An
-unarmed point costs one module-flag read.
+unarmed point costs one module-flag read.  ``seeded_schedule`` derives
+hit numbers from a seed, so a randomized campaign replays exactly.
+
+The network model faults links instead of call sites: rules keyed on
+(src, dst) logical node names (``net_partition``, ``net_delay``, ...),
+read by every cluster RPC site in both directions through ``net_fire``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -45,9 +51,13 @@ KNOWN_POINTS = (
     "wal.fsync",       # WalFile.sink, before os.fsync
     "snapshot.rename", # create_snapshot, before the tmp -> final os.replace
     "kvstore.put",     # KVStore.put, before the sqlite write
+    "repl.send",       # ReplicaClient frame/system/2PC sends
+    "repl.recv",       # ReplicaServer, before handling a received frame
+    "raft.rpc",        # RaftNode._call_peer ("drop" = RPC lost)
+    "mgmt.rpc",        # coordination.mgmt_call ("drop" = mgmt RPC lost)
 )
 
-ACTIONS = ("raise", "kill", "delay", "torn")
+ACTIONS = ("raise", "kill", "drop", "delay", "torn")
 
 
 class FaultInjected(OSError):
@@ -57,7 +67,7 @@ class FaultInjected(OSError):
 @dataclass
 class _FaultSpec:
     point: str
-    action: str                      # raise | kill | delay | torn
+    action: str                      # raise | kill | drop | delay | torn
     arg: float | None = None         # delay seconds / torn byte count
     then: str = "raise"              # torn's follow-up: raise | kill
     hits: frozenset[int] | None = None   # 1-based; None: every hit
@@ -133,13 +143,25 @@ def arm_from_string(text: str) -> None:
             _ARMED = True
 
 
-def reset(reload_env: bool = False) -> None:
-    """Disarm every point and zero the hit counts."""
+def disarm(point: str) -> None:
+    """Disarm one point; its hit count is kept, so re-arming it at a
+    seeded hit number replays exactly."""
     global _ARMED
+    with _LOCK:
+        _SPECS.pop(point, None)
+        _ARMED = bool(_SPECS)
+
+
+def reset(reload_env: bool = False) -> None:
+    """Disarm every point and the network model, and zero the hit
+    counts."""
+    global _ARMED, _NET_ARMED
     with _LOCK:
         _SPECS.clear()
         _COUNTS.clear()
         _ARMED = False
+        _NET_RULES.clear()
+        _NET_ARMED = False
     if reload_env:
         _load_env()
 
@@ -147,6 +169,22 @@ def reset(reload_env: bool = False) -> None:
 def hit_count(point: str) -> int:
     with _LOCK:
         return _COUNTS.get(point, 0)
+
+
+def seeded_schedule(seed: int, points=KNOWN_POINTS,
+                    max_hit: int = 16) -> dict[str, int]:
+    """{point: hit number} drawn from ``seed``, the points in sorted
+    order: the same seed always gives the same schedule."""
+    rng = random.Random(seed)
+    return {p: rng.randint(1, max_hit) for p in sorted(points)}
+
+
+def arm_seeded(seed: int, points=KNOWN_POINTS, action: str = "raise",
+               max_hit: int = 16) -> dict[str, int]:
+    schedule = seeded_schedule(seed, points, max_hit)
+    for point, hit in schedule.items():
+        arm(point, action, at=hit)
+    return schedule
 
 
 def _next_matching(point: str) -> tuple[_FaultSpec | None, int]:
@@ -162,10 +200,13 @@ def _next_matching(point: str) -> tuple[_FaultSpec | None, int]:
     return spec, hit
 
 
-def _execute(spec: _FaultSpec, hit: int) -> None:
+def _execute(spec: _FaultSpec, hit: int) -> str | None:
     if spec.action == "delay":
         time.sleep(spec.arg or 0.05)
-        return
+        return None
+    if spec.action == "drop":
+        log.warning("faultinject: dropping at %s (hit %d)", spec.point, hit)
+        return "drop"
     if spec.action == "kill":
         log.error("faultinject: killing process at %s (hit %d)",
                   spec.point, hit)
@@ -174,14 +215,16 @@ def _execute(spec: _FaultSpec, hit: int) -> None:
     raise FaultInjected(f"injected fault at {spec.point} (hit {hit})")
 
 
-def fire(point: str) -> None:
+def fire(point: str) -> str | None:
     """The hook of a call site: counts a hit and, when an armed spec
-    matches it, sleeps, raises ``FaultInjected`` or ends the process."""
+    matches it, sleeps, raises ``FaultInjected``, ends the process, or
+    returns "drop" (the site skips the operation); None to continue."""
     if not _ARMED:
-        return
+        return None
     spec, hit = _next_matching(point)
-    if spec is not None:
-        _execute(spec, hit)
+    if spec is None:
+        return None
+    return _execute(spec, hit)
 
 
 def faulty_write(point: str, fileobj, data: bytes) -> None:
@@ -205,8 +248,161 @@ def faulty_write(point: str, fileobj, data: bytes) -> None:
             os._exit(KILL_EXIT_CODE)
         raise FaultInjected(
             f"injected torn write at {point}: {n}/{len(data)} bytes")
-    _execute(spec, hit)
+    if _execute(spec, hit) == "drop":
+        return          # the write is silently lost
     fileobj.write(data)
+
+
+# --- the network model: rules on (src, dst) links --------------------------
+#
+# Every cluster RPC site (raft._call_peer, replication send / ack, the
+# coordinator's mgmt RPCs) reads the rules of its direction, so a one-way
+# partition behaves like a real one: the request arrives and runs, only
+# its ack is lost.  "*" matches any node.  Process-global like the points:
+# an in-process cluster shares one network.
+
+NET_ACTIONS = ("drop", "delay", "duplicate", "reorder")
+
+
+@dataclass
+class _LinkRule:
+    src: str                 # node name or "*"
+    dst: str
+    action: str              # one of NET_ACTIONS
+    arg: float = 0.0         # delay seconds / reorder's largest jitter
+
+    def matches(self, src: str | None, dst: str | None) -> bool:
+        # None: the caller declared no node identity (an admin or test
+        # connection), which no rule matches
+        if src is None or dst is None:
+            return False
+        return (self.src == "*" or self.src == src) and \
+            (self.dst == "*" or self.dst == dst)
+
+
+_NET_RULES: list[_LinkRule] = []
+_NET_ARMED = False           # fast path: an unarmed net_fire() is one read
+_NET_RNG = random.Random(0)  # reorder jitter; reseeded by net_seed()
+
+
+def net_seed(seed: int) -> None:
+    """Seed the jitter so reorder delays replay exactly."""
+    global _NET_RNG
+    with _LOCK:
+        _NET_RNG = random.Random(seed)
+
+
+def _net_add(src: str, dst: str, action: str, arg: float = 0.0) -> None:
+    if action not in NET_ACTIONS:
+        raise ValueError(f"unknown net action {action!r} "
+                         f"(known: {', '.join(NET_ACTIONS)})")
+    global _NET_ARMED
+    with _LOCK:
+        _NET_RULES.append(_LinkRule(src, dst, action, arg))
+        _NET_ARMED = True
+
+
+def net_partition(a: str, b: str, *, bidirectional: bool = True) -> None:
+    """Partition a <-> b (only a -> b with ``bidirectional=False``)."""
+    _net_add(a, b, "drop")
+    if bidirectional:
+        _net_add(b, a, "drop")
+
+
+def net_partition_node(node: str) -> None:
+    """Isolate one node from every other, both directions."""
+    _net_add(node, "*", "drop")
+    _net_add("*", node, "drop")
+
+
+def net_delay(a: str, b: str, seconds: float, *,
+              bidirectional: bool = True) -> None:
+    _net_add(a, b, "delay", seconds)
+    if bidirectional:
+        _net_add(b, a, "delay", seconds)
+
+
+def net_duplicate(a: str, b: str, *, bidirectional: bool = True) -> None:
+    _net_add(a, b, "duplicate")
+    if bidirectional:
+        _net_add(b, a, "duplicate")
+
+
+def net_reorder(a: str, b: str, jitter: float = 0.05, *,
+                bidirectional: bool = True) -> None:
+    """A seeded random delay a message: messages overtake each other."""
+    _net_add(a, b, "reorder", jitter)
+    if bidirectional:
+        _net_add(b, a, "reorder", jitter)
+
+
+def net_heal(a: str | None = None, b: str | None = None) -> None:
+    """Remove link rules: all of them, every rule touching ``a``, or both
+    directions of the pair (a, b)."""
+    global _NET_ARMED
+    with _LOCK:
+        if a is None:
+            _NET_RULES.clear()
+        elif b is None:
+            _NET_RULES[:] = [r for r in _NET_RULES
+                             if a not in (r.src, r.dst)]
+        else:
+            _NET_RULES[:] = [r for r in _NET_RULES
+                             if {r.src, r.dst} != {a, b}
+                             and (r.src, r.dst) not in ((a, b), (b, a))]
+        _NET_ARMED = bool(_NET_RULES)
+
+
+def net_links() -> list[tuple[str, str, str]]:
+    """The rules as (src, dst, action)."""
+    with _LOCK:
+        return [(r.src, r.dst, r.action) for r in _NET_RULES]
+
+
+def _net_execute(rules: list[_LinkRule]) -> str | None:
+    """A drop wins, delays add up, a duplicate is returned to the caller
+    (which sends again)."""
+    result = None
+    sleep_s = 0.0
+    for rule in rules:
+        if rule.action == "drop":
+            return "drop"
+        if rule.action == "delay":
+            sleep_s += rule.arg
+        elif rule.action == "reorder":
+            with _LOCK:
+                sleep_s += _NET_RNG.random() * rule.arg
+        elif rule.action == "duplicate":
+            result = "duplicate"
+    if sleep_s > 0.0:
+        time.sleep(sleep_s)
+    return result
+
+
+def net_fire(src: str | None, dst: str | None) -> str | None:
+    """The link hook of one message direction src -> dst: "drop" when the
+    message is lost, "duplicate" when the caller should deliver it
+    twice, None to continue (delays already slept).  ``None`` for src or
+    dst marks traffic without a node identity, which no rule matches."""
+    if not _NET_ARMED:
+        return None
+    if src is None or dst is None:
+        return None
+    with _LOCK:
+        matched = [r for r in _NET_RULES if r.matches(src, dst)]
+    if not matched:
+        return None
+    return _net_execute(matched)
+
+
+def _renew_lock_after_fork() -> None:
+    """A child forked while another thread held ``_LOCK`` gets a fresh one
+    (see ``utils.locks.fork_safe``)."""
+    global _LOCK
+    _LOCK = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_renew_lock_after_fork)
 
 
 def _load_env() -> None:

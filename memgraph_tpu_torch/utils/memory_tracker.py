@@ -21,6 +21,7 @@ import sys
 import threading
 
 from ..exceptions import MemgraphTpuError
+from .locks import fork_safe
 
 
 class MemoryLimitException(MemgraphTpuError):
@@ -85,7 +86,7 @@ class GlobalMemoryTracker:
                 self.current = 0
 
 
-GLOBAL = GlobalMemoryTracker()
+GLOBAL = fork_safe(GlobalMemoryTracker())
 
 
 class QueryMemoryTracker:

@@ -6,7 +6,10 @@ server's health reply ships its counters to clients (another process),
 and the kernel routes count their routed and fallen-back calls here.
 ``Histogram`` (the reference's fixed exponential buckets, with
 exemplars) and ``promname`` serve observability/stats.py's per-query
-latencies and expositions.
+latencies and expositions.  ``Metrics.prometheus_text`` is the
+reference's exposition, which the coordination layer federates; a
+summary is exposed as its ``_count`` and ``_sum`` (the reference keeps a
+histogram there and adds its buckets).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import bisect
 import re
 import threading
 import time
+
+from .locks import fork_safe
 
 _NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -125,5 +130,29 @@ class Metrics:
                         (f"{k}.sum", "summary", total)]
         return out
 
+    def prometheus_text(self) -> str:
+        """The Prometheus text exposition of every counter, gauge and
+        summary, each name sorted within its kind."""
+        lines = []
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            summaries = sorted((k, tuple(v))
+                               for k, v in self._summaries.items())
+        for name, value in counters:
+            metric = promname(name)
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {float(value)}")
+        for name, value in gauges:
+            metric = promname(name)
+            lines.append(f"# TYPE {metric} gauge")
+            lines.append(f"{metric} {float(value)}")
+        for name, (count, total) in summaries:
+            metric = promname(name)
+            lines.append(f"# TYPE {metric} summary")
+            lines.append(f"{metric}_count {count}")
+            lines.append(f"{metric}_sum {float(total)}")
+        return "\n".join(lines) + "\n"
 
-global_metrics = Metrics()
+
+global_metrics = fork_safe(Metrics())

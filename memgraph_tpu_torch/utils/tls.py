@@ -1,18 +1,22 @@
-"""TLS contexts for the Bolt listener (bolt+s) and its clients.
+"""TLS contexts for every listener: Bolt, replication, Raft, mgmt RPC.
 
 Reference analog: memgraph/src/communication/context.cpp
-(ServerContext/ClientContext wrapping OpenSSL).
+(ServerContext/ClientContext wrapping OpenSSL) plus the intra-cluster TLS
+init at memgraph.cpp:302-317, where one cert/key pair configured at startup
+covers all cluster-internal channels. Same shape here: `set_cluster_tls`
+installs a process-wide pair consulted by the replication and coordination
+transports; Bolt takes its own pair (clients terminate TLS differently
+than cluster peers).
 
-Copy of memgraph_tpu/utils/tls.py for the port, without its intra-cluster
-pair (``set_cluster_tls`` and the cluster contexts and wrappers, for the
-replication and coordination transports): that comes with the port's
-replication slice, and until then ``main`` refuses the cluster TLS flags.
+Copy of memgraph_tpu/utils/tls.py for the port.
 """
 
 from __future__ import annotations
 
 import os
 import ssl
+import threading
+from dataclasses import dataclass
 from typing import Optional
 
 
@@ -42,6 +46,79 @@ def client_context(ca_file: Optional[str] = None,
     if cert_file and key_file:
         ctx.load_cert_chain(cert_file, key_file)
     return ctx
+
+
+@dataclass
+class ClusterTls:
+    cert_file: str
+    key_file: str
+    ca_file: Optional[str] = None
+
+
+_cluster: Optional[ClusterTls] = None
+_cluster_server_ctx: Optional[ssl.SSLContext] = None
+_cluster_client_ctx: Optional[ssl.SSLContext] = None
+_lock = threading.Lock()
+
+
+def set_cluster_tls(cert_file: str, key_file: str,
+                    ca_file: Optional[str] = None) -> None:
+    """Install intra-cluster TLS (replication + Raft + mgmt RPC). Contexts
+    are built once here — Raft heartbeats wrap sockets many times a
+    second, so per-connection context construction would hammer disk."""
+    global _cluster, _cluster_server_ctx, _cluster_client_ctx
+    with _lock:
+        _cluster = ClusterTls(cert_file, key_file, ca_file)
+        _cluster_server_ctx = server_context(cert_file, key_file, ca_file)
+        _cluster_client_ctx = client_context(
+            ca_file, cert_file, key_file, verify_hostname=False)
+
+
+def clear_cluster_tls() -> None:
+    global _cluster, _cluster_server_ctx, _cluster_client_ctx
+    with _lock:
+        _cluster = None
+        _cluster_server_ctx = None
+        _cluster_client_ctx = None
+
+
+def cluster_server_context() -> Optional[ssl.SSLContext]:
+    with _lock:
+        return _cluster_server_ctx
+
+
+def cluster_client_context() -> Optional[ssl.SSLContext]:
+    with _lock:
+        return _cluster_client_ctx
+
+
+def wrap_cluster_server(sock, handshake_timeout: float = 5.0):
+    """Wrap an accepted cluster-side connection if TLS is configured.
+
+    A handshake deadline is mandatory: callers run this on per-connection
+    threads, but without a timeout a silent peer would pin the thread (and
+    a half-open scanner could exhaust them)."""
+    ctx = cluster_server_context()
+    if ctx is None:
+        return sock
+    old = sock.gettimeout()
+    sock.settimeout(handshake_timeout)
+    try:
+        wrapped = ctx.wrap_socket(sock, server_side=True)
+    finally:
+        try:
+            sock.settimeout(old)
+        except OSError:
+            pass
+    wrapped.settimeout(old)
+    return wrapped
+
+
+def wrap_cluster_client(sock, server_hostname=None):
+    ctx = cluster_client_context()
+    if ctx is None:
+        return sock
+    return ctx.wrap_socket(sock, server_hostname=server_hostname)
 
 
 def generate_self_signed(directory: str, common_name: str = "memgraph-tpu"

@@ -13,7 +13,8 @@ Also here: the compiled read lane's answers and its lane-or-fallback
 decisions on lane-shaped reads above ``LANE_MIN_ROWS`` (the same counts
 per fingerprint in both registries); the device rule of the port's
 ``InterpreterContext`` (it raises without a card unless asked for the
-CPU); the typed refusal of each query family that a later slice brings;
+CPU); the typed refusal of each query family that a later slice brings
+(the replication slice's families run, against the JAX interpreter's);
 the snapshot queries of the durability slice against the JAX interpreter,
 each package on a data directory of its own; the families of the Bolt
 entry point's slice (auth, profiles,
@@ -452,12 +453,13 @@ def test_the_context_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert ctx.device == torch.device("cpu")
 
 
+#: query -> (family, a word of the slice that brings it); family None: a
+#: family of the replication slice, which runs since that slice came
 LATER = [
-    ("SET REPLICATION ROLE TO MAIN", "replication", "replication"),
-    ("REGISTER REPLICA r1 SYNC TO '127.0.0.1:10000'", "replication",
-     "replication"),
-    ("SHOW INSTANCES", "coordinators", "replication"),
-    ("SET INSTANCE i1 TO MAIN", "coordinators", "replication"),
+    ("SET REPLICATION ROLE TO MAIN", None, None),
+    ("REGISTER REPLICA r1 SYNC TO '127.0.0.1:10000'", None, None),
+    ("SHOW INSTANCES", None, None),
+    ("SET INSTANCE i1 TO MAIN", None, None),
     ("CREATE KAFKA STREAM s TOPICS t TRANSFORM m.t", "streams", "streams"),
     ("SHOW STREAMS", "streams", "streams"),
     ("CREATE TRIGGER t ON CREATE AFTER COMMIT EXECUTE CREATE (:X)",
@@ -472,11 +474,104 @@ LATER = [
 ]
 
 
+def _cluster_case(query):
+    """A replication or coordinator query, run as it runs on a database
+    (or coordinator) of each package: the same outcome, which is the
+    query's effect.  REGISTER REPLICA dials a replica of its own package
+    on an ephemeral port, not the text's 10000."""
+    import random
+    from memgraph_tpu.coordination import coordinator as jcoord
+    from memgraph_tpu.coordination import data_instance as jdata
+    from memgraph_tpu_torch.coordination import coordinator as tcoord
+    from memgraph_tpu_torch.coordination import data_instance as tdata
+    from test_torch_coordination import ports as free_ports, wait_for
+
+    outs = []
+    for pkg, (coord, data) in (("jax", (jcoord, jdata)),
+                               ("torch", (tcoord, tdata))):
+        interp = jinterp if pkg == "jax" else tinterp
+
+        def ctx():
+            if pkg == "jax":
+                return jinterp.InterpreterContext(JStorage())
+            return tinterp.InterpreterContext(TStorage(), device="cpu")
+
+        main = ctx()
+        session = interp.Interpreter(main)
+        stop = []
+        try:
+            if query.startswith("REGISTER REPLICA"):
+                rep = ctx()
+                interp.Interpreter(rep).execute(
+                    "SET REPLICATION ROLE TO REPLICA WITH PORT 0")
+                stop.append(rep.replication.shutdown)
+                port = rep.replication.replica_server.port
+                outs.append(run(session, query.replace(
+                    "127.0.0.1:10000", f"127.0.0.1:{port}")))
+                outs.append(run(session, "SHOW REPLICAS")[2][0][2:])
+                outs.append(run(interp.Interpreter(rep),
+                                "SHOW REPLICATION ROLE"))
+            elif query.startswith("SET REPLICATION ROLE"):
+                outs.append(run(session, query))
+                outs.append(run(session, "SHOW REPLICATION ROLE"))
+            else:
+                # not a coordinator: the reference's refusal
+                outs.append(run(session, query))
+                raft, mgmt, repl = free_ports(3)
+                kw = {"rng": random.Random(1)} if pkg == "torch" else {}
+                c = coord.CoordinatorInstance("c1", "127.0.0.1", raft, {},
+                                              **kw)
+                c.start()
+                stop.append(c.stop)
+                main.coordinator = c
+                assert wait_for(c.raft.is_leader)
+                inst = ctx()
+                server = data.DataInstanceManagementServer(
+                    inst, "127.0.0.1", mgmt)
+                server.start()
+                stop.append(server.stop)
+                session.execute(f'REGISTER INSTANCE i1 ON "127.0.0.1:{mgmt}"'
+                                f' WITH "127.0.0.1:{repl}"')
+                got = run(session, query)
+                if query == "SHOW INSTANCES":
+                    got = (got[0], got[1], [r[2:] for r in got[2]])
+                outs.append(got)
+                if query.startswith("SET INSTANCE"):
+                    assert wait_for(lambda: inst.replication is not None)
+                    outs.append((inst.replication.role,
+                                 inst.replication.current_epoch()))
+                    stop.append(inst.replication.shutdown)
+        finally:
+            for fn in reversed(stop):
+                fn()
+            if getattr(main, "replication", None) is not None:
+                main.replication.shutdown()
+    half = len(outs) // 2
+    return outs[:half], outs[half:]
+
+
 @pytest.mark.parametrize("query,family,slice_word", LATER,
                          ids=[q for q, _, _ in LATER])
 def test_a_family_of_a_later_slice_raises_its_typed_error(query, family,
                                                          slice_word):
+    """A family of a later slice raises its typed error; the replication
+    slice's families (family None) run as the reference runs them."""
     _, t = pair()
+    if family is None:
+        want, got = _cluster_case(query)
+        assert got == want
+        if "INSTANCE" not in query:
+            assert got[0][0] == "ok"
+            return
+        assert got[0] == ("error", "QueryException",
+                          "this instance is not a coordinator (start with "
+                          "--coordinator-id/--coordinator-port)")
+        assert got[1][0] == "ok"
+        if query == "SHOW INSTANCES":
+            assert got[1][2] == [("replica", "up"), ("leader", "up")]
+        else:
+            assert got[2] == ("main", 1)
+        return
     with pytest.raises(NotPortedException) as info:
         t.execute(query)
     assert info.value.family == family

@@ -7,7 +7,9 @@ package's on the CPU.
   license flags through the port's interpreter as the reference does.
 - Each flag of a later slice (``main.LATER_FLAGS``) makes ``main`` exit 1
   with the ``NotPortedException`` text naming its slice; without a card
-  and without ``--device cpu`` it exits 2.
+  and without ``--device cpu`` it exits 2.  The cluster flags of the
+  replication slice each build a database (or a coordinator) that serves
+  its role.
 - Each durability flag builds a database that recovers what the JAX
   package's recovers on the same flags, and a server process started
   with a data directory writes its exit snapshot and recovers it.
@@ -36,6 +38,7 @@ from memgraph_tpu_torch import main as T
 from memgraph_tpu_torch import exceptions as TE
 from memgraph_tpu_torch.query import interpreter as tinterp
 from memgraph_tpu_torch.server.client import BoltClient
+from test_torch_coordination import ports, wait_for
 
 # One intra-op thread a process: the suite runs in several worker processes
 # at once, and a torch thread pool in each of them oversubscribes the CPU.
@@ -173,7 +176,13 @@ FLAG_ARGV = {
     "pulsar_service_url": ["--pulsar-service-url", "pulsar://p.invalid"],
     "storage_mode": ["--storage-mode", "ON_DISK_TRANSACTIONAL"],
 }
-SLICE_OF = {**T.LATER_FLAGS, "storage_mode": TE.SLICE_HOST_FEATURES}
+#: the cluster flags: ported with the replication slice (None: no slice)
+CLUSTER_FLAGS = ("replication_restore_state_on_startup", "coordinator_id",
+                 "coordinator_port", "coordinator_peers",
+                 "coordinator_hostname", "management_port",
+                 "cluster_cert_file", "cluster_key_file", "cluster_ca_file")
+SLICE_OF = {**T.LATER_FLAGS, "storage_mode": TE.SLICE_HOST_FEATURES,
+            **{name: None for name in CLUSTER_FLAGS}}
 
 #: an argv that sets each durability flag off its default (beside
 #: ``--data-directory``), and the environment an ``--aws-*`` flag sets
@@ -210,11 +219,100 @@ AWS_ENV = {"aws_access_key": ("AWS_ACCESS_KEY_ID", "k"),
 def test_every_later_flag_has_a_case():
     assert set(FLAG_ARGV) == set(SLICE_OF)
     assert set(T.LATER_FLAGS) <= set(vars(T.build_config([])))
+    assert not set(CLUSTER_FLAGS) & set(T.LATER_FLAGS)
+
+
+def _cluster_flag_serves_its_role(flag, tmp_path, monkeypatch):
+    """Build with ``flag`` (and what it needs beside it) and check the
+    role it gives: a coordinator answers SHOW INSTANCES, a management
+    server answers a state check, a restored replica listens again, the
+    cluster TLS pair carries a management call."""
+    from memgraph_tpu_torch.coordination.data_instance import mgmt_call
+    from memgraph_tpu_torch.utils import tls
+    base = QUIET + ["--device", "cpu", "--bolt-port", "0"]
+    raft, peer, mgmt = ports(3)
+    coordinator = ["--coordinator-id", "c1", "--coordinator-port", str(raft)]
+    if flag == "replication_restore_state_on_startup":
+        d = ["--data-directory", str(tmp_path / "d")]
+        first = T.build_database(T.build_config(base + d))
+        tinterp.Interpreter(first).execute(
+            "SET REPLICATION ROLE TO REPLICA WITH PORT 0")
+        port = first.replication.replica_server.port
+        first.replication.shutdown()
+        ictx = T.build_database(T.build_config(base + d + FLAG_ARGV[flag]))
+        try:
+            assert ictx.replication.role == "replica"
+            assert ictx.replication.replica_server.port == port
+        finally:
+            ictx.replication.shutdown()
+        return
+    if flag.startswith("coordinator_"):
+        extra = {"coordinator_id": [],
+                 "coordinator_port": [],
+                 "coordinator_peers": ["--coordinator-peers",
+                                       f"c2=127.0.0.1:{peer}@7690"],
+                 "coordinator_hostname": ["--coordinator-hostname",
+                                          "c1.example"]}[flag]
+        ictx = T.build_database(T.build_config(base + coordinator + extra))
+        coord = ictx.coordinator
+        try:
+            assert coord.raft.port == raft
+            if flag == "coordinator_peers":
+                # one of two: no majority, so a coordinator, not a leader
+                assert coord.raft.peers == {"c2": ("127.0.0.1", peer)}
+                assert coord.routers[1:] == ["127.0.0.1:7690"]
+                rows = tinterp.Interpreter(ictx).execute("SHOW INSTANCES")[1]
+                assert rows == [["c1", f"raft:{raft}", "coordinator", "up"]]
+                return
+            assert wait_for(coord.raft.is_leader)
+            rows = tinterp.Interpreter(ictx).execute("SHOW INSTANCES")[1]
+            assert rows == [["c1", f"raft:{raft}", "leader", "up"]]
+            if flag == "coordinator_hostname":
+                assert coord.routers[0].startswith("c1.example:")
+        finally:
+            coord.stop()
+        return
+    if flag == "management_port":
+        ictx = T.build_database(T.build_config(
+            base + ["--management-port", str(mgmt)]))
+        try:
+            state = mgmt_call(f"127.0.0.1:{mgmt}", {"kind": "state_check"})
+            assert state["ok"] and state["role"] == "main"
+        finally:
+            ictx.mgmt_server.stop()
+        return
+    # the cluster TLS trio, through main (its Bolt serving stubbed)
+    cert, key = tls.generate_self_signed(str(tmp_path / "tls"))
+
+    async def no_serving(args, ictx):
+        no_serving.ictx = ictx
+
+    monkeypatch.setattr(T, "serve", no_serving)
+    pair = ["--cluster-cert-file", cert, "--cluster-key-file", key]
+    argv = base + pair + ["--management-port", str(mgmt)]
+    if flag == "cluster_ca_file":
+        argv += ["--cluster-ca-file", cert]
+    try:
+        assert T.main(argv) == 0
+        assert tls.cluster_server_context() is not None
+        state = mgmt_call(f"127.0.0.1:{mgmt}", {"kind": "state_check"})
+        assert state["ok"] and state["role"] == "main"
+        no_serving.ictx.mgmt_server.stop()
+        # half of the pair is refused, as in the reference
+        half = pair[:2] if flag != "cluster_key_file" else pair[2:]
+        assert T.main(base + half) == 1
+    finally:
+        tls.clear_cluster_tls()
 
 
 @pytest.mark.parametrize("flag", sorted(FLAG_ARGV))
 def test_a_flag_of_a_later_slice_exits_1_naming_it(flag, caplog, tmp_path,
                                                    monkeypatch):
+    """A flag of a later slice exits 1 naming it; a cluster flag of the
+    replication slice (slice None) builds what serves its role."""
+    if SLICE_OF[flag] is None:
+        _cluster_flag_serves_its_role(flag, tmp_path, monkeypatch)
+        return
     monkeypatch.chdir(tmp_path)
     argv = FLAG_ARGV[flag] + ["--device", "cpu", "--bolt-port", "0"]
     with pytest.raises(TE.NotPortedException) as e:
